@@ -13,7 +13,18 @@ Phases, one line of findings each:
      product (20,000 chains, Niter 5), the LOOCV refit of the samples and
      the evaluation at 20,000 queries -- each stage must launch the kernel;
   5. serving: ProductSampler over 2 x 50,000-component densities,
-     256 chains per request.
+     256 chains per request;
+  6. the device-built plan at full width: device-resident copies of
+     phase 4's densities (no host arrays, no tree), `p' * q'` and the
+     chained `(p'q') * q'`; no host tree may be built, the refits must
+     launch the kernel, the means must match the analytic products;
+  7. the batched product: product_batched over B = 4 device-resident sets
+     of two 20,000-component 2-D densities (plan build, Gibbs, refit),
+     set 0 against its standalone draw, then a refresh;
+  8. label selection: samples/s of cdf, blocked and gumbel at the bench
+     headline (B = 6 x [2 x 1000], 1000 chains, Niter 5), at B = 8, at
+     phase 5's 2 x 50,000 with 256 chains and at phase 4's Gibbs stage
+     (2 x 20,000, 20,000 chains).
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
@@ -32,6 +43,10 @@ N_SLICE = 20_000
 N_SERVE = 50_000
 SERVE_CHAINS = 256
 SERVE_CALLS = 5
+BATCH_SETS = 4
+SELECT_MODES = ("cdf", "blocked", "gumbel")
+SELECT_REPS = 5
+MEAN_TOL = 0.05          # product means vs their analytic values
 RTOL = ATOL = 2e-4       # tests/test_pallas_eval.py: f32 sums in another order
 
 
@@ -121,6 +136,51 @@ def phase_kernel(dev):
     return rows, worst
 
 
+def _timed(name, fn, sync, stages, launches):
+    """``fn`` wrapped to add its seconds and kernel launches to
+    ``stages[name]`` and ``launches[name]``."""
+    from kde_tpu_torch.ops import tiled_eval
+
+    def wrapper(*args, **kw):
+        sync()
+        t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
+        out = fn(*args, **kw)
+        sync()
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        launches[name] = launches.get(name, 0) + tiled_eval.LAUNCHES - l0
+        return out
+    return wrapper
+
+
+def _timed_product(run, sync, stages, launches, prefix=""):
+    """``run()`` a `*` product, which draws the Gibbs chains and then refits
+    the samples with ``gibbs.kde``: that call is wrapped to split the two
+    stages' times and launches."""
+    from kde_tpu_torch.ops import gibbs, tiled_eval
+    refit = gibbs.kde
+    gibbs.kde = _timed(prefix + "refit", refit, sync, stages, launches)
+    try:
+        sync()
+        t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
+        out = run()
+    finally:
+        gibbs.kde = refit
+    stages[prefix + "gibbs"] = (time.perf_counter() - t0
+                                - stages[prefix + "refit"])
+    launches[prefix + "gibbs"] = (tiled_eval.LAUNCHES - l0
+                                  - launches[prefix + "refit"])
+    return out
+
+
+def _check_mean(k, want, what, n):
+    """The sample mean of KDE ``k``'s points is within MEAN_TOL of ``want``
+    in every dim (the bound widens only for a small rehearsal on the CPU)."""
+    mean = k.points.double().mean(dim=0).cpu().numpy()
+    if not np.all(np.abs(mean - want) < max(MEAN_TOL, 4.0 / np.sqrt(n))):
+        raise AssertionError(f"{what}: mean {mean} not near {want}")
+    return mean.tolist()
+
+
 def phase_slice(dev, n=N_SLICE, seed=SEED):
     """Phase 4: the `*` slice; returns per-stage seconds and launches."""
     import torch
@@ -147,30 +207,8 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     p.tree, q.tree
     stages["trees"] = time.perf_counter() - t0
 
-    # `p * q` runs the Gibbs chains and then refits the samples with
-    # gibbs.kde; wrap that call to split the two stages' times and launches
-    marks = {}
-    refit = gibbs.kde
-
-    def timed_refit(pts, *args, **kw):
-        sync()
-        marks["gibbs"] = (time.perf_counter(), tiled_eval.LAUNCHES)
-        out = refit(pts, *args, **kw)
-        sync()
-        marks["refit"] = (time.perf_counter(), tiled_eval.LAUNCHES)
-        return out
-
     kt.set_seed(seed)
-    gibbs.kde = timed_refit
-    try:
-        t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
-        pq = p * q
-    finally:
-        gibbs.kde = refit
-    stages["gibbs"] = marks["gibbs"][0] - t0
-    launches["gibbs"] = marks["gibbs"][1] - l0
-    stages["refit"] = marks["refit"][0] - marks["gibbs"][0]
-    launches["refit"] = marks["refit"][1] - marks["gibbs"][1]
+    pq = _timed_product(lambda: p * q, sync, stages, launches)
 
     sync()
     t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
@@ -205,7 +243,7 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     err = compare(lp[:m_ref].cpu(), ref.float(), "evaluate vs float64 CPU")
     return dict(seconds=stages, launches=launches, product_mean=mean.tolist(),
                 fit_bw=bw.tolist(), refit_bw=torch.sqrt(pq.bw[0]).tolist(),
-                eval_err_vs_f64=err)
+                eval_err_vs_f64=err), (p, q)
 
 
 def phase_serve(dev, n=N_SERVE, seed=SEED):
@@ -234,7 +272,157 @@ def phase_serve(dev, n=N_SERVE, seed=SEED):
         if o.shape != (2, SERVE_CHAINS) or not bool(torch.isfinite(o).all()):
             raise AssertionError("serving: wrong shape or non-finite sample")
     return dict(first_call_s=first, calls=SERVE_CALLS, seconds=dt,
-                samples_per_s=SERVE_CALLS * SERVE_CHAINS / dt)
+                samples_per_s=SERVE_CALLS * SERVE_CHAINS / dt), sampler
+
+
+def phase_device_plan(dev, p, q, seed=SEED):
+    """Phase 6: `*` over device-resident copies of phase 4's densities,
+    which takes the device-built plan; then the chained product."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    p2, q2 = (kt.KDE(k.points, k.bw, k.weights) for k in (p, q))
+    n = p2.npts
+    stages, launches = {}, {}
+    # the plans are cached on the densities: the products below reuse them
+    build = lambda name, dens: _timed(name, gibbs._get_plan, sync, stages,
+                                      launches)(dens, n, p2.dtype, dev,
+                                                "device")
+    build("plan", [p2, q2])
+    kt.set_seed(seed)
+    pq = _timed_product(lambda: p2 * q2, sync, stages, launches)
+    build("chained_plan", [pq, q2])
+    pqq = _timed_product(lambda: pq * q2, sync, stages, launches, "chained_")
+    if any(k._tree is not None for k in (p2, q2, pq)):
+        raise AssertionError("the device-plan path built a host tree")
+    for stage in ("refit", "chained_refit"):
+        if launches[stage] < 1 and dev.type == "cuda":
+            raise AssertionError(f"stage {stage} never launched the kernel")
+    # N(0, I) x N(0.5, I) = N(0.25, I/2); N(0.25, I/2) x N(0.5, I) has mean
+    # (2 * 0.25 + 0.5) / 3 = 1/3
+    return dict(seconds=stages, launches=launches,
+                mean=_check_mean(pq, 0.25, "p' * q'", n),
+                chained_mean=_check_mean(pqq, 1.0 / 3.0, "(p'q') * q'", n))
+
+
+def phase_batched(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
+    """Phase 7: product_batched over ``b`` device-resident sets of two
+    ``n``-component 2-D densities N(m, I) and N(m + 0.5, I), m = 0.25 i;
+    then set 0 against its standalone draw, and a refresh."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs
+    from kde_tpu_torch.utils.random import split
+    rng = np.random.default_rng(seed + 3)
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    bw = [1.06 * n ** -0.2]
+
+    def make_sets():
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return [[kt.kde(f32(rng.normal(size=(2, n)) + 0.25 * i), bw),
+                 kt.kde(f32(rng.normal(size=(2, n)) + 0.25 * i + 0.5), bw)]
+                for i in range(b)]
+
+    sets = make_sets()
+    stages, launches = {}, {}
+    saved = gibbs.batched_device_plans, gibbs.ksize_rows
+    gibbs.batched_device_plans = _timed("plan", saved[0], sync, stages,
+                                        launches)
+    gibbs.ksize_rows = _timed("refit", saved[1], sync, stages, launches)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        outs = kt.product_batched(sets, key=seed)
+        sync()
+        total = time.perf_counter() - t0
+    finally:
+        gibbs.batched_device_plans, gibbs.ksize_rows = saved
+    stages["gibbs"] = total - stages["plan"] - stages["refit"]
+    if launches["refit"] < 1 and dev.type == "cuda":
+        raise AssertionError("the batched refit never launched the kernel")
+    if len(outs) != b or any(k.npts != n or k.device != sets[0][0].device
+                             for k in outs):
+        raise AssertionError("product_batched: wrong count, size or device")
+    means = [_check_mean(k, 0.25 * i + 0.25, f"batched set {i}", n)
+             for i, k in enumerate(outs)]
+
+    # set 0 against a standalone product keyed by split(key, b)[0], with
+    # the selection the batch resolves to
+    sampler = kt.BatchedProductSampler(sets, n_out=n, n_iter=5)
+    own = gibbs._get_plan(sets[0], n, sets[0][0].dtype, dev, "device")
+    plan_equal = all(torch.equal(getattr(sampler.plans, f)[0],
+                                 getattr(own, f))
+                     for f in gibbs._PLAN_TENSORS)
+    if not plan_equal:
+        raise AssertionError("set 0's plan built in the batch differs from "
+                             "its own")
+    select = gibbs.resolve_select("auto", n, sampler.plans.offsets[-1][1],
+                                  batch=b)
+    pts, idx = sampler.sample(seed, select=select)
+    pts0, idx0 = kt.prod_appx_ms_gibbs(n, sets[0], n_iter=5,
+                                       key=split(seed, b)[0], select=select)
+    same = (idx[0] == idx0).all(dim=0)
+    mismatches = int((~same).sum())
+    diff = float((pts[0] - pts0)[:, same].abs().max())
+    if mismatches > 1e-3 * n or diff > 1e-5:
+        raise AssertionError(f"batched set 0 vs standalone: {mismatches} of "
+                             f"{n} chains differ, max |dx| {diff}")
+    sampler.refresh(make_sets())
+    again, _ = sampler.sample(seed + 1)
+    sync()
+    if again.shape != (b, 2, n) or not bool(torch.isfinite(again).all()):
+        raise AssertionError("refresh: wrong shape or non-finite sample")
+    return dict(seconds=stages, launches=launches, means=means,
+                select=select, set0_label_mismatches=mismatches,
+                set0_max_abs_dx=diff)
+
+
+def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
+                 seed=SEED):
+    """Phase 8: samples/s of each selection mode at the bench headline
+    (B = 6 sets of [2 x n_comp], bw 0.1, n_out chains, Niter 5), at B = 8,
+    on phase 5's sampler, and on the Gibbs stage of phase 4's `*` (its two
+    densities, as many chains as components); the median of SELECT_REPS
+    calls after a warm-up, the modes taken in turns."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs
+    rng = np.random.default_rng(seed + 4)
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    dens = [kt.kde((rng.normal(size=(2, n_comp)) + s).astype(np.float32),
+                   [0.1], device=dev, dtype=torch.float32) for s in (0.0, 0.5)]
+    cells = {f"B=6 2x{n_comp}": (kt.BatchedProductSampler(
+                 [dens] * 6, n_out=n_out, n_iter=5), 6, n_out),
+             f"B=8 2x{n_comp}": (kt.BatchedProductSampler(
+                 [dens] * 8, n_out=n_out, n_iter=5), 8, n_out),
+             f"B=1 2x{serve.densities[0].npts}":
+                 (serve, 1, serve.n_out),
+             f"B=1 2x{slice_dens[0].npts} `*`": (kt.ProductSampler(
+                 slice_dens, n_out=slice_dens[0].npts, n_iter=5), 1,
+                 slice_dens[0].npts)}
+    rows = {}
+    for cell, (sampler, b, chains) in cells.items():
+        width = sampler.plans.offsets[-1][1]
+        for mode in SELECT_MODES:
+            sampler.sample(seed, select=mode)
+        sync()
+        times = {m: [] for m in SELECT_MODES}
+        for r in range(SELECT_REPS):
+            for mode in SELECT_MODES:
+                sync()
+                t0 = time.perf_counter()
+                out = sampler.sample(seed + 1 + r, select=mode)[0]
+                sync()
+                times[mode].append(time.perf_counter() - t0)
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"{cell} {mode}: non-finite sample")
+        rate = {m: b * chains / float(np.median(t)) for m, t in times.items()}
+        rows[cell] = dict(samples_per_s=rate, width=width, chains=chains,
+                          sets=b, winner=max(rate, key=rate.get),
+                          auto=gibbs.resolve_select("auto", chains, width,
+                                                    batch=b))
+        print(f"select {cell}: {json.dumps(rows[cell])}", flush=True)
+    return rows
 
 
 def main():
@@ -266,17 +454,34 @@ def main():
     # 3. kernel vs plain twin
     rows, worst = phase_kernel(dev)
 
-    # 4 + 5. the main path; only its launches count
-    tiled_eval.LAUNCHES = 0
-    sl = phase_slice(dev)
-    sv = phase_serve(dev)
-    main_launches = tiled_eval.LAUNCHES
-    if main_launches < 1:
-        raise AssertionError("the main path never launched the kernel")
+    # 4-8. the main paths; only their launches count, each path's read
+    # just after it ran
+    runs = {}
+
+    def run(name, fn, *args):
+        tiled_eval.LAUNCHES = 0
+        out = fn(*args)
+        runs[name] = tiled_eval.LAUNCHES
+        return out
+
+    sl, (p, q) = run("slice", phase_slice, dev)
     print(f"slice 2x{N_SLICE} 2-D `*` on {card}: {json.dumps(sl)}",
           flush=True)
+    sv, serve = run("serve", phase_serve, dev)
     print(f"serve 2x{N_SERVE} comps, {SERVE_CHAINS} chains on {card}: "
           f"{json.dumps(sv)}", flush=True)
+    dp = run("device_plan", phase_device_plan, dev, p, q)
+    print(f"device plan 2x{N_SLICE} `*` and chained `*` on {card}: "
+          f"{json.dumps(dp)}", flush=True)
+    bt = run("batched", phase_batched, dev)
+    print(f"product_batched {BATCH_SETS}x[2x{N_SLICE}] on {card}: "
+          f"{json.dumps(bt)}", flush=True)
+    run("select", phase_select, dev, serve, (p, q))
+    for name in ("slice", "device_plan", "batched"):
+        if runs[name] < 1:
+            raise AssertionError(f"path {name} never launched the kernel")
+    main_launches = sum(runs.values())
+    print(f"kernel launches per path: {json.dumps(runs)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",

@@ -10,8 +10,10 @@ package imports torch and numpy, never JAX.
 
 from .convert import kde_from_numpy
 from .density import KDE, kde
-from .ops.gibbs import ProductSampler, prod_appx_ms_gibbs, product
+from .ops.gibbs import (BatchedProductSampler, ProductSampler,
+                        prod_appx_ms_gibbs, product, product_batched)
 from .utils.random import set_seed
 
 __all__ = ["KDE", "kde", "prod_appx_ms_gibbs", "product", "ProductSampler",
-           "set_seed", "kde_from_numpy"]
+           "BatchedProductSampler", "product_batched", "set_seed",
+           "kde_from_numpy"]

@@ -1,9 +1,10 @@
-"""Routing gates of the port (ports ``kde_tpu/config.py:21-33``).
+"""Routing gates of the port (ports ``kde_tpu/config.py:21-33, 70-109``).
 
-The values are the JAX package's: they are routing semantics (which path a
-given problem size takes), so the two packages route alike and the tests
+The size gates are the JAX package's: they are routing semantics (which path
+a given problem size takes), so the two packages route alike and the tests
 compare like with like.  They were tuned for a TPU and are still to be
-re-measured on the H100.  Tests monkeypatch them as module attributes.
+re-measured on the H100.  The label-selection thresholds were measured on
+the H100.  Tests monkeypatch all of them as module attributes.
 """
 
 # Above this many query*component pairs, evaluation stops materializing the
@@ -18,3 +19,23 @@ LOOCV_PAIR_LIMIT: int = 1 << 28
 
 # Query-block size of the chunked LOO entropy path.
 LOOCV_CHUNK: int = 1024
+
+# Label selection of the KEYED Gibbs path (ops/gibbs.py::resolve_select):
+# "cdf" (flat inverse CDF, the replay path's arithmetic), "blocked" (the
+# same draw block by block, no full-width prefix sum), "gumbel"
+# (argmax of logits plus Gumbel noise), or "size": route each problem by
+# the thresholds below.  Replay mode always draws with "cdf".
+GIBBS_SELECT: str = "size"
+
+# "size" thresholds, set from the H100 readings of chip_smoke.py phase 8
+# (PERF.md §6, table "PR 2 select cells"; NVIDIA H100 80GB HBM3, 700 W):
+# cdf won the bench headline (B = 6 x [2 x 1000], 1000 chains) and B = 8;
+# gumbel won 2 x 50,000 at 256 chains and the 2 x 20,000 `*` Gibbs stage
+# (20,000 chains); blocked won no cell, so no problem routes to it.  Four
+# cells leave the split points coarse: the crossovers between them are not
+# measured (ROADMAP keeps the full M10 grid open).
+SELECT_BLOCKED_WIDTH: int = 1 << 30   # blocked: leaf width...
+SELECT_BLOCKED_MAX_CHAINS: int = 0    # ...and chains
+SELECT_GUMBEL_WIDTH: int = 50000      # gumbel: leaf width where it won...
+SELECT_GUMBEL_BATCH: int = 1 << 30    # ...no set count where it won...
+SELECT_GUMBEL_WORK: int = 1 << 22     # ...or chains x width (cdf won 1e6)

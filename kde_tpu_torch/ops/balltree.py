@@ -24,7 +24,8 @@ Algorithms, with the reference's quirks kept for bit-parity:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -61,18 +62,126 @@ class FlatBallTree:
         return 0
 
     def level_lists(self, n_levels: int) -> List[np.ndarray]:
-        """Node sets per level as the reference's ``levelDown!`` produces
-        them (reference src/MSGibbs01.jl:500-523): level 0 is the root, each
-        descent replaces every node by its valid children, leaves persist.
-        Returns ``n_levels + 1`` arrays."""
-        two_n = 2 * self.num_points
-        out = [np.array([self.root], dtype=np.int64)]
-        cur = out[0]
-        for _ in range(n_levels):
-            pairs = np.stack([self.left[cur], self.right[cur]], axis=1).ravel()
-            cur = pairs[(pairs >= 0) & (pairs < two_n)]
-            out.append(cur)
-        return out
+        """Node sets per level (see :func:`level_lists`)."""
+        return level_lists(self.left, self.right, self.num_points, n_levels)
+
+
+def level_lists(left: np.ndarray, right: np.ndarray, num_points: int,
+                n_levels: int) -> List[np.ndarray]:
+    """Node sets per level as the reference's ``levelDown!`` produces them
+    (reference src/MSGibbs01.jl:500-523): level 0 is the root, each descent
+    replaces every node by its valid children, leaves persist.  Returns
+    ``n_levels + 1`` arrays."""
+    two_n = 2 * num_points
+    out = [np.array([0], dtype=np.int64)]
+    cur = out[0]
+    for _ in range(n_levels):
+        pairs = np.stack([left[cur], right[cur]], axis=1).ravel()
+        cur = pairs[(pairs >= 0) & (pairs < two_n)]
+        out.append(cur)
+    return out
+
+
+def n_levels(n_out: int, npts: Sequence[int]) -> int:
+    """Nlevels = floor(log2(maxNp)) + 1 (reference src/MSGibbs01.jl:660)."""
+    max_np = max([n_out] + list(npts))
+    return int(math.floor(math.log(float(max_np)) / math.log(2.0)) + 1.0)
+
+
+def pack_levels(per_tree: Sequence[List[np.ndarray]], n_lv: int):
+    """Pad the per-level node lists of ``dn`` trees across trees and pack
+    levels 1..n_lv along one node axis: returns ``offsets`` (level ``l`` is
+    the slice ``offsets[l-1] = (start, width)``), ``nodes [dn, T]`` and
+    ``valid [dn, T]``.  Padded slots repeat the level's last valid node
+    (and get a -inf log-weight from the caller): a CDF tail that overflows
+    into the padding selects the last valid node, the reference's
+    fall-to-last-entry rule (src/MSGibbs01.jl:330-351)."""
+    dn = len(per_tree)
+    offsets: List[Tuple[int, int]] = []
+    total = 0
+    for l in range(1, n_lv + 1):
+        w = max(len(per_tree[j][l]) for j in range(dn))
+        offsets.append((total, w))
+        total += w
+    nodes = np.zeros((dn, total), dtype=np.int64)
+    valid = np.zeros((dn, total), dtype=bool)
+    for l in range(1, n_lv + 1):
+        o, w = offsets[l - 1]
+        for j in range(dn):
+            lst = per_tree[j][l]
+            nodes[j, o:o + len(lst)] = lst
+            valid[j, o:o + len(lst)] = True
+            nodes[j, o + len(lst):o + w] = lst[-1]
+    return offsets, nodes, valid
+
+
+@dataclasses.dataclass
+class Topology:
+    """The data-independent structure of an ``N``-point tree: the median
+    split at ``(lo + hi) // 2`` depends only on ``N`` (reference
+    src/BallTree01.jl:342-411).  ``preorder`` lists ``(lo, hi, slot)`` of
+    every internal node in the order the builder splits them; the arrays
+    are as in :class:`FlatBallTree`."""
+
+    left: np.ndarray
+    right: np.ndarray
+    lowest_leaf: np.ndarray
+    highest_leaf: np.ndarray
+    depth: np.ndarray
+    preorder: List[Tuple[int, int, int]]
+
+
+def topology(N: int) -> Topology:
+    """Slot allocation by iterative DFS mirroring the reference's recursion:
+    child slots are allocated before recursing (left first), ``next``
+    starts at slot 1; leaves are slots ``N..2N-1``."""
+    two_n = 2 * N
+    left = np.zeros(two_n, dtype=np.int64)
+    right = np.zeros(two_n, dtype=np.int64)
+    lowest = np.zeros(two_n, dtype=np.int64)
+    highest = np.zeros(two_n, dtype=np.int64)
+    depth = np.full(two_n, -1, dtype=np.int64)
+    preorder: List[Tuple[int, int, int]] = []
+    next_slot = 1
+    stack: List[Tuple[int, int, int, int]] = [(0, N - 1, 0, 0)]
+    while stack:
+        lo, hi, slot, dep = stack.pop()
+        depth[slot] = dep
+        lowest[slot] = N + lo
+        highest[slot] = N + hi
+        preorder.append((lo, hi, slot))
+        if lo == hi:
+            # single-point tree (N == 1 at the root)
+            left[slot] = N + lo
+            right[slot] = NO_CHILD
+            continue
+        split = (lo + hi) // 2
+        if split <= lo:
+            lslot = N + lo
+        else:
+            lslot = next_slot
+            next_slot += 1
+        if split + 1 >= hi:
+            rslot = N + hi
+        else:
+            rslot = next_slot
+            next_slot += 1
+        left[slot] = lslot
+        right[slot] = rslot
+        if rslot < N:
+            stack.append((split + 1, hi, rslot, dep + 1))
+        else:
+            depth[rslot] = dep + 1
+        if lslot < N:
+            stack.append((lo, split, lslot, dep + 1))
+        else:
+            depth[lslot] = dep + 1
+    leaf_slots = np.arange(N, two_n)
+    lowest[leaf_slots] = leaf_slots
+    highest[leaf_slots] = leaf_slots
+    left[leaf_slots] = leaf_slots
+    right[leaf_slots] = NO_CHILD
+    return Topology(left, right, lowest, highest, depth, preorder)
 
 
 def _most_spread_dim(pts: np.ndarray, order: np.ndarray, low: int,
@@ -143,60 +252,20 @@ def build_balltree(points: np.ndarray,
     centers = np.zeros((two_n, d))
     ranges = np.zeros((two_n, d))
     wts = np.zeros(two_n)
-    left = np.zeros(two_n, dtype=np.int64)
-    right = np.zeros(two_n, dtype=np.int64)
-    lowest = np.zeros(two_n, dtype=np.int64)
-    highest = np.zeros(two_n, dtype=np.int64)
     perm = np.zeros(two_n, dtype=np.int64)
     means = np.zeros((two_n, d))
     bw_arr = np.zeros((two_n, d))
-    depth = np.full(two_n, -1, dtype=np.int64)
 
+    # split every internal node in the builder's preorder: a node's
+    # quickselect runs before its children's, on its own leaf range
+    topo = topology(N)
     order = np.arange(N)
-
-    # topology by iterative DFS mirroring the reference's recursion
-    # (reference src/BallTree01.jl:342-411): child slots are allocated
-    # before recursing (left first); `next` starts at slot 1
-    next_slot = 1
-    stack: List[Tuple[int, int, int, int]] = [(0, N - 1, 0, 0)]
-    internal_nodes: List[int] = []
-    while stack:
-        lo, hi, slot, dep = stack.pop()
-        depth[slot] = dep
-        if lo == hi:
-            # single-point tree (N == 1 at the root)
-            lowest[slot] = N + lo
-            highest[slot] = N + hi
-            left[slot] = N + lo
-            right[slot] = NO_CHILD
-            internal_nodes.append(slot)
-            continue
-        dim = _most_spread_dim(pts, order, lo, hi)
-        split = (lo + hi) // 2
-        _select(pts, order, dim, split, lo, hi)
-        if split <= lo:
-            lslot = N + lo
-        else:
-            lslot = next_slot
-            next_slot += 1
-        if split + 1 >= hi:
-            rslot = N + hi
-        else:
-            rslot = next_slot
-            next_slot += 1
-        lowest[slot] = N + lo
-        highest[slot] = N + hi
-        left[slot] = lslot
-        right[slot] = rslot
-        internal_nodes.append(slot)
-        if rslot < N:
-            stack.append((split + 1, hi, rslot, dep + 1))
-        else:
-            depth[rslot] = dep + 1
-        if lslot < N:
-            stack.append((lo, split, lslot, dep + 1))
-        else:
-            depth[lslot] = dep + 1
+    for lo, hi, _ in topo.preorder:
+        if lo < hi:
+            dim = _most_spread_dim(pts, order, lo, hi)
+            _select(pts, order, dim, (lo + hi) // 2, lo, hi)
+    left, right, depth = topo.left, topo.right, topo.depth
+    lowest, highest = topo.lowest_leaf, topo.highest_leaf
 
     # leaves (reference src/BallTree01.jl:415-429 + density overlay)
     leaf_slots = np.arange(N, two_n)
@@ -205,10 +274,6 @@ def build_balltree(points: np.ndarray,
     wts[leaf_slots] = w[order]
     bw_arr[leaf_slots] = bw_leaf[order]
     perm[leaf_slots] = order
-    lowest[leaf_slots] = leaf_slots
-    highest[leaf_slots] = leaf_slots
-    left[leaf_slots] = leaf_slots
-    right[leaf_slots] = NO_CHILD
 
     if multibw:
         bw_min = np.zeros((two_n, d))
@@ -220,7 +285,8 @@ def build_balltree(points: np.ndarray,
         bw_max = bw1d
 
     # bottom-up statistics, vectorized per depth level
-    internal = np.asarray(internal_nodes, dtype=np.int64)
+    internal = np.asarray(sorted(slot for _, _, slot in topo.preorder),
+                          dtype=np.int64)
     for dep in (range(int(depth[internal].max()), -1, -1)
                 if internal.size else []):
         g = internal[depth[internal] == dep]

@@ -1,0 +1,223 @@
+"""The product plan built on the densities' device, with no host tree
+(ports ``kde_tpu/ops/device_plan.py:62-347``).
+
+The Gibbs engine walks a level hierarchy: per level, the moment-matched
+(mean, variance, weight) of every cluster of a median-split tree
+(reference calcStatsDensity!, src/BallTreeDensity01.jl:141-187, walked by
+levelDown!, src/MSGibbs01.jl:500-523).  The host plan
+(``ops/gibbs.py::_ProductPlan``) builds it from a NumPy ball tree, which
+copies a device-resident density (the output of an earlier product) to the
+host and runs a Python quickselect.  For a fixed N the tree's structure is
+data-independent -- slots, node slices, level lists and the bottom-up merge
+schedule follow the recursion ``split = (lo + hi) // 2`` -- so only the
+leaf permutation and the node statistics are computed here, on the device:
+
+  depth k:  for every node slice, pick the most-spread coordinate (segment
+            variance, argmax), then stable-sort positions by (slice id,
+            coordinate): two ``torch.sort(stable=True)`` passes, first the
+            coordinate, then the position-monotone slice id;
+
+then a bottom-up moment-matching sweep.  Slices are contiguous position
+ranges whose lengths differ by at most one at a depth, so the segment sums
+are a padded gather and a plain sum: no ``index_add_``, whose atomics would
+sum in a run-dependent order on CUDA.  The split statistics are summed in
+float64, which keeps a near-tie from choosing another coordinate than a
+float64 build would.
+
+Parity contract (as in the JAX package): in 1-D with distinct values the
+hierarchy equals the host tree's; in d > 1 it is a statistically equivalent
+median-split hierarchy (the host builder's exclude-last-leaf spread scan
+depends on quickselect's element order).  Replay mode therefore always
+takes the host plan.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .balltree import NO_CHILD, level_lists, n_levels, pack_levels, topology
+
+_EPS = float(np.finfo(np.float64).eps)
+
+
+@functools.lru_cache(maxsize=128)
+def _topology(n: int):
+    """Static structure of an ``n``-point tree (host NumPy, cached):
+    per depth, the slices that still split and their padded gather index;
+    the bottom-up merge schedule; the tree's child arrays."""
+    topo = topology(n)
+    internal = np.asarray(sorted(s for _, _, s in topo.preorder))
+    max_depth = int(topo.depth[internal].max())
+    per_depth = []
+    for k in range(max_depth + 1):
+        g = internal[topo.depth[internal] == k]
+        g = g[topo.highest_leaf[g] > topo.lowest_leaf[g]]
+        if g.size == 0:
+            per_depth.append(None)
+            continue
+        lo = np.sort(topo.lowest_leaf[g] - n)
+        hi = np.sort(topo.highest_leaf[g] - n)
+        count = hi - lo + 1
+        idx = lo[:, None] + np.arange(int(count.max()))[None, :]
+        valid = idx <= hi[:, None]
+        # seg: slice ordinal of each covered position, -1 for positions
+        # already at a leaf; sid: position-monotone slice id (slice start
+        # for covered positions, own position for the others), so sorting
+        # by it permutes within slices and moves nothing across them
+        seg = np.full(n, -1, dtype=np.int64)
+        seg[idx[valid]] = np.repeat(np.arange(g.size), count)
+        sid = np.arange(n, dtype=np.int64)
+        sid[idx[valid]] = np.repeat(lo, count)
+        per_depth.append(dict(idx=np.where(valid, idx, lo[:, None]),
+                              valid=valid, count=count.astype(np.float64),
+                              seg=seg, sid=sid))
+    merges = []
+    for k in range(max_depth, -1, -1):
+        g = internal[topo.depth[internal] == k]
+        li = topo.left[g]
+        ri = np.where(topo.right[g] == NO_CHILD, li, topo.right[g])
+        merges.append((g, li, ri, li == ri))
+    return dict(per_depth=per_depth, merges=merges, left=topo.left,
+                right=topo.right)
+
+
+@functools.lru_cache(maxsize=128)
+def _topology_on(n: int, device: str):
+    """:func:`_topology`'s index arrays as tensors on ``device``."""
+    topo = _topology(n)
+    dev = lambda x: torch.as_tensor(x, device=device)
+    per_depth = [None if pd is None else {k: dev(v) for k, v in pd.items()}
+                 for pd in topo["per_depth"]]
+    merges = [tuple(dev(a) for a in m) for m in topo["merges"]]
+    return per_depth, merges
+
+
+@functools.lru_cache(maxsize=128)
+def _level_nodes(n: int, n_lv: int):
+    """Static per-level slot lists (levelDown! semantics, leaves
+    persisting), from the same child arrays as the host tree's."""
+    topo = _topology(n)
+    return level_lists(topo["left"], topo["right"], n, n_lv)
+
+
+def device_tree_stats(points, var, w):
+    """Flat tree statistics built on the tensors' device.
+
+    ``points``/``var`` ``[..., N, d]`` and ``w`` ``[..., N]``, with an
+    optional leading set axis.  Returns ``(means [..., 2N, d], bw [..., 2N,
+    d], wts [..., 2N], perm [..., 2N])`` in the reference slot layout (root
+    0, leaves N..2N-1; unused slots hold 0, 1, 0, 0)."""
+    single = points.dim() == 2
+    if single:
+        points, var, w = points[None], var[None], w[None]
+    b, n, d = points.shape
+    per_depth, merges = _topology_on(n, str(points.device))
+    order = torch.arange(n, device=points.device).expand(b, n).contiguous()
+    for pd in per_depth:
+        if pd is None:
+            continue
+        x = points.gather(1, order[..., None].expand(b, n, d))
+        # unweighted variance per slice and dim, in float64
+        xs = x.double()[:, pd["idx"]]                      # [B, S, Lmax, d]
+        v = pd["valid"][None, :, :, None]
+        mean = torch.where(v, xs, 0.0).sum(2) / pd["count"][:, None]
+        dev = torch.where(v, xs - mean[:, :, None], 0.0)
+        dim = (dev * dev).sum(2).argmax(-1)                # [B, S]
+        covered = pd["seg"] >= 0
+        dim_pos = torch.where(covered, dim[:, pd["seg"].clamp(min=0)], 0)
+        keys = x.gather(2, dim_pos[..., None])[..., 0]     # [B, N]
+        by_key = torch.sort(keys, dim=1, stable=True).indices
+        by_sid = torch.sort(pd["sid"][by_key], dim=1, stable=True).indices
+        order = order.gather(1, by_key.gather(1, by_sid))
+    means = points.new_zeros((b, 2 * n, d))
+    bw = points.new_ones((b, 2 * n, d))
+    wts = points.new_zeros((b, 2 * n))
+    perm = torch.zeros((b, 2 * n), dtype=torch.int64, device=points.device)
+    idx = order[..., None].expand(b, n, d)
+    means[:, n:] = points.gather(1, idx)
+    bw[:, n:] = var.gather(1, idx)
+    wts[:, n:] = w.gather(1, order)
+    perm[:, n:] = order
+    # bottom-up moment matching (reference calcStatsDensity!,
+    # src/BallTreeDensity01.jl:141-187), one vector step per depth
+    for g, li, ri, same in merges:
+        wl, wr = wts[:, li], wts[:, ri]
+        tot = wl + wr + _EPS
+        fl = (wl / tot)[..., None]
+        fr = (wr / tot)[..., None]
+        m = fl * means[:, li] + fr * means[:, ri]
+        means[:, g] = m
+        bw[:, g] = (fl * (bw[:, li] + means[:, li] ** 2)
+                    + fr * (bw[:, ri] + means[:, ri] ** 2) - m ** 2)
+        wts[:, g] = torch.where(same, wl, wl + wr)
+    out = (means, bw, wts, perm)
+    return tuple(t[0] for t in out) if single else out
+
+
+@functools.lru_cache(maxsize=64)
+def _packed(npts, n_lv: int):
+    return pack_levels([_level_nodes(n, n_lv) for n in npts], n_lv)
+
+
+def batched_device_plans(density_sets, n_out: int, dtype):
+    """Plan arrays of ``B`` same-shaped density sets, built in one pass on
+    their device (the BatchedProductSampler build and refresh path: every
+    belief-propagation iteration swaps in fresh message densities).
+
+    Returns ``(t_mean, t_bw, lvl_mean, lvl_bw, lvl_logw, lvl_perm,
+    offsets, n_levels)``, every tensor with a leading set axis: ``t_*``
+    ``[B, dn, 2 maxN, ...]``, ``lvl_*`` ``[B, dn, T, ...]``."""
+    sets = [list(ds) for ds in density_sets]
+    dn, d = len(sets[0]), sets[0][0].ndim
+    device = sets[0][0].device
+    npts = tuple(p.npts for p in sets[0])
+    n_lv = n_levels(n_out, npts)
+    offsets, nodes, valid = _packed(npts, n_lv)
+    b, two_n = len(sets), 2 * max(npts)
+    t_mean = torch.zeros((b, dn, two_n, d), dtype=dtype, device=device)
+    t_bw = torch.ones((b, dn, two_n, d), dtype=dtype, device=device)
+    t_logw = torch.full((b, dn, two_n), -np.inf, dtype=dtype, device=device)
+    t_perm = torch.zeros((b, dn, two_n), dtype=torch.int64, device=device)
+    for j in range(dn):
+        stack = lambda attr: torch.stack(
+            [getattr(s[j], attr) for s in sets]).to(dtype)
+        m, bw, wt, pm = device_tree_stats(stack("points"), stack("bw"),
+                                          stack("weights"))
+        s = 2 * npts[j]
+        t_mean[:, j, :s] = m
+        t_bw[:, j, :s] = bw
+        # floor at the dtype's tiny, not at 1e-300: in float32 that literal
+        # is 0, and a zero-weight kernel would get logw = -inf and flip the
+        # degenerate-fallback predicate against the host plan
+        t_logw[:, j, :s] = torch.log(wt.clamp_min(torch.finfo(dtype).tiny))
+        t_perm[:, j, :s] = pm
+    jj = torch.arange(dn, device=device)[:, None]
+    nodes = torch.as_tensor(nodes, device=device)
+    pad = torch.where(torch.as_tensor(valid, device=device), 0.0, -np.inf)
+    return (t_mean, t_bw, t_mean[:, jj, nodes], t_bw[:, jj, nodes],
+            t_logw[:, jj, nodes] + pad.to(dtype), t_perm[:, jj, nodes],
+            list(offsets), n_lv)
+
+
+class DeviceProductPlan:
+    """The plan of one density set built on its device: the consuming
+    interface of ``ops/gibbs.py::_ProductPlan`` (``ndens``, ``ndim``,
+    ``n_levels``, ``offsets``, ``t_mean``/``t_bw`` ``[dn, 2N, d]``,
+    ``lvl_mean``/``lvl_bw`` ``[dn, T, d]``, ``lvl_logw``/``lvl_perm``
+    ``[dn, T]``) with no host tree and no copy to the host."""
+
+    def __init__(self, densities: Sequence, n_out: int, dtype):
+        dims = {p.ndim for p in densities}
+        if len(dims) != 1:
+            raise ValueError("kdes must have same dimension "
+                             "(reference src/MSGibbs01.jl:721)")
+        self.ndens, self.ndim = len(densities), dims.pop()
+        (t_mean, t_bw, lvl_mean, lvl_bw, lvl_logw, lvl_perm, self.offsets,
+         self.n_levels) = batched_device_plans([densities], n_out, dtype)
+        self.t_mean, self.t_bw = t_mean[0], t_bw[0]
+        self.lvl_mean, self.lvl_bw = lvl_mean[0], lvl_bw[0]
+        self.lvl_logw, self.lvl_perm = lvl_logw[0], lvl_perm[0]

@@ -1,23 +1,28 @@
 """Approximate products of KDEs by multiscale Gibbs sampling (ports
-``kde_tpu/ops/gibbs.py:59-139, 182-264, 267-354, 498-651, 692-818,
-821-912, 1138-1189``; algorithm: Ihler, Sudderth, Freeman & Willsky,
-"Efficient multiscale sampling from products of Gaussian mixtures",
-NIPS 2003; reference src/MSGibbs01.jl).
+``kde_tpu/ops/gibbs.py:59-204, 237-414, 498-818, 883-1189``; algorithm:
+Ihler, Sudderth, Freeman & Willsky, "Efficient multiscale sampling from
+products of Gaussian mixtures", NIPS 2003; reference src/MSGibbs01.jl).
 
 Every output sample is an independent chain.  All chains walk the same
-level schedule, precomputed on the host from the densities' ball trees into
-dense padded per-level arrays of node (mean, variance, weight).  At each
+level schedule: dense padded per-level arrays of node (mean, variance,
+weight), built on the host from the densities' ball trees
+(:class:`_ProductPlan`) or on their device (ops/device_plan.py).  At each
 level a chain (1) draws X from the product of its current selections,
 (2) re-selects one label per density conditioned on X, and (3) runs
 ``n_iter`` sweeps of leave-one-out Gibbs over the densities; a final draw
-ends the chain.  :func:`_run_chain` runs a block of chains at once, with
-the chain batch written out as the leading tensor dimension.
+ends the chain.  :func:`_run_chain` runs a block of chains of ``B``
+same-shaped density sets at once, written out as the leading tensor
+dimensions ``[B, C, ...]``: a single product is ``B = 1``, and
+:class:`BatchedProductSampler` / :func:`product_batched` (the serving path
+of belief propagation) run ``B`` products as one chain batch.
 
 All randomness is drawn up front per chain: ``bu = dn*(1 + L*(1+n_iter))``
 uniforms and ``bn = d*(L+1)`` normals, in the reference's consumption order
 (its ``randU``/``randN`` buffers, src/MSGibbs01.jl:661-662).  Injected
 streams therefore replay a serial trace exactly ("replay mode").  Keyed
-draws come from an explicit ``torch.Generator``.
+draws come from an explicit ``torch.Generator`` per set, and pick labels by
+the flat inverse CDF, block by block, or by Gumbel-max
+(:func:`resolve_select`).
 
 Numerical guards kept from the reference: per-dimension NaN suppression
 (:302-304), the degenerate fallback to a uniform draw when the candidate
@@ -30,17 +35,22 @@ from __future__ import annotations
 
 import math
 import weakref
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import manifolds
+from .. import config, manifolds
 from ..density import KDE, kde
-from ..utils.random import make_generator
+from ..utils.random import make_generator, split
+from .balltree import n_levels as _n_levels
+from .balltree import pack_levels
+from .device_plan import DeviceProductPlan, batched_device_plans
+from .loocv import _slices_on, ksize_rows, select_loo_impl
 
-# Budget for the live [chains, level width] temporaries of one chain block.
-# Chains are i.i.d. given their stream rows, so blocking is layout only.
+# Budget for the live [chains, level width] temporaries of one set's chain
+# block.  Chains are i.i.d. given their stream rows, so blocking is layout
+# only.
 CHAIN_BLOCK_BYTES: int = 2 << 30
 
 # about this many [chains, width] temporaries are alive at once
@@ -57,7 +67,10 @@ _LOG_DEAD = float(np.log(1e-99))
 
 class _ProductPlan:
     """Dense, padded per-level arrays for a set of densities, built on the
-    host in NumPy and moved to ``device``."""
+    host in NumPy from the densities' ball trees and moved to ``device``:
+    ``t_mean``/``t_bw`` ``[dn, 2N, d]``, ``lvl_mean``/``lvl_bw``
+    ``[dn, T, d]``, ``lvl_logw``/``lvl_perm`` ``[dn, T]``; level ``l`` is
+    the node slice ``offsets[l-1]``."""
 
     def __init__(self, densities: Sequence[KDE], n_out: int, dtype, device):
         self.ndens = len(densities)
@@ -82,71 +95,101 @@ class _ProductPlan:
             t_bw[j, :s] = t.bandwidth
             t_wt[j, :s] = t.weights
             t_perm[j, :s] = t.permutation
-
-        # per-level node lists (levels 1..L), padded across densities and
-        # packed along one node axis; level l is the slice offsets[l-1]
-        per_tree = [t.level_lists(self.n_levels) for t in trees]
-        widths = [max(len(per_tree[j][l]) for j in range(dn))
-                  for l in range(self.n_levels + 1)]
-        self.offsets: List[Tuple[int, int]] = []
-        total = 0
-        for l in range(1, self.n_levels + 1):
-            self.offsets.append((total, widths[l]))
-            total += widths[l]
-        nodes = np.zeros((dn, total), dtype=np.int64)
-        valid = np.zeros((dn, total), dtype=bool)
-        for l in range(1, self.n_levels + 1):
-            o, w = self.offsets[l - 1]
-            for j in range(dn):
-                lst = per_tree[j][l]
-                nodes[j, o:o + len(lst)] = lst
-                valid[j, o:o + len(lst)] = True
-                # padded slots repeat the last valid node (with -inf
-                # log-weight): a CDF tail that overflows into the padding
-                # selects the last valid node, the reference's
-                # fall-to-last-entry rule (src/MSGibbs01.jl:330-351)
-                nodes[j, o + len(lst):o + w] = lst[-1]
+        self.offsets, nodes, valid = pack_levels(
+            [t.level_lists(self.n_levels) for t in trees], self.n_levels)
         idx_j = np.arange(dn)[:, None]
         lvl_logw = (np.log(np.maximum(t_wt[idx_j, nodes], 1e-300))
                     + np.where(valid, 0.0, -np.inf))
 
         dev = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
-        self.t_mean = dev(t_mean)                            # [dn, 2N, d]
+        self.t_mean = dev(t_mean)
         self.t_bw = dev(t_bw)
-        self.lvl_mean = dev(t_mean[idx_j, nodes])            # [dn, T, d]
+        self.lvl_mean = dev(t_mean[idx_j, nodes])
         self.lvl_bw = dev(t_bw[idx_j, nodes])
-        self.lvl_logw = dev(lvl_logw)                        # [dn, T]
+        self.lvl_logw = dev(lvl_logw)
         self.lvl_perm = torch.as_tensor(t_perm[idx_j, nodes], device=device)
 
+
+_PLAN_TENSORS = ("t_mean", "t_bw", "lvl_mean", "lvl_bw", "lvl_logw",
+                 "lvl_perm")
+
+
+class _SetPlans(NamedTuple):
+    """The plans of ``B`` same-shaped density sets with a leading set axis
+    (the plan arrays of ``kde_tpu/ops/gibbs.py:1076-1091``):
+    ``t_mean``/``t_bw`` ``[B, dn, 2N, d]``, ``lvl_mean``/``lvl_bw``
+    ``[B, dn, T, d]``, ``lvl_logw``/``lvl_perm`` ``[B, dn, T]``."""
+    t_mean: torch.Tensor
+    t_bw: torch.Tensor
+    lvl_mean: torch.Tensor
+    lvl_bw: torch.Tensor
+    lvl_logw: torch.Tensor
+    lvl_perm: torch.Tensor
+    offsets: List[Tuple[int, int]]
+    n_levels: int
+
     def level(self, l: int):
-        """Views of level ``l`` (1-based): mean/bw ``[dn, w, d]``, logw and
-        perm ``[dn, w]``."""
+        """Level ``l`` (1-based): mean/bw ``[B, dn, w, d]``, logw and perm
+        ``[B, dn, w]``."""
         o, w = self.offsets[l - 1]
-        return (self.lvl_mean[:, o:o + w], self.lvl_bw[:, o:o + w],
-                self.lvl_logw[:, o:o + w], self.lvl_perm[:, o:o + w])
+        return (self.lvl_mean[:, :, o:o + w], self.lvl_bw[:, :, o:o + w],
+                self.lvl_logw[:, :, o:o + w], self.lvl_perm[:, :, o:o + w])
 
 
-def _n_levels(n_out: int, npts: Sequence[int]) -> int:
-    """Nlevels = floor(log2(maxNp)) + 1 (reference src/MSGibbs01.jl:660)."""
-    max_np = max([n_out] + list(npts))
-    return int(math.floor(math.log(float(max_np)) / math.log(2.0)) + 1.0)
+def _stack_plans(plans) -> _SetPlans:
+    """One plan gets a set axis of 1 (views); several are stacked.  Sets of
+    the same per-position component counts have the same level offsets."""
+    p0 = plans[0]
+    assert all(p.offsets == p0.offsets for p in plans), "offsets differ"
+    stack = (lambda xs: xs[0][None]) if len(plans) == 1 else torch.stack
+    return _SetPlans(*(stack([getattr(p, f) for p in plans])
+                       for f in _PLAN_TENSORS),
+                     list(p0.offsets), p0.n_levels)
 
 
-# Plan cache keyed by the identity of the densities and the level, dtype and
-# device configuration; an entry is evicted when any of its densities is
-# collected.
+def _resolve_plan_impl(densities: Sequence[KDE], plan: str,
+                       replay: bool) -> str:
+    """``auto``: the device builder when any density is device-resident (no
+    host arrays and no host tree, e.g. the output of an earlier product),
+    since the host builder would copy it to the host; the host builder
+    otherwise.  Replay mode always takes the host plan: the device
+    hierarchy is statistically equivalent but not trace-identical in d > 1
+    (ops/device_plan.py)."""
+    if plan == "auto":
+        if replay:
+            return "host"
+        dev = any(p._host_points is None and p._tree is None
+                  for p in densities)
+        return "device" if dev else "host"
+    if plan not in ("host", "device"):
+        raise ValueError(f"plan must be auto|host|device, got {plan!r}")
+    if replay and plan == "device":
+        raise ValueError(
+            "replay mode (rand_u=) requires the host plan: the device-built "
+            "hierarchy is statistically equivalent but not trace-identical "
+            "in d>1, so replayed labels would silently diverge from the "
+            "injected reference trace (ops/device_plan.py parity contract)")
+    return plan
+
+
+# Plan cache keyed by the identity of the densities and the level, dtype,
+# device and builder configuration; an entry is evicted when any of its
+# densities is collected.
 _plan_cache: dict = {}
 
 
-def _get_plan(densities: Sequence[KDE], n_out: int, dtype,
-              device) -> _ProductPlan:
+def _get_plan(densities: Sequence[KDE], n_out: int, dtype, device,
+              impl: str = "host"):
     key = (tuple(id(p) for p in densities), tuple(p.npts for p in densities),
            _n_levels(n_out, [p.npts for p in densities]), str(dtype),
-           str(device))
+           str(device), impl)
     hit = _plan_cache.get(key)
     if hit is not None:
         return hit
-    plan = _ProductPlan(densities, n_out, dtype, device)
+    if impl == "device":
+        plan = DeviceProductPlan(densities, n_out, dtype)
+    else:
+        plan = _ProductPlan(densities, n_out, dtype, device)
     _plan_cache[key] = plan
 
     def _evict(key=key):
@@ -157,65 +200,72 @@ def _get_plan(densities: Sequence[KDE], n_out: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# chain-batched primitives; C = chains in the block
+# chain-batched primitives; B = density sets, C = chains per set in the block
 # ---------------------------------------------------------------------------
 
 def _gauss_product(mu_sel, var_sel, mask, skip: int):
     """Information-form product of the selected kernels over densities
     (reference gaussianProductMeanCov!, src/MSGibbs01.jl:176-216).
 
-    ``mu_sel``/``var_sel`` ``[C, dn, d]`` (zeroed at inactive dims),
-    ``mask [dn, d]``, ``skip``: density left out, or -1.  Returns
-    ``(mu, cov)``, ``[C, d]`` each, zero where no density contributes."""
-    dn = mask.shape[0]
+    ``mu_sel``/``var_sel`` ``[B, C, dn, d]`` (zeroed at inactive dims),
+    ``mask [B, dn, d]``, ``skip``: density left out, or -1.  Returns
+    ``(mu, cov)``, ``[B, C, d]`` each, zero where no density contributes."""
+    dn = mask.shape[1]
     keep = torch.arange(dn, device=mask.device)[:, None] != skip
-    contrib = mask & keep                                     # [dn, d]
+    contrib = (mask & keep)[:, None]                          # [B, 1, dn, d]
     pos = var_sel > 0
     lam = torch.where(contrib & pos,
                       1.0 / torch.where(pos, var_sel, torch.ones_like(var_sel)),
                       torch.zeros_like(var_sel))
-    has = contrib.any(dim=0)                                  # [d]
-    lam_tot = lam.sum(dim=1)                                  # [C, d]
+    has = contrib.any(dim=2)                                  # [B, 1, d]
+    lam_tot = lam.sum(dim=2)                                  # [B, C, d]
     cov = torch.where(has, 1.0 / torch.where(has, lam_tot,
                                              torch.ones_like(lam_tot)),
                       torch.zeros_like(lam_tot))
-    mu = cov * (lam * mu_sel).sum(dim=1)
+    mu = cov * (lam * mu_sel).sum(dim=2)
     return mu, cov
 
 
-def _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active_dim):
-    """Candidate log-likelihoods ``[C, w]`` of one density's level nodes
-    (``lvl_mean_j``/``lvl_bw_j`` ``[w, d]``, ``lvl_logw_j [w]``) against a
-    Gaussian of mean ``mu [C, d]`` and covariance ``bw + cov`` (``cov``
-    ``[C, d]`` or None), without the degenerate fallback (reference
-    makeFasterSampleIndex!, src/MSGibbs01.jl:250-328)."""
+def _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active):
+    """Candidate log-likelihoods ``[B, C, w]`` of one density's level nodes
+    (``lvl_mean_j``/``lvl_bw_j`` ``[B, w, d]``, ``lvl_logw_j [B, w]``)
+    against a Gaussian of mean ``mu [B, C, d]`` and covariance ``bw + cov``
+    (``cov`` ``[B, C, d]`` or None), without the degenerate fallback
+    (reference makeFasterSampleIndex!, src/MSGibbs01.jl:250-328).  A dim
+    gives 0 where it is NaN (:302-304) or inactive for its set (the
+    partial-dim skip :281-285).  ``active = (tensor [B, d], its NumPy
+    copy)``: a dim inactive in every set is skipped and one active in
+    every set needs no mask, so only mixed sets pay for the masking."""
+    active_dim, active_host = active
     acc = None
-    for k in range(lvl_mean_j.shape[1]):
-        if not bool(active_dim[k]):           # partial-dim skip (:281-285)
+    for k in range(lvl_mean_j.shape[2]):
+        if not active_host[:, k].any():
             continue
-        c = lvl_bw_j[None, :, k]
+        c = lvl_bw_j[:, None, :, k]
         if cov is not None:
-            c = c + cov[:, k:k + 1]
-        delta = lvl_mean_j[None, :, k] - mu[:, k:k + 1]
+            c = c + cov[:, :, k:k + 1]
+        delta = lvl_mean_j[:, None, :, k] - mu[:, :, k:k + 1]
         per_dim = delta * delta / c + torch.log(c)
-        per_dim = torch.nan_to_num(per_dim, nan=0.0, posinf=math.inf,
-                                   neginf=-math.inf)   # NaN suppression
+        per_dim = per_dim.nan_to_num(nan=0.0, posinf=math.inf,
+                                     neginf=-math.inf)
+        if not active_host[:, k].all():
+            per_dim = torch.where(active_dim[:, None, None, k], per_dim, 0.0)
         acc = per_dim if acc is None else acc + per_dim
     if acc is None:
-        acc = torch.zeros((mu.shape[0], lvl_mean_j.shape[0]),
+        acc = torch.zeros(mu.shape[:2] + lvl_logw_j.shape[-1:],
                           dtype=mu.dtype, device=mu.device)
-    logits = lvl_logw_j[None, :] - 0.5 * acc
+    logits = lvl_logw_j[:, None, :] - 0.5 * acc
     return logits.nan_to_num(nan=-math.inf, posinf=math.inf,
                              neginf=-math.inf)
 
 
 def _dead_predicate(logits):
-    """``[C]``: True iff ``sum(exp(logits)) < 1e-99``, the log-space form of
-    the reference's linear-f64 degenerate test (src/MSGibbs01.jl:311).  The
-    safe shift makes an all -inf row dead."""
-    m = logits.max(dim=1).values
+    """``[B, C]``: True iff ``sum(exp(logits)) < 1e-99``, the log-space form
+    of the reference's linear-f64 degenerate test (src/MSGibbs01.jl:311).
+    The safe shift makes an all -inf row dead."""
+    m = logits.max(dim=-1).values
     ms = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
-    lse = ms + torch.log(torch.exp(logits - ms[:, None]).sum(dim=1))
+    lse = ms + torch.log(torch.exp(logits - ms[..., None]).sum(dim=-1))
     return lse < _LOG_DEAD
 
 
@@ -226,82 +276,157 @@ def _apply_dead_fallback(logits, lvl_logw_j, dead):
     fallback = torch.where(torch.isneginf(lvl_logw_j),
                            torch.full_like(lvl_logw_j, -math.inf),
                            torch.zeros_like(lvl_logw_j))
-    return torch.where(dead[:, None], fallback[None, :], logits)
+    return torch.where(dead[..., None], fallback[:, None, :], logits)
 
 
-def _kernel_logits(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active_dim):
+def _kernel_logits(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active):
     """:func:`_kernel_logits_raw` with the degenerate fallback applied."""
     logits = _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov,
-                                active_dim)
+                                active)
     return _apply_dead_fallback(logits, lvl_logw_j, _dead_predicate(logits))
 
 
 def _select_label(u, logits):
-    """Inverse-CDF draw, ``[C]`` labels from uniforms ``u [C]`` and
-    ``logits [C, w]``: the count of CDF entries below ``u``, i.e. the first
-    index whose CDF reaches ``u`` (reference selectLabelOnLevel,
+    """Inverse-CDF draw: labels ``[...]`` from uniforms ``u [...]`` and
+    ``logits [..., w]``, the count of CDF entries below ``u``, i.e. the
+    first index whose CDF reaches ``u`` (reference selectLabelOnLevel,
     src/MSGibbs01.jl:330-351, accepting on ``u <= cdf``).  The
     probabilities are normalized *before* the cumulative sum, as in the
     reference and the serial oracle, so replayed labels flip only where
-    they would there."""
-    e = torch.exp(logits - logits.max(dim=1, keepdim=True).values)
-    cdf = torch.cumsum(e / e.sum(dim=1, keepdim=True), dim=1)
-    z = (cdf < u[:, None]).sum(dim=1)
-    return z.clamp(0, logits.shape[1] - 1)
+    they would there.  The CDF is accumulated in float64 (a no-op for
+    float64 chains): on CUDA the summation order of ``torch.cumsum``
+    depends on the whole tensor's shape, and in float32 that moves ulp-wide
+    CDF ties between a set drawn in a batch and the same set drawn
+    alone."""
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values
+                  ).to(torch.float64)
+    cdf = torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)
+    z = (cdf < u[..., None]).sum(dim=-1)
+    return z.clamp(0, logits.shape[-1] - 1)
+
+
+def _blocked_block_size(w: int) -> int:
+    """Block size for :func:`_select_label_blocked`: ~sqrt(width), a power
+    of two in [32, 512] (``kde_tpu/ops/gibbs.py:357-362``)."""
+    return 1 << max(5, min(9, int(round(math.log2(max(1.0,
+                                                      math.sqrt(w)))))))
+
+
+def _select_label_blocked(u, logits, block: int):
+    """Two-level inverse-CDF draw for the keyed path: the draw of
+    :func:`_select_label` for the same single uniform ``u`` (one stream
+    slot), with no full-width prefix sum.  The width splits as
+    ``w = nb x block``: one full pass gives the block sums, a scan over the
+    ``nb`` sums picks the block, and a scan inside that block resolves the
+    index.  In exact arithmetic this is the flat index; ulp-wide CDF ties
+    may resolve differently, which is why replay mode keeps the flat form.
+    The degenerate fallback composes unchanged (0/-inf logits give equal
+    masses per real candidate).  Sums and scans run in float64, as in
+    :func:`_select_label`."""
+    w = logits.shape[-1]
+    nb = -(-w // block)
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values
+                  ).to(torch.float64)
+    e2 = torch.nn.functional.pad(e, (0, nb * block - w)).reshape(
+        e.shape[:-1] + (nb, block))
+    s = e2.sum(dim=-1)                                        # [..., nb]
+    c = torch.cumsum(s, dim=-1)
+    t = u * c[..., -1]
+    b = (c < t[..., None]).sum(dim=-1).clamp(0, nb - 1)
+    at = lambda x: x.gather(-1, b[..., None])[..., 0]
+    r = t - (at(c) - at(s))                   # mass entering block b
+    eb = e2.gather(-2, b[..., None, None].expand(b.shape + (1, block)))
+    zin = (torch.cumsum(eb[..., 0, :], dim=-1) < r[..., None]).sum(dim=-1)
+    return (b * block + zin.clamp(0, block - 1)).clamp(0, w - 1)
+
+
+def _select_label_gumbel(gens, logits):
+    """Gumbel-max draw for the keyed path: ``argmax(logits + G)`` with
+    ``G = -log(-log U)``, the uniforms of set ``b`` drawn from generator
+    ``gens[b]`` (``logits [B, C, w]``).  It samples softmax(logits), the
+    distribution of the inverse-CDF draw.  ``U`` is clamped away from 0 and
+    1 so ``G`` stays finite; dead rows (0 for real candidates, -inf for
+    padding) then give a uniform draw that never lands on padding."""
+    shape, dt = logits.shape[1:], logits.dtype
+    u = torch.stack([torch.rand(shape, generator=g, dtype=dt,
+                                device=logits.device) for g in gens])
+    fi = torch.finfo(dt)
+    u = u.clamp(fi.tiny, 1.0 - fi.eps)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool):
-    """Draw ``[C, d]`` from the product of the current selections
+    """Draw ``[B, C, d]`` from the product of the current selections
     (reference samplePoint!, src/MSGibbs01.jl:440-463)."""
     mu, cov = _gauss_product(mu_sel, var_sel, mask, -1)
     return mu + torch.sqrt(cov) * normals if jitter else mu
 
 
-def _run_chain(u, nrm, plan: _ProductPlan, mask, n_iter: int,
-               add_entropy: bool):
-    """A block of chains.  ``u [C, bu]`` and ``nrm [C, bn]`` are their
-    streams in the reference's consumption order:
+def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
+               add_entropy: bool, select: str = "cdf", gens=None):
+    """A block of chains of ``B`` density sets.  ``u [B, C, bu]`` and
+    ``nrm [B, C, bn]`` are their streams in the reference's consumption
+    order:
 
       uniforms: [dn init] ++ per level ([dn cond] ++ [n_iter*dn gibbs])
       normals:  [(L+1) * d]
 
-    Returns ``points [C, d]``, final labels ``[C, dn]`` and per-level
-    labels ``[C, L, dn]`` (0-based original point indices).  The
-    reference's ``levelDown!`` label remap (:512-513) is left out: the
-    conditioning re-selection overwrites it before any read."""
-    c = u.shape[0]
-    dn, d, L = plan.ndens, plan.ndim, plan.n_levels
-    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    ``mask [B, dn, d]``.  ``select``: ``cdf``, ``blocked`` (on levels wider
+    than 128) or ``gumbel``, which draws fresh noise from the sets'
+    generators ``gens`` for every (level, sweep, density) stage and takes
+    ``u = None``.  Returns ``points [B, C, d]``, final labels
+    ``[B, C, dn]`` and per-level labels ``[B, C, L, dn]`` (0-based original
+    point indices).  The reference's ``levelDown!`` label remap (:512-513)
+    is left out: the conditioning re-selection overwrites it before any
+    read."""
+    b, c = nrm.shape[:2]
+    dn, d, L = mask.shape[1], mask.shape[2], plans.n_levels
+    zero = torch.zeros((), dtype=nrm.dtype, device=nrm.device)
     # dims carried by at least one OTHER density (the LOO dimmask,
     # reference src/MSGibbs01.jl:270-275)
     union_other = torch.stack([
-        torch.cat([mask[:j], mask[j + 1:]]).any(dim=0) for j in range(dn)])
-    act_all = (mask & union_other).cpu()
-    per_level = u[:, dn:].reshape(c, L, (1 + n_iter) * dn)
-    u_cond = per_level[:, :, :dn]
-    u_gibbs = per_level[:, :, dn:].reshape(c, L, n_iter, dn)
-    normals = nrm.reshape(c, L + 1, d)
+        torch.cat([mask[:, :j], mask[:, j + 1:]], dim=1).any(dim=1)
+        for j in range(dn)], dim=1)
+    act_all = mask & union_other                              # [B, dn, d]
+    act_host = act_all.cpu().numpy()
+    active = [(act_all[:, j], act_host[:, j]) for j in range(dn)]
+    if u is not None:
+        per_level = u[:, :, dn:].reshape(b, c, L, (1 + n_iter) * dn)
+        u_cond = per_level[..., :dn]
+        u_gibbs = per_level[..., dn:].reshape(b, c, L, n_iter, dn)
+    normals = nrm.reshape(b, c, L + 1, d)
 
     # initial selection: every tree's root (reference src/MSGibbs01.jl:89-107)
-    mu_sel = torch.where(mask, plan.t_mean[:, 0, :], zero).expand(c, dn, d)
-    var_sel = torch.where(mask, plan.t_bw[:, 0, :], zero).expand(c, dn, d)
-    mu_sel, var_sel = mu_sel.contiguous(), var_sel.contiguous()
-    perms = torch.zeros((c, dn), dtype=torch.int64, device=u.device)
+    root = lambda t: torch.where(mask, t[:, :, 0], zero)[:, None]
+    mu_sel = root(plans.t_mean).expand(b, c, dn, d).contiguous()
+    var_sel = root(plans.t_bw).expand(b, c, dn, d).contiguous()
+    perms = torch.zeros((b, c, dn), dtype=torch.int64, device=nrm.device)
+    sets = torch.arange(b, device=nrm.device)[:, None]
     labels = []
 
     def pick(j, z, lvl_mean, lvl_bw, lvl_perm):
-        mu_sel[:, j] = torch.where(mask[j], lvl_mean[j][z], zero)
-        var_sel[:, j] = torch.where(mask[j], lvl_bw[j][z], zero)
-        perms[:, j] = lvl_perm[j][z]
+        m = mask[:, None, j]
+        mu_sel[:, :, j] = torch.where(m, lvl_mean[sets, j, z], zero)
+        var_sel[:, :, j] = torch.where(m, lvl_bw[sets, j, z], zero)
+        perms[:, :, j] = lvl_perm[sets, j, z]
+
+    def draw(u_slot, logits):
+        w = logits.shape[-1]
+        if select == "gumbel":
+            return _select_label_gumbel(gens, logits)
+        if select == "blocked" and w > 128:   # narrow levels keep the scan
+            return _select_label_blocked(u_slot(), logits,
+                                         _blocked_block_size(w))
+        return _select_label(u_slot(), logits)
 
     for l in range(1, L + 1):
-        lvl_mean, lvl_bw, lvl_logw, lvl_perm = plan.level(l)
+        lvl_mean, lvl_bw, lvl_logw, lvl_perm = plans.level(l)
         # (1) draw X from the product of the current selections (:594)
-        x = _sample_point(mu_sel, var_sel, mask, normals[:, l - 1], True)
+        x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True)
         # (2) re-select every density's label conditioned on X (:600)
-        zs = [_select_label(u_cond[:, l - 1, j],
-                            _kernel_logits(lvl_mean[j], lvl_bw[j],
-                                           lvl_logw[j], x, None, act_all[j]))
+        zs = [draw(lambda j=j: u_cond[:, :, l - 1, j],
+                   _kernel_logits(lvl_mean[:, j], lvl_bw[:, j],
+                                  lvl_logw[:, j], x, None, active[j]))
               for j in range(dn)]
         for j in range(dn):
             pick(j, zs[j], lvl_mean, lvl_bw, lvl_perm)
@@ -309,61 +434,119 @@ def _run_chain(u, nrm, plan: _ProductPlan, mask, n_iter: int,
         for t in range(n_iter):
             for j in range(dn):
                 mu, cov = _gauss_product(mu_sel, var_sel, mask, j)
-                logits = _kernel_logits(lvl_mean[j], lvl_bw[j], lvl_logw[j],
-                                        mu, cov, act_all[j])
-                pick(j, _select_label(u_gibbs[:, l - 1, t, j], logits),
-                     lvl_mean, lvl_bw, lvl_perm)
+                logits = _kernel_logits(lvl_mean[:, j], lvl_bw[:, j],
+                                        lvl_logw[:, j], mu, cov, active[j])
+                pick(j, draw(lambda j=j, t=t: u_gibbs[:, :, l - 1, t, j],
+                             logits), lvl_mean, lvl_bw, lvl_perm)
         labels.append(perms.clone())
 
     # final draw (:612-625)
-    x = _sample_point(mu_sel, var_sel, mask, normals[:, L], add_entropy)
-    return x, labels[-1], torch.stack(labels, dim=1)
+    x = _sample_point(mu_sel, var_sel, mask, normals[:, :, L], add_entropy)
+    return x, labels[-1], torch.stack(labels, dim=2)
 
 
-def _chain_block(n_out: int, plan: _ProductPlan, itemsize: int) -> int:
-    """Chains per block so the live temporaries stay within
-    ``CHAIN_BLOCK_BYTES``."""
+def _chain_block(n_out: int, plan, itemsize: int) -> int:
+    """Chains per block and per set, so one set's live temporaries stay
+    within ``CHAIN_BLOCK_BYTES``.  A batch of ``B`` sets runs ``B`` such
+    blocks at once: the split depends on the set's shape alone, so a set's
+    gumbel noise is drawn in the same order as in a standalone product."""
     width = max(w for _, w in plan.offsets)
     per_chain = _LIVE_TEMPS * width * itemsize
     return max(1, min(n_out, CHAIN_BLOCK_BYTES // per_chain))
 
 
-def _gibbs_all_chains(u, nrm, plan: _ProductPlan, mask, n_iter: int,
-                      add_entropy: bool):
-    """All chains, in blocks of :func:`_chain_block` chains."""
-    n_out = u.shape[0]
-    block = _chain_block(n_out, plan, u.element_size())
-    outs = [_run_chain(u[s:s + block], nrm[s:s + block], plan, mask,
-                       n_iter, add_entropy)
+def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
+                      add_entropy: bool, select: str = "cdf", gens=None):
+    """All chains of ``B`` sets (``nrm [B, n_out, bn]``), in blocks of
+    :func:`_chain_block` chains per set."""
+    n_out = nrm.shape[1]
+    block = _chain_block(n_out, plans, nrm.element_size())
+    outs = [_run_chain(None if u is None else u[:, s:s + block],
+                       nrm[:, s:s + block], plans, mask, n_iter, add_entropy,
+                       select, gens)
             for s in range(0, n_out, block)]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
-def _resolve_select(select: str) -> None:
-    if select in ("auto", "cdf"):
-        return
-    if select in ("blocked", "gumbel"):
-        raise NotImplementedError(
-            f"select={select!r} is not ported yet (ROADMAP M10); the port "
-            "draws labels with the flat inverse CDF ('cdf')")
-    raise ValueError(f"select must be auto|cdf|blocked|gumbel, got {select!r}")
+def resolve_select(select: str, n_out: Optional[int] = None,
+                   width: Optional[int] = None, batch: int = 1) -> str:
+    """The keyed path's label selection (``kde_tpu/ops/gibbs.py:658-690``).
+
+    ``auto`` reads ``config.GIBBS_SELECT`` at call time; its default
+    ``size`` routes by problem size with the thresholds ``config.SELECT_*``
+    (measured on the H100, PERF.md): ``blocked`` for very wide leaves with
+    few chains and one set, ``gumbel`` for wide leaves, large
+    chains x width work or many sets, flat ``cdf`` otherwise.  ``n_out``,
+    ``width`` and ``batch`` are the chains, the padded leaf width and the
+    number of sets; with unknown sizes ``size`` gives ``cdf``."""
+    if select == "auto":
+        select = config.GIBBS_SELECT
+    if select == "size":
+        if n_out is None or width is None:
+            return "cdf"
+        if (width >= config.SELECT_BLOCKED_WIDTH
+                and n_out <= config.SELECT_BLOCKED_MAX_CHAINS
+                and batch == 1):
+            return "blocked"
+        if (width >= config.SELECT_GUMBEL_WIDTH
+                or batch >= config.SELECT_GUMBEL_BATCH
+                or n_out * width >= config.SELECT_GUMBEL_WORK):
+            return "gumbel"
+        return "cdf"
+    if select not in ("cdf", "blocked", "gumbel"):
+        raise ValueError(
+            f"select must be auto|size|cdf|blocked|gumbel, got {select!r}")
+    return select
 
 
 def _stream_sizes(dn: int, d: int, n_levels: int, n_iter: int):
     return dn * (1 + n_levels * (1 + n_iter)), d * (n_levels + 1)
 
 
-def _keyed_streams(key, n_out: int, bu: int, bn: int, dtype, device):
-    """Uniform ``[n_out, bu]`` and normal ``[n_out, bn]`` streams from the
-    generator of ``key``; chain ``i`` consumes row ``i`` of each."""
-    g = make_generator(key, device)
-    u = torch.rand((n_out, bu), generator=g, dtype=dtype, device=device)
-    nrm = torch.randn((n_out, bn), generator=g, dtype=dtype, device=device)
+def _keyed_streams(gen, n_out: int, bu: int, bn: int, dtype, device,
+                   select: str):
+    """Uniform ``[n_out, bu]`` (none for ``gumbel``, which draws its noise
+    per stage) and normal ``[n_out, bn]`` streams from ``gen``; chain ``i``
+    consumes row ``i`` of each."""
+    u = (None if select == "gumbel" else
+         torch.rand((n_out, bu), generator=gen, dtype=dtype, device=device))
+    nrm = torch.randn((n_out, bn), generator=gen, dtype=dtype, device=device)
     return u, nrm
+
+
+def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
+                 add_entropy: bool, dtype, select: str):
+    """Keyed products of ``B = len(gens)`` sets: set ``b`` draws all its
+    randomness from ``gens[b]``.  Returns ``points [B, d, n_out]``, labels
+    ``[B, dn, n_out]`` and per-level labels ``[B, n_out, dn, L]``."""
+    dn, d = mask.shape[1:]
+    bu, bn = _stream_sizes(dn, d, plans.n_levels, n_iter)
+    device = mask.device
+    streams = [_keyed_streams(g, n_out, bu, bn, dtype, device, select)
+               for g in gens]
+    u = (None if select == "gumbel"
+         else torch.stack([s[0] for s in streams]))
+    nrm = torch.stack([s[1] for s in streams])
+    pts, idx, labels = _gibbs_all_chains(u, nrm, plans, mask, n_iter,
+                                         add_entropy, select, gens)
+    return pts.transpose(1, 2), idx.transpose(1, 2), labels.transpose(2, 3)
+
+
+def _gibbs_batched_sets(key, plans: _SetPlans, mask, n_out: int,
+                        n_iter: int, add_entropy: bool, dtype, select: str):
+    """``B`` keyed products as one chain batch of ``B x n_out`` chains
+    (``kde_tpu/ops/gibbs.py:967-994``): set ``i`` draws from the generator
+    of ``split(key, B)[i]``, so it equals a standalone
+    :func:`prod_appx_ms_gibbs` keyed with that seed."""
+    device = mask.device
+    gens = [make_generator(s, device)
+            for s in split(key, mask.shape[0], device)]
+    return _gibbs_keyed(gens, plans, mask, n_out, n_iter, add_entropy,
+                        dtype, select)
 
 
 def _mask_tensor(partial_dim_mask, dn: int, d: int, device):
@@ -389,6 +572,7 @@ def prod_appx_ms_gibbs(npd0,
                        record_labels: bool = False,
                        key=None,
                        dtype=None,
+                       plan: str = "auto",
                        select: str = "auto"):
     """Draw samples from (an approximation of) the product of ``densities``
     (reference prodAppxMSGibbsS, src/MSGibbs01.jl:645-703).
@@ -410,14 +594,19 @@ def prod_appx_ms_gibbs(npd0,
         ``torch.Generator``, an int seed or None for the module generator).
       record_labels: also return the per-level labels.
       dtype: float type of the chains (default: the densities').
-      select: ``auto``/``cdf``, the flat inverse-CDF draw; ``blocked`` and
-        ``gumbel`` are ROADMAP M10.
+      plan: ``auto`` (the device-built level hierarchy for device-resident
+        densities, the host ball tree otherwise), ``host`` or ``device``
+        (ops/device_plan.py).
+      select: the keyed path's label selection: ``auto`` (reads
+        ``config.GIBBS_SELECT``, see :func:`resolve_select`), ``cdf`` (the
+        flat inverse CDF), ``blocked`` (the same draw block by block) or
+        ``gumbel`` (argmax of logits plus Gumbel noise).  Replay mode
+        always draws with ``cdf``.
 
     Returns ``(points [d, Np], indices [ndens, Np])`` with 0-based labels,
     plus ``labels [Np, ndens, n_levels]`` if ``record_labels``.
     """
     del an_fcns, an_params
-    _resolve_select(select)
     n_out = npd0 if isinstance(npd0, int) else npd0.npts
     densities = list(densities)
     device = densities[0].device
@@ -425,32 +614,36 @@ def prod_appx_ms_gibbs(npd0,
         raise ValueError("densities must lie on one device")
     manifolds.require_euclidean(addop, diffop, get_mu, get_lambda,
                                 densities[0].ndim)
-    dtype = dtype or densities[0].dtype
-    plan = _get_plan(densities, n_out, dtype, device)
-    dn, d, n_levels = plan.ndens, plan.ndim, plan.n_levels
-    mask = _mask_tensor(partial_dim_mask, dn, d, device)
     if (rand_u is None) != (rand_n is None):
         raise ValueError(
             "replay mode needs BOTH streams: pass rand_u (uniforms) and "
             "rand_n (normals) together (reference src/MSGibbs01.jl:661-662)")
-    bu, bn = _stream_sizes(dn, d, n_levels, n_iter)
+    dtype = dtype or densities[0].dtype
+    pl = _get_plan(densities, n_out, dtype, device,
+                   _resolve_plan_impl(densities, plan, rand_u is not None))
+    plans = _stack_plans([pl])
+    select = resolve_select(select, n_out, pl.offsets[-1][1])
+    mask = _mask_tensor(partial_dim_mask, pl.ndens, pl.ndim, device)[None]
     if rand_u is None:
-        u, nrm = _keyed_streams(key, n_out, bu, bn, dtype, device)
+        pts, idx, labels = _gibbs_keyed([make_generator(key, device)], plans,
+                                        mask, n_out, n_iter, add_entropy,
+                                        dtype, select)
     else:
         # streams may be over-allocated (the reference sizes randU at
         # Np*Ndens*(Niter+2)*Nlevels, :661); the first n_out*bu / n_out*bn
         # draws are consumed, contiguously
-        u = torch.as_tensor(np.asarray(rand_u, dtype=np.float64).ravel()
-                            [:n_out * bu].reshape(n_out, bu),
-                            dtype=dtype, device=device)
-        nrm = torch.as_tensor(np.asarray(rand_n, dtype=np.float64).ravel()
-                              [:n_out * bn].reshape(n_out, bn),
-                              dtype=dtype, device=device)
-    pts, idx, labels = _gibbs_all_chains(u, nrm, plan, mask, n_iter,
-                                         add_entropy)
-    out = (pts.T, idx.T)
+        bu, bn = _stream_sizes(pl.ndens, pl.ndim, pl.n_levels, n_iter)
+        stream = lambda r, k: torch.as_tensor(
+            np.asarray(r, dtype=np.float64).ravel()[:n_out * k]
+            .reshape(1, n_out, k), dtype=dtype, device=device)
+        pts, idx, labels = _gibbs_all_chains(
+            stream(rand_u, bu), stream(rand_n, bn), plans, mask, n_iter,
+            add_entropy)
+        pts, idx, labels = (pts.transpose(1, 2), idx.transpose(1, 2),
+                            labels.transpose(2, 3))
+    out = (pts[0], idx[0])
     if record_labels:
-        out = out + (labels.permute(0, 2, 1),)
+        out = out + (labels[0],)
     return out
 
 
@@ -469,6 +662,127 @@ def product(densities: Sequence[KDE], add_entropy: bool = True,
     return kde(pts)
 
 
+def product_batched(density_sets, n_iter: int = 5, add_entropy: bool = True,
+                    key=None, mesh=None) -> List[KDE]:
+    """Batched ``*`` (``kde_tpu/ops/gibbs.py:915-964``): one batched Gibbs
+    draw over ``B`` same-shaped density sets, then one LOOCV refit of all
+    ``B x d`` sample rows at once; returns ``B`` product KDEs on the sets'
+    device.  No reference counterpart: the reference computes each ``*``
+    serially (src/MSGibbs01.jl:707-736)."""
+    sets = [list(ds) for ds in density_sets]
+    if not sets:
+        return []
+    n_out = int(round(float(np.mean([p.npts for p in sets[0]]))))
+    sampler = BatchedProductSampler(sets, n_out=n_out, n_iter=n_iter,
+                                    add_entropy=add_entropy, mesh=mesh)
+    pts, _ = sampler.sample(key)                      # [B, d, n]
+    b, d, n = pts.shape
+    w = torch.full((n,), 1.0 / n, dtype=pts.dtype, device=pts.device)
+    lo, hi = _slices_on(n, pts.device)
+    # product samples are uniform-weight: the B x d golden searches share
+    # one weight vector and run as one batch
+    bwds = ksize_rows(pts.reshape(b * d, n), w, lo, hi,
+                      impl=select_loo_impl(n, pts.dtype),
+                      chunk=int(config.LOOCV_CHUNK))
+    var = (bwds.reshape(b, d) ** 2)[:, None, :].expand(b, n, d)
+    return [KDE(pts[i].T, var[i], w) for i in range(b)]
+
+
+class BatchedProductSampler:
+    """Products of ``B`` same-shaped density sets as one chain batch
+    (``kde_tpu/ops/gibbs.py:997-1135``), the serving path of nonparametric
+    belief propagation: every iteration multiplies many message sets of
+    the same shape.  All sets share ``(ndens, ndim, per-position npts)``;
+    :meth:`refresh` swaps in updated densities of the same shapes.
+
+    >>> sampler = BatchedProductSampler([[p1, q1], [p2, q2]], n_out=1000)
+    >>> pts, labels = sampler.sample(0)      # [B, d, n_out], [B, ndens, n_out]
+    """
+
+    _KEEP = object()
+
+    def __init__(self, density_sets, n_out: int, n_iter: int = 5,
+                 add_entropy: bool = True, partial_dim_masks=None,
+                 dtype=None, mesh=None, plan: str = "auto"):
+        """``plan``: auto|host|device level-hierarchy builder (auto takes
+        the device builder for device-resident densities, the refresh path
+        of a belief-propagation loop).  ``mesh`` (the set axis sharded over
+        devices) is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (the set axis sharded over devices) is not ported "
+                "yet (ROADMAP M11)")
+        self.n_out = n_out
+        self.n_iter = n_iter
+        self.add_entropy = add_entropy
+        self.dtype = dtype
+        self.plan_impl = plan
+        self._build(density_sets, partial_dim_masks)
+
+    def _build(self, density_sets, partial_dim_masks):
+        self._masks_arg = partial_dim_masks     # refresh() default: keep
+        sets = [list(ds) for ds in density_sets]
+        if not sets:
+            raise ValueError("need at least one density set")
+        shapes = {(len(ds), ds[0].ndim, tuple(p.npts for p in ds))
+                  for ds in sets}
+        if len(shapes) != 1:
+            raise ValueError("all density sets must share "
+                             "(ndens, ndim, per-position npts); "
+                             f"got {sorted(shapes)}")
+        if len({p.ndim for ds in sets for p in ds}) != 1:
+            raise ValueError("kdes must have same dimension "
+                             "(reference src/MSGibbs01.jl:721)")
+        self.device = sets[0][0].device
+        if any(p.device != self.device for ds in sets for p in ds):
+            raise ValueError("densities must lie on one device")
+        for p in (p for ds in sets for p in ds):
+            manifolds.require_euclidean(
+                *(getattr(p, h, None)
+                  for h in ("addop", "diffop", "get_mu", "get_lambda")),
+                p.ndim)
+        self._dtype = self.dtype or sets[0][0].dtype
+        impls = {_resolve_plan_impl(ds, self.plan_impl, False) for ds in sets}
+        self.B, self.ndens, self.ndim = len(sets), len(sets[0]), sets[0][0].ndim
+        if "device" in impls:
+            # all sets device-resident (the belief-propagation refresh
+            # pattern), or a mix, which takes one builder for the whole
+            # batch so that no two sets anneal through differently built
+            # hierarchies: every set's plan in one pass
+            self.plans = _SetPlans(*batched_device_plans(sets, self.n_out,
+                                                         self._dtype))
+        else:
+            self.plans = _stack_plans([
+                _get_plan(ds, self.n_out, self._dtype, self.device, "host")
+                for ds in sets])
+        if partial_dim_masks is None:
+            self.mask = torch.ones((self.B, self.ndens, self.ndim),
+                                   dtype=torch.bool, device=self.device)
+        else:
+            self.mask = torch.as_tensor(
+                np.asarray(partial_dim_masks, dtype=bool)
+                .reshape(self.B, self.ndens, self.ndim), device=self.device)
+
+    def refresh(self, density_sets, partial_dim_masks=_KEEP):
+        """Swap in updated densities of the same shapes.
+        ``partial_dim_masks`` defaults to keeping the sampler's masks (a BP
+        loop refreshes densities only); pass masks, or ``None`` for all
+        dims, to change them."""
+        if partial_dim_masks is BatchedProductSampler._KEEP:
+            partial_dim_masks = self._masks_arg
+        self._build(density_sets, partial_dim_masks)
+
+    def sample(self, key=None, select: str = "auto"):
+        """Returns ``(points [B, d, n_out], labels [B, ndens, n_out])``."""
+        select = resolve_select(select, self.n_out,
+                                self.plans.offsets[-1][1], batch=self.B)
+        pts, idx, _ = _gibbs_batched_sets(key, self.plans, self.mask,
+                                          self.n_out, self.n_iter,
+                                          self.add_entropy, self._dtype,
+                                          select)
+        return pts, idx
+
+
 class ProductSampler:
     """Reusable sampler for repeated products over the same densities: the
     plan is built once and each :meth:`sample` draws a fresh product (the
@@ -480,7 +794,7 @@ class ProductSampler:
 
     def __init__(self, densities: Sequence[KDE], n_out: int,
                  n_iter: int = 5, add_entropy: bool = True,
-                 partial_dim_mask=None, dtype=None):
+                 partial_dim_mask=None, dtype=None, plan: str = "auto"):
         self.densities = list(densities)
         self.device = self.densities[0].device
         if any(p.device != self.device for p in self.densities):
@@ -489,17 +803,17 @@ class ProductSampler:
         self.n_out = n_out
         self.n_iter = n_iter
         self.add_entropy = add_entropy
-        self.plan = _get_plan(self.densities, n_out, self.dtype, self.device)
+        self.plan = _get_plan(self.densities, n_out, self.dtype, self.device,
+                              _resolve_plan_impl(self.densities, plan, False))
+        self.plans = _stack_plans([self.plan])
         self.mask = _mask_tensor(partial_dim_mask, self.plan.ndens,
-                                 self.plan.ndim, self.device)
-        self.bu, self.bn = _stream_sizes(self.plan.ndens, self.plan.ndim,
-                                         self.plan.n_levels, n_iter)
+                                 self.plan.ndim, self.device)[None]
 
     def sample(self, key=None, select: str = "auto"):
         """Returns ``(points [d, n_out], labels [ndens, n_out])``."""
-        _resolve_select(select)
-        u, nrm = _keyed_streams(key, self.n_out, self.bu, self.bn,
-                                self.dtype, self.device)
-        pts, idx, _ = _gibbs_all_chains(u, nrm, self.plan, self.mask,
-                                        self.n_iter, self.add_entropy)
-        return pts.T, idx.T
+        select = resolve_select(select, self.n_out, self.plan.offsets[-1][1])
+        pts, idx, _ = _gibbs_keyed([make_generator(key, self.device)],
+                                   self.plans, self.mask, self.n_out,
+                                   self.n_iter, self.add_entropy, self.dtype,
+                                   select)
+        return pts[0], idx[0]

@@ -10,6 +10,8 @@ packages inject numpy streams instead (replay mode).
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
 
@@ -47,3 +49,20 @@ def make_generator(key=None, device="cpu") -> torch.Generator:
         g.manual_seed(_state["seed"])
         _state["gens"][str(device)] = g
     return g
+
+
+def split(key, n: int, device="cpu") -> List[int]:
+    """``n`` int seeds derived deterministically from ``key`` (the
+    counterpart of ``jax.random.split`` as ``_gibbs_batched_sets`` uses it,
+    ``kde_tpu/ops/gibbs.py:985``): set ``i`` of a batched draw draws from
+    ``make_generator(split(key, B)[i])``, so it equals a standalone draw
+    keyed with that seed.  An int key derives the seeds on the host
+    (NumPy's ``SeedSequence``); a ``torch.Generator``, or ``None`` for the
+    module generator of ``device``, gives them in one draw from it."""
+    if isinstance(key, (int, np.integer)):
+        state = np.random.SeedSequence(int(key) & ((1 << 64) - 1)) \
+            .generate_state(n, dtype=np.uint64)
+        return [int(s) >> 1 for s in state]
+    g = make_generator(key, device)
+    return torch.randint(0, 1 << 62, (n,), generator=g,
+                         device=g.device).tolist()

@@ -90,3 +90,65 @@ def test_small_slice_on_card(cuda, monkeypatch):
     ref = kernels.log_eval(torch.as_tensor(queries.T), pq.points.cpu().double(),
                            pq.bw.cpu().double(), pq.weights.cpu().double())
     _assert_close(lp, ref)
+
+
+def _cuda_sets(cuda, rng, b, n, d=2):
+    import kde_tpu_torch as kt
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    return [[kt.kde(f32(rng.normal(size=(d, n)) + 0.25 * i), [0.2]),
+             kt.kde(f32(rng.normal(size=(d, n)) + 0.25 * i + 0.5), [0.2])]
+            for i in range(b)]
+
+
+@pytest.mark.parametrize("select", ["cdf", "blocked", "gumbel"])
+def test_batched_set_equals_standalone_on_card(cuda, select):
+    """Set i of a batch against a standalone product keyed by
+    split(key, B)[i]: labels equal on at least 99.9% of chains (the CDF
+    is accumulated in float64, so the batch shape moves no ties), points
+    within 1e-5 where they are."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.utils.random import split
+    rng = np.random.default_rng(1)
+    b, n, n_out = 3, 3000, 2000
+    sets = _cuda_sets(cuda, rng, b, n)
+    pts, idx = kt.BatchedProductSampler(sets, n_out=n_out, n_iter=3).sample(
+        7, select=select)
+    for i, seed in enumerate(split(7, b)):
+        p1, i1 = kt.prod_appx_ms_gibbs(n_out, sets[i], n_iter=3, key=seed,
+                                       select=select)
+        same = (idx[i] == i1).all(dim=0)
+        assert int((~same).sum()) <= 1e-3 * n_out
+        assert float((pts[i] - p1)[:, same].abs().max()) <= 1e-5
+
+
+def test_device_plan_build_is_deterministic(cuda):
+    """The same sets' plans built twice on the card are bitwise equal (the
+    segment sums use no atomics)."""
+    from kde_tpu_torch.ops.device_plan import batched_device_plans
+    rng = np.random.default_rng(2)
+    sets = _cuda_sets(cuda, rng, 3, 5000)
+    one = batched_device_plans(sets, 5000, torch.float32)
+    two = batched_device_plans(sets, 5000, torch.float32)
+    assert one[6:] == two[6:]
+    for a, b in zip(one[:6], two[:6]):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+def test_small_product_batched_launches_kernel(cuda, monkeypatch):
+    """product_batched on the card with the LOOCV gate at 1: the refit of
+    the B x d sample rows launches the kernel, and the products stay on
+    the card."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import config
+    from kde_tpu_torch.ops import tiled_eval
+    monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
+    rng = np.random.default_rng(3)
+    sets = _cuda_sets(cuda, rng, 2, 300)
+    before = tiled_eval.LAUNCHES
+    outs = kt.product_batched(sets, key=0)
+    torch.cuda.synchronize()
+    assert tiled_eval.LAUNCHES > before
+    for i, k in enumerate(outs):
+        assert k.points.is_cuda and k._tree is None and torch.all(k.bw > 0)
+        mean = k.points.double().mean(dim=0).cpu().numpy()
+        assert np.all(np.abs(mean - (0.25 * i + 0.25)) < 0.25)

@@ -166,10 +166,12 @@ def test_select_modes_and_hooks():
     rng = np.random.default_rng(15)
     dens = [tkde(rng.normal(size=(1, 20)), [0.3], dtype=F64)
             for _ in range(2)]
-    prod_appx_ms_gibbs(8, dens, key=0, select="cdf")
-    for mode in ("blocked", "gumbel"):
-        with pytest.raises(NotImplementedError, match="M10"):
-            prod_appx_ms_gibbs(8, dens, key=0, select=mode)
+    for mode in ("auto", "size", "cdf", "blocked", "gumbel"):
+        pts, idx = prod_appx_ms_gibbs(8, dens, key=0, select=mode)
+        assert pts.shape == (1, 8) and torch.isfinite(pts).all()
+        assert idx.min() >= 0 and idx.max() < 20
+    with pytest.raises(ValueError, match="select"):
+        prod_appx_ms_gibbs(8, dens, key=0, select="bogus")
     with pytest.raises(NotImplementedError, match="M8"):
         prod_appx_ms_gibbs(8, dens, key=0, addop=(lambda a, b: a + b,))
     with pytest.raises(ValueError, match="BOTH"):
