@@ -24,12 +24,24 @@ Phases, one line of findings each:
   8. label selection: samples/s of cdf, blocked and gumbel at the bench
      headline (B = 6 x [2 x 1000], 1000 chains, Niter 5), at B = 8, at
      phase 5's 2 x 50,000 with 256 chains and at phase 4's Gibbs stage
-     (2 x 20,000, 20,000 chains).
+     (2 x 20,000, 20,000 chains);
+  9. functionals, sampling, LOOCV refits and serialization on phase 4's
+     densities: entropy, eval_avg_logl, kld and minkld against the same
+     calls on the kernel's plain twin, kld against its analytic value, the
+     unscented kld's 100,000-point LOOCV fit, sample moments, resample,
+     the summaries, the overlap integral against its analytic value,
+     nloo_ll/ksize in float64, string and npz round trips on the card;
+ 10. manifold products at full width: a circular pair of 2 x 20,000
+     components (`*` must land near pi; its hooked evaluation must not
+     launch the kernel and matches float64 on the CPU), SE(2) 3-D beliefs
+     of 2 x 20,000, and a hooked BatchedProductSampler over B = 4 circular
+     sets, set 0 against its standalone draw.
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -425,6 +437,242 @@ def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
     return rows
 
 
+@contextlib.contextmanager
+def _on_twin():
+    """Every above-gate evaluation on the kernel's plain twin instead of
+    the kernel (ops/kernels.py launches it through this one name)."""
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    saved = kernels.tiled_log_eval
+    kernels.tiled_log_eval = tiled_eval.tiled_log_eval_ref
+    try:
+        yield
+    finally:
+        kernels.tiled_log_eval = saved
+
+
+def _launched(launches, names, dev):
+    for name in names:
+        if launches[name] < 1 and dev.type == "cuda":
+            raise AssertionError(f"stage {name} never launched the kernel")
+
+
+def _on_device(k, dev, dtype, what):
+    if k.device.type != dev.type or k.dtype != dtype:
+        raise AssertionError(f"{what}: on {k.device} in {k.dtype}, not on "
+                             f"{dev.type} in {dtype}")
+
+
+def phase_functionals(dev, p, q, seed=SEED):
+    """Phase 9: functionals, sampling, LOOCV refits and serialization on
+    phase 4's tensor-backed densities p ~ N(0, I) and q ~ N(0.5, I)."""
+    import tempfile
+    import torch
+    import kde_tpu_torch as kt
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    stages, launches, vals, errs = {}, {}, {}, {}
+
+    def stage(name, fn, *args, **kw):
+        return _timed(name, fn, sync, stages, launches)(*args, **kw)
+
+    n, f32 = p.npts, torch.float32
+    slack = 4.0 / np.sqrt(n)    # widens the bounds only for a CPU rehearsal
+    for name, fn, args in (("entropy", kt.entropy, (p,)),
+                           ("eval_avg_logl", kt.eval_avg_logl, (p, q)),
+                           ("kld", kt.kld, (p, q)),
+                           ("minkld", kt.minkld, (p, q))):
+        got = stage(name, fn, *args)
+        with _on_twin():
+            want = fn(*args)
+        errs[name] = compare(got.reshape(1), want.reshape(1),
+                             f"{name} vs twin")
+        vals[name] = float(got)
+    # KL(N(0, sI) || N(0.5, sI)) in 2-D is 0.25 / s, s = 1 + h^2
+    h2 = float(p.bw[0].double().mean())
+    vals["kld_analytic"] = 0.25 / (1.0 + h2)
+    if abs(vals["kld"] - vals["kld_analytic"]) > 0.05 + slack:
+        raise AssertionError(f"kld {vals['kld']} not near "
+                             f"{vals['kld_analytic']}")
+    vals["kld_unscented"] = float(stage("kld_unscented", kt.kld, p, q,
+                                        "unscented"))
+    if not np.isfinite(vals["kld_unscented"]):
+        raise AssertionError("unscented kld is not finite")
+
+    pts, ind = stage("sample", kt.sample, p, n, seed)
+    x, mu = pts.double(), p.points.double()
+    want_var = mu.var(dim=0, unbiased=False) + p.bw[0].double()
+    vals["sample_mean"] = x.mean(dim=1).tolist()
+    vals["sample_var"] = x.var(dim=1, unbiased=False).tolist()
+    if not (bool(((x.mean(dim=1) - mu.mean(dim=0)).abs() < 0.05 + slack)
+                 .all())
+            and bool(((x.var(dim=1, unbiased=False) - want_var).abs()
+                      < 0.05 + slack).all())):
+        raise AssertionError(f"sample moments {vals['sample_mean']}, "
+                             f"{vals['sample_var']} not near p's")
+    for mode in ("lcv", "discrete"):
+        r = stage(f"resample_{mode}", kt.resample, p, None, mode, seed)
+        _on_device(r, dev, f32, f"resample {mode}")
+        if r.npts != n or not bool(torch.isfinite(r.bw).all()):
+            raise AssertionError(f"resample {mode}: wrong size or bandwidth")
+
+    for name in ("get_kde_range", "get_kde_range_linspace", "get_kde_max",
+                 "get_kde_mean", "get_kde_fit"):
+        out = stage(name, getattr(kt, name), p)
+        for t in (out if isinstance(out, tuple) else (out,)):
+            if t.device.type != dev.type or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name}: off the device or non-finite")
+        vals[name] = (out[0] if isinstance(out, tuple) else out).tolist()
+    vals["get_kde_range_linspace"] = vals["get_kde_range_linspace"][::50]
+    if not all(abs(v) < 0.3 + slack for v in vals["get_kde_max"]):
+        raise AssertionError(f"get_kde_max {vals['get_kde_max']} not near 0")
+
+    # the overlap of two Gaussians N(m_p, S_p), N(m_q, S_q) is
+    # N(m_p - m_q; 0, S_p + S_q), S the mixture covariance
+    ov = float(stage("inters_intg_appx_is", kt.inters_intg_appx_is, p, q,
+                     201))
+    cov = lambda k: (np.cov(k.points.double().cpu().numpy().T, bias=True)
+                     + np.diag(k.bw[0].double().cpu().numpy()))
+    s = cov(p) + cov(q)
+    delta = (p.points.double().mean(dim=0)
+             - q.points.double().mean(dim=0)).cpu().numpy()
+    want = float(np.exp(-0.5 * delta @ np.linalg.solve(s, delta))
+                 / (2 * np.pi * np.sqrt(np.linalg.det(s))))
+    vals["overlap"], vals["overlap_analytic"] = ov, want
+    if abs(ov / want - 1.0) > 0.05 + slack:
+        raise AssertionError(f"overlap {ov} not within 5% of {want}")
+
+    vals["nloo_ll"] = stage("nloo_ll", kt.nloo_ll, 1.0, p)
+    if abs(vals["nloo_ll"] / vals["entropy"] - 1.0) > 1e-3:
+        raise AssertionError(f"nloo_ll {vals['nloo_ll']} != entropy "
+                             f"{vals['entropy']}")
+    k = stage("ksize", kt.ksize, p)
+    _on_device(k, dev, f32, "ksize")
+    rel = float(((k.bw[0] / p.bw[0]).sqrt() - 1.0).abs().max())
+    if rel > 3e-2:
+        raise AssertionError(f"float64 ksize bandwidths {rel:.3g} from the "
+                             "float32 fit's")
+
+    s = stage("to_string", kt.to_string, p)
+    back = stage("from_string", kt.from_string, s, device=dev, dtype=f32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "p.npz")
+        stage("save_kde", kt.save_kde, path, p)
+        loaded = stage("load_kde", kt.load_kde, path, device=dev)
+    for what, r in (("from_string", back), ("load_kde", loaded)):
+        _on_device(r, dev, f32, what)
+        if not torch.equal(r.points, p.points):
+            raise AssertionError(f"{what} did not restore p's points")
+    if not (torch.equal(loaded.bw, p.bw)
+            and torch.equal(loaded.weights, p.weights)):
+        raise AssertionError("load_kde did not restore p's bandwidths")
+    _launched(launches, ("entropy", "eval_avg_logl", "kld", "minkld",
+                         "kld_unscented", "resample_lcv"), dev)
+    return dict(seconds=stages, launches=launches, values=vals,
+                twin_err=errs, ksize_rel=rel)
+
+
+def _hook_kw(kinds):
+    """The hook quadruple for per-dim ``kinds``, ``e`` Euclidean and ``c``
+    circular."""
+    from kde_tpu_torch import manifolds as m
+    pick = lambda e, c: tuple(e if k == "e" else c for k in kinds)
+    return dict(addop=pick(m.euclid_add, m.circular_add),
+                diffop=pick(m.euclid_diff, m.circular_diff),
+                get_mu=pick(m.euclid_mu, m.circular_mu),
+                get_lambda=pick(m.euclid_lambda, m.circular_lambda))
+
+
+def _wrap(a):
+    return a - 2 * np.pi * np.round(a / (2 * np.pi))
+
+
+def _check_near_pi(x, what):
+    """Median distance to pi under 0.5 and under 20 % of the mass within
+    1 of 0 (the thresholds of tests/test_manifolds.py:81-83)."""
+    x = x.double().cpu().numpy()
+    med, near0 = (float(np.median(np.abs(_wrap(x - np.pi)))),
+                  float(np.mean(np.abs(x) < 1.0)))
+    if not (med < 0.5 and near0 < 0.2):
+        raise AssertionError(f"{what}: median distance to pi {med}, "
+                             f"{near0} of the mass near 0")
+    return med, near0
+
+
+def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
+    """Phase 10: circular and SE(2) products at full width, and a hooked
+    batched product."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs, kernels
+    from kde_tpu_torch.utils.random import split
+    rng = np.random.default_rng(seed + 5)
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    circ, se2 = _hook_kw("c"), _hook_kw("eec")
+    stages, launches, out = {}, {}, {}
+
+    def circ_pair(shift=0.0):
+        """The pair of tests/test_manifolds.py:67-70, either side of pi."""
+        a = _wrap(np.pi - 0.2 + shift + 0.05 * rng.normal(size=(1, n)))
+        b = _wrap(-np.pi + 0.2 + shift + 0.05 * rng.normal(size=(1, n)))
+        return [kt.kde(f32(x), [0.1], **circ) for x in (a, b)]
+
+    pa, pb = circ_pair()
+    kt.set_seed(seed)
+    pq = _timed_product(lambda: pa * pb, sync, stages, launches)
+    out["circular"] = _check_near_pi(pq.points[:, 0], "circular `*`")
+    if pq.get_mu[0] is not circ["get_mu"][0]:
+        raise AssertionError("circular `*` lost its hooks")
+    queries = f32(_wrap(np.pi + 0.3 * rng.normal(size=(1, n))))
+    lp = _timed("hooked_evaluate", pq.log_eval, sync, stages,
+                launches)(queries)
+    if launches["hooked_evaluate"] != 0:
+        raise AssertionError("hooked evaluation launched the kernel")
+    m_ref = min(n, 1000)
+    ref = kernels.log_eval(queries[:, :m_ref].T.double().cpu(),
+                           pq.points.double().cpu(), pq.bw.double().cpu(),
+                           pq.weights.double().cpu(), pq._eval_diffop,
+                           chunk=max(1, (1 << 22) // n))
+    out["hooked_eval_err_vs_f64"] = compare(lp[:m_ref].cpu(), ref.float(),
+                                            "hooked evaluate vs float64")
+
+    def belief(x, y, theta):
+        pts = np.vstack([x + 0.15 * rng.normal(size=n),
+                         y + 0.15 * rng.normal(size=n),
+                         _wrap(theta + 0.05 * rng.normal(size=n))])
+        return kt.kde(f32(pts), [0.08, 0.08, 0.05], **se2)
+
+    sa, sb = belief(2.0, 1.0, np.pi - 0.15), belief(2.3, 0.8, -np.pi + 0.15)
+    fused = _timed_product(lambda: sa * sb, sync, stages, launches, "se2_")
+    xy = fused.points[:, :2].double().mean(dim=0).cpu().numpy()
+    at_wrap = float((fused.points[:, 2].abs() > np.pi / 2).double().mean())
+    out["se2_xy"], out["se2_at_wrap"] = xy.tolist(), at_wrap
+    if not (np.all(np.abs(xy - [2.15, 0.9]) < 0.2) and at_wrap > 0.9):
+        raise AssertionError(f"SE(2) fusion: position {xy}, {at_wrap} of "
+                             "the heading mass at the wrap")
+
+    sets = [circ_pair(0.05 * i) for i in range(b)]
+    sampler = kt.BatchedProductSampler(sets, n_out=n, n_iter=5)
+    select = gibbs.resolve_select("auto", n, sampler.plans.offsets[-1][1],
+                                  batch=b)
+    pts, idx = _timed("batched_gibbs", sampler.sample, sync, stages,
+                      launches)(seed, select=select)
+    pts0, idx0 = kt.ProductSampler(sets[0], n_out=n, n_iter=5).sample(
+        split(seed, b)[0], select=select)
+    same = (idx[0] == idx0).all(dim=0)
+    mismatches = int((~same).sum())
+    diff = float((pts[0] - pts0)[:, same].abs().max())
+    if mismatches > 1e-3 * n or diff > 1e-5:
+        raise AssertionError(f"hooked batched set 0 vs standalone: "
+                             f"{mismatches} of {n} chains differ, max |dx| "
+                             f"{diff}")
+    for i in range(b):
+        _check_near_pi(pts[i, 0] - 0.05 * i, f"hooked batched set {i}")
+    out.update(select=select, set0_label_mismatches=mismatches,
+               set0_max_abs_dx=diff)
+    _launched(launches, ("refit", "se2_refit"), dev)
+    return dict(seconds=stages, launches=launches, **out)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -477,7 +725,14 @@ def main():
     print(f"product_batched {BATCH_SETS}x[2x{N_SLICE}] on {card}: "
           f"{json.dumps(bt)}", flush=True)
     run("select", phase_select, dev, serve, (p, q))
-    for name in ("slice", "device_plan", "batched"):
+    fn = run("functionals", phase_functionals, dev, p, q)
+    print(f"functionals, sampling, serialization on 2x{N_SLICE} on {card}: "
+          f"{json.dumps(fn)}", flush=True)
+    mf = run("manifolds", phase_manifolds, dev)
+    print(f"manifold products 2x{N_SLICE}, batched {BATCH_SETS} sets on "
+          f"{card}: {json.dumps(mf)}", flush=True)
+    for name in ("slice", "device_plan", "batched", "functionals",
+                 "manifolds"):
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
     main_launches = sum(runs.values())

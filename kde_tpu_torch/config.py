@@ -1,4 +1,5 @@
-"""Routing gates of the port (ports ``kde_tpu/config.py:21-33, 70-109``).
+"""Routing gates of the port (ports ``kde_tpu/config.py:21-33, 70-109,
+131-141``).
 
 The size gates are the JAX package's: they are routing semantics (which path
 a given problem size takes), so the two packages route alike and the tests
@@ -6,6 +7,15 @@ compare like with like.  They were tuned for a TPU and are still to be
 re-measured on the H100.  The label-selection thresholds were measured on
 the H100.  Tests monkeypatch all of them as module attributes.
 """
+
+import logging
+
+_log = logging.getLogger("kde_tpu_torch")
+
+# The reference's FORCE_EVAL_DIRECT (src/KernelDensityEstimate.jl:54): its
+# evaluation is always direct (exact) here; the flag is kept for API
+# compatibility and read by nothing.
+FORCE_EVAL_DIRECT: bool = True
 
 # Above this many query*component pairs, evaluation stops materializing the
 # [M, N] logit matrix: float32 Euclidean densities take the tiled route
@@ -39,3 +49,15 @@ SELECT_BLOCKED_MAX_CHAINS: int = 0    # ...and chains
 SELECT_GUMBEL_WIDTH: int = 50000      # gumbel: leaf width where it won...
 SELECT_GUMBEL_BATCH: int = 1 << 30    # ...no set count where it won...
 SELECT_GUMBEL_WORK: int = 1 << 22     # ...or chains x width (cdf won 1e6)
+
+
+def set_force_eval_direct(flag: bool = False) -> None:
+    """API-compatible setter (reference ``setForceEvalDirect!``,
+    src/KernelDensityEstimate.jl:56-60).  Evaluation is exact here, so
+    turning direct evaluation off changes nothing but this flag."""
+    global FORCE_EVAL_DIRECT
+    FORCE_EVAL_DIRECT = bool(flag)
+    if not flag:
+        _log.info("kde_tpu_torch evaluates densities exactly; dual-tree "
+                  "pruning does not exist here and err_tol is accepted for "
+                  "compatibility only.")

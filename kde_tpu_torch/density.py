@@ -8,8 +8,8 @@ public constructor ``kde(points, bw=None, weights=None)`` follows the
 reference's conventions: ``points`` is ``[d, N]``, ``bw`` holds standard
 deviations that are squared into variances, a scalar broadcasts across
 dims, and omitting ``bw`` selects it by LOOCV (reference src/KDE01.jl:3-84).
-
-Euclidean only: manifold hooks are ROADMAP M8.
+A density may carry per-dimension manifold hooks (manifolds.py): evaluation
+then takes the ``diffop`` path, and products run on the manifold.
 """
 
 from __future__ import annotations
@@ -19,11 +19,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import config
+from . import manifolds
 from .ops import kernels
 from .ops.balltree import FlatBallTree, build_balltree
 from .ops.loocv import device_fit_arrays, ksize_bandwidths
-from .ops.tiled_eval import tiled_log_eval
 
 
 class KDE:
@@ -34,9 +33,12 @@ class KDE:
     NumPy inputs are copied to ``device`` as ``dtype`` (default
     ``torch.get_default_dtype()``), and their host copies are kept rounded
     through ``dtype`` so host consumers see what the device holds.  Tensor
-    inputs keep their device, and their dtype unless ``dtype`` is given."""
+    inputs keep their device, and their dtype unless ``dtype`` is given.
+    ``addop``/``diffop``/``get_mu``/``get_lambda`` are the manifold hooks,
+    one callable per dim or a length-1 tuple that broadcasts."""
 
     def __init__(self, points, bw, weights, multibandwidth: bool = False,
+                 addop=None, diffop=None, get_mu=None, get_lambda=None,
                  *, device=None, dtype=None):
         tensors = [isinstance(x, torch.Tensor) for x in (points, bw, weights)]
         if not any(tensors):
@@ -67,6 +69,10 @@ class KDE:
                              f"{tuple(self.bw.shape)}, "
                              f"{tuple(self.weights.shape)}")
         self.multibandwidth = bool(multibandwidth)
+        self.addop = manifolds.broadcast_ops(addop, d)
+        self.diffop = manifolds.broadcast_ops(diffop, d)
+        self.get_mu = manifolds.broadcast_ops(get_mu, d)
+        self.get_lambda = manifolds.broadcast_ops(get_lambda, d)
         self._tree: Optional[FlatBallTree] = None
 
     # ---- basic properties ---------------------------------------------------
@@ -96,6 +102,18 @@ class KDE:
                 self.host_points().T, self.host_weights(),
                 bw if self.multibandwidth else bw[0])
         return self._tree
+
+    @property
+    def _eval_diffop(self):
+        if manifolds.is_euclidean(self.diffop, manifolds.euclid_diff):
+            return None
+        return self.diffop
+
+    @property
+    def _hooks(self) -> dict:
+        """The manifold hooks as keyword arguments of :func:`kde`."""
+        return {attr: getattr(self, attr)
+                for attr, _ in manifolds.HOOK_DEFAULTS}
 
     # ---- accessors (reference src/KDE01.jl:91-136) --------------------------
 
@@ -133,31 +151,48 @@ class KDE:
         return (self.weights if ind is None
                 else self.weights[torch.as_tensor(ind)])
 
+    def bw_min(self, i: int = 0) -> np.ndarray:
+        """Per-dim lower variance bound below tree node ``i`` (reference
+        ``bwMin``, src/BallTreeDensity01.jl:98-99); a uniform-bandwidth
+        density returns the shared variance for every node."""
+        t = self.tree
+        return np.asarray(t.bw_min[i] if t.multibandwidth else t.bw_min)
+
+    def bw_max(self, i: int = 0) -> np.ndarray:
+        """Per-dim upper variance bound below tree node ``i`` (reference
+        ``bwMax``, src/BallTreeDensity01.jl:95-96)."""
+        t = self.tree
+        return np.asarray(t.bw_max[i] if t.multibandwidth else t.bw_max)
+
     def marginal(self, dims: Sequence[int]) -> "KDE":
-        """Marginal KDE over the selected dims (reference src/KDE01.jl:143-153)."""
+        """Marginal KDE over the selected dims, with their hooks (reference
+        src/KDE01.jl:143-153)."""
         dims = list(dims)
+        hooks = {k: None if ops is None else tuple(ops[i] for i in dims)
+                 for k, ops in self._hooks.items()}
         if self._host_points is not None:
             return KDE(self._host_points[:, dims], self._host_bw[:, dims],
-                       self._host_weights, self.multibandwidth,
+                       self._host_weights, self.multibandwidth, **hooks,
                        device=self.device, dtype=self.dtype)
         return KDE(self.points[:, dims], self.bw[:, dims], self.weights,
-                   self.multibandwidth)
+                   self.multibandwidth, **hooks)
 
     # ---- evaluation ---------------------------------------------------------
 
     def log_eval(self, pos, chunk: Optional[int] = None) -> torch.Tensor:
         """``log p`` at ``pos`` (``[d, M]``, or ``[M]`` for a 1-D density).
 
-        Above ``config.DIRECT_PAIR_LIMIT`` query*component pairs a float32
-        density takes the tiled route (the CUDA kernel on the card, its
-        plain twin on the CPU); other dtypes chunk the query axis."""
+        Without ``chunk``, above ``config.DIRECT_PAIR_LIMIT``
+        query*component pairs a float32 Euclidean density takes the tiled
+        route (the CUDA kernel on the card, its plain twin on the CPU);
+        other densities chunk the query axis (``kernels.log_eval_gated``).
+        A manifold density evaluates with its ``diffop``."""
         q = _as_query(pos, self.ndim, self.dtype, self.device)
-        if chunk is None and q.shape[0] * self.npts > config.DIRECT_PAIR_LIMIT:
-            if kernels.use_tiled_eval(self.dtype):
-                return tiled_log_eval(q, self.points, self.bw, self.weights)
-            chunk = max(1, config.DIRECT_PAIR_LIMIT // self.npts)
+        if chunk is None:
+            return kernels.log_eval_gated(q, self.points, self.bw,
+                                          self.weights, self._eval_diffop)
         return kernels.log_eval(q, self.points, self.bw, self.weights,
-                                chunk=chunk)
+                                self._eval_diffop, chunk=chunk)
 
     def evaluate(self, pos, lv_flag: bool = False, err_tol: float = 1e-3,
                  chunk: Optional[int] = None) -> torch.Tensor:
@@ -167,11 +202,18 @@ class KDE:
         compatibility; evaluation is exact."""
         del err_tol
         if lv_flag:
-            return torch.exp(kernels.log_eval_loo(self.points, self.bw,
-                                                  self.weights))
+            return torch.exp(kernels.log_eval_loo(
+                self.points, self.bw, self.weights, self._eval_diffop))
         return torch.exp(self.log_eval(pos, chunk=chunk))
 
     __call__ = evaluate
+
+    @property
+    def kernel_type(self):
+        """Kernel family (reference ``getType``/``GaussianKer``,
+        src/BallTreeDensity01.jl:3-5,49)."""
+        from .models.kernels import GaussianKernel
+        return GaussianKernel
 
     def __mul__(self, other: "KDE") -> "KDE":
         from .ops.gibbs import product   # gibbs imports this module
@@ -197,7 +239,8 @@ def _as_query(pos, ndim: int, dtype, device) -> torch.Tensor:
     return pos.T.contiguous()
 
 
-def kde(points, bw=None, weights=None, *, device="cpu", dtype=None) -> KDE:
+def kde(points, bw=None, weights=None, addop=None, diffop=None, get_mu=None,
+        get_lambda=None, *, device="cpu", dtype=None) -> KDE:
     """Construct a KDE (the reference's ``kde!``, src/KDE01.jl:3-84).
 
     Args:
@@ -206,12 +249,17 @@ def kde(points, bw=None, weights=None, *, device="cpu", dtype=None) -> KDE:
         ``[d]`` per dim, or ``[d, N]`` per kernel; ``None`` selects per-dim
         bandwidths by LOOCV.
       weights: ``[N]`` kernel weights (normalized here).
+      addop/diffop/get_mu/get_lambda: per-dimension manifold hooks
+        (length-1 tuples broadcast; manifolds.py).  The LOOCV bandwidth
+        search itself is Euclidean, as the reference's.
       device, dtype: where and in what type NumPy inputs go (default
         ``torch.get_default_dtype()``).  A tensor ``points`` keeps its own
         device, its dtype unless ``dtype`` is given, and is fitted there.
     """
+    hooks = dict(addop=addop, diffop=diffop, get_mu=get_mu,
+                 get_lambda=get_lambda)
     if isinstance(points, torch.Tensor):
-        return _kde_tensor(points, bw, weights, dtype)
+        return _kde_tensor(points, bw, weights, dtype, hooks)
     pts = np.asarray(points, dtype=np.float64)
     if pts.ndim == 1:
         pts = pts[None, :]
@@ -237,10 +285,10 @@ def kde(points, bw=None, weights=None, *, device="cpu", dtype=None) -> KDE:
         else:
             var = (bwa.reshape(d, n) ** 2).T
             multibw = True
-    return KDE(pts_nd, var, w, multibw, device=device, dtype=dtype)
+    return KDE(pts_nd, var, w, multibw, **hooks, device=device, dtype=dtype)
 
 
-def _kde_tensor(points: torch.Tensor, bw, weights, dtype) -> KDE:
+def _kde_tensor(points: torch.Tensor, bw, weights, dtype, hooks) -> KDE:
     """:func:`kde` for a tensor: everything stays on its device."""
     if dtype is None:
         dtype = (points.dtype if points.is_floating_point()
@@ -251,7 +299,7 @@ def _kde_tensor(points: torch.Tensor, bw, weights, dtype) -> KDE:
     d, n = pts.shape
     if bw is None:
         pts_nd, var, w = device_fit_arrays(pts, weights)
-        return KDE(pts_nd, var, w)
+        return KDE(pts_nd, var, w, **hooks)
     dev = pts.device
     if weights is None:
         w = torch.full((n,), 1.0 / n, dtype=dtype, device=dev)
@@ -267,4 +315,4 @@ def _kde_tensor(points: torch.Tensor, bw, weights, dtype) -> KDE:
     else:
         var = (bwa.reshape(d, n) ** 2).T
         multibw = True
-    return KDE(pts.T, var, w, multibw)
+    return KDE(pts.T, var, w, multibw, **hooks)

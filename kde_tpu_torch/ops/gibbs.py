@@ -27,8 +27,9 @@ the flat inverse CDF, block by block, or by Gumbel-max
 Numerical guards kept from the reference: per-dimension NaN suppression
 (:302-304), the degenerate fallback to a uniform draw when the candidate
 likelihood total is below 1e-99 (:311-315, tested in log space), and
-partial-dimension information zeroing (:189-209).  Euclidean only
-(manifold hooks are ROADMAP M8).
+partial-dimension information zeroing (:189-209).  Manifold hooks
+(manifolds.py) enter the information-form product, the candidate
+differences and the point draw; every set of a batch shares one quadruple.
 """
 
 from __future__ import annotations
@@ -200,15 +201,101 @@ def _get_plan(densities: Sequence[KDE], n_out: int, dtype, device,
 
 
 # ---------------------------------------------------------------------------
+# manifold hooks
+# ---------------------------------------------------------------------------
+
+# (addop, diffop, get_mu, get_lambda), all Euclidean
+_NO_HOOKS = (None, None, None, None)
+
+
+def normalize_hooks(addop, diffop, get_mu, get_lambda, d):
+    """Broadcast the hook tuples to ``d`` dims and canonicalize
+    (``kde_tpu/ops/gibbs.py:207-230``): all-Euclidean tuples collapse to
+    ``None`` (the fast paths), and a custom ``get_lambda`` with a default
+    ``get_mu`` (or the reverse) fills in the default explicitly, so the
+    generic information-form path runs instead of ignoring the custom
+    hook."""
+    addop_t = manifolds.broadcast_ops(addop, d)
+    diffop_t = manifolds.broadcast_ops(diffop, d)
+    get_mu_t = manifolds.broadcast_ops(get_mu, d)
+    get_lambda_t = manifolds.broadcast_ops(get_lambda, d)
+    if manifolds.is_euclidean(addop_t, manifolds.euclid_add):
+        addop_t = None
+    if manifolds.is_euclidean(diffop_t, manifolds.euclid_diff):
+        diffop_t = None
+    if manifolds.is_euclidean(get_lambda_t, manifolds.euclid_lambda) and \
+       manifolds.is_euclidean(get_mu_t, manifolds.euclid_mu):
+        get_mu_t = get_lambda_t = None
+    elif get_mu_t is None:
+        get_mu_t = (manifolds.euclid_mu,) * d
+    elif get_lambda_t is None:
+        get_lambda_t = (manifolds.euclid_lambda,) * d
+    return addop_t, diffop_t, get_mu_t, get_lambda_t
+
+
+def _density_hooks(densities: Sequence[KDE]):
+    """The hooks the densities carry, for the product engine
+    (``kde_tpu/ops/gibbs.py:821-880``; reference src/MSGibbs01.jl:672-675).
+
+    The hooks describe the product space, so if any density carries a
+    non-Euclidean hook every density must carry the identical tuple; and
+    per dimension the quadruple must be all Euclidean or all not (a
+    wrapped addop/diffop with a Euclidean product mean would put mass on
+    the wrong side of the wrap).  Either mismatch raises ``ValueError``.
+    Returns ``(addop, diffop, get_mu, get_lambda)``, ``None`` for
+    all-Euclidean."""
+    out = []
+    for attr, default in manifolds.HOOK_DEFAULTS:
+        carried = [(i, getattr(p, attr, None))
+                   for i, p in enumerate(densities)]
+        non_euclid = [(i, ops) for i, ops in carried
+                      if not manifolds.is_euclidean(ops, default)]
+        if not non_euclid:
+            out.append(None)
+            continue
+        first = non_euclid[0][1]
+        for i, ops in carried:
+            if ops is None or tuple(ops) != tuple(first):
+                raise ValueError(
+                    f"density {non_euclid[0][0]} carries a non-Euclidean "
+                    f"{attr} but density {i} does not match; products "
+                    "require every density to carry identical manifold "
+                    "hooks (the hooks describe the shared product space, "
+                    "reference src/MSGibbs01.jl:672-675)")
+        out.append(first)
+    d = densities[0].ndim
+    specs = manifolds.HOOK_DEFAULTS
+    bcast = [manifolds.broadcast_ops(h, d) if h is not None else
+             (default,) * d for h, (_, default) in zip(out, specs)]
+    for k in range(d):
+        wrapped = {attr: ops[k] is not default
+                   for ops, (attr, default) in zip(bcast, specs)}
+        if any(wrapped.values()) and not all(wrapped.values()):
+            have = [a for a, w in wrapped.items() if w]
+            missing = [a for a, w in wrapped.items() if not w]
+            raise ValueError(
+                f"dimension {k} carries non-Euclidean {have} but Euclidean "
+                f"{missing}: the product engine needs the full "
+                "addop/diffop/get_mu/get_lambda quadruple per manifold "
+                "dimension (a Euclidean product mean on a wrapped "
+                "dimension places mass on the wrong chart); attach all "
+                "four, or call prod_appx_ms_gibbs with explicit hooks")
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # chain-batched primitives; B = density sets, C = chains per set in the block
 # ---------------------------------------------------------------------------
 
-def _gauss_product(mu_sel, var_sel, mask, skip: int):
+def _gauss_product(mu_sel, var_sel, mask, skip: int, get_mu=None,
+                   get_lambda=None):
     """Information-form product of the selected kernels over densities
     (reference gaussianProductMeanCov!, src/MSGibbs01.jl:176-216).
 
     ``mu_sel``/``var_sel`` ``[B, C, dn, d]`` (zeroed at inactive dims),
-    ``mask [B, dn, d]``, ``skip``: density left out, or -1.  Returns
+    ``mask [B, dn, d]``, ``skip``: density left out, or -1.  With hooks,
+    dim ``k`` combines with ``get_lambda[k]``/``get_mu[k]`` over the
+    density axis of ``[B, C, dn]`` slices (manifolds.py).  Returns
     ``(mu, cov)``, ``[B, C, d]`` each, zero where no density contributes."""
     dn = mask.shape[1]
     keep = torch.arange(dn, device=mask.device)[:, None] != skip
@@ -218,15 +305,26 @@ def _gauss_product(mu_sel, var_sel, mask, skip: int):
                       1.0 / torch.where(pos, var_sel, torch.ones_like(var_sel)),
                       torch.zeros_like(var_sel))
     has = contrib.any(dim=2)                                  # [B, 1, d]
-    lam_tot = lam.sum(dim=2)                                  # [B, C, d]
-    cov = torch.where(has, 1.0 / torch.where(has, lam_tot,
-                                             torch.ones_like(lam_tot)),
-                      torch.zeros_like(lam_tot))
-    mu = cov * (lam * mu_sel).sum(dim=2)
-    return mu, cov
+    if get_lambda is None:                                    # Euclidean
+        lam_tot = lam.sum(dim=2)                              # [B, C, d]
+        cov = torch.where(has, 1.0 / torch.where(has, lam_tot,
+                                                 torch.ones_like(lam_tot)),
+                          torch.zeros_like(lam_tot))
+        return cov * (lam * mu_sel).sum(dim=2), cov
+    covs, mus = [], []
+    for k in range(mu_sel.shape[3]):
+        lt = get_lambda[k](lam[..., k], axis=-1)              # [B, C]
+        h = has[..., k]                                       # [B, 1]
+        c = torch.where(h, 1.0 / torch.where(h, lt, torch.ones_like(lt)),
+                        torch.zeros_like(lt))
+        covs.append(c)
+        mus.append(torch.where(h, get_mu[k](mu_sel[..., k], lam[..., k], c,
+                                            axis=-1), torch.zeros_like(c)))
+    return torch.stack(mus, dim=-1), torch.stack(covs, dim=-1)
 
 
-def _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active):
+def _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active,
+                       diffop=None):
     """Candidate log-likelihoods ``[B, C, w]`` of one density's level nodes
     (``lvl_mean_j``/``lvl_bw_j`` ``[B, w, d]``, ``lvl_logw_j [B, w]``)
     against a Gaussian of mean ``mu [B, C, d]`` and covariance ``bw + cov``
@@ -235,7 +333,8 @@ def _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active):
     gives 0 where it is NaN (:302-304) or inactive for its set (the
     partial-dim skip :281-285).  ``active = (tensor [B, d], its NumPy
     copy)``: a dim inactive in every set is skipped and one active in
-    every set needs no mask, so only mixed sets pay for the masking."""
+    every set needs no mask, so only mixed sets pay for the masking.
+    ``diffop``: per-dim manifold differences, or None."""
     active_dim, active_host = active
     acc = None
     for k in range(lvl_mean_j.shape[2]):
@@ -244,7 +343,10 @@ def _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active):
         c = lvl_bw_j[:, None, :, k]
         if cov is not None:
             c = c + cov[:, :, k:k + 1]
-        delta = lvl_mean_j[:, None, :, k] - mu[:, :, k:k + 1]
+        if diffop is None:
+            delta = lvl_mean_j[:, None, :, k] - mu[:, :, k:k + 1]
+        else:
+            delta = diffop[k](lvl_mean_j[:, None, :, k], mu[:, :, k:k + 1])
         per_dim = delta * delta / c + torch.log(c)
         per_dim = per_dim.nan_to_num(nan=0.0, posinf=math.inf,
                                      neginf=-math.inf)
@@ -279,10 +381,11 @@ def _apply_dead_fallback(logits, lvl_logw_j, dead):
     return torch.where(dead[..., None], fallback[:, None, :], logits)
 
 
-def _kernel_logits(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active):
+def _kernel_logits(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active,
+                   diffop=None):
     """:func:`_kernel_logits_raw` with the degenerate fallback applied."""
     logits = _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov,
-                                active)
+                                active, diffop)
     return _apply_dead_fallback(logits, lvl_logw_j, _dead_predicate(logits))
 
 
@@ -355,15 +458,25 @@ def _select_label_gumbel(gens, logits):
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool):
+def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool,
+                  hooks=_NO_HOOKS):
     """Draw ``[B, C, d]`` from the product of the current selections
-    (reference samplePoint!, src/MSGibbs01.jl:440-463)."""
-    mu, cov = _gauss_product(mu_sel, var_sel, mask, -1)
-    return mu + torch.sqrt(cov) * normals if jitter else mu
+    (reference samplePoint!, src/MSGibbs01.jl:440-463), stepping with the
+    per-dim ``addop`` when the hooks carry one."""
+    addop, _, get_mu, get_lambda = hooks
+    mu, cov = _gauss_product(mu_sel, var_sel, mask, -1, get_mu, get_lambda)
+    if not jitter:
+        return mu
+    step = torch.sqrt(cov) * normals
+    if addop is None:
+        return mu + step
+    return torch.stack([addop[k](mu[..., k], step[..., k])
+                        for k in range(mu.shape[-1])], dim=-1)
 
 
 def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
-               add_entropy: bool, select: str = "cdf", gens=None):
+               add_entropy: bool, select: str = "cdf", gens=None,
+               hooks=_NO_HOOKS):
     """A block of chains of ``B`` density sets.  ``u [B, C, bu]`` and
     ``nrm [B, C, bn]`` are their streams in the reference's consumption
     order:
@@ -374,13 +487,15 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     ``mask [B, dn, d]``.  ``select``: ``cdf``, ``blocked`` (on levels wider
     than 128) or ``gumbel``, which draws fresh noise from the sets'
     generators ``gens`` for every (level, sweep, density) stage and takes
-    ``u = None``.  Returns ``points [B, C, d]``, final labels
+    ``u = None``.  ``hooks``: the normalized manifold quadruple
+    (:func:`normalize_hooks`).  Returns ``points [B, C, d]``, final labels
     ``[B, C, dn]`` and per-level labels ``[B, C, L, dn]`` (0-based original
     point indices).  The reference's ``levelDown!`` label remap (:512-513)
     is left out: the conditioning re-selection overwrites it before any
     read."""
     b, c = nrm.shape[:2]
     dn, d, L = mask.shape[1], mask.shape[2], plans.n_levels
+    _, diffop, get_mu, get_lambda = hooks
     zero = torch.zeros((), dtype=nrm.dtype, device=nrm.device)
     # dims carried by at least one OTHER density (the LOO dimmask,
     # reference src/MSGibbs01.jl:270-275)
@@ -422,26 +537,31 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     for l in range(1, L + 1):
         lvl_mean, lvl_bw, lvl_logw, lvl_perm = plans.level(l)
         # (1) draw X from the product of the current selections (:594)
-        x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True)
+        x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True,
+                          hooks)
         # (2) re-select every density's label conditioned on X (:600)
         zs = [draw(lambda j=j: u_cond[:, :, l - 1, j],
                    _kernel_logits(lvl_mean[:, j], lvl_bw[:, j],
-                                  lvl_logw[:, j], x, None, active[j]))
+                                  lvl_logw[:, j], x, None, active[j],
+                                  diffop))
               for j in range(dn)]
         for j in range(dn):
             pick(j, zs[j], lvl_mean, lvl_bw, lvl_perm)
         # (3) n_iter sweeps of sequential LOO Gibbs over densities (:604-608)
         for t in range(n_iter):
             for j in range(dn):
-                mu, cov = _gauss_product(mu_sel, var_sel, mask, j)
+                mu, cov = _gauss_product(mu_sel, var_sel, mask, j, get_mu,
+                                         get_lambda)
                 logits = _kernel_logits(lvl_mean[:, j], lvl_bw[:, j],
-                                        lvl_logw[:, j], mu, cov, active[j])
+                                        lvl_logw[:, j], mu, cov, active[j],
+                                        diffop)
                 pick(j, draw(lambda j=j, t=t: u_gibbs[:, :, l - 1, t, j],
                              logits), lvl_mean, lvl_bw, lvl_perm)
         labels.append(perms.clone())
 
     # final draw (:612-625)
-    x = _sample_point(mu_sel, var_sel, mask, normals[:, :, L], add_entropy)
+    x = _sample_point(mu_sel, var_sel, mask, normals[:, :, L], add_entropy,
+                      hooks)
     return x, labels[-1], torch.stack(labels, dim=2)
 
 
@@ -456,14 +576,15 @@ def _chain_block(n_out: int, plan, itemsize: int) -> int:
 
 
 def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
-                      add_entropy: bool, select: str = "cdf", gens=None):
+                      add_entropy: bool, select: str = "cdf", gens=None,
+                      hooks=_NO_HOOKS):
     """All chains of ``B`` sets (``nrm [B, n_out, bn]``), in blocks of
     :func:`_chain_block` chains per set."""
     n_out = nrm.shape[1]
     block = _chain_block(n_out, plans, nrm.element_size())
     outs = [_run_chain(None if u is None else u[:, s:s + block],
                        nrm[:, s:s + block], plans, mask, n_iter, add_entropy,
-                       select, gens)
+                       select, gens, hooks)
             for s in range(0, n_out, block)]
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
@@ -519,7 +640,7 @@ def _keyed_streams(gen, n_out: int, bu: int, bn: int, dtype, device,
 
 
 def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
-                 add_entropy: bool, dtype, select: str):
+                 add_entropy: bool, dtype, select: str, hooks=_NO_HOOKS):
     """Keyed products of ``B = len(gens)`` sets: set ``b`` draws all its
     randomness from ``gens[b]``.  Returns ``points [B, d, n_out]``, labels
     ``[B, dn, n_out]`` and per-level labels ``[B, n_out, dn, L]``."""
@@ -532,12 +653,13 @@ def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
          else torch.stack([s[0] for s in streams]))
     nrm = torch.stack([s[1] for s in streams])
     pts, idx, labels = _gibbs_all_chains(u, nrm, plans, mask, n_iter,
-                                         add_entropy, select, gens)
+                                         add_entropy, select, gens, hooks)
     return pts.transpose(1, 2), idx.transpose(1, 2), labels.transpose(2, 3)
 
 
 def _gibbs_batched_sets(key, plans: _SetPlans, mask, n_out: int,
-                        n_iter: int, add_entropy: bool, dtype, select: str):
+                        n_iter: int, add_entropy: bool, dtype, select: str,
+                        hooks=_NO_HOOKS):
     """``B`` keyed products as one chain batch of ``B x n_out`` chains
     (``kde_tpu/ops/gibbs.py:967-994``): set ``i`` draws from the generator
     of ``split(key, B)[i]``, so it equals a standalone
@@ -546,7 +668,7 @@ def _gibbs_batched_sets(key, plans: _SetPlans, mask, n_out: int,
     gens = [make_generator(s, device)
             for s in split(key, mask.shape[0], device)]
     return _gibbs_keyed(gens, plans, mask, n_out, n_iter, add_entropy,
-                        dtype, select)
+                        dtype, select, hooks)
 
 
 def _mask_tensor(partial_dim_mask, dn: int, d: int, device):
@@ -583,8 +705,10 @@ def prod_appx_ms_gibbs(npd0,
       an_fcns/an_params: accepted for API compatibility (ignored, as in the
         reference, :678).
       n_iter: Gibbs sweeps per level (reference Niter).
-      addop/diffop/get_mu/get_lambda: manifold hooks; only the Euclidean
-        defaults are ported (ROADMAP M8).
+      addop/diffop/get_mu/get_lambda: per-dim manifold hooks (length-1
+        tuples broadcast).  As in the JAX package, only these explicit
+        hooks are used: the densities' own hooks enter through ``*``,
+        :class:`ProductSampler` and :class:`BatchedProductSampler`.
       add_entropy: if False, each output is the product-Gaussian mean of
         the selected kernels (:455-459).
       partial_dim_mask: ``[ndens][d]`` booleans, the dims each density
@@ -612,8 +736,8 @@ def prod_appx_ms_gibbs(npd0,
     device = densities[0].device
     if any(p.device != device for p in densities):
         raise ValueError("densities must lie on one device")
-    manifolds.require_euclidean(addop, diffop, get_mu, get_lambda,
-                                densities[0].ndim)
+    hooks = normalize_hooks(addop, diffop, get_mu, get_lambda,
+                            densities[0].ndim)
     if (rand_u is None) != (rand_n is None):
         raise ValueError(
             "replay mode needs BOTH streams: pass rand_u (uniforms) and "
@@ -627,7 +751,7 @@ def prod_appx_ms_gibbs(npd0,
     if rand_u is None:
         pts, idx, labels = _gibbs_keyed([make_generator(key, device)], plans,
                                         mask, n_out, n_iter, add_entropy,
-                                        dtype, select)
+                                        dtype, select, hooks)
     else:
         # streams may be over-allocated (the reference sizes randU at
         # Np*Ndens*(Niter+2)*Nlevels, :661); the first n_out*bu / n_out*bn
@@ -638,7 +762,7 @@ def prod_appx_ms_gibbs(npd0,
             .reshape(1, n_out, k), dtype=dtype, device=device)
         pts, idx, labels = _gibbs_all_chains(
             stream(rand_u, bu), stream(rand_n, bn), plans, mask, n_iter,
-            add_entropy)
+            add_entropy, hooks=hooks)
         pts, idx, labels = (pts.transpose(1, 2), idx.transpose(1, 2),
                             labels.transpose(2, 3))
     out = (pts[0], idx[0])
@@ -651,15 +775,20 @@ def product(densities: Sequence[KDE], add_entropy: bool = True,
             key=None) -> KDE:
     """The ``*`` operator: a Gibbs product with Niter=5 sized at the mean
     component count, then an LOOCV refit of the samples on their device
-    (reference src/MSGibbs01.jl:707-736)."""
+    (reference src/MSGibbs01.jl:707-736).  The densities' manifold hooks
+    (:func:`_density_hooks`) drive the product and ride on the output; the
+    refit bandwidth stays Euclidean, as the reference's ``kde!(pGM)``."""
     densities = list(densities)
+    addop, diffop, get_mu, get_lambda = _density_hooks(densities)
+    kw = dict(addop=addop, diffop=diffop, get_mu=get_mu,
+              get_lambda=get_lambda)
     if len(densities) == 1 and not add_entropy:
         # the reference's #70 short-circuit (src/MSGibbs01.jl:712-716)
-        return kde(densities[0].get_points())
+        return kde(densities[0].get_points(), **kw)
     n_out = int(round(float(np.mean([p.npts for p in densities]))))
     pts, _ = prod_appx_ms_gibbs(n_out, densities, n_iter=5,
-                                add_entropy=add_entropy, key=key)
-    return kde(pts)
+                                add_entropy=add_entropy, key=key, **kw)
+    return kde(pts, **kw)
 
 
 def product_batched(density_sets, n_iter: int = 5, add_entropy: bool = True,
@@ -685,7 +814,9 @@ def product_batched(density_sets, n_iter: int = 5, add_entropy: bool = True,
                       impl=select_loo_impl(n, pts.dtype),
                       chunk=int(config.LOOCV_CHUNK))
     var = (bwds.reshape(b, d) ** 2)[:, None, :].expand(b, n, d)
-    return [KDE(pts[i].T, var[i], w) for i in range(b)]
+    addop, diffop, get_mu, get_lambda = sampler.hooks
+    return [KDE(pts[i].T, var[i], w, addop=addop, diffop=diffop,
+                get_mu=get_mu, get_lambda=get_lambda) for i in range(b)]
 
 
 class BatchedProductSampler:
@@ -693,7 +824,10 @@ class BatchedProductSampler:
     (``kde_tpu/ops/gibbs.py:997-1135``), the serving path of nonparametric
     belief propagation: every iteration multiplies many message sets of
     the same shape.  All sets share ``(ndens, ndim, per-position npts)``;
-    :meth:`refresh` swaps in updated densities of the same shapes.
+    :meth:`refresh` swaps in updated densities of the same shapes.  The
+    densities' manifold hooks drive the products: every set must carry the
+    identical quadruple (one batch multiplies messages of one variable
+    type).
 
     >>> sampler = BatchedProductSampler([[p1, q1], [p2, q2]], n_out=1000)
     >>> pts, labels = sampler.sample(0)      # [B, d, n_out], [B, ndens, n_out]
@@ -736,11 +870,15 @@ class BatchedProductSampler:
         self.device = sets[0][0].device
         if any(p.device != self.device for ds in sets for p in ds):
             raise ValueError("densities must lie on one device")
-        for p in (p for ds in sets for p in ds):
-            manifolds.require_euclidean(
-                *(getattr(p, h, None)
-                  for h in ("addop", "diffop", "get_mu", "get_lambda")),
-                p.ndim)
+        set_hooks = [_density_hooks(ds) for ds in sets]
+        if any(h != set_hooks[0] for h in set_hooks[1:]):
+            raise ValueError(
+                "all density sets in one batch must carry identical "
+                "manifold hooks (the hooks describe the shared product "
+                "space of the batch; build separate samplers per variable "
+                "type)")
+        self.hooks = set_hooks[0]
+        self._norm_hooks = normalize_hooks(*self.hooks, sets[0][0].ndim)
         self._dtype = self.dtype or sets[0][0].dtype
         impls = {_resolve_plan_impl(ds, self.plan_impl, False) for ds in sets}
         self.B, self.ndens, self.ndim = len(sets), len(sets[0]), sets[0][0].ndim
@@ -779,14 +917,15 @@ class BatchedProductSampler:
         pts, idx, _ = _gibbs_batched_sets(key, self.plans, self.mask,
                                           self.n_out, self.n_iter,
                                           self.add_entropy, self._dtype,
-                                          select)
+                                          select, self._norm_hooks)
         return pts, idx
 
 
 class ProductSampler:
     """Reusable sampler for repeated products over the same densities: the
     plan is built once and each :meth:`sample` draws a fresh product (the
-    serving path of nonparametric belief propagation).
+    serving path of nonparametric belief propagation).  The densities'
+    manifold hooks drive the product, as in ``*``.
 
     >>> sampler = ProductSampler([p, q], n_out=1000, n_iter=5)
     >>> pts, labels = sampler.sample(torch.Generator().manual_seed(0))
@@ -800,6 +939,9 @@ class ProductSampler:
         if any(p.device != self.device for p in self.densities):
             raise ValueError("densities must lie on one device")
         self.dtype = dtype or self.densities[0].dtype
+        self.hooks = _density_hooks(self.densities)
+        self._norm_hooks = normalize_hooks(*self.hooks,
+                                           self.densities[0].ndim)
         self.n_out = n_out
         self.n_iter = n_iter
         self.add_entropy = add_entropy
@@ -815,5 +957,5 @@ class ProductSampler:
         pts, idx, _ = _gibbs_keyed([make_generator(key, self.device)],
                                    self.plans, self.mask, self.n_out,
                                    self.n_iter, self.add_entropy, self.dtype,
-                                   select)
+                                   select, self._norm_hooks)
         return pts[0], idx[0]

@@ -1,8 +1,8 @@
 """Dense Gaussian-mixture evaluation and LOO entropies (ports
 ``kde_tpu/ops/kernels.py:39-286``).
 
-Euclidean only (manifold ``diffop`` paths are ROADMAP M8).  The quadratic
-form of forward evaluation is the matmul expansion
+For Euclidean densities the quadratic form of forward evaluation is the
+matmul expansion
 
     sum_k (q_mk - mu_nk)^2 / s_nk + log s_nk
       =  (q^2) @ (1/s)^T  -  2 q @ (mu/s)^T  +  [sum_k mu^2/s + log s]_n ,
@@ -12,13 +12,16 @@ digits: on CUDA it must run in full float32, with TF32 matmuls off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
 Above the size gates of ``config`` float32 problems take the tiled route
 (ops/tiled_eval.py) and float64 problems chunk the query axis, as the JAX
-package's f32 guard on its Pallas route does.
+package's f32 guard on its Pallas route does.  A manifold ``diffop`` (one
+callable per dim, see manifolds.py) replaces the matmuls with per-dimension
+broadcast differences and never takes the tiled route: the kernel computes
+a Euclidean difference.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -28,34 +31,46 @@ from .tiled_eval import tiled_log_eval
 LOG_2PI = math.log(2.0 * math.pi)
 
 
-def use_tiled_eval(dtype) -> bool:
+def use_tiled_eval(dtype, diffop=None) -> bool:
     """Route an above-gate evaluation through :func:`tiled_log_eval`?
     (Counterpart of ``kde_tpu.ops.kernels.use_pallas_eval``.)  Yes for
-    float32: on a CUDA tensor the wrapper launches the kernel, on a CPU
-    tensor it takes the kernel's plain twin.  float64 takes the chunked
-    path."""
-    return dtype == torch.float32
+    float32 Euclidean densities: on a CUDA tensor the wrapper launches the
+    kernel, on a CPU tensor it takes the kernel's plain twin.  float64 and
+    manifold (``diffop``) densities take the chunked path."""
+    return dtype == torch.float32 and diffop is None
 
 
 def pairwise_quad(query: torch.Tensor, means: torch.Tensor,
-                  var: torch.Tensor) -> torch.Tensor:
-    """``[M, N]`` matrix of ``sum_k ((q_mk - mu_nk)^2 / var_nk + log var_nk)``
-    in the matmul form (see module docstring)."""
+                  var: torch.Tensor,
+                  diffop: Optional[Sequence[Callable]] = None
+                  ) -> torch.Tensor:
+    """``[M, N]`` matrix of
+    ``sum_k (diff(q_mk, mu_nk)^2 / var_nk + log var_nk)``: the matmul form
+    (see module docstring) for ``diffop=None``, per-dimension broadcast
+    differences otherwise."""
     logdet = torch.log(var).sum(dim=1)                       # [N]
-    inv = 1.0 / var
-    a = (query * query) @ inv.T
-    b = query @ (means * inv).T
-    c = (means * means * inv).sum(dim=1)
-    return a - 2.0 * b + (c + logdet)[None, :]
+    if diffop is None:
+        inv = 1.0 / var
+        a = (query * query) @ inv.T
+        b = query @ (means * inv).T
+        c = (means * means * inv).sum(dim=1)
+        return a - 2.0 * b + (c + logdet)[None, :]
+    quad = logdet[None, :]
+    for k, op in enumerate(diffop):
+        delta = op(query[:, k:k + 1], means[None, :, k])     # [M, N]
+        quad = quad + delta * delta / var[None, :, k]
+    return quad
 
 
 def log_gauss_mixture(query: torch.Tensor, means: torch.Tensor,
                       var: torch.Tensor, log_weights: torch.Tensor,
+                      diffop: Optional[Sequence[Callable]] = None,
                       exclude: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``log p(x_m) = logsumexp_n [log w_n - quad_mn / 2] - d/2 log 2pi``;
     ``exclude [M]`` masks component ``exclude[m]`` out of query ``m``."""
     d = query.shape[1]
-    logits = log_weights[None, :] - 0.5 * pairwise_quad(query, means, var)
+    logits = log_weights[None, :] - 0.5 * pairwise_quad(query, means, var,
+                                                         diffop)
     if exclude is not None:
         n = means.shape[0]
         cols = torch.arange(n, device=query.device)
@@ -65,30 +80,55 @@ def log_gauss_mixture(query: torch.Tensor, means: torch.Tensor,
 
 
 def log_eval(query: torch.Tensor, means: torch.Tensor, var: torch.Tensor,
-             weights: torch.Tensor, chunk: Optional[int] = None
-             ) -> torch.Tensor:
+             weights: torch.Tensor,
+             diffop: Optional[Sequence[Callable]] = None,
+             chunk: Optional[int] = None) -> torch.Tensor:
     """``log p(x)`` for each query row, in query blocks of ``chunk`` rows
     when given (bounds the live ``[chunk, N]`` logits)."""
     logw = torch.log(weights)
     if chunk is None or query.shape[0] <= chunk:
-        return log_gauss_mixture(query, means, var, logw)
-    return torch.cat([log_gauss_mixture(query[s:s + chunk], means, var, logw)
+        return log_gauss_mixture(query, means, var, logw, diffop)
+    return torch.cat([log_gauss_mixture(query[s:s + chunk], means, var, logw,
+                                        diffop)
                       for s in range(0, query.shape[0], chunk)])
 
 
+def log_eval_gated(query: torch.Tensor, means: torch.Tensor,
+                   var: torch.Tensor, weights: torch.Tensor,
+                   diffop: Optional[Sequence[Callable]] = None
+                   ) -> torch.Tensor:
+    """:func:`log_eval` with the size gate of ``KDE.log_eval``
+    (``kde_tpu/density.py:287-301``): above ``config.DIRECT_PAIR_LIMIT``
+    query*component pairs a float32 Euclidean density takes the tiled
+    route, anything else query blocks that keep the live logits within the
+    limit."""
+    n = means.shape[0]
+    chunk = None
+    if query.shape[0] * n > config.DIRECT_PAIR_LIMIT:
+        if use_tiled_eval(means.dtype, diffop):
+            return tiled_log_eval(query, means, var, weights)
+        chunk = max(1, config.DIRECT_PAIR_LIMIT // n)
+    return log_eval(query, means, var, weights, diffop, chunk=chunk)
+
+
 def log_eval_loo(points: torch.Tensor, var: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
+                 weights: torch.Tensor,
+                 diffop: Optional[Sequence[Callable]] = None) -> torch.Tensor:
     """Leave-one-out log-density of a KDE at its own centers,
     ``log( sum_{i != j} w_i K(x_j; x_i) / (1 - w_j) )``
-    (reference src/DualTree01.jl:146,222-227,333-336)."""
+    (reference src/DualTree01.jl:146,222-227,333-336).
+
+    With a ``diffop`` the evaluation is dense and unchunked, as in the JAX
+    package (``kde_tpu/ops/kernels.py:152-155``): at N = 20,000 its few
+    ``[N, N]`` float32 temporaries take 1.6 GB each."""
     n = points.shape[0]
-    if n * n > config.DIRECT_PAIR_LIMIT:
+    if diffop is None and n * n > config.DIRECT_PAIR_LIMIT:
         if use_tiled_eval(points.dtype):
             return (tiled_log_eval(points, points, var, weights, loo=True)
                     - torch.log1p(-weights))
         return log_eval_loo_chunked(points, var, weights,
                                     max(1, config.DIRECT_PAIR_LIMIT // n))
-    lp = log_gauss_mixture(points, points, var, torch.log(weights),
+    lp = log_gauss_mixture(points, points, var, torch.log(weights), diffop,
                            exclude=torch.arange(n, device=points.device))
     return lp - torch.log1p(-weights)
 

@@ -1,5 +1,5 @@
 """Leave-one-out cross-validated bandwidth selection (ports
-``kde_tpu/ops/loocv.py:30-184, 187-242, 245-251, 318-456, 459-494``).
+``kde_tpu/ops/loocv.py``).
 
 Per dimension the reference builds the 1-D marginal, brackets the search
 from the ball-tree geometry (``neighborMinMax``) and runs a golden-section
@@ -20,8 +20,8 @@ import numpy as np
 import torch
 
 from .. import config
-from .kernels import (batched_loo_entropy, loo_entropy_given_d2,
-                      loo_pairwise_d2, use_tiled_eval)
+from .kernels import (batched_loo_entropy, entropy_kernel,
+                      loo_entropy_given_d2, loo_pairwise_d2, use_tiled_eval)
 
 _C = (3.0 - math.sqrt(5.0)) / 2.0   # golden-section constants
 _R = 1.0 - _C                       # (reference src/CrossValidation.jl:51-52)
@@ -65,6 +65,19 @@ def _golden_core(f, ax, bx, cx, tol):
         nf2 = torch.where(take2, fp, torch.where(take1, f1, f2))
         x0, x1, x2, x3, f1, f2 = nx0, nx1, nx2, nx3, nf1, nf2
     return torch.where(f1 < f2, x1, x2), torch.minimum(f1, f2)
+
+
+def golden_batched(f, ax, bx, cx, tol):
+    """Golden-section minimization of a batch of independent 1-D problems
+    (``kde_tpu/ops/loocv.py:34-50``; reference ``golden``,
+    src/CrossValidation.jl:44-98): ``f`` maps a probe tensor to its values
+    elementwise, ``ax < bx < cx`` bracket each minimum.  Returns NumPy
+    ``(xmin, fmin)``."""
+    def t(x):
+        x = torch.as_tensor(x)
+        return x if x.is_floating_point() else x.to(torch.float64)
+    xmin, fmin = _golden_core(f, t(ax), t(bx), t(cx), float(tol))
+    return xmin.cpu().numpy(), fmin.cpu().numpy()
 
 
 @functools.lru_cache(maxsize=256)
@@ -209,3 +222,34 @@ def ksize_bandwidths_device(points: torch.Tensor, weights=None,
     return ksize_rows(points.T.contiguous(), w, lo, hi, tol=float(tol),
                       impl=select_loo_impl(n, points.dtype),
                       chunk=int(config.LOOCV_CHUNK))
+
+
+def nloo_ll(alpha: float, p, dtype=torch.float64) -> float:
+    """Negative average LOO log-likelihood of ``p`` with its variances
+    scaled by ``alpha^2`` (std units; reference nLOO_LL,
+    src/CrossValidation.jl:15-24), computed in ``dtype`` on ``p``'s
+    device.  Uniform-bandwidth densities only, as in the reference
+    (:10)."""
+    if p.multibandwidth:
+        raise ValueError("nLOO_LL requires a uniform bandwidth "
+                         "(reference src/CrossValidation.jl:10)")
+    scale = float(alpha) ** 2
+    return float(entropy_kernel(p.points.to(dtype), p.bw.to(dtype) * scale,
+                                p.weights.to(dtype)))
+
+
+def ksize(p, dtype=torch.float64):
+    """LOOCV refit of a density (reference ksize,
+    src/CrossValidation.jl:110-120): fresh per-dim bandwidths, searched in
+    ``dtype``, for ``p``'s points and weights.  The refit keeps ``p``'s
+    device, dtype and manifold hooks (the search itself is Euclidean, as
+    the reference's); a tensor-backed ``p`` refits without leaving its
+    device."""
+    from ..density import kde
+    if p._host_points is None:
+        bwds = ksize_bandwidths_device(p.points, p.weights, dtype=dtype)
+        return kde(p.get_points(), bwds, p.weights, **p._hooks,
+                   dtype=p.dtype)
+    pts, w = p.host_points(), p.host_weights()
+    bwds = ksize_bandwidths(pts.T, w, dtype=dtype, device=p.device)
+    return kde(pts, bwds, w, **p._hooks, device=p.device, dtype=p.dtype)

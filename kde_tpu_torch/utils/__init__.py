@@ -1,0 +1,1 @@
+from .debug import fence  # noqa: F401

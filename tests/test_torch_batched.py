@@ -173,7 +173,8 @@ def test_rejects_bad_batches():
         kt.product_batched(sets, mesh=object())
     hooked = kt.kde(rng.normal(size=(2, 16)), [0.4], dtype=F64)
     hooked.addop = (lambda a, b: a - b,)
-    with pytest.raises(NotImplementedError, match="M8"):
+    # a hooked density beside a plain one in a set raises, as in JAX
+    with pytest.raises(ValueError, match="manifold hooks"):
         kt.BatchedProductSampler([[hooked, sets[0][1]]], n_out=16)
     assert kt.product_batched([]) == []
 

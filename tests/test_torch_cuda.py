@@ -152,3 +152,74 @@ def test_small_product_batched_launches_kernel(cuda, monkeypatch):
         assert k.points.is_cuda and k._tree is None and torch.all(k.bw > 0)
         mean = k.points.double().mean(dim=0).cpu().numpy()
         assert np.all(np.abs(mean - (0.25 * i + 0.25)) < 0.25)
+
+
+def test_small_hooked_product_on_card(cuda, monkeypatch):
+    """A circular `*` on the card with both gates at 1: the refit launches
+    the kernel, the hooked evaluation does not (the kernel computes a
+    Euclidean difference) and matches float64 on the CPU."""
+    import math
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import config, manifolds as m
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
+    monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
+    circ = dict(addop=(m.circular_add,), diffop=(m.circular_diff,),
+                get_mu=(m.circular_mu,), get_lambda=(m.circular_lambda,))
+    rng = np.random.default_rng(4)
+    wrap = lambda a: a - 2 * np.pi * np.round(a / (2 * np.pi))
+    dens = [kt.kde(torch.as_tensor(wrap(s + 0.05 * rng.normal(size=(1, 400))),
+                                   dtype=torch.float32, device=cuda),
+                   [0.1], **circ)
+            for s in (math.pi - 0.2, -math.pi + 0.2)]
+    n0 = tiled_eval.LAUNCHES
+    pq = kt.product(dens, key=0)
+    n1 = tiled_eval.LAUNCHES
+    q = wrap(math.pi + 0.3 * rng.normal(size=(1, 300)))
+    lp = pq.log_eval(q)
+    torch.cuda.synchronize()
+    assert n1 > n0 and tiled_eval.LAUNCHES == n1
+    assert pq.points.is_cuda and pq.get_mu[0] is m.circular_mu
+    x = pq.points[:, 0].cpu().numpy()
+    assert np.median(np.abs(wrap(x - np.pi))) < 0.5
+    ref = kernels.log_eval(torch.as_tensor(q.T), pq.points.cpu().double(),
+                           pq.bw.cpu().double(), pq.weights.cpu().double(),
+                           pq._eval_diffop)
+    _assert_close(lp, ref)
+
+
+def test_small_functionals_on_card(cuda, monkeypatch, tmp_path):
+    """entropy on the kernel (gates at 1) against the same call on the
+    plain twin; the densities that resample, ksize, kld("unscented"),
+    from_string and load_kde build from a card density stay on the card."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import config
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
+    monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
+    rng = np.random.default_rng(5)
+    p = kt.kde(torch.as_tensor(rng.normal(size=(2, 500)), dtype=torch.float32,
+                               device=cuda))
+    q = kt.kde(torch.as_tensor(rng.normal(size=(2, 400)) + 0.5,
+                               dtype=torch.float32, device=cuda))
+    before = tiled_eval.LAUNCHES
+    h = kt.entropy(p)
+    torch.cuda.synchronize()
+    assert tiled_eval.LAUNCHES == before + 1
+    launch = kernels.tiled_log_eval
+    monkeypatch.setattr(kernels, "tiled_log_eval",
+                        tiled_eval.tiled_log_eval_ref)
+    _assert_close(h.reshape(1), kt.entropy(p).reshape(1))
+    monkeypatch.setattr(kernels, "tiled_log_eval", launch)
+    before = tiled_eval.LAUNCHES
+    u = kt.kld(p, q, "unscented")
+    assert tiled_eval.LAUNCHES > before and bool(torch.isfinite(u))
+    kt.save_kde(str(tmp_path / "p.npz"), p)
+    made = [kt.resample(p, 300, "lcv", key=1),
+            kt.resample(p, 300, "discrete", key=1), kt.ksize(p),
+            kt.from_string(kt.to_string(p), device=cuda),
+            kt.load_kde(str(tmp_path / "p.npz"), device=cuda)]
+    for k in made:
+        assert k.points.device.type == "cuda" and k.device.type == "cuda"
+    assert torch.equal(made[4].points, p.points)
+    assert torch.equal(made[3].points, p.points)

@@ -172,8 +172,12 @@ def test_select_modes_and_hooks():
         assert idx.min() >= 0 and idx.max() < 20
     with pytest.raises(ValueError, match="select"):
         prod_appx_ms_gibbs(8, dens, key=0, select="bogus")
-    with pytest.raises(NotImplementedError, match="M8"):
-        prod_appx_ms_gibbs(8, dens, key=0, addop=(lambda a, b: a + b,))
+    # explicit hooks run, as in JAX: a custom addop doing Euclidean
+    # arithmetic draws exactly the hook-free product
+    hooked = prod_appx_ms_gibbs(8, dens, key=0, addop=(lambda a, b: a + b,))
+    plain = prod_appx_ms_gibbs(8, dens, key=0)
+    for h, p in zip(hooked, plain):
+        np.testing.assert_array_equal(h.numpy(), p.numpy())
     with pytest.raises(ValueError, match="BOTH"):
         prod_appx_ms_gibbs(8, dens, rand_u=np.zeros(1000))
 

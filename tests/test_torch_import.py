@@ -19,6 +19,10 @@ def _run(code, env=None):
 
 def test_import_leaves_jax_out():
     code = ("import sys, kde_tpu_torch, kde_tpu_torch.convert\n"
+            "import kde_tpu_torch.functionals, kde_tpu_torch.serialization\n"
+            "import kde_tpu_torch.manifolds, kde_tpu_torch.models.kernels\n"
+            "import kde_tpu_torch.ops.sampling, kde_tpu_torch.ops.loocv\n"
+            "import kde_tpu_torch.utils.debug\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kde_tpu') or "
             "m.startswith(('jax.', 'kde_tpu.'))]\n"
             "print(bad)\n"
