@@ -35,7 +35,23 @@ Phases, one line of findings each:
      components (`*` must land near pi; its hooked evaluation must not
      launch the kernel and matches float64 on the CPU), SE(2) 3-D beliefs
      of 2 x 20,000, and a hooked BatchedProductSampler over B = 4 circular
-     sets, set 0 against its standalone draw.
+     sets, set 0 against its standalone draw;
+ 11. the distributed layer (kde_tpu_torch.parallel).  (a) In a one-rank
+     NCCL world: the chain-sharded product of phase 4's densities
+     (20,000 chains) and the kernel-sharded replay product of phase 5's
+     (256 chains) against the unsharded engine (labels on >= 99.9 % of
+     chains), product_sharded (its refit must launch the kernel),
+     product_batched(mesh=) over 4 x [2 x 20,000] against the unsharded
+     batch, sharded_log_eval at 20,000 x 20,000 (must launch the kernel),
+     sharded_loo_entropy and ksize_bandwidths_sharded against their
+     single-device calls, and estimate_product_memory against the
+     allocator's peak (ratio in [0.5, 2]).  (b) Two copies of this script
+     (``--shared-card-worker``) share the card in a gloo world: the
+     kernel-sharded product at S = 2 and the chain-sharded product over
+     both ranks against the plain engine, and sharded_log_eval with the
+     components split over both ranks (each rank must launch the kernel
+     and keep the result on the card).  Launches made by the references
+     that a sharded call is compared with are not counted.
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
@@ -60,6 +76,13 @@ SELECT_MODES = ("cdf", "blocked", "gumbel")
 SELECT_REPS = 5
 MEAN_TOL = 0.05          # product means vs their analytic values
 RTOL = ATOL = 2e-4       # tests/test_pallas_eval.py: f32 sums in another order
+AGREE_MIN = 0.999        # sharded vs unsharded: share of chains that agree
+N_LOO = 4096             # sharded LOO entropy
+N_KSIZE = 8192           # sharded LOOCV bandwidths
+KSIZE_RTOL = 1e-5        # sharded vs single-device bandwidths, float32
+                         # (first set at 1e-3; the H100 read 0.0)
+SHARED_CHAINS = 1024     # phase 11b kernel-sharded replay chains
+WORKER_TIMEOUT = 300     # seconds: phase 11b workers, collectives
 
 
 def _sync():
@@ -164,19 +187,20 @@ def _timed(name, fn, sync, stages, launches):
     return wrapper
 
 
-def _timed_product(run, sync, stages, launches, prefix=""):
+def _timed_product(run, sync, stages, launches, prefix="", where=None):
     """``run()`` a `*` product, which draws the Gibbs chains and then refits
-    the samples with ``gibbs.kde``: that call is wrapped to split the two
-    stages' times and launches."""
+    the samples with ``kde`` of module ``where`` (default ``ops.gibbs``):
+    that call is wrapped to split the two stages' times and launches."""
     from kde_tpu_torch.ops import gibbs, tiled_eval
-    refit = gibbs.kde
-    gibbs.kde = _timed(prefix + "refit", refit, sync, stages, launches)
+    where = where or gibbs
+    refit = where.kde
+    where.kde = _timed(prefix + "refit", refit, sync, stages, launches)
     try:
         sync()
         t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
         out = run()
     finally:
-        gibbs.kde = refit
+        where.kde = refit
     stages[prefix + "gibbs"] = (time.perf_counter() - t0
                                 - stages[prefix + "refit"])
     launches[prefix + "gibbs"] = (tiled_eval.LAUNCHES - l0
@@ -673,6 +697,295 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     return dict(seconds=stages, launches=launches, **out)
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _agree(idx, want, what):
+    """Share of chains whose labels all agree; raises under AGREE_MIN."""
+    share = float((idx == want).all(dim=0).double().mean())
+    if share < AGREE_MIN:
+        raise AssertionError(f"{what}: labels agree on {share:.5f} of the "
+                             f"chains, under {AGREE_MIN}")
+    return share
+
+
+def _host_ms(fn, sync, reps=3):
+    """Median host milliseconds of ``fn()`` ending in a sync, after one
+    warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _replay_streams(rng, n_out, dens, n_iter):
+    from kde_tpu_torch.ops import balltree, gibbs
+    L = balltree.n_levels(n_out, [k.npts for k in dens])
+    bu, bn = gibbs._stream_sizes(len(dens), dens[0].ndim, L, n_iter)
+    return (rng.uniform(size=n_out * bu).astype(np.float32),
+            rng.normal(size=n_out * bn).astype(np.float32))
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches inside the block belong to a reference that the
+    path is compared with, not to the path: the count is put back after
+    it."""
+    from kde_tpu_torch.ops import tiled_eval
+    n = tiled_eval.LAUNCHES
+    try:
+        yield
+    finally:
+        tiled_eval.LAUNCHES = n
+
+
+def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
+    """Phase 11a: the sharded entry points in a one-rank NCCL world, each
+    against its unsharded counterpart at full width.  The references'
+    kernel launches stay out of the path's count."""
+    import torch
+    import torch.distributed as dist
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import kernels, loocv
+    from kde_tpu_torch.parallel import product as par_product
+    stages, launches, out = {}, {}, {}
+
+    def stage(name, fn, *args, **kw):
+        return _timed(name, fn, _sync, stages, launches)(*args, **kw)
+
+    def reference(name, fn, *args, **kw):
+        with _uncounted():
+            return stage(name, fn, *args, **kw)
+
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl", timeout=WORKER_TIMEOUT)
+    try:
+        mesh, mesh2 = par.make_mesh(), par.make_mesh_2d((1, 1))
+        n = p.npts
+        # chain-sharded product against the unsharded keyed call, timed
+        # in turns (sharded, plain, plain, sharded)
+        calls = {"chain_sharded": lambda: par.prod_appx_ms_gibbs_sharded(
+                     mesh, n, [p, q], n_iter=5, key=seed),
+                 "chain_plain": lambda: kt.prod_appx_ms_gibbs(
+                     n, [p, q], n_iter=5, key=seed, select="cdf")}
+        idx = {}
+        for name in ("chain_sharded", "chain_plain", "chain_plain",
+                     "chain_sharded"):
+            call = reference if name == "chain_plain" else stage
+            idx[name] = call(name, calls[name])[1]
+        out["chain_agree"] = _agree(idx["chain_sharded"], idx["chain_plain"],
+                                    "chain-sharded")
+        # sharded `*`: the refit launches K1, the result stays on the card
+        pq = _timed_product(
+            lambda: par.product_sharded(mesh, [p, q], key=seed), _sync,
+            stages, launches, "sharded_", where=par_product)
+        out["sharded_mean"] = _check_mean(pq, 0.25, "product_sharded", n)
+        if pq._host_points is not None or pq._tree is not None \
+                or pq.device.type != dev.type:
+            raise AssertionError("product_sharded left the device")
+
+        # kernel-sharded replay (S = 1) against the plain engine
+        dens = serve.densities
+        ru, rn = _replay_streams(np.random.default_rng(seed + 11),
+                                 SERVE_CHAINS, dens, 5)
+        ks = lambda: par.prod_appx_ms_gibbs_kernel_sharded(
+            mesh2, SERVE_CHAINS, dens, n_iter=5, rand_u=ru, rand_n=rn)
+        plain = lambda: kt.prod_appx_ms_gibbs(SERVE_CHAINS, dens, n_iter=5,
+                                              rand_u=ru, rand_n=rn)
+        with _uncounted():
+            want = plain()[1]
+        out["kernel_agree"] = _agree(ks()[1], want, "kernel-sharded")
+        out["kernel_sharded_ms"] = _host_ms(ks, _sync)
+        with _uncounted():
+            out["kernel_plain_ms"] = _host_ms(plain, _sync)
+        out["kernel_s1_overhead"] = (out["kernel_sharded_ms"]
+                                     / out["kernel_plain_ms"])
+
+        # set-sharded batch against the unsharded batch
+        rng = np.random.default_rng(seed + 3)
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+        bw = [1.06 * n ** -0.2]
+        sets = [[kt.kde(f32(rng.normal(size=(2, n)) + 0.25 * i), bw),
+                 kt.kde(f32(rng.normal(size=(2, n)) + 0.25 * i + 0.5), bw)]
+                for i in range(b)]
+        got = stage("batched_sharded", kt.product_batched, sets, key=seed,
+                    mesh=mesh)
+        want = reference("batched_plain", kt.product_batched, sets,
+                         key=seed)
+        agree, bw_rel = [], 0.0
+        for g, w in zip(got, want):
+            agree.append(float(((g.points - w.points).abs() <= 1e-5)
+                               .all(dim=1).double().mean()))
+            bw_rel = max(bw_rel, float(((g.bw[0] - w.bw[0]).abs()
+                                        / w.bw[0]).max()))
+        out["batched_agree"], out["batched_bw_rel"] = agree, bw_rel
+        if min(agree) < AGREE_MIN or bw_rel > 1e-5:
+            raise AssertionError(f"set-sharded batch: chains agree {agree}, "
+                                 f"bandwidths {bw_rel} apart")
+
+        # sharded evaluation and LOOCV against the single-device calls
+        qs = f32(np.random.default_rng(seed + 12).normal(size=(n, 2)))
+        lp = stage("sharded_log_eval", par.sharded_log_eval, mesh2, qs,
+                   pq.points, pq.bw, pq.weights)
+        if not lp.is_cuda:
+            raise AssertionError("sharded_log_eval left the card")
+        with _uncounted():
+            want = kernels.log_eval_gated(qs, pq.points, pq.bw, pq.weights)
+        out["log_eval_err"] = compare(lp, want, "sharded_log_eval")
+        pts, var = pq.points[:N_LOO].contiguous(), pq.bw[:N_LOO].contiguous()
+        w = torch.full((len(pts),), 1.0 / len(pts), dtype=pts.dtype,
+                       device=dev)
+        h = stage("sharded_loo_entropy", par.sharded_loo_entropy, mesh2,
+                  pts, var, w)
+        with _uncounted():
+            want = kernels.entropy_kernel(pts, var, w)
+        out["loo_rel"] = abs(float(h) / float(want) - 1.0)
+        pts = pq.points[:N_KSIZE].contiguous()
+        bws = stage("ksize_sharded", par.ksize_bandwidths_sharded, mesh2,
+                    pts)
+        with _uncounted():
+            want = loocv.ksize_bandwidths_device(pts)
+        out["ksize_rel"] = float(((bws - want).abs() / want).max())
+        if out["loo_rel"] > RTOL or out["ksize_rel"] > KSIZE_RTOL:
+            raise AssertionError(f"sharded LOOCV: entropy {out['loo_rel']}, "
+                                 f"bandwidths {out['ksize_rel']} apart")
+        with _uncounted():
+            out["sizing"] = _sizing(dev, [(serve.densities, SERVE_CHAINS),
+                                          ([p, q], n)], seed)
+        _launched(launches, ("sharded_refit", "batched_sharded",
+                             "sharded_log_eval"), dev)
+    finally:
+        dist.destroy_process_group()
+    return dict(seconds=stages, launches=launches, **out)
+
+
+def _sizing(dev, cases, seed):
+    """estimate_product_memory against the allocator's peak over the keyed
+    product of device-resident copies (a fresh plan, built in the
+    window)."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.parallel import estimate_product_memory
+    rows = {}
+    for dens, n_out in cases:
+        copies = [kt.KDE(k.points, k.bw, k.weights) for k in dens]
+        _sync()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kt.prod_appx_ms_gibbs(n_out, copies, n_iter=5, key=seed)
+        _sync()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        est = estimate_product_memory(copies, n_out, n_iter=5,
+                                      dtype=torch.float32)
+        ratio = est["total"] / peak
+        rows[f"2x{dens[0].npts}/{n_out}"] = dict(estimate=est, peak=peak,
+                                                 ratio=ratio)
+        if not 0.5 <= ratio <= 2.0:
+            raise AssertionError(f"sizing 2x{dens[0].npts}, {n_out} chains: "
+                                 f"estimate/peak {ratio}")
+    return rows
+
+
+def shared_card_worker(rank, world, port):
+    """Phase 11b, one rank: gloo over CUDA tensors, both ranks on cuda:0.
+    Prints one JSON line of its findings last."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import parallel as par
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    par.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                             backend="gloo", timeout=WORKER_TIMEOUT)
+    rng = np.random.default_rng(SEED + 13)
+    bw = [float(1.06 * N_SLICE ** -0.2)]
+    dens = [kt.kde((rng.normal(size=(2, N_SLICE)) + s).astype(np.float32),
+                   bw, device=dev, dtype=torch.float32) for s in (0.0, 0.5)]
+    out = {"rank": rank}
+    ru, rn = _replay_streams(np.random.default_rng(SEED + 14), SHARED_CHAINS,
+                             dens, 5)
+    kmesh = par.make_mesh(axis_name=par.KERNELS)
+    t0 = time.perf_counter()
+    _, idx = par.prod_appx_ms_gibbs_kernel_sharded(
+        kmesh, SHARED_CHAINS, dens, n_iter=5, rand_u=ru, rand_n=rn)
+    _sync()
+    out["kernel_sharded_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, want = kt.prod_appx_ms_gibbs(SHARED_CHAINS, dens, n_iter=5,
+                                    rand_u=ru, rand_n=rn)
+    _sync()
+    out["kernel_plain_s"] = time.perf_counter() - t0
+    out["kernel_agree"] = _agree(idx, want, "kernel-sharded S = 2")
+    t0 = time.perf_counter()
+    _, idx = par.prod_appx_ms_gibbs_sharded(par.make_mesh(), N_SLICE, dens,
+                                            n_iter=5, key=SEED)
+    _sync()
+    out["chain_sharded_s"] = time.perf_counter() - t0
+    if rank == 0:
+        t0 = time.perf_counter()
+        _, want = kt.prod_appx_ms_gibbs(N_SLICE, dens, n_iter=5, key=SEED,
+                                        select="cdf")
+        _sync()
+        out["chain_plain_s"] = time.perf_counter() - t0
+        out["chain_agree"] = _agree(idx, want, "chain-sharded over 2 ranks")
+    # the components split over the two ranks: each local part launches
+    # the kernel, and the result stays on the card
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    qs = torch.as_tensor(np.random.default_rng(SEED + 15).normal(
+        size=(N_SLICE, 2)), dtype=torch.float32, device=dev)
+    k = dens[0]
+    n0 = tiled_eval.LAUNCHES
+    t0 = time.perf_counter()
+    lp = par.sharded_log_eval(kmesh, qs, k.points, k.bw, k.weights)
+    _sync()
+    out["log_eval_sharded_s"] = time.perf_counter() - t0
+    n = out["log_eval_launches"] = tiled_eval.LAUNCHES - n0
+    if n < 1 or not lp.is_cuda:
+        raise AssertionError(f"sharded_log_eval S = 2: {n} launches, result "
+                             f"on {lp.device}")
+    out["log_eval_err"] = compare(lp, kernels.log_eval_gated(
+        qs, k.points, k.bw, k.weights), "sharded_log_eval S = 2")
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def phase_shared_card():
+    """Phase 11b: two copies of this script in worker mode share the card
+    in a gloo world (NCCL refuses two ranks on one device); a worker that
+    fails or outlives WORKER_TIMEOUT fails the phase."""
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shared-card-worker",
+         str(r), "2", port], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    deadline = time.monotonic() + WORKER_TIMEOUT
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, text) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"shared-card rank {r} exited "
+                                 f"{proc.returncode}:\n{text[-4000:]}")
+    return [json.loads(text.strip().splitlines()[-1]) for text in outs]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -731,8 +1044,16 @@ def main():
     mf = run("manifolds", phase_manifolds, dev)
     print(f"manifold products 2x{N_SLICE}, batched {BATCH_SETS} sets on "
           f"{card}: {json.dumps(mf)}", flush=True)
+    pl = run("parallel", phase_parallel, dev, p, q, serve)
+    print(f"parallel 11a, one NCCL rank, on {card}: {json.dumps(pl)}",
+          flush=True)
+    sc = phase_shared_card()
+    # counted in the two worker processes, around the sharded call only
+    runs["shared_card"] = sum(r["log_eval_launches"] for r in sc)
+    print(f"parallel 11b, two gloo ranks sharing the card, on {card}: "
+          f"{json.dumps(sc)}", flush=True)
     for name in ("slice", "device_plan", "batched", "functionals",
-                 "manifolds"):
+                 "manifolds", "parallel", "shared_card"):
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
     main_launches = sum(runs.values())
@@ -750,4 +1071,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shared-card-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        shared_card_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

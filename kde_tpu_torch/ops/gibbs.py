@@ -381,14 +381,6 @@ def _apply_dead_fallback(logits, lvl_logw_j, dead):
     return torch.where(dead[..., None], fallback[:, None, :], logits)
 
 
-def _kernel_logits(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov, active,
-                   diffop=None):
-    """:func:`_kernel_logits_raw` with the degenerate fallback applied."""
-    logits = _kernel_logits_raw(lvl_mean_j, lvl_bw_j, lvl_logw_j, mu, cov,
-                                active, diffop)
-    return _apply_dead_fallback(logits, lvl_logw_j, _dead_predicate(logits))
-
-
 def _select_label(u, logits):
     """Inverse-CDF draw: labels ``[...]`` from uniforms ``u [...]`` and
     ``logits [..., w]``, the count of CDF entries below ``u``, i.e. the
@@ -474,9 +466,40 @@ def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool,
                         for k in range(mu.shape[-1])], dim=-1)
 
 
+def _local_choose(select: str = "cdf", gens=None):
+    """The single-device selection step of :func:`_run_chain`: for each
+    density ``j`` of ``js``, the degenerate fallback on ``logits_of(j)``
+    ``[B, C, w]``, ``select``'s draw (``u_of(j)`` ``[B, C]`` is read only
+    by ``cdf`` and ``blocked``) and a gather of the winner's mean, variance
+    and original label from the level ``lvl``."""
+    def draw(u_slot, logits):
+        w = logits.shape[-1]
+        if select == "gumbel":
+            return _select_label_gumbel(gens, logits)
+        if select == "blocked" and w > 128:   # narrow levels keep the scan
+            return _select_label_blocked(u_slot(), logits,
+                                         _blocked_block_size(w))
+        return _select_label(u_slot(), logits)
+
+    def choose(js, u_of, logits_of, lvl):
+        lvl_mean, lvl_bw, lvl_logw, lvl_perm = lvl
+        sets = torch.arange(lvl_mean.shape[0],
+                            device=lvl_mean.device)[:, None]
+        out = []
+        for j in js:
+            logits = logits_of(j)
+            logits = _apply_dead_fallback(logits, lvl_logw[:, j],
+                                          _dead_predicate(logits))
+            z = draw(lambda: u_of(j), logits)
+            out.append((lvl_mean[sets, j, z], lvl_bw[sets, j, z],
+                        lvl_perm[sets, j, z]))
+        return out
+    return choose
+
+
 def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
                add_entropy: bool, select: str = "cdf", gens=None,
-               hooks=_NO_HOOKS):
+               hooks=_NO_HOOKS, choose=None):
     """A block of chains of ``B`` density sets.  ``u [B, C, bu]`` and
     ``nrm [B, C, bn]`` are their streams in the reference's consumption
     order:
@@ -488,14 +511,19 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     than 128) or ``gumbel``, which draws fresh noise from the sets'
     generators ``gens`` for every (level, sweep, density) stage and takes
     ``u = None``.  ``hooks``: the normalized manifold quadruple
-    (:func:`normalize_hooks`).  Returns ``points [B, C, d]``, final labels
-    ``[B, C, dn]`` and per-level labels ``[B, C, L, dn]`` (0-based original
-    point indices).  The reference's ``levelDown!`` label remap (:512-513)
-    is left out: the conditioning re-selection overwrites it before any
-    read."""
+    (:func:`normalize_hooks`).  ``choose(js, u_of, logits_of, lvl)``
+    replaces the selection (default :func:`_local_choose`): it gives each
+    density of ``js`` its winner's ``(mean [B, C, d], var [B, C, d], label
+    [B, C])`` from the raw logits, the uniforms and ``plans.level(l)``;
+    the kernel-sharded engine passes one that selects across shards.
+    Returns ``points [B, C, d]``, final labels ``[B, C, dn]`` and per-level
+    labels ``[B, C, L, dn]`` (0-based original point indices).  The
+    reference's ``levelDown!`` label remap (:512-513) is left out: the
+    conditioning re-selection overwrites it before any read."""
     b, c = nrm.shape[:2]
     dn, d, L = mask.shape[1], mask.shape[2], plans.n_levels
     _, diffop, get_mu, get_lambda = hooks
+    choose = choose or _local_choose(select, gens)
     zero = torch.zeros((), dtype=nrm.dtype, device=nrm.device)
     # dims carried by at least one OTHER density (the LOO dimmask,
     # reference src/MSGibbs01.jl:270-275)
@@ -516,47 +544,38 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     mu_sel = root(plans.t_mean).expand(b, c, dn, d).contiguous()
     var_sel = root(plans.t_bw).expand(b, c, dn, d).contiguous()
     perms = torch.zeros((b, c, dn), dtype=torch.int64, device=nrm.device)
-    sets = torch.arange(b, device=nrm.device)[:, None]
     labels = []
 
-    def pick(j, z, lvl_mean, lvl_bw, lvl_perm):
+    def pick(j, sel):
+        mean, var, perm = sel
         m = mask[:, None, j]
-        mu_sel[:, :, j] = torch.where(m, lvl_mean[sets, j, z], zero)
-        var_sel[:, :, j] = torch.where(m, lvl_bw[sets, j, z], zero)
-        perms[:, :, j] = lvl_perm[sets, j, z]
-
-    def draw(u_slot, logits):
-        w = logits.shape[-1]
-        if select == "gumbel":
-            return _select_label_gumbel(gens, logits)
-        if select == "blocked" and w > 128:   # narrow levels keep the scan
-            return _select_label_blocked(u_slot(), logits,
-                                         _blocked_block_size(w))
-        return _select_label(u_slot(), logits)
+        mu_sel[:, :, j] = torch.where(m, mean, zero)
+        var_sel[:, :, j] = torch.where(m, var, zero)
+        perms[:, :, j] = perm
 
     for l in range(1, L + 1):
-        lvl_mean, lvl_bw, lvl_logw, lvl_perm = plans.level(l)
+        lvl = plans.level(l)
+        lvl_mean, lvl_bw, lvl_logw = lvl[:3]
         # (1) draw X from the product of the current selections (:594)
         x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True,
                           hooks)
         # (2) re-select every density's label conditioned on X (:600)
-        zs = [draw(lambda j=j: u_cond[:, :, l - 1, j],
-                   _kernel_logits(lvl_mean[:, j], lvl_bw[:, j],
-                                  lvl_logw[:, j], x, None, active[j],
-                                  diffop))
-              for j in range(dn)]
+        sels = choose(range(dn), lambda j: u_cond[:, :, l - 1, j],
+                      lambda j: _kernel_logits_raw(
+                          lvl_mean[:, j], lvl_bw[:, j], lvl_logw[:, j], x,
+                          None, active[j], diffop), lvl)
         for j in range(dn):
-            pick(j, zs[j], lvl_mean, lvl_bw, lvl_perm)
+            pick(j, sels[j])
         # (3) n_iter sweeps of sequential LOO Gibbs over densities (:604-608)
         for t in range(n_iter):
             for j in range(dn):
                 mu, cov = _gauss_product(mu_sel, var_sel, mask, j, get_mu,
                                          get_lambda)
-                logits = _kernel_logits(lvl_mean[:, j], lvl_bw[:, j],
-                                        lvl_logw[:, j], mu, cov, active[j],
-                                        diffop)
-                pick(j, draw(lambda j=j, t=t: u_gibbs[:, :, l - 1, t, j],
-                             logits), lvl_mean, lvl_bw, lvl_perm)
+                pick(j, choose([j], lambda j: u_gibbs[:, :, l - 1, t, j],
+                               lambda j: _kernel_logits_raw(
+                                   lvl_mean[:, j], lvl_bw[:, j],
+                                   lvl_logw[:, j], mu, cov, active[j],
+                                   diffop), lvl)[0])
         labels.append(perms.clone())
 
     # final draw (:612-625)
@@ -577,14 +596,15 @@ def _chain_block(n_out: int, plan, itemsize: int) -> int:
 
 def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
                       add_entropy: bool, select: str = "cdf", gens=None,
-                      hooks=_NO_HOOKS):
+                      hooks=_NO_HOOKS, choose=None):
     """All chains of ``B`` sets (``nrm [B, n_out, bn]``), in blocks of
-    :func:`_chain_block` chains per set."""
+    :func:`_chain_block` chains per set (the block count depends only on
+    the plan's widths and ``n_out``, which every rank of a mesh shares)."""
     n_out = nrm.shape[1]
     block = _chain_block(n_out, plans, nrm.element_size())
     outs = [_run_chain(None if u is None else u[:, s:s + block],
                        nrm[:, s:s + block], plans, mask, n_iter, add_entropy,
-                       select, gens, hooks)
+                       select, gens, hooks, choose)
             for s in range(0, n_out, block)]
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
@@ -655,20 +675,6 @@ def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
     pts, idx, labels = _gibbs_all_chains(u, nrm, plans, mask, n_iter,
                                          add_entropy, select, gens, hooks)
     return pts.transpose(1, 2), idx.transpose(1, 2), labels.transpose(2, 3)
-
-
-def _gibbs_batched_sets(key, plans: _SetPlans, mask, n_out: int,
-                        n_iter: int, add_entropy: bool, dtype, select: str,
-                        hooks=_NO_HOOKS):
-    """``B`` keyed products as one chain batch of ``B x n_out`` chains
-    (``kde_tpu/ops/gibbs.py:967-994``): set ``i`` draws from the generator
-    of ``split(key, B)[i]``, so it equals a standalone
-    :func:`prod_appx_ms_gibbs` keyed with that seed."""
-    device = mask.device
-    gens = [make_generator(s, device)
-            for s in split(key, mask.shape[0], device)]
-    return _gibbs_keyed(gens, plans, mask, n_out, n_iter, add_entropy,
-                        dtype, select, hooks)
 
 
 def _mask_tensor(partial_dim_mask, dn: int, d: int, device):
@@ -796,15 +802,18 @@ def product_batched(density_sets, n_iter: int = 5, add_entropy: bool = True,
     """Batched ``*`` (``kde_tpu/ops/gibbs.py:915-964``): one batched Gibbs
     draw over ``B`` same-shaped density sets, then one LOOCV refit of all
     ``B x d`` sample rows at once; returns ``B`` product KDEs on the sets'
-    device.  No reference counterpart: the reference computes each ``*``
-    serially (src/MSGibbs01.jl:707-736)."""
+    device.  With ``mesh`` (see :class:`BatchedProductSampler`) each rank
+    draws and refits only its own sets, then gathers the samples and
+    bandwidths, so every rank returns all ``B`` products.  No reference
+    counterpart: the reference computes each ``*`` serially
+    (src/MSGibbs01.jl:707-736)."""
     sets = [list(ds) for ds in density_sets]
     if not sets:
         return []
     n_out = int(round(float(np.mean([p.npts for p in sets[0]]))))
     sampler = BatchedProductSampler(sets, n_out=n_out, n_iter=n_iter,
                                     add_entropy=add_entropy, mesh=mesh)
-    pts, _ = sampler.sample(key)                      # [B, d, n]
+    pts, _ = sampler._sample_local(key)               # [B_local, d, n]
     b, d, n = pts.shape
     w = torch.full((n,), 1.0 / n, dtype=pts.dtype, device=pts.device)
     lo, hi = _slices_on(n, pts.device)
@@ -812,11 +821,13 @@ def product_batched(density_sets, n_iter: int = 5, add_entropy: bool = True,
     # one weight vector and run as one batch
     bwds = ksize_rows(pts.reshape(b * d, n), w, lo, hi,
                       impl=select_loo_impl(n, pts.dtype),
-                      chunk=int(config.LOOCV_CHUNK))
-    var = (bwds.reshape(b, d) ** 2)[:, None, :].expand(b, n, d)
+                      chunk=int(config.LOOCV_CHUNK)).reshape(b, d)
+    pts, bwds = sampler._gather(pts), sampler._gather(bwds)
+    var = (bwds ** 2)[:, None, :].expand(-1, n, d)
     addop, diffop, get_mu, get_lambda = sampler.hooks
     return [KDE(pts[i].T, var[i], w, addop=addop, diffop=diffop,
-                get_mu=get_mu, get_lambda=get_lambda) for i in range(b)]
+                get_mu=get_mu, get_lambda=get_lambda)
+            for i in range(sampler.B)]
 
 
 class BatchedProductSampler:
@@ -840,12 +851,18 @@ class BatchedProductSampler:
                  dtype=None, mesh=None, plan: str = "auto"):
         """``plan``: auto|host|device level-hierarchy builder (auto takes
         the device builder for device-resident densities, the refresh path
-        of a belief-propagation loop).  ``mesh`` (the set axis sharded over
-        devices) is not ported yet."""
+        of a belief-propagation loop).  ``mesh``: a 1-axis
+        ``DeviceMesh`` (kde_tpu_torch.parallel) whose size divides ``B``:
+        rank ``r`` of ``S`` builds and draws only sets
+        ``r*B/S .. (r+1)*B/S - 1`` (the graph-parallel axis of belief
+        propagation), and :meth:`sample` gathers them."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the set axis sharded over devices) is not ported "
-                "yet (ROADMAP M11)")
+            from torch.distributed.device_mesh import DeviceMesh
+            if (not isinstance(mesh, DeviceMesh)
+                    or len(mesh.mesh_dim_names or ()) != 1):
+                raise ValueError("mesh must be a 1-axis "
+                                 "torch.distributed DeviceMesh")
+        self.mesh = mesh
         self.n_out = n_out
         self.n_iter = n_iter
         self.add_entropy = add_entropy
@@ -882,6 +899,22 @@ class BatchedProductSampler:
         self._dtype = self.dtype or sets[0][0].dtype
         impls = {_resolve_plan_impl(ds, self.plan_impl, False) for ds in sets}
         self.B, self.ndens, self.ndim = len(sets), len(sets[0]), sets[0][0].ndim
+        if partial_dim_masks is None:
+            mask = torch.ones((self.B, self.ndens, self.ndim),
+                              dtype=torch.bool, device=self.device)
+        else:
+            mask = torch.as_tensor(
+                np.asarray(partial_dim_masks, dtype=bool)
+                .reshape(self.B, self.ndens, self.ndim), device=self.device)
+        self.rows = slice(0, self.B)               # the sets this rank runs
+        if self.mesh is not None:
+            s = self.mesh.size()
+            if self.B % s:
+                raise ValueError(f"the mesh's {s} ranks do not divide the "
+                                 f"B = {self.B} density sets")
+            r = self.mesh.get_local_rank()
+            self.rows = slice(r * self.B // s, (r + 1) * self.B // s)
+        sets, self.mask = sets[self.rows], mask[self.rows]
         if "device" in impls:
             # all sets device-resident (the belief-propagation refresh
             # pattern), or a mix, which takes one builder for the whole
@@ -893,13 +926,6 @@ class BatchedProductSampler:
             self.plans = _stack_plans([
                 _get_plan(ds, self.n_out, self._dtype, self.device, "host")
                 for ds in sets])
-        if partial_dim_masks is None:
-            self.mask = torch.ones((self.B, self.ndens, self.ndim),
-                                   dtype=torch.bool, device=self.device)
-        else:
-            self.mask = torch.as_tensor(
-                np.asarray(partial_dim_masks, dtype=bool)
-                .reshape(self.B, self.ndens, self.ndim), device=self.device)
 
     def refresh(self, density_sets, partial_dim_masks=_KEEP):
         """Swap in updated densities of the same shapes.
@@ -910,15 +936,35 @@ class BatchedProductSampler:
             partial_dim_masks = self._masks_arg
         self._build(density_sets, partial_dim_masks)
 
-    def sample(self, key=None, select: str = "auto"):
-        """Returns ``(points [B, d, n_out], labels [B, ndens, n_out])``."""
+    def _sample_local(self, key=None, select: str = "auto"):
+        """This rank's sets: ``(points [B_local, d, n_out], labels
+        [B_local, ndens, n_out])``.  Set ``i`` draws from the generator of
+        ``split(key, B)[i]`` (with a mesh and a non-int ``key``, of
+        ``split(seed, B)[i]`` for one seed drawn on rank 0), so it equals a
+        standalone :func:`prod_appx_ms_gibbs` keyed with that seed."""
         select = resolve_select(select, self.n_out,
                                 self.plans.offsets[-1][1], batch=self.B)
-        pts, idx, _ = _gibbs_batched_sets(key, self.plans, self.mask,
-                                          self.n_out, self.n_iter,
-                                          self.add_entropy, self._dtype,
-                                          select, self._norm_hooks)
+        if self.mesh is not None:
+            from ..parallel.collectives import shared_seed
+            key = shared_seed(key, self.device)
+        gens = [make_generator(s, self.device)
+                for s in split(key, self.B, self.device)[self.rows]]
+        pts, idx, _ = _gibbs_keyed(gens, self.plans, self.mask, self.n_out,
+                                   self.n_iter, self.add_entropy, self._dtype,
+                                   select, self._norm_hooks)
         return pts, idx
+
+    def _gather(self, x):
+        """All ``B`` sets' rows of a per-set tensor ``[B_local, ...]``."""
+        if self.mesh is None:
+            return x
+        from ..parallel.collectives import gather_rows
+        return gather_rows(x, self.mesh, self.mesh.mesh_dim_names[0], self.B)
+
+    def sample(self, key=None, select: str = "auto"):
+        """Returns ``(points [B, d, n_out], labels [B, ndens, n_out])``."""
+        pts, idx = self._sample_local(key, select)
+        return self._gather(pts), self._gather(idx)
 
 
 class ProductSampler:

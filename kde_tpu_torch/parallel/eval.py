@@ -1,0 +1,153 @@
+"""Sharded density evaluation and LOOCV reductions (ports
+``kde_tpu/parallel/eval.py:37-205``).
+
+Over a ``chains x kernels`` mesh: query rows split over ``chains``,
+mixture components over ``kernels``; the weighted log-sum-exp over
+components becomes a ``pmax`` of the shard maxima and a ``psum`` of the
+shifted sums, and the LOO entropy adds a ``psum`` over ``chains`` of the
+per-query terms (SURVEY §5: the only places the framework needs
+communication).  Every rank passes the same full inputs and works on its
+own query and component rows, on the device of the first input (a CUDA
+tensor stays on the card whatever the backend).  An axis the mesh lacks counts
+as size 1; the row counts must divide the axes (pad with zero-weight
+components), except in :func:`ksize_bandwidths_sharded`, which pads.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops import kernels
+from ..ops.kernels import LOG_2PI, pairwise_quad
+from ..ops.loocv import _golden_core, _slices_on, bracket_rows
+from .collectives import gather_rows, pmax, psum
+from .mesh import CHAINS, KERNELS, axis_index, axis_size
+
+
+def _rows(mesh: DeviceMesh, axis: str, n: int) -> slice:
+    s = axis_size(mesh, axis)
+    if n % s:
+        raise ValueError(f"{n} rows do not divide the '{axis}' axis of size "
+                         f"{s}; pad them (zero-weight components)")
+    i = axis_index(mesh, axis)
+    return slice(i * (n // s), (i + 1) * (n // s))
+
+
+def _local(x, rows: slice, dev) -> torch.Tensor:
+    return torch.as_tensor(x)[rows].to(dev).contiguous()
+
+
+def _lse_over_kernels(v: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """``log sum_shards exp(v)``, rowwise: ``pmax`` then ``psum`` of the
+    shifted exponentials; a row that is -inf on every shard stays -inf."""
+    m = pmax(v, mesh, KERNELS)
+    ms = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    return ms + torch.log(psum(torch.exp(v - ms), mesh, KERNELS))
+
+
+def sharded_log_eval(mesh: DeviceMesh, query, means, var,
+                     weights) -> torch.Tensor:
+    """``log p`` at each query row (``[M, d]`` queries, ``[N, d]``
+    means/variances, ``[N]`` weights), queries split over ``chains`` and
+    components over ``kernels``.  Each shard's part is
+    ``kernels.log_eval_gated`` on its components (the tiled kernel K1 above
+    ``config.DIRECT_PAIR_LIMIT`` pairs in float32), which sums unnormalized
+    ``w_n`` terms, so the shard values combine by log-sum-exp.  Returns
+    ``[M]``, gathered, on the queries' device."""
+    dev = torch.as_tensor(query).device
+    qr = _rows(mesh, CHAINS, query.shape[0])
+    kr = _rows(mesh, KERNELS, means.shape[0])
+    q = _local(query, qr, dev)
+    v = kernels.log_eval_gated(q, _local(means, kr, dev),
+                               _local(var, kr, dev),
+                               _local(weights, kr, dev))
+    return gather_rows(_lse_over_kernels(v, mesh), mesh, CHAINS,
+                       query.shape[0])
+
+
+def _entropy_terms(logp, qw, mesh: DeviceMesh):
+    """``-sum_j w_j log p_j`` over every chain shard's queries, +inf if a
+    positive-weight query has zero likelihood (the guard of
+    ``kernels.eval_avg_logl_from_logp``); ``logp``/``qw`` ``[R, m]`` give
+    ``[R]``."""
+    pos = qw > 0
+    zero = torch.zeros_like(logp)
+    h = -torch.where(pos, qw * torch.where(pos, logp, zero), zero).sum(dim=-1)
+    bad = (torch.isneginf(logp) & pos).to(logp.dtype).sum(dim=-1)
+    hb = psum(torch.stack([h, bad]), mesh, CHAINS)
+    return torch.where(hb[1] > 0, torch.full_like(hb[0], math.inf), hb[0])
+
+
+def sharded_loo_entropy(mesh: DeviceMesh, points, var,
+                        weights) -> torch.Tensor:
+    """Leave-one-out entropy with the ``N x N`` pairs split over both axes:
+    the diagonal mask is offset by the shard's row and column starts, the
+    log-sum-exp over ``kernels`` and the weighted sum over ``chains`` are
+    collectives.  Returns a scalar on the points' device."""
+    dev = torch.as_tensor(points).device
+    n, d = points.shape
+    qr, kr = _rows(mesh, CHAINS, n), _rows(mesh, KERNELS, n)
+    q, qw = _local(points, qr, dev), _local(weights, qr, dev)
+    m, v, w = (_local(x, kr, dev) for x in (points, var, weights))
+    logits = torch.log(w)[None, :] - 0.5 * pairwise_quad(q, m, v)
+    rows = torch.arange(qr.start, qr.stop, device=dev)
+    cols = torch.arange(kr.start, kr.stop, device=dev)
+    logits = logits.masked_fill(rows[:, None] == cols[None, :], -math.inf)
+    lmax = pmax(logits.max(dim=1).values, mesh, KERNELS).clamp_min(-1e30)
+    s = psum(torch.exp(logits - lmax[:, None]).sum(dim=1), mesh, KERNELS)
+    logp = torch.log(s) + lmax - 0.5 * d * LOG_2PI - torch.log1p(-qw)
+    return _entropy_terms(logp[None], qw[None], mesh)[0]
+
+
+def ksize_bandwidths_sharded(mesh: DeviceMesh, points, weights=None,
+                             tol: float = 1e-2, dtype=None) -> torch.Tensor:
+    """LOOCV bandwidth selection with each probe's per-dimension
+    ``[N, N]`` LOO entropies split over the whole mesh: the golden search
+    of ``ops/loocv.py`` (brackets, probes, updates) runs on every rank with
+    replicated state, and each probe's log-sum-exps and sums are
+    collectives, so every rank takes the same branch.  ``N`` is padded to
+    the mesh with zero-weight rows, which add nothing.  Same selection as
+    ``ksize_bandwidths`` up to the order of the sums.  Returns ``[d]``
+    std-dev bandwidths on the points' device."""
+    points = torch.as_tensor(points, dtype=dtype)
+    dev = points.device
+    n, d = points.shape
+    if weights is None:
+        w = torch.full((n,), 1.0 / n, dtype=points.dtype, device=dev)
+    else:
+        w = torch.as_tensor(weights, dtype=points.dtype).to(dev)
+        w = w / w.sum()
+    base, ax, bx, cx = bracket_rows(points.T.contiguous(), *_slices_on(n, dev))
+    nc, nk = axis_size(mesh, CHAINS), axis_size(mesh, KERNELS)
+    pad = (-n) % (nc * nk)
+    pts_p = torch.nn.functional.pad(points, (0, 0, 0, pad))
+    w_p = torch.nn.functional.pad(w, (0, pad))
+    qr, kr = _rows(mesh, CHAINS, n + pad), _rows(mesh, KERNELS, n + pad)
+    q, qw, m, mw = pts_p[qr], w_p[qr], pts_p[kr], w_p[kr]
+    diag = (torch.arange(qr.start, qr.stop, device=dev)[:, None]
+            == torch.arange(kr.start, kr.stop, device=dev)[None, :])
+    logw = torch.where(mw > 0, torch.log(mw.clamp_min(
+        torch.finfo(mw.dtype).tiny)), torch.full_like(mw, -math.inf))
+
+    def nloo(x):
+        scale = (x ** 2).to(q.dtype)
+        logps = []
+        for k in range(d):
+            c = scale[k] * base[k] ** 2
+            delta = q[:, k, None] - m[None, :, k]
+            logits = logw[None, :] - 0.5 * (delta * delta / c + torch.log(c))
+            logits = logits.masked_fill(diag, -math.inf)
+            lmax = pmax(logits.max(dim=1).values, mesh,
+                        KERNELS).clamp_min(-1e30)
+            ssum = psum(torch.exp(logits - lmax[:, None]).sum(dim=1), mesh,
+                        KERNELS)
+            logps.append(torch.log(ssum) + lmax - 0.5 * LOG_2PI
+                         - torch.log1p(-qw))
+        return _entropy_terms(torch.stack(logps), qw[None].expand(d, -1),
+                              mesh)
+
+    xmin, _ = _golden_core(nloo, ax, bx, cx, float(tol))
+    return xmin * base

@@ -1,0 +1,90 @@
+"""Product memory sizing and engine routing (ports
+``kde_tpu/parallel/sizing.py:30-91``).
+
+The plain engine holds every density's whole level plan and one chain
+block's ``[chains, leaf width]`` selection temporaries on one device; the
+kernel-sharded engine (gibbs_kernel_sharded.py) splits the component axis
+``S`` ways, so it pays only when a product does not fit one device:
+
+    S = ceil(product_bytes / budget);  S == 1 -> the plain engine.
+
+Torch has no ahead-of-time memory analysis, so ``product_bytes`` is an
+analytic model of the port's keyed product (:func:`estimate_product_memory`),
+checked on the card against ``torch.cuda.max_memory_allocated``
+(chip_smoke.py phase 11).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from ..ops import gibbs as _g
+
+# Share of a CUDA device's memory a product may take: the rest is left to
+# the densities themselves, other resident tensors and allocator slack.
+HBM_BUDGET_SHARE = 0.75
+
+
+def estimate_product_memory(densities: Sequence, n_out: int,
+                            n_iter: int = 5, dtype=torch.float32,
+                            select: str = "auto") -> dict:
+    """Bytes of the keyed product ``prod_appx_ms_gibbs`` runs for
+    ``densities`` at ``n_out`` chains: ``args`` (the level plan's tensors,
+    built or taken from the plan cache, and the mask), ``temp`` (the
+    uniform and normal streams, no uniforms for ``gumbel``, and
+    ``_LIVE_TEMPS`` ``[block, leaf width]`` temporaries of one chain
+    block), ``out`` (points and labels) and their ``total``, with the
+    ``select`` mode the call resolves to."""
+    densities = list(densities)
+    device = densities[0].device
+    impl = _g._resolve_plan_impl(densities, "auto", replay=False)
+    plan = _g._get_plan(densities, n_out, dtype, device, impl)
+    dn, d = plan.ndens, plan.ndim
+    width = plan.offsets[-1][1]
+    sel = _g.resolve_select(select, n_out, width)
+    item = torch.empty((), dtype=dtype).element_size()
+    args = sum(getattr(plan, f).nbytes for f in _g._PLAN_TENSORS) + dn * d
+    bu, bn = _g._stream_sizes(dn, d, plan.n_levels, n_iter)
+    streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
+    block = _g._chain_block(n_out, plan, item)
+    temp = streams + _g._LIVE_TEMPS * max(w for _, w in plan.offsets) \
+        * item * block
+    out = n_out * (d * item + dn * 8)
+    return {"args": int(args), "temp": int(temp), "out": int(out),
+            "total": int(args + temp + out), "select": sel}
+
+
+def default_hbm_budget(device) -> int:
+    """``HBM_BUDGET_SHARE`` of a CUDA device's memory; other devices have
+    no default."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"no default memory budget for a {device.type} "
+                         "device: pass hbm_budget=")
+    return int(HBM_BUDGET_SHARE
+               * torch.cuda.get_device_properties(device).total_memory)
+
+
+def recommend_shards(densities: Sequence, n_out: int, n_iter: int = 5,
+                     dtype=torch.float32,
+                     hbm_budget: Optional[int] = None,
+                     mem: Optional[dict] = None) -> dict:
+    """The routing rule: ``{"shards", "engine", "bytes", "budget",
+    "select"}``, ``engine`` ``"plain"`` when the product fits the budget
+    (``shards == 1``), else ``"kernel-sharded"`` with
+    ``shards = ceil(bytes / budget)``.  ``hbm_budget`` defaults to
+    :func:`default_hbm_budget` of the densities' device; pass ``mem`` (from
+    :func:`estimate_product_memory`) to reuse an estimate."""
+    if mem is None:
+        mem = estimate_product_memory(densities, n_out, n_iter=n_iter,
+                                      dtype=dtype)
+    if hbm_budget is None:
+        hbm_budget = default_hbm_budget(list(densities)[0].device)
+    shards = max(1, math.ceil(mem["total"] / hbm_budget))
+    return {"shards": shards,
+            "engine": "plain" if shards == 1 else "kernel-sharded",
+            "bytes": mem["total"], "budget": int(hbm_budget),
+            "select": mem["select"]}

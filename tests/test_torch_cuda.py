@@ -223,3 +223,89 @@ def test_small_functionals_on_card(cuda, monkeypatch, tmp_path):
         assert k.points.device.type == "cuda" and k.device.type == "cuda"
     assert torch.equal(made[4].points, p.points)
     assert torch.equal(made[3].points, p.points)
+
+
+def _one_rank_world(backend):
+    """A one-rank world of ``backend`` on a free TCP port, left at
+    teardown."""
+    import socket
+    import torch.distributed as dist
+    from kde_tpu_torch.parallel import initialize_multihost
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend=backend,
+                         timeout=120)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    yield from _one_rank_world("nccl")
+
+
+@pytest.fixture
+def gloo_world(cuda):
+    yield from _one_rank_world("gloo")
+
+
+def test_single_rank_nccl_sharded(nccl_world, cuda, monkeypatch):
+    """product_sharded and sharded_log_eval through NCCL with both gates at
+    1: the refit and the evaluation launch the kernel, the product stays
+    on the card and equals `*` of the same key, and the evaluation agrees
+    with float64 on the CPU."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import config, parallel as par
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
+    monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
+    rng = np.random.default_rng(6)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    dens = [kt.kde(f32(rng.normal(size=(2, 300)) + s)) for s in (0.0, 0.5)]
+    mesh = par.make_mesh()
+    n0 = tiled_eval.LAUNCHES
+    pq = par.product_sharded(mesh, dens, key=0)
+    n1 = tiled_eval.LAUNCHES
+    assert n1 > n0 and pq.points.is_cuda and pq._tree is None
+    want = kt.product(dens, key=0)
+    torch.testing.assert_close(pq.points, want.points, rtol=0, atol=1e-6)
+    q = f32(rng.normal(size=(500, 2)))
+    n2 = tiled_eval.LAUNCHES
+    lp = par.sharded_log_eval(par.make_mesh_2d((1, 1)), q, pq.points, pq.bw,
+                              pq.weights)
+    torch.cuda.synchronize()
+    assert tiled_eval.LAUNCHES == n2 + 1 and lp.is_cuda
+    ref = kernels.log_eval(q.cpu().double(), pq.points.cpu().double(),
+                           pq.bw.cpu().double(), pq.weights.cpu().double())
+    _assert_close(lp, ref)
+
+
+def test_gloo_sharded_eval_stays_on_card(gloo_world, cuda, monkeypatch):
+    """A gloo mesh over CUDA inputs keeps the sharded evaluation and LOOCV
+    on the card: sharded_log_eval launches the kernel, and all three
+    return CUDA tensors that agree with the single-device calls."""
+    from kde_tpu_torch import config, parallel as par
+    from kde_tpu_torch.ops import kernels, loocv, tiled_eval
+    monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
+    rng = np.random.default_rng(7)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    pts = f32(rng.normal(size=(300, 2)))
+    var = f32(rng.uniform(0.05, 0.2, size=(300, 2)))
+    w = f32(np.full(300, 1.0 / 300))
+    q = f32(rng.normal(size=(500, 2)))
+    mesh = par.make_mesh_2d((1, 1))
+    n0 = tiled_eval.LAUNCHES
+    lp = par.sharded_log_eval(mesh, q, pts, var, w)
+    torch.cuda.synchronize()
+    assert tiled_eval.LAUNCHES == n0 + 1 and lp.is_cuda
+    h = par.sharded_loo_entropy(mesh, pts, var, w)
+    bws = par.ksize_bandwidths_sharded(mesh, pts)
+    assert h.is_cuda and bws.is_cuda
+    _assert_close(lp, kernels.log_eval(q.cpu().double(), pts.cpu().double(),
+                                       var.cpu().double(),
+                                       w.cpu().double()))
+    torch.testing.assert_close(h, kernels.entropy_kernel(pts, var, w),
+                               rtol=2e-4, atol=0)
+    torch.testing.assert_close(bws, loocv.ksize_bandwidths_device(pts),
+                               rtol=1e-5, atol=0)

@@ -31,6 +31,24 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_parallel_import_leaves_jax_out():
+    code = ("import sys, kde_tpu_torch.parallel\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kde_tpu') or "
+            "m.startswith(('jax.', 'kde_tpu.'))]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_parallel_exports_equal_jax():
+    import kde_tpu.parallel
+    import kde_tpu_torch.parallel
+    assert kde_tpu_torch.parallel.__all__ == kde_tpu.parallel.__all__
+    for name in kde_tpu_torch.parallel.__all__:
+        assert hasattr(kde_tpu_torch.parallel, name), name
+
+
 def test_csrc_sources_exist():
     from kde_tpu_torch.ops import tiled_eval
     assert tiled_eval.SOURCE.is_file()

@@ -1,0 +1,306 @@
+"""The port's chain- and set-sharded products and its sharded evaluation and
+LOOCV (``kde_tpu_torch/parallel/{product,eval}.py``,
+``BatchedProductSampler(mesh=)``) over a 4-rank gloo world, mirroring
+tests/test_sharding.py.
+
+Keyed chain- and set-sharded results must be bitwise equal to the port's
+unsharded keyed calls (every rank draws the unsharded streams and keeps its
+rows), padding included.  In float64 ``sharded_log_eval`` and
+``sharded_loo_entropy`` agree with the dense evaluation within rtol 1e-10
+(another summation order), ``ksize_bandwidths_sharded`` with
+``ksize_bandwidths`` within rtol 1e-8 (a golden search stops on a
+tolerance, so ulp-level entropy differences may move the last probe).
+
+Worker mode: ``python tests/test_torch_sharding.py --worker <rank> <world>
+<store> <out>`` (torch only; tests/torch_world.py)."""
+import os
+import sys
+
+import numpy as np
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_world import assert_replicated, run_world  # noqa: E402
+
+KSIZE_MESHES = ("c2k2", "k4")
+
+
+def _eval_data(dtype=np.float64):
+    rng = np.random.default_rng(3)
+    n, m, d = 64, 32, 3
+    means = rng.normal(size=(n, d))
+    var = rng.uniform(0.2, 1.0, size=(n, d))
+    w = rng.uniform(size=n)
+    q = rng.normal(size=(m, d))
+    return [x.astype(dtype) for x in (q, means, var, w / w.sum())]
+
+
+def _loo_data():
+    rng = np.random.default_rng(4)
+    n, d = 64, 2
+    return rng.normal(size=(n, d)), np.full((n, d), 0.3), np.full(n, 1.0 / n)
+
+
+def _ksize_data():
+    rng = np.random.default_rng(21)
+    n, d = 205, 2                                  # 205 % 4 != 0: padding
+    pts = rng.normal(size=(n, d)) * [1.0, 2.5]
+    w = rng.uniform(0.5, 1.5, size=n)
+    return pts, w / w.sum()
+
+
+def _circ_angles():
+    rng = np.random.default_rng(5)
+    a = np.mod(rng.normal(size=(1, 64)) * 0.3 + np.pi - 0.15 + np.pi,
+               2 * np.pi) - np.pi
+    b = np.mod(rng.normal(size=(1, 64)) * 0.3 - np.pi + 0.15 + np.pi,
+               2 * np.pi) - np.pi
+    return a, b
+
+
+# ---------------------------------------------------------------------------
+# worker side (torch only)
+# ---------------------------------------------------------------------------
+
+def _worker(argv):
+    from torch_world import worker_finish, worker_setup
+    rank, out = worker_setup(argv)
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import config, manifolds as m
+    from kde_tpu_torch.ops import kernels
+    from kde_tpu_torch.parallel import (
+        KERNELS, ksize_bandwidths_sharded, make_mesh, make_mesh_2d,
+        prod_appx_ms_gibbs_kernel_sharded, prod_appx_ms_gibbs_sharded,
+        product_sharded, sharded_log_eval, sharded_loo_entropy)
+    f64 = torch.float64
+    c4, c2k2 = make_mesh(4), make_mesh_2d((2, 2))
+    meshes = {"c2k2": c2k2, "k4": make_mesh(axis_name=KERNELS)}
+    res = {}
+    rng = np.random.default_rng(0)
+    dens = [kt.kde(rng.normal(size=(2, 64)), [0.4], dtype=f64)
+            for _ in range(2)]
+
+    # chain-sharded keyed product == the unsharded keyed call
+    for name, n_out, ds, key in (("keyed", 64, dens, 42),
+                                 ("padded", 50, [kt.kde(
+                                     rng.normal(size=(1, 32)), [0.4],
+                                     dtype=f64) for _ in range(2)], 0)):
+        pts, idx = prod_appx_ms_gibbs_sharded(c4, n_out, ds, key=key)
+        res[f"{name}/pts"], res[f"{name}/idx"] = pts.numpy(), idx.numpy()
+        pts, idx = kt.prod_appx_ms_gibbs(n_out, ds, key=key, select="cdf")
+        res[f"{name}/want_pts"] = pts.numpy()
+        res[f"{name}/want_idx"] = idx.numpy()
+    pts, _, diag = prod_appx_ms_gibbs_sharded(c4, 50, dens, diagnostics=True,
+                                              key=1)
+    res["diag/pts"] = pts.numpy()
+    res["diag/mean"], res["diag/std"] = diag["mean"].numpy(), \
+        diag["std"].numpy()
+    # a generator key: rank 0's draw seeds every rank
+    pts, _ = prod_appx_ms_gibbs_sharded(
+        c4, 20, dens, key=torch.Generator().manual_seed(7 + rank))
+    res["genkey/pts"] = pts.numpy()
+
+    circ = dict(addop=(m.circular_add,), diffop=(m.circular_diff,),
+                get_mu=(m.circular_mu,), get_lambda=(m.circular_lambda,))
+    cd = [kt.kde(a, [0.2], dtype=f64, **circ) for a in _circ_angles()]
+    pts, idx = prod_appx_ms_gibbs_sharded(c4, 64, cd, key=9)
+    res["circ/pts"], res["circ/idx"] = pts.numpy(), idx.numpy()
+    pts, idx = kt.prod_appx_ms_gibbs(64, cd, key=9, select="cdf", **circ)
+    res["circ/want_pts"], res["circ/want_idx"] = pts.numpy(), idx.numpy()
+
+    # sharded `*` == `*`: device-resident, hooks carried
+    dev_dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 64))), [0.4])
+                for _ in range(2)]
+    pq = product_sharded(c4, dev_dens, key=1)
+    want = kt.product(dev_dens, key=1)
+    res["prod/flags"] = np.array([pq._host_points is None, pq._tree is None,
+                                  pq.npts == 64])
+    res["prod/pts"], res["prod/bw"] = pq.points.numpy(), pq.bw.numpy()
+    res["prod/want_pts"], res["prod/want_bw"] = (want.points.numpy(),
+                                                 want.bw.numpy())
+    cq = product_sharded(c4, cd, key=2)
+    res["prod/circ_hooks"] = np.array([cq.get_mu[0] is m.circular_mu])
+
+    # set-sharded batch: 8 sets, 2 per rank
+    sets = [[kt.kde(rng.normal(size=(2, 40)) + 0.1 * i, [0.3], dtype=f64),
+             kt.kde(rng.normal(size=(2, 40)) + 0.5, [0.3], dtype=f64)]
+            for i in range(8)]
+    pts, idx = kt.BatchedProductSampler(sets, n_out=16, n_iter=2,
+                                        mesh=c4).sample(5)
+    res["batch/pts"], res["batch/idx"] = pts.numpy(), idx.numpy()
+    pts, idx = kt.BatchedProductSampler(sets, n_out=16, n_iter=2).sample(5)
+    res["batch/want_pts"], res["batch/want_idx"] = pts.numpy(), idx.numpy()
+    got = kt.product_batched(sets, key=6, mesh=c4)
+    want = kt.product_batched(sets, key=6)
+    for name, ks in (("pbatch", got), ("pbatch/want", want)):
+        res[f"{name}/pts"] = np.stack([k.points.numpy() for k in ks])
+        res[f"{name}/bw"] = np.stack([k.bw.numpy() for k in ks])
+
+    # evaluation and LOOCV
+    res["eval"] = sharded_log_eval(c2k2, *(torch.as_tensor(x) for x in
+                                           _eval_data())).numpy()
+    q, mu, var, w = (torch.as_tensor(x) for x in _eval_data())
+    res["eval_dead"] = sharded_log_eval(c2k2, q, mu, var,
+                                        torch.zeros_like(w)).numpy()
+    calls = []
+    tiled = kernels.tiled_log_eval
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return tiled(*a, **kw)
+    config.DIRECT_PAIR_LIMIT, kernels.tiled_log_eval = 1, counting
+    res["eval_k1"] = sharded_log_eval(c2k2, *(torch.as_tensor(x) for x in
+                                              _eval_data(np.float32))).numpy()
+    res["eval_k1_calls"] = len(calls)
+    config.DIRECT_PAIR_LIMIT, kernels.tiled_log_eval = 1 << 24, tiled
+    res["loo"] = sharded_loo_entropy(
+        c2k2, *(torch.as_tensor(x) for x in _loo_data())).numpy()
+    for name in KSIZE_MESHES:
+        pts, w = _ksize_data()
+        res[f"ksize/{name}"] = ksize_bandwidths_sharded(
+            meshes[name], pts, w, dtype=f64).numpy()
+
+    errors = []
+    for fn in (lambda: make_mesh(3), lambda: make_mesh_2d((4, 2)),
+               lambda: kt.BatchedProductSampler(sets[:6], n_out=16,
+                                                mesh=c4),
+               lambda: prod_appx_ms_gibbs_kernel_sharded(c4, 8, dens,
+                                                         key=0),
+               lambda: sharded_log_eval(c2k2, q[:31], mu, var, w)):
+        try:
+            fn()
+            errors.append(False)
+        except ValueError:
+            errors.append(True)
+    res["errors"] = np.array(errors)
+    worker_finish(rank, out, res)
+
+
+# ---------------------------------------------------------------------------
+# pytest side
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    return run_world(os.path.abspath(__file__),
+                     tmp_path_factory.mktemp("sharding"))
+
+
+@pytest.fixture(scope="module")
+def res(world):
+    return world[0]
+
+
+def test_every_rank_returns_the_same(world):
+    assert_replicated(world)
+
+
+@pytest.mark.parametrize("name", ["keyed", "padded", "circ"])
+def test_chain_sharded_equals_unsharded_keyed(res, name):
+    """n_out = 64, 50 (not a multiple of 4: padding) and a circular pair:
+    bitwise the unsharded keyed call's labels and points."""
+    np.testing.assert_array_equal(res[f"{name}/idx"],
+                                  res[f"{name}/want_idx"])
+    np.testing.assert_array_equal(res[f"{name}/pts"],
+                                  res[f"{name}/want_pts"])
+    if name == "circ":
+        assert np.all(np.abs(res["circ/pts"]) <= np.pi)
+
+
+def test_diagnostics_and_generator_key(res):
+    """All-reduced moments over the 50 real chains; a generator key that
+    differs per rank still gives every rank rank 0's product."""
+    pts = res["diag/pts"]
+    assert pts.shape == (2, 50)
+    np.testing.assert_allclose(res["diag/mean"], pts.mean(axis=1),
+                               rtol=1e-9)
+    np.testing.assert_allclose(res["diag/std"], pts.std(axis=1), rtol=1e-9)
+    assert res["genkey/pts"].shape == (2, 20)
+
+
+def test_product_sharded_equals_product(res):
+    """Device-resident (no host copy, no tree), sized at the mean count,
+    bitwise `*` of the same key, and the circular hooks ride on the
+    output (the JAX package's product_sharded drops them)."""
+    assert res["prod/flags"].all()
+    np.testing.assert_array_equal(res["prod/pts"], res["prod/want_pts"])
+    np.testing.assert_array_equal(res["prod/bw"], res["prod/want_bw"])
+    assert res["prod/circ_hooks"].all()
+
+
+def test_set_sharded_batch_equals_unsharded(res):
+    """BatchedProductSampler(mesh=) and product_batched(mesh=) over 8 sets
+    (2 per rank): bitwise the unsharded batch's samples, labels and
+    bandwidths."""
+    for k in ("pts", "idx"):
+        np.testing.assert_array_equal(res[f"batch/{k}"],
+                                      res[f"batch/want_{k}"])
+    for k in ("pts", "bw"):
+        np.testing.assert_array_equal(res[f"pbatch/{k}"],
+                                      res[f"pbatch/want/{k}"])
+
+
+def test_sharded_log_eval_matches_dense_and_jax(res):
+    import jax.numpy as jnp
+    from kde_tpu.ops import kernels
+    from kde_tpu.parallel.eval import sharded_log_eval
+    from kde_tpu.parallel.mesh import make_mesh_2d
+    q, means, var, w = (jnp.asarray(x) for x in _eval_data())
+    np.testing.assert_allclose(
+        res["eval"], np.asarray(kernels.log_eval(q, means, var, w)),
+        rtol=1e-10)
+    np.testing.assert_allclose(
+        res["eval"], np.asarray(sharded_log_eval(make_mesh_2d((2, 2)), q,
+                                                 means, var, w)), rtol=1e-10)
+    assert np.all(np.isneginf(res["eval_dead"]))     # -inf, not NaN
+
+
+def test_sharded_log_eval_k1_route(res):
+    """With the gate at 1, each shard's float32 part takes the tiled route
+    (K1's plain twin on the CPU); float32 sums in another order than the
+    float64 dense reference, hence rtol = atol = 1e-5."""
+    from kde_tpu.ops import kernels
+    assert res["eval_k1_calls"] >= 1
+    want = kernels.log_eval(*(x.astype(np.float64)
+                              for x in _eval_data(np.float32)))
+    np.testing.assert_allclose(res["eval_k1"], np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sharded_loo_entropy_matches_dense(res):
+    from kde_tpu.ops import kernels
+    want = float(kernels.entropy_kernel(*_loo_data()))
+    np.testing.assert_allclose(float(res["loo"]), want, rtol=1e-10)
+
+
+@pytest.mark.parametrize("mesh", KSIZE_MESHES)
+def test_ksize_bandwidths_sharded_matches_dense(res, mesh):
+    """N = 205 (padding) with non-uniform weights, on the 2-D mesh and a
+    kernels-only mesh, against both packages' single-device search."""
+    from kde_tpu.ops.loocv import ksize_bandwidths as jax_ksize
+    from kde_tpu_torch.ops.loocv import ksize_bandwidths
+    pts, w = _ksize_data()
+    np.testing.assert_allclose(res[f"ksize/{mesh}"],
+                               ksize_bandwidths(pts, w), rtol=1e-8)
+    np.testing.assert_allclose(res[f"ksize/{mesh}"], jax_ksize(pts, w),
+                               rtol=1e-8)
+
+
+def test_bad_meshes_and_shapes_raise(res):
+    """ValueError for a mesh that does not match the world, a batch the
+    mesh does not divide, a kernel-sharded product without a kernels
+    axis, and query rows that do not divide the chains axis."""
+    assert res["errors"].all(), res["errors"]
+
+
+def test_no_process_group_raises():
+    import kde_tpu_torch.parallel as par
+    with pytest.raises(RuntimeError, match="initialize_multihost"):
+        par.make_mesh()
+    with pytest.raises(RuntimeError, match="initialize_multihost"):
+        par.make_mesh_2d((1, 1))
+
+
+if __name__ == "__main__" and "--worker" in sys.argv:
+    _worker(sys.argv)
