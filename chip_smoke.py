@@ -7,8 +7,13 @@ Phases, one line of findings each:
   1. device: the card's name and power limit, torch/CUDA versions, TF32
      flags (both off);
   2. build: nvcc compiles kde_tpu_torch/csrc/tiled_eval.cu (sm_90a);
-  3. the kernel against its plain torch twin on the card at four shapes,
-     rtol = atol = 2e-4, with CUDA-event times of both at (a) and (b);
+  3. the kernel against its plain torch twin on the card at five shapes,
+     rtol = atol = 2e-4: (a) 20k x 20k, d = 2; (b) LOO 20k, d = 1;
+     (c) 1000 x 777, d = 3; (d) LOO N = 1 (-inf); (e) LOO 100k, d = 1 (the
+     unscented kld's fit); CUDA-event times of kernel and twin at (a), (b)
+     and (e) beside the kernel's bound (SFU ex2 rate, FP32 rate, bytes) and,
+     at (a) and (b), the dense route as context; (f) data at 10^3 against
+     the float64 twin (atol 1e-4, rtol 1e-5);
   4. the `*` slice at 2 x 20,000 components in 2-D: LOOCV fits, the Gibbs
      product (20,000 chains, Niter 5), the LOOCV refit of the samples and
      the evaluation at 20,000 queries -- each stage must launch the kernel;
@@ -30,7 +35,9 @@ Phases, one line of findings each:
      calls on the kernel's plain twin, kld against its analytic value, the
      unscented kld's 100,000-point LOOCV fit, sample moments, resample,
      the summaries, the overlap integral against its analytic value,
-     nloo_ll/ksize in float64, string and npz round trips on the card;
+     nloo_ll/ksize in float64, string and npz round trips, which with no
+     device= land on the card (the package's default device), as does
+     kde() of NumPy points;
  10. manifold products at full width: a circular pair of 2 x 20,000
      components (`*` must land near pi; its hooked evaluation must not
      launch the kernel and matches float64 on the CPU), SE(2) 3-D beliefs
@@ -55,9 +62,15 @@ Phases, one line of findings each:
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
+
+    python3 chip_smoke.py --k1-parent DIR
+
+times K1 only, against the K1 of the checkout in DIR (see k1_parent_ab).
 """
 
 import contextlib
+import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -76,6 +89,12 @@ SELECT_MODES = ("cdf", "blocked", "gumbel")
 SELECT_REPS = 5
 MEAN_TOL = 0.05          # product means vs their analytic values
 RTOL = ATOL = 2e-4       # tests/test_pallas_eval.py: f32 sums in another order
+N_UNSCENTED = 100_000    # kernel case (e): the unscented kld's LOO fit
+N_OFFSET = 4096          # kernel case (f): data at 10^3
+OFFSET_ATOL, OFFSET_RTOL = 1e-4, 1e-5   # (f) against float64, see phase 3
+SFU_EX2_PER_CLK = 16     # per SM, compute capability 9.0
+FP32_FLOPS = 67e12       # H100 SXM, outside the tensor cores
+HBM_BYTES = 3.35e12      # H100 SXM
 AGREE_MIN = 0.999        # sharded vs unsharded: share of chains that agree
 N_LOO = 4096             # sharded LOO entropy
 N_KSIZE = 8192           # sharded LOOCV bandwidths
@@ -98,9 +117,13 @@ def _card() -> str:
     return out[0].strip()
 
 
-def _cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events,
-    after one warm-up run."""
+def _cuda_ms(fn, reps=5, inner=1):
+    """Milliseconds per call of ``fn()``: the median over ``reps`` windows
+    of CUDA events, after one warm-up call.  With ``inner`` = 1 a window
+    holds one call, the wrapper's host work included (the ``ms`` of the
+    kernels line); with more it holds ``inner`` back-to-back calls and is
+    divided by ``inner``, so each call's host work overlaps the previous
+    call's kernel."""
     import torch
     fn()
     times = []
@@ -108,10 +131,11 @@ def _cuda_ms(fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -135,25 +159,63 @@ def compare(got, want, what):
     return float(err.max()) if err.numel() else 0.0
 
 
-def phase_kernel(dev):
-    """Phase 3: kernel vs plain twin at the main path's shapes."""
+def _sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def k1_bound_ms(m, n, d, loo, sms, clock_hz):
+    """The least time an H100 could take for one K1 call, and what sets it.
+    Operations: one exp per (query, component) pair (the LOO diagonal
+    excluded) at 16 ex2 per clock per SM (CUDA C++ Programming Guide,
+    arithmetic instruction throughput, compute capability 9.0), and 4d + 3
+    FP32 operations per pair at 67 TFLOP/s; bytes: each input read once and
+    the output written once at 3.35 TB/s."""
+    pairs = m * n - (m if loo else 0)
+    times = {"operations": max(pairs / (SFU_EX2_PER_CLK * sms * clock_hz),
+                               pairs * (4 * d + 3) / FP32_FLOPS),
+             "bytes": 4 * (m * d + 2 * n * d + n + m) / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def k1_inputs(rng, m, n, d, loo, dev):
+    """K1's float32 inputs on ``dev``: queries, means, variances and
+    normalized weights (with ``loo`` the queries are the means)."""
     import torch
-    from kde_tpu_torch.ops import tiled_eval
+    mu = rng.normal(size=(n, d))
+    q = mu if loo else rng.normal(size=(m, d))
+    var = rng.uniform(0.005, 0.05, size=(n, d))
+    w = rng.uniform(0.1, 1.0, size=n)
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (q, mu, var, w / w.sum())]
+
+
+def phase_kernel(dev):
+    """Phase 3: kernel vs plain twin at the main path's shapes, timed at
+    (a), (b) and (e) beside the bound and the dense route; (f) offset data
+    against the float64 twin."""
+    import torch
+    from kde_tpu_torch.ops import kernels, tiled_eval
     rng = np.random.default_rng(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
 
-    def inputs(m, n, d, loo):
-        mu = rng.normal(size=(n, d))
-        q = mu if loo else rng.normal(size=(m, d))
-        var = rng.uniform(0.005, 0.05, size=(n, d))
-        w = rng.uniform(0.1, 1.0, size=n)
-        return [torch.as_tensor(x, dtype=torch.float32, device=dev)
-                for x in (q, mu, var, w / w.sum())]
+    def dense(q, mu, var, w, loo):
+        exclude = torch.arange(len(q), device=dev) if loo else None
+        return kernels.log_gauss_mixture(q, mu, var, torch.log(w),
+                                         exclude=exclude)
 
-    cases = {"a": (N_SLICE, N_SLICE, 2, False), "b": (N_SLICE, N_SLICE, 1, True),
-             "c": (1000, 777, 3, False), "d": (1, 1, 1, True)}
+    cases = {"a": (N_SLICE, N_SLICE, 2, False),
+             "b": (N_SLICE, N_SLICE, 1, True),
+             "c": (1000, 777, 3, False), "d": (1, 1, 1, True),
+             "e": (N_UNSCENTED, N_UNSCENTED, 1, True)}
     rows, worst = {}, 0.0
     for name, (m, n, d, loo) in cases.items():
-        args = inputs(m, n, d, loo)
+        args = k1_inputs(rng, m, n, d, loo, dev)
         got = tiled_eval.tiled_log_eval(*args, loo=loo)
         _sync()
         want = tiled_eval.tiled_log_eval_ref(*args, loo=loo)
@@ -162,12 +224,45 @@ def phase_kernel(dev):
         row = {"M": m, "N": n, "d": d, "loo": loo, "max_abs_err": err}
         if name == "d" and not bool(torch.isneginf(got).all()):
             raise AssertionError("case (d): the all-masked row is not -inf")
-        if name in ("a", "b"):
-            row["ms"] = _cuda_ms(lambda: tiled_eval.tiled_log_eval(*args, loo=loo))
+        if name in ("a", "b", "e"):
+            call = functools.partial(tiled_eval.tiled_log_eval, *args,
+                                     loo=loo)
+            row["ms"] = _cuda_ms(call)
+            row["ms_back_to_back"] = _cuda_ms(call, inner=10)
             row["plain_ms"] = _cuda_ms(
                 lambda: tiled_eval.tiled_log_eval_ref(*args, loo=loo))
+            row["bound_ms"], row["bound_by"] = k1_bound_ms(m, n, d, loo, sms,
+                                                         clock)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["plan"] = tiled_eval.launch_plan(m, n, d, sms)._asdict()
+        if name in ("a", "b"):
+            # no single PyTorch call computes this function; the dense
+            # route (three cuBLAS products and torch.logsumexp) is context,
+            # and the port never takes it above the size gate
+            row["dense_ms"] = _cuda_ms(lambda: dense(*args, loo))
         rows[name] = row
         print(f"kernel ({name}): {json.dumps(row)}", flush=True)
+
+    # (f) centers N(10^3, 1), bandwidth 10^-2, queries beside the centers,
+    # against the float64 twin on the same float32 inputs.  A float32 ulp
+    # at 10^3 is 6.1e-5: a q*s - mu*s form would lose ~1e-2 of each scaled
+    # difference, but q - mu is exact here (Sterbenz), which leaves a few
+    # ulp of the O(10) logits: atol 1e-4, rtol 1e-5.
+    n = N_OFFSET
+    mu = 1e3 + rng.normal(size=(n, 2))
+    q = mu[rng.permutation(n)] + 0.01 * rng.normal(size=(n, 2))
+    args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (q, mu, np.full((n, 2), 1e-4), np.full(n, 1.0 / n))]
+    got = tiled_eval.tiled_log_eval(*args).double()
+    want = tiled_eval.tiled_log_eval_ref(*(x.double() for x in args))
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or bool(
+            ((got - want).abs() > OFFSET_ATOL + OFFSET_RTOL * want.abs()).any()):
+        raise AssertionError(f"case (f): max |err| {err} against float64 "
+                             f"outside atol={OFFSET_ATOL}, rtol={OFFSET_RTOL}")
+    rows["f"] = {"M": n, "N": n, "d": 2, "loo": False, "max_abs_err": err,
+                 "vs": "float64 twin", "atol": OFFSET_ATOL, "rtol": OFFSET_RTOL}
+    print(f"kernel (f): {json.dumps(rows['f'])}", flush=True)
     return rows, worst
 
 
@@ -575,12 +670,17 @@ def phase_functionals(dev, p, q, seed=SEED):
         raise AssertionError(f"float64 ksize bandwidths {rel:.3g} from the "
                              "float32 fit's")
 
+    # NumPy, string and file inputs with no device= land on the package's
+    # default device (config.DEVICE: the card)
     s = stage("to_string", kt.to_string, p)
-    back = stage("from_string", kt.from_string, s, device=dev, dtype=f32)
+    back = stage("from_string", kt.from_string, s, dtype=f32)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "p.npz")
         stage("save_kde", kt.save_kde, path, p)
-        loaded = stage("load_kde", kt.load_kde, path, device=dev)
+        loaded = stage("load_kde", kt.load_kde, path)
+    from_np = kt.kde(np.random.default_rng(seed + 6).normal(size=(2, 1000)),
+                     dtype=f32)
+    _on_device(from_np, dev, f32, "kde(NumPy points) with no device")
     for what, r in (("from_string", back), ("load_kde", loaded)):
         _on_device(r, dev, f32, what)
         if not torch.equal(r.points, p.points):
@@ -986,6 +1086,94 @@ def phase_shared_card():
     return [json.loads(text.strip().splitlines()[-1]) for text in outs]
 
 
+K1_AB_SHAPES = {"a": (N_SLICE, N_SLICE, 2, False),
+                "b": (N_SLICE, N_SLICE, 1, True),
+                "e": (N_UNSCENTED, N_UNSCENTED, 1, True),
+                "d3": (N_SLICE, N_SLICE, 3, False),
+                "d8": (N_SLICE, N_SLICE, 8, False),
+                "d9": (N_SLICE, N_SLICE, 9, True),
+                "d16": (N_SLICE, N_SLICE, 16, False)}
+K1_SWEEP = ("a", "b", "e")
+K1_HOST_CALLS = 2000     # wrapper calls timed on the host clock, 128 x 128
+
+
+def k1_parent_ab(parent):
+    """Time this checkout's K1 against ``parent``'s (the ``tiled_eval``
+    module of another checkout, e.g. an unpacked ``git archive``, loaded
+    from its file) on this card, in turns: parent, change, change, parent.
+    At every shape of K1_AB_SHAPES both must pass ``compare`` against this
+    checkout's twin; each side is timed single-call and back-to-back
+    (``_cuda_ms``), beside the bound (``k1_bound_ms``).  Then the host cost of one wrapper call at 128 x 128,
+    every plan of ``tiled_eval.plans`` at K1_SWEEP's shapes (back-to-back,
+    one launch each), and the SM clock under K1."""
+    import torch
+    from kde_tpu_torch.ops import tiled_eval
+    path = os.path.join(os.path.abspath(parent), "kde_tpu_torch", "ops",
+                        "tiled_eval.py")
+    spec = importlib.util.spec_from_file_location("k1_parent", path)
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    mods = {"parent": old, "change": tiled_eval}
+    for name, mod in mods.items():
+        mod.build()
+    ptxas = [ln.split(":", 1)[1].strip() for ln in
+             tiled_eval.BUILD_LOG.splitlines()
+             if "entry function" in ln or "registers" in ln]
+    print(f"k1 ptxas: {json.dumps(ptxas)}", flush=True)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    rng = np.random.default_rng(SEED)
+    for shape, (m, n, d, loo) in K1_AB_SHAPES.items():
+        args = k1_inputs(rng, m, n, d, loo, dev)
+        want = tiled_eval.tiled_log_eval_ref(*args, loo=loo)
+        row = {"shape": shape, "M": m, "N": n, "d": d, "loo": loo,
+               "plan": tiled_eval.launch_plan(m, n, d, sms)._asdict()}
+        row["bound_ms"], row["bound_by"] = k1_bound_ms(m, n, d, loo, sms,
+                                                     clock)
+        for name, mod in mods.items():
+            got = mod.tiled_log_eval(*args, loo=loo)
+            _sync()
+            row[f"{name}_max_abs_err"] = compare(got, want, f"{name} ({shape})")
+        for name in ("parent", "change", "change", "parent"):
+            call = functools.partial(mods[name].tiled_log_eval, *args, loo=loo)
+            row.setdefault(f"{name}_ms", []).append(_cuda_ms(call))
+            row.setdefault(f"{name}_ms_back_to_back", []).append(
+                _cuda_ms(call, inner=10))
+        print(f"k1 ab: {json.dumps(row)}", flush=True)
+    small = k1_inputs(rng, 128, 128, 2, False, dev)
+    host = {}
+    for name in ("parent", "change", "change", "parent"):
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(K1_HOST_CALLS):
+            mods[name].tiled_log_eval(*small)
+        host.setdefault(name, []).append(
+            1e6 * (time.perf_counter() - t0) / K1_HOST_CALLS)
+        _sync()
+    print(f"k1 host us per call, 128 x 128: {json.dumps(host)}", flush=True)
+    for shape in K1_SWEEP:
+        m, n, d, loo = K1_AB_SHAPES[shape]
+        args = k1_inputs(rng, m, n, d, loo, dev)
+        ms = {f"{p.threads}x{p.splits}": _cuda_ms(functools.partial(
+            tiled_eval.launch_with_plan, *args, loo, p), inner=10)
+            for _, p in tiled_eval.plans(m, n, d, sms)}
+        print(f"k1 sweep ({shape}): {json.dumps(ms)}", flush=True)
+    args = k1_inputs(rng, N_SLICE, N_SLICE, 2, False, dev)
+    tiled_eval.tiled_log_eval(*args)
+    _sync()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], stdout=subprocess.PIPE,
+        text=True)
+    for _ in range(5000):                  # ~1 s of K1 while it reads
+        tiled_eval.tiled_log_eval(*args)
+    smi = smi.communicate(timeout=60)[0].strip()
+    _sync()
+    print(f"k1 under load, clocks/power/temperature: {smi}", flush=True)
+    print(_card())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1063,7 +1251,14 @@ def main():
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
         "replaces": "kde_tpu/ops/pallas_eval.py:31",
         "launches": main_launches, "max_abs_err": worst,
-        "ms": rows["a"]["ms"], "plain_ms": rows["a"]["plain_ms"]}]}))
+        "ms": rows["a"]["ms"], "plain_ms": rows["a"]["plain_ms"],
+        "bound_ms": rows["a"]["bound_ms"], "bound_by": rows["a"]["bound_by"],
+        "bound_share": rows["a"]["bound_share"], "library_ms": None,
+        "ms_b": rows["b"]["ms"], "bound_ms_b": rows["b"]["bound_ms"],
+        "bound_share_b": rows["b"]["bound_share"],
+        "ms_back_to_back": rows["a"]["ms_back_to_back"],
+        "ms_b_back_to_back": rows["b"]["ms_back_to_back"],
+        "dense_ms": rows["a"]["dense_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1074,5 +1269,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--shared-card-worker"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         shared_card_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--k1-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k1_parent_ab(sys.argv[2])
     else:
         main()

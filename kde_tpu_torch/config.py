@@ -10,7 +10,15 @@ the H100.  Tests monkeypatch all of them as module attributes.
 
 import logging
 
+import torch
+
 _log = logging.getLogger("kde_tpu_torch")
+
+# Where NumPy, string and file inputs go when the caller names no device:
+# the card, as the JAX package puts them on its default device.  Without a
+# card such a call raises torch's own CUDA error; nothing falls back to the
+# CPU.  Tests set "cpu".  Tensor inputs keep their own device.
+DEVICE: str = "cuda"
 
 # The reference's FORCE_EVAL_DIRECT (src/KernelDensityEstimate.jl:54): its
 # evaluation is always direct (exact) here; the flag is kept for API
@@ -49,6 +57,11 @@ SELECT_BLOCKED_MAX_CHAINS: int = 0    # ...and chains
 SELECT_GUMBEL_WIDTH: int = 50000      # gumbel: leaf width where it won...
 SELECT_GUMBEL_BATCH: int = 1 << 30    # ...no set count where it won...
 SELECT_GUMBEL_WORK: int = 1 << 22     # ...or chains x width (cdf won 1e6)
+
+
+def default_device(device=None) -> torch.device:
+    """``device``, or :data:`DEVICE` when it is ``None``."""
+    return torch.device(DEVICE if device is None else device)
 
 
 def set_force_eval_direct(flag: bool = False) -> None:

@@ -15,10 +15,10 @@ from .density import KDE
 
 def kde_from_numpy(points_nd: np.ndarray, var_nd: np.ndarray,
                    weights: np.ndarray, multibandwidth: bool, *,
-                   device="cpu", dtype=None) -> KDE:
+                   device=None, dtype=None) -> KDE:
     """``points [N, d]``, variances ``[N, d]`` and weights ``[N]`` (NumPy)
-    -> a KDE on ``device`` in ``dtype`` (default
-    ``torch.get_default_dtype()``)."""
+    -> a KDE on ``device`` (default ``config.DEVICE``, the card) in
+    ``dtype`` (default ``torch.get_default_dtype()``)."""
     points_nd = np.asarray(points_nd, dtype=np.float64)
     n, d = points_nd.shape
     var_nd = np.broadcast_to(np.asarray(var_nd, dtype=np.float64), (n, d))

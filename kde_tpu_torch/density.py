@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import manifolds
+from . import config, manifolds
 from .ops import kernels
 from .ops.balltree import FlatBallTree, build_balltree
 from .ops.loocv import device_fit_arrays, ksize_bandwidths
@@ -30,8 +30,9 @@ class KDE:
     ``p(x) = sum_i w_i prod_k N(x_k; mu_ik, bw_ik)`` with ``bw`` stored as
     variances.  Callable like the reference's ``(bd::BallTreeDensity)(pos)``.
 
-    NumPy inputs are copied to ``device`` as ``dtype`` (default
-    ``torch.get_default_dtype()``), and their host copies are kept rounded
+    NumPy inputs are copied to ``device`` (default ``config.DEVICE``, the
+    card) as ``dtype`` (default ``torch.get_default_dtype()``), and their
+    host copies are kept rounded
     through ``dtype`` so host consumers see what the device holds.  Tensor
     inputs keep their device, and their dtype unless ``dtype`` is given.
     ``addop``/``diffop``/``get_mu``/``get_lambda`` are the manifold hooks,
@@ -43,7 +44,7 @@ class KDE:
         tensors = [isinstance(x, torch.Tensor) for x in (points, bw, weights)]
         if not any(tensors):
             dtype = dtype or torch.get_default_dtype()
-            device = torch.device(device or "cpu")
+            device = config.default_device(device)
             np_dt = torch.empty((), dtype=dtype).numpy().dtype
             rt = lambda x: (np.asarray(x, dtype=np.float64)
                             .astype(np_dt).astype(np.float64))
@@ -240,7 +241,7 @@ def _as_query(pos, ndim: int, dtype, device) -> torch.Tensor:
 
 
 def kde(points, bw=None, weights=None, addop=None, diffop=None, get_mu=None,
-        get_lambda=None, *, device="cpu", dtype=None) -> KDE:
+        get_lambda=None, *, device=None, dtype=None) -> KDE:
     """Construct a KDE (the reference's ``kde!``, src/KDE01.jl:3-84).
 
     Args:
@@ -253,13 +254,15 @@ def kde(points, bw=None, weights=None, addop=None, diffop=None, get_mu=None,
         (length-1 tuples broadcast; manifolds.py).  The LOOCV bandwidth
         search itself is Euclidean, as the reference's.
       device, dtype: where and in what type NumPy inputs go (default
-        ``torch.get_default_dtype()``).  A tensor ``points`` keeps its own
-        device, its dtype unless ``dtype`` is given, and is fitted there.
+        ``config.DEVICE``, the card, and ``torch.get_default_dtype()``).  A
+        tensor ``points`` keeps its own device, its dtype unless ``dtype``
+        is given, and is fitted there.
     """
     hooks = dict(addop=addop, diffop=diffop, get_mu=get_mu,
                  get_lambda=get_lambda)
     if isinstance(points, torch.Tensor):
         return _kde_tensor(points, bw, weights, dtype, hooks)
+    device = config.default_device(device)
     pts = np.asarray(points, dtype=np.float64)
     if pts.ndim == 1:
         pts = pts[None, :]

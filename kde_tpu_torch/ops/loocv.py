@@ -165,11 +165,12 @@ def ksize_rows(rows: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
 
 def ksize_bandwidths(points: np.ndarray, weights: np.ndarray,
                      tol: float = 1e-2, dtype=torch.float64,
-                     device="cpu") -> np.ndarray:
+                     device=None) -> np.ndarray:
     """Per-dimension LOOCV bandwidths (std-devs, NumPy ``[d]``) for NumPy
     ``points [N, d]`` -- the reference's per-dim ``ksize(marginal(p, [i]))``
     loop (src/KDE01.jl:17-23), all dims searched at once in ``dtype`` on
-    ``device``."""
+    ``device`` (default ``config.DEVICE``, the card)."""
+    device = config.default_device(device)
     pts = np.asarray(points, dtype=np.float64)
     n, d = pts.shape
     w = np.asarray(weights, dtype=np.float64).reshape(n)

@@ -19,12 +19,14 @@ with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -35,6 +37,9 @@ LOG_2PI = math.log(2.0 * math.pi)
 LAUNCHES = 0
 
 MAX_DIM = 16                  # kMaxDim in csrc/tiled_eval.cu
+MAX_SPLITS = 8                # kMaxSplits: the portable cluster size
+THREADS = (64, 128)           # kMinThreads, kMaxThreads
+SPLIT_ALIGN = 32              # splits start on a multiple of every chunk size
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tiled_eval.cu"
@@ -42,12 +47,66 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_QUERIES_PER_BLOCK = 128      # kThreads in csrc/tiled_eval.cu
-_TILE = 256                   # kTile in csrc/tiled_eval.cu
-_BLOCKS_PER_SM = 8
+# Resident threads an SM needs before its SFU is kept busy, and the fixed
+# cost of one block (staging, the cluster merge) in pair-equivalents: the
+# launch plan's cost model.
+_SAT_THREADS = 640
+_BLOCK_COST = 8192
 
 _lib = None
 BUILD_LOG = ""
+_CPU = torch.device("cpu")
+
+
+class LaunchPlan(NamedTuple):
+    """How one ``tiled_log_eval`` call is cut: ``threads`` per block, each
+    with ``rows_per_thread`` queries (a block holds ``threads *
+    rows_per_thread``); the component axis in ``splits`` ranges of
+    ``per_split`` (one cluster of ``splits`` blocks per query block);
+    ``grid = (query blocks, splits)``."""
+    threads: int
+    rows_per_thread: int
+    splits: int
+    per_split: int
+    grid: Tuple[int, int]
+
+
+def rows_per_thread(d: int) -> int:
+    """Queries a thread keeps in registers: ``Shape<DS>::R`` of
+    csrc/tiled_eval.cu (d = 9..16 run at the padded widths 12 and 16).
+    The kernel refuses a launch whose ``rows_per_thread`` differs."""
+    return 4 if 3 <= d <= 8 else 2
+
+
+def plans(m: int, n: int, d: int, sms: int):
+    """Every plan of an ``[m, d]`` x ``[n, d]`` evaluation on a card with
+    ``sms`` SMs, 64 or 128 threads a block by 1..MAX_SPLITS component
+    splits (none empty), each with its estimated time of the busiest SM:
+    its blocks (all resident at once) times the pairs of one block, slowed
+    when fewer than ``_SAT_THREADS`` threads share the SM, plus a fixed cost
+    per block.  Yields ``(cost, LaunchPlan)``."""
+    rpt = rows_per_thread(d)
+    for threads in THREADS:
+        rows = threads * rpt
+        blocks_m = max(1, -(-m // rows))
+        for splits in range(1, MAX_SPLITS + 1):
+            per_split = max(SPLIT_ALIGN,
+                            -(-(-(-n // splits)) // SPLIT_ALIGN) * SPLIT_ALIGN)
+            if splits > 1 and (splits - 1) * per_split >= n:
+                continue
+            per_sm = -(-blocks_m * splits // sms)
+            busy = min(1.0, per_sm * threads / _SAT_THREADS)
+            cost = per_sm * (rows * per_split / busy + _BLOCK_COST)
+            yield cost, LaunchPlan(threads, rpt, splits, per_split,
+                                   (blocks_m, splits))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(m: int, n: int, d: int, sms: int) -> LaunchPlan:
+    """The plan of :func:`plans` with the least estimated cost."""
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"tiled_log_eval: d={d} outside 1..{MAX_DIM}")
+    return min(plans(m, n, d, sms), key=lambda cp: cp[0])[1]
 
 
 def _nvcc() -> str:
@@ -88,19 +147,16 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.kde_tiled_log_eval
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _splits(m: int, n: int, device) -> int:
-    """Component-axis splits: enough blocks to fill the card's SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks_m = -(-m // _QUERIES_PER_BLOCK)
-    want = max(1, (sms * _BLOCKS_PER_SM) // max(blocks_m, 1))
-    return max(1, min(want, -(-n // _TILE), 64))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(query, means, var, weights):
@@ -120,42 +176,68 @@ def tiled_log_eval(query: torch.Tensor, means: torch.Tensor,
     ``[N, d]`` means and variances, ``[N]`` weights) -> ``[M]``.
 
     CPU tensors take :func:`tiled_log_eval_ref`.  CUDA tensors launch the
-    kernel; they must all be float32, contiguous and on one device, with
-    ``d <= MAX_DIM``, or this raises."""
+    kernel once (it prepares its own inverse variances and log weights and
+    merges its splits on chip); they must all be float32, contiguous and on
+    one device, with ``d <= MAX_DIM``, or this raises."""
     global LAUNCHES
     _check(query, means, var, weights)
-    tensors = (query, means, var, weights)
-    if all(t.device.type == "cpu" for t in tensors):
+    if {t.device for t in (query, means, var, weights)} == {_CPU}:
         return tiled_log_eval_ref(query, means, var, weights, loo)
-    dev = query.device
-    for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError("tiled_log_eval: inputs must all lie on one "
-                             f"CUDA device, got {[str(x.device) for x in tensors]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"tiled_log_eval: the kernel takes float32, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("tiled_log_eval: inputs must be contiguous")
+    dev = _cuda_device(query, means, var, weights)
     m, d = query.shape
-    n = means.shape[0]
+    out = _launch(query, means, var, weights, loo,
+                  launch_plan(m, means.shape[0], d, _sm_count(dev.index)))
+    LAUNCHES += 1
+    return out
+
+
+def launch_with_plan(query: torch.Tensor, means: torch.Tensor,
+                     var: torch.Tensor, weights: torch.Tensor, loo: bool,
+                     plan: LaunchPlan) -> torch.Tensor:
+    """:func:`tiled_log_eval` of CUDA tensors cut by ``plan`` (one of
+    :func:`plans` for these shapes) instead of :func:`launch_plan`'s
+    choice, and not counted in ``LAUNCHES``: it times the other plans."""
+    _check(query, means, var, weights)
+    _cuda_device(query, means, var, weights)
+    return _launch(query, means, var, weights, loo, plan)
+
+
+def _cuda_device(*tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device of ``tensors``; raises unless they all lie on
+    it, float32 and contiguous, with ``d <= MAX_DIM``."""
+    dev = tensors[0].device
+    if len({t.device for t in tensors}) != 1 or dev.type != "cuda":
+        raise ValueError("tiled_log_eval: inputs must all lie on one CUDA "
+                         f"device, got {[str(x.device) for x in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"tiled_log_eval: the kernel takes float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("tiled_log_eval: inputs must be contiguous")
+    d = tensors[0].shape[1]
     if d > MAX_DIM:
         raise ValueError(f"tiled_log_eval: d={d} exceeds MAX_DIM={MAX_DIM}")
-    lib = _load()
-    hinv = (0.5 / var).contiguous()
-    c = (torch.log(weights) - 0.5 * torch.log(var).sum(dim=1)).contiguous()
-    splits = _splits(m, n, dev)
-    part = torch.empty((2, splits, m), dtype=torch.float32, device=dev)
+    return dev
+
+
+def _launch(query, means, var, weights, loo, plan: LaunchPlan):
+    """One kernel launch of ``plan`` on the inputs' device and its current
+    stream into a new ``[M]`` tensor; raises on a refused launch."""
+    dev = query.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(query, means, var, weights, loo, plan)
+    m, d = query.shape
     out = torch.empty((m,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.kde_tiled_log_eval(
-            query.data_ptr(), means.data_ptr(), hinv.data_ptr(),
-            c.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            out.data_ptr(), m, n, d, int(bool(loo)), splits, stream)
+    # the raw handle of torch.cuda.current_stream, without its Stream object
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    rc = _load().kde_tiled_log_eval(
+        query.data_ptr(), means.data_ptr(), var.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), m, means.shape[0], d,
+        int(bool(loo)), plan.threads, plan.rows_per_thread, plan.splits,
+        plan.per_split, stream)
     if rc != 0:
         raise RuntimeError(f"kde_tiled_log_eval launch failed: CUDA error {rc}")
-    LAUNCHES += 1
     return out
 
 

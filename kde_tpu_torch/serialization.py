@@ -52,9 +52,9 @@ def to_string(p: KDE) -> str:
     return f"KDE:{pts.shape[1]}:{bw_s}:[{rows}]"
 
 
-def from_string(s: str, *, device="cpu", dtype=None) -> KDE:
-    """Parse the reference's string form into a KDE on ``device`` in
-    ``dtype`` (as :func:`kde`)."""
+def from_string(s: str, *, device=None, dtype=None) -> KDE:
+    """Parse the reference's string form into a KDE on ``device`` (default
+    ``config.DEVICE``, the card) in ``dtype`` (as :func:`kde`)."""
     if not s.startswith("KDE:"):
         raise ValueError("not a serialized KDE string")
     parts = s.split(":")
@@ -86,9 +86,10 @@ def save_kde(path: str, p: KDE) -> None:
              multibandwidth=np.asarray(p.multibandwidth))
 
 
-def load_kde(path: str, *, device="cpu", dtype=None) -> KDE:
+def load_kde(path: str, *, device=None, dtype=None) -> KDE:
     """Read an npz written by :func:`save_kde` (or by the JAX package's)
-    into a KDE on ``device``; ``dtype`` defaults to the stored arrays'."""
+    into a KDE on ``device`` (default ``config.DEVICE``, the card);
+    ``dtype`` defaults to the stored arrays'."""
     with np.load(path) as z:
         pts = z["points"]
         return KDE(pts, z["bw"], z["weights"],

@@ -34,26 +34,110 @@ def _assert_close(got, want):
     np.testing.assert_allclose(g[fin], r[fin], rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("m,n,d,loo", [(1000, 777, 3, False),
-                                       (512, 512, 1, True),
-                                       (300, 2000, 9, False),
-                                       (5000, 3000, 2, False),
-                                       (1, 1, 1, True)])
-def test_kernel_matches_ref(cuda, m, n, d, loo):
-    from kde_tpu_torch.ops import tiled_eval
-    rng = np.random.default_rng(m + n + d)
+RAGGED = (1, 31, 127, 128, 129, 4097, 20000)
+DIMS = (1, 2, 3, 9, 16)       # 9 and 16 take the padded widths 12 and 16
+
+
+def _kernel_inputs(cuda, m, n, d, loo, seed, zero_weights=0):
+    rng = np.random.default_rng(seed)
     mu = rng.normal(size=(n, d))
     q = mu if loo else rng.normal(size=(m, d))
     var = rng.uniform(0.2, 1.0, size=(n, d))
     w = rng.uniform(0.1, 1.0, size=n)
+    w[:zero_weights] = 0.0
     w /= w.sum()
-    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    return [torch.as_tensor(x, dtype=torch.float32, device=cuda)
             for x in (q, mu, var, w)]
+
+
+def _check_kernel(args, loo):
+    from kde_tpu_torch.ops import tiled_eval
     before = tiled_eval.LAUNCHES
     got = tiled_eval.tiled_log_eval(*args, loo=loo)
     torch.cuda.synchronize()
     assert tiled_eval.LAUNCHES == before + 1
     _assert_close(got, tiled_eval.tiled_log_eval_ref(*args, loo=loo))
+    return got
+
+
+@pytest.mark.parametrize("m,n,loo", [(m, n, False) for m in RAGGED
+                                     for n in RAGGED]
+                         + [(n, n, True) for n in RAGGED])
+def test_kernel_matches_ref(cuda, m, n, loo):
+    """Every d of DIMS at a ragged (M, N): the launch plan's edges, splits
+    and chunk padding against the twin."""
+    if m * n > 4097 * 4097:
+        dims = (1, 2, 16)     # the twin's time at 20,000 x 20,000
+    else:
+        dims = DIMS
+    for d in dims:
+        _check_kernel(_kernel_inputs(cuda, m, n, d, loo, m + n + d), loo)
+
+
+@pytest.mark.parametrize("d", range(1, 17))
+def test_kernel_every_dim(cuda, d):
+    """Each compile-time width and each padded dim count (d = 9..12 at
+    width 12, 13..16 at 16) against the twin, plain and LOO."""
+    _check_kernel(_kernel_inputs(cuda, 129, 4097, d, False, d), False)
+    _check_kernel(_kernel_inputs(cuda, 300, 300, d, True, d), True)
+
+
+@pytest.mark.parametrize("d", [1, 2, 9])
+def test_kernel_zero_weights_and_masked_rows(cuda, d):
+    """A block of zero-weight components (a whole split of them) adds
+    nothing; a LOO row whose only positive-weight component is its own
+    diagonal is -inf, as is N = 1 LOO."""
+    from kde_tpu_torch.ops import tiled_eval
+    n = 4097
+    args = _kernel_inputs(cuda, n, n, d, False, d, zero_weights=3000)
+    _check_kernel(args, False)
+    q, mu, var, w = args
+    keep = torch.arange(n, device=cuda) >= 3000
+    want = tiled_eval.tiled_log_eval_ref(q, mu[keep].contiguous(),
+                                         var[keep].contiguous(),
+                                         w[keep].contiguous())
+    _assert_close(tiled_eval.tiled_log_eval(q, mu, var, w), want)
+    w1 = torch.zeros(n, dtype=torch.float32, device=cuda)
+    w1[7] = 1.0
+    got = _check_kernel([mu, mu, var, w1], True)
+    assert bool(torch.isneginf(got[7])) and bool(torch.isfinite(got[:7]).all())
+    one = _check_kernel(_kernel_inputs(cuda, 1, 1, d, True, d), True)
+    assert bool(torch.isneginf(one).all())
+
+
+def test_kernel_offset_data_against_float64(cuda):
+    """Centers N(10^3, 1), bandwidth 10^-2, queries beside them: against the
+    twin in float64 on the same float32 inputs.  A float32 ulp at 10^3 is
+    6.1e-5, so a q*s - mu*s form would lose ~1e-2 of each scaled
+    difference; the kernel's q - mu is exact here (Sterbenz), leaving a few
+    ulp of the O(10) logits: atol 1e-4, rtol 1e-5."""
+    from kde_tpu_torch.ops import tiled_eval
+    rng = np.random.default_rng(11)
+    n = 4096
+    mu = 1e3 + rng.normal(size=(n, 2))
+    q = mu[rng.permutation(n)] + 0.01 * rng.normal(size=(n, 2))
+    var = np.full((n, 2), 1e-4)
+    w = np.full(n, 1.0 / n)
+    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda)
+            for x in (q, mu, var, w)]
+    got = tiled_eval.tiled_log_eval(*args)
+    want = tiled_eval.tiled_log_eval_ref(*(a.double() for a in args))
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_numpy_density_lands_on_the_card(cuda, tmp_path):
+    """With the package's default device, NumPy, string and file inputs
+    put the density on the card."""
+    import kde_tpu_torch as kt
+    rng = np.random.default_rng(12)
+    p = kt.kde(rng.normal(size=(2, 300)), [0.3])
+    assert p.device.type == "cuda"
+    kt.save_kde(str(tmp_path / "p.npz"), p)
+    for k in (kt.from_string(kt.to_string(p)),
+              kt.load_kde(str(tmp_path / "p.npz")),
+              kt.kde_from_numpy(rng.normal(size=(10, 2)), np.ones((10, 2)),
+                                np.full(10, 0.1), False)):
+        assert k.device.type == "cuda"
 
 
 def test_kernel_rejects_float64(cuda):

@@ -23,6 +23,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from fixtures import gibbs_streams  # noqa: E402
 from torch_world import assert_replicated, run_world  # noqa: E402
+from torch_cpu import on_cpu  # noqa: E402,F401
 
 REPLAY = [dict(d=2, ns=(64, 64), n_out=8, n_iter=2),
           dict(d=1, ns=(48, 80), n_out=8, n_iter=3),    # ragged counts
@@ -116,6 +117,7 @@ def _worker(argv):
     import torch
     import torch.distributed as dist
     import kde_tpu_torch as kt
+    kt.config.DEVICE = "cpu"          # a worker is no pytest process
     from kde_tpu_torch import manifolds as m
     from kde_tpu_torch.parallel import (KERNELS, make_mesh, make_mesh_2d,
                                         prod_appx_ms_gibbs_kernel_sharded)

@@ -8,6 +8,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_cpu import on_cpu  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 import kde_tpu  # noqa: E402
 from fixtures import load_fixture, load_points  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_cpu import on_cpu  # noqa: E402,F401
+
 from kde_tpu_torch import kde, prod_appx_ms_gibbs  # noqa: E402
 from kde_tpu_torch.utils.random import split  # noqa: E402
 

@@ -17,6 +17,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from fixtures import gibbs_streams  # noqa: E402
 from torch_world import ROOT, assert_replicated, run_world  # noqa: E402
+from torch_cpu import on_cpu  # noqa: E402,F401
 
 
 def _free_port() -> int:
@@ -40,6 +41,7 @@ def _worker(argv):
     import torch
     torch.set_num_threads(1)
     import kde_tpu_torch as kt
+    kt.config.DEVICE = "cpu"          # a worker is no pytest process
     from kde_tpu_torch.parallel import (
         KERNELS, initialize_multihost, make_mesh,
         prod_appx_ms_gibbs_kernel_sharded, prod_appx_ms_gibbs_sharded)

@@ -21,6 +21,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_world import assert_replicated, run_world  # noqa: E402
+from torch_cpu import on_cpu  # noqa: E402,F401
 
 KSIZE_MESHES = ("c2k2", "k4")
 
@@ -67,6 +68,7 @@ def _worker(argv):
     rank, out = worker_setup(argv)
     import torch
     import kde_tpu_torch as kt
+    kt.config.DEVICE = "cpu"          # a worker is no pytest process
     from kde_tpu_torch import config, manifolds as m
     from kde_tpu_torch.ops import kernels
     from kde_tpu_torch.parallel import (

@@ -3,7 +3,10 @@ package's Pallas kernel (interpret mode) in float32 at rtol = atol = 2e-4
 (the tolerance of tests/test_pallas_eval.py; the sums run in another
 order), and against the dense JAX evaluators in float64 at rtol 1e-12.
 The CUDA kernel itself is checked against the twin on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py); here its launch plan is checked for coverage
+at ragged shapes, and a NumPy emulation of its split, chunk, lazy-rescale
+and cluster-merge arithmetic against the twin (float64, rtol 1e-12) and
+the Pallas kernel (float32, rtol = atol = 2e-4)."""
 import numpy as np
 import pytest
 
@@ -95,3 +98,171 @@ def test_ref_zero_weight_components():
     b = tiled_eval.tiled_log_eval_ref(*(_t(x, torch.float64)
                                         for x in (q, mu2, var2, w2)))
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-14)
+
+
+# ---- the kernel's launch plan and its arithmetic, emulated in NumPy ---------
+
+RAGGED = (1, 31, 127, 128, 129, 4097, 20000)
+CHUNKS = (8, 16)          # the kernel's J: 16 at d <= 2, 8 above
+CHUNK_MAX = max(CHUNKS)
+DIMS = (1, 2, 3, 9, 16)
+SMS = (132, 114, 16, 1)
+
+
+@pytest.mark.parametrize("m,n,loo", [(m, n, False) for m in RAGGED
+                                     for n in RAGGED]
+                         + [(n, n, True) for n in RAGGED])
+def test_launch_plan_covers_every_pair_once(m, n, loo):
+    """Query blocks cover the M queries once and the splits the N
+    components once (no split empty, each starting on a whole chunk),
+    within the cluster limit and MAX_DIM; the chosen plan is the cheapest
+    of :func:`plans`."""
+    del loo                         # the plan does not depend on it
+    for d in DIMS:
+        for sms in SMS:
+            p = tiled_eval.launch_plan(m, n, d, sms)
+            rows = p.threads * p.rows_per_thread
+            assert p.rows_per_thread == tiled_eval.rows_per_thread(d)
+            assert p.threads in tiled_eval.THREADS
+            costs = {q: c for c, q in tiled_eval.plans(m, n, d, sms)}
+            assert costs[p] == min(costs.values())
+            assert p.grid == (-(-m // rows), p.splits)
+            assert (p.grid[0] - 1) * rows < m <= p.grid[0] * rows
+            assert 1 <= p.splits <= tiled_eval.MAX_SPLITS
+            assert p.per_split % tiled_eval.SPLIT_ALIGN == 0
+            assert tiled_eval.SPLIT_ALIGN % CHUNK_MAX == 0
+            assert (p.splits - 1) * p.per_split < n <= p.splits * p.per_split
+            starts = [s * p.per_split for s in range(p.splits)]
+            ends = [min(n, s + p.per_split) for s in starts]
+            assert starts[0] == 0 and ends[-1] == n and all(
+                e == s2 for e, s2 in zip(ends, starts[1:]))
+    with pytest.raises(ValueError, match="MAX_DIM|outside"):
+        tiled_eval.launch_plan(m, n, tiled_eval.MAX_DIM + 1, 132)
+
+
+def emulate(q, mu, var, w, loo, plan, dtype, chunk):
+    """csrc/tiled_eval.cu's arithmetic in NumPy ``dtype``: per split,
+    chunks of ``chunk`` components (padding has weight 0; a split starts on
+    a whole chunk, so the staged tiles do not change the chunks) with the
+    chunk's largest c, the 64/8 lazy rescale in log2 units, four partial
+    sums per query, then the splits merged in rank order.  (numpy rounds
+    the kernel's fma twice.)"""
+    f = np.dtype(dtype).type
+    q, mu, var, w = (np.asarray(x, dtype=dtype) for x in (q, mu, var, w))
+    m_q, d = q.shape
+    n = mu.shape[0]
+    none, bound, resc = -np.finfo(dtype).max, f(64.0), f(8.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        h = f(0.72134752044448170) / var
+        lv = np.zeros(n, dtype)
+        for k in range(d):
+            lv = lv + np.log2(var[:, k])
+        c = np.log2(w) - f(0.5) * lv
+        rows = np.arange(m_q)
+        parts = []
+        for sp in range(plan.splits):
+            nb, ne = sp * plan.per_split, min(n, (sp + 1) * plan.per_split)
+            m = np.full(m_q, none, dtype)
+            lim = m + bound
+            a = np.zeros((m_q, 4), dtype)
+            for n0 in range(nb, ne, chunk):
+                idx = n0 + np.arange(chunk)
+                ok = idx < ne
+                idc = np.minimum(idx, n - 1)
+                cc = np.where(ok, c[idc], -np.inf).astype(dtype)
+                cmax = cc.max()
+                l = np.broadcast_to(cc, (m_q, chunk)).copy()
+                for k in range(d):
+                    t = q[:, k:k + 1] - np.where(ok, mu[idc, k], 0)
+                    l = l - (t * np.where(ok, h[idc, k], 1)) * t
+                if loo:
+                    l[rows[:, None] == idx[None, :]] = -np.inf
+                cm = l.max(axis=1)
+                up = (cmax > lim) & (cm > m + resc)
+                fct = np.exp2(np.where(up, m - cm, 0)).astype(dtype)
+                a = np.where(up[:, None], a * fct[:, None], a)
+                m = np.where(up, cm, m)
+                lim = np.where(up, cm + bound, lim).astype(dtype)
+                e = np.exp2(l - m[:, None]).astype(dtype)
+                for jj in range(chunk):
+                    a[:, jj & 3] = a[:, jj & 3] + e[:, jj]
+            parts.append((m, (a[:, 0] + a[:, 1]) + (a[:, 2] + a[:, 3])))
+        m, s = parts[0]
+        for mi, si in parts[1:]:
+            mn = np.maximum(m, mi)
+            s = s * np.exp2(m - mn) + si * np.exp2(mi - mn)
+            m = mn
+        return ((np.log2(s) + m) * f(np.log(2.0))
+                - f(0.5 * d * np.log(2.0 * np.pi))).astype(dtype)
+
+
+def _emu_inputs(m, n, d, loo, seed, zero=None):
+    q, mu, var, w = _inputs(m, n, d, seed)
+    if loo:
+        q = mu
+    if zero is not None:
+        w[zero] = 0.0
+        w /= w.sum()
+    return q, mu, var, w
+
+
+def _same(got, want, **tol):
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], **tol)
+
+
+EMU_CASES = [(1, 1, 1, True), (31, 127, 3, False), (127, 31, 2, False),
+             (129, 4097, 2, False), (4097, 129, 9, False),
+             (128, 128, 16, True), (4097, 4097, 1, True),
+             (20000, 31, 1, False), (31, 20000, 2, False)]
+
+
+@pytest.mark.parametrize("m,n,d,loo", EMU_CASES)
+def test_emulation_f64_matches_twin(m, n, d, loo):
+    q, mu, var, w = _emu_inputs(m, n, d, loo, seed=m + n + d)
+    plan = tiled_eval.launch_plan(m, n, d, 132)
+    want = tiled_eval.tiled_log_eval_ref(
+        *(_t(x, torch.float64) for x in (q, mu, var, w)), loo=loo).numpy()
+    for chunk in CHUNKS:
+        got = emulate(q, mu, var, w, loo, plan, np.float64, chunk)
+        _same(got, want, rtol=1e-12)
+        if m == n == 1 and loo:
+            assert np.isneginf(got).all()
+
+
+def test_emulation_zero_weight_split_and_split_boundary():
+    """A whole split of zero-weight components adds nothing, and the LOO
+    diagonal of the queries either side of a split boundary is masked."""
+    n, d = 4097, 2
+    plan = tiled_eval.launch_plan(n, n, d, 132)
+    assert plan.splits >= 3
+    dead = slice(plan.per_split, 2 * plan.per_split)
+    q, mu, var, w = _emu_inputs(n, n, d, True, seed=5, zero=dead)
+    got = emulate(q, mu, var, w, True, plan, np.float64, 16)
+    want = tiled_eval.tiled_log_eval_ref(
+        *(_t(x, torch.float64) for x in (q, mu, var, w)), loo=True).numpy()
+    _same(got, want, rtol=1e-12)
+    keep = np.ones(n, bool)
+    keep[dead] = False
+    for i in (plan.per_split - 1, plan.per_split, 2 * plan.per_split):
+        keep_i = keep.copy()
+        keep_i[i] = False            # its own component, masked
+        ref = tiled_eval.tiled_log_eval_ref(
+            _t(q[i:i + 1], torch.float64),
+            *(_t(x[keep_i], torch.float64) for x in (mu, var, w))).numpy()
+        np.testing.assert_allclose(got[i], ref[0], rtol=1e-12)
+
+
+@pytest.mark.parametrize("m,n,d,loo", [(129, 4097, 2, False),
+                                       (4097, 129, 1, False),
+                                       (300, 300, 2, True), (1, 1, 1, True)])
+def test_emulation_f32_matches_pallas(m, n, d, loo):
+    q, mu, var, w = _emu_inputs(m, n, d, loo, seed=7 + m + n)
+    plan = tiled_eval.launch_plan(m, n, d, 132)
+    want = np.asarray(pallas_log_eval(
+        *(jnp.asarray(x, jnp.float32) for x in (q, mu, var, w)), loo=loo,
+        interpret=True))
+    for chunk in CHUNKS:
+        got = emulate(q, mu, var, w, loo, plan, np.float32, chunk)
+        _same(got, want, rtol=2e-4, atol=2e-4)
