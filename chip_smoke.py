@@ -6,7 +6,8 @@
 Phases, one line of findings each:
   1. device: the card's name and power limit, torch/CUDA versions, TF32
      flags (both off);
-  2. build: nvcc compiles kde_tpu_torch/csrc/tiled_eval.cu (sm_90a);
+  2. build: nvcc compiles kde_tpu_torch/csrc/tiled_eval.cu (sm_90a), g++
+     the native ball-tree builder kde_tpu_torch/csrc/balltree.cpp;
   3. the kernel against its plain torch twin on the card at five shapes,
      rtol = atol = 2e-4: (a) 20k x 20k, d = 2; (b) LOO 20k, d = 1;
      (c) 1000 x 777, d = 3; (d) LOO N = 1 (-inf); (e) LOO 100k, d = 1 (the
@@ -14,9 +15,12 @@ Phases, one line of findings each:
      and (e) beside the kernel's bound (SFU ex2 rate, FP32 rate, bytes) and,
      at (a) and (b), the dense route as context; (f) data at 10^3 against
      the float64 twin (atol 1e-4, rtol 1e-5);
-  4. the `*` slice at 2 x 20,000 components in 2-D: LOOCV fits, the Gibbs
+  4. the `*` slice at 2 x 20,000 components in 2-D: LOOCV fits, the host
+     ball trees (built natively: two native builds; p's tree rebuilt once
+     with the NumPy builder must equal it array for array), the Gibbs
      product (20,000 chains, Niter 5), the LOOCV refit of the samples and
-     the evaluation at 20,000 queries -- each stage must launch the kernel;
+     the evaluation at 20,000 queries -- fit, refit and evaluate must
+     launch the kernel;
   5. serving: ProductSampler over 2 x 50,000-component densities,
      256 chains per request;
   6. the device-built plan at full width: device-resident copies of
@@ -51,14 +55,19 @@ Phases, one line of findings each:
      product_batched(mesh=) over 4 x [2 x 20,000] against the unsharded
      batch, sharded_log_eval at 20,000 x 20,000 (must launch the kernel),
      sharded_loo_entropy and ksize_bandwidths_sharded against their
-     single-device calls, and estimate_product_memory against the
-     allocator's peak (ratio in [0.5, 2]).  (b) Two copies of this script
+     single-device calls, the same three and ksize_bandwidths_device on
+     NumPy inputs (on the card, equal to the tensor calls),
+     estimate_product_memory against the allocator's peak (ratio in
+     [0.5, 2]), then scaling_bench.run at S = 1 (4,096 chains,
+     2 x 1,000 components, Niter 5) and its comm_table.  (b) Two copies of this script
      (``--shared-card-worker``) share the card in a gloo world: the
      kernel-sharded product at S = 2 and the chain-sharded product over
      both ranks against the plain engine, and sharded_log_eval with the
      components split over both ranks (each rank must launch the kernel
      and keep the result on the card).  Launches made by the references
-     that a sharded call is compared with are not counted.
+     that a sharded call is compared with are not counted;
+ 12. the eight examples_torch twins on the card at their own sizes, one
+     line each (their checks raise; they stay below the kernel's gates).
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
@@ -102,6 +111,10 @@ KSIZE_RTOL = 1e-5        # sharded vs single-device bandwidths, float32
                          # (first set at 1e-3; the H100 read 0.0)
 SHARED_CHAINS = 1024     # phase 11b kernel-sharded replay chains
 WORKER_TIMEOUT = 300     # seconds: phase 11b workers, collectives
+SCALING = dict(total_chains=4096, n_comp=1000, n_iter=5)   # kde_tpu's run()
+EXAMPLES = ("readme_examples", "evaluating_densities", "extracting_labels",
+            "belief_propagation", "circular_fusion", "se2_fusion",
+            "consensus_example", "profile_products")
 
 
 def _sync():
@@ -316,7 +329,8 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     """Phase 4: the `*` slice; returns per-stage seconds and launches."""
     import torch
     import kde_tpu_torch as kt
-    from kde_tpu_torch.ops import gibbs, kernels, tiled_eval
+    from kde_tpu_torch import native
+    from kde_tpu_torch.ops import balltree, kernels, tiled_eval
     rng = np.random.default_rng(seed)
     f32 = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)
     a = f32(rng.normal(size=(2, n)))
@@ -333,10 +347,22 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
                                       tiled_eval.LAUNCHES - l0)
 
     # the host ball trees the product's level plan is built from (cached
-    # on the densities, so `p * q` below reuses them)
-    t0 = time.perf_counter()
+    # on the densities, so `p * q` below reuses them): built natively
+    b0, t0 = native.BUILDS, time.perf_counter()
     p.tree, q.tree
-    stages["trees"] = time.perf_counter() - t0
+    stages["trees_native"] = time.perf_counter() - t0
+    if native.BUILDS != b0 + 2:
+        raise AssertionError(f"the trees stage made {native.BUILDS - b0} "
+                             "native builds, not 2")
+    # p's tree once more with the NumPy builder, the native one's twin
+    t0 = time.perf_counter()
+    twin = balltree.build_balltree(p.host_points().T, p.host_weights(),
+                                   p._host_var()[0], backend="python")
+    stages["trees_python"] = time.perf_counter() - t0
+    for f in TREE_FIELDS:
+        if not np.array_equal(getattr(p.tree, f), getattr(twin, f)):
+            raise AssertionError(f"native tree field {f} differs from the "
+                                 "NumPy builder's")
 
     kt.set_seed(seed)
     pq = _timed_product(lambda: p * q, sync, stages, launches)
@@ -375,6 +401,11 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     return dict(seconds=stages, launches=launches, product_mean=mean.tolist(),
                 fit_bw=bw.tolist(), refit_bw=torch.sqrt(pq.bw[0]).tolist(),
                 eval_err_vs_f64=err), (p, q)
+
+
+TREE_FIELDS = ("centers", "ranges", "weights", "means", "bandwidth", "left",
+               "right", "lowest_leaf", "highest_leaf", "permutation",
+               "depth", "bw_min", "bw_max")
 
 
 def phase_serve(dev, n=N_SERVE, seed=SEED):
@@ -954,19 +985,80 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         bws = stage("ksize_sharded", par.ksize_bandwidths_sharded, mesh2,
                     pts)
         with _uncounted():
-            want = loocv.ksize_bandwidths_device(pts)
-        out["ksize_rel"] = float(((bws - want).abs() / want).max())
+            ksize_dev = loocv.ksize_bandwidths_device(pts)
+        out["ksize_rel"] = float(((bws - ksize_dev).abs() / ksize_dev).max())
         if out["loo_rel"] > RTOL or out["ksize_rel"] > KSIZE_RTOL:
             raise AssertionError(f"sharded LOOCV: entropy {out['loo_rel']}, "
                                  f"bandwidths {out['ksize_rel']} apart")
+        # NumPy inputs land on the card (config.DEVICE) and give the
+        # tensor calls' results
+        for name, fn, args, ref in (
+                ("sharded_log_eval_numpy",
+                 functools.partial(par.sharded_log_eval, mesh2),
+                 (qs, pq.points, pq.bw, pq.weights), lp),
+                ("sharded_loo_entropy_numpy",
+                 functools.partial(par.sharded_loo_entropy, mesh2),
+                 (pq.points[:N_LOO], pq.bw[:N_LOO], w), h),
+                ("ksize_sharded_numpy",
+                 functools.partial(par.ksize_bandwidths_sharded, mesh2),
+                 (pts,), bws),
+                ("ksize_device_numpy", loocv.ksize_bandwidths_device,
+                 (pts,), ksize_dev)):
+            got = stage(name, fn, *(a.cpu().numpy() for a in args))
+            if not (got.is_cuda and torch.equal(got, ref)):
+                raise AssertionError(
+                    f"{name}: on {got.device}, max |NumPy - tensor call| "
+                    f"{float((got.cpu() - ref.cpu()).abs().max())}")
+        out["numpy_inputs_on_card"] = True
         with _uncounted():
             out["sizing"] = _sizing(dev, [(serve.densities, SERVE_CHAINS),
                                           ([p, q], n)], seed)
         _launched(launches, ("sharded_refit", "batched_sharded",
-                             "sharded_log_eval"), dev)
+                             "sharded_log_eval", "sharded_log_eval_numpy"),
+                  dev)
     finally:
         dist.destroy_process_group()
+    out["scaling"] = phase_scaling()
     return dict(seconds=stages, launches=launches, **out)
+
+
+def phase_scaling():
+    """Phase 11a's last step: scaling_bench.run at S = 1 (a one-rank NCCL
+    world in a child process) with kde_tpu's run() defaults."""
+    from kde_tpu_torch.parallel import scaling_bench
+    t0 = time.perf_counter()
+    res = scaling_bench.run(sizes=(1,), timeout=WORKER_TIMEOUT, **SCALING)
+    rate = res["strong_scaling"][0]["samples_per_s"]
+    if not (np.isfinite(rate) and rate > 0):
+        raise AssertionError(f"scaling_bench S = 1: rate {rate}")
+    return dict(seconds=time.perf_counter() - t0, config=res["config"],
+                samples_per_s=rate,
+                weak_samples_per_s=res["weak_scaling"][0]["samples_per_s"],
+                comm_table=res["kernel_sharded_comm"])
+
+
+def phase_examples(dev):
+    """Phase 12: the examples_torch twins on the card at their own sizes,
+    their output captured; one line each with the seconds and the twin's
+    summary."""
+    import importlib
+    import io
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    rows = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        buf = io.StringIO()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(device=dev)
+        sync()
+        rows[name] = dict(seconds=time.perf_counter() - t0,
+                          summary={k: v for k, v in res.items()
+                                   if not isinstance(v, np.ndarray)},
+                          last_line=buf.getvalue().strip().splitlines()[-1])
+        print(f"example {name}: {json.dumps(rows[name])}", flush=True)
+    return rows
 
 
 def _sizing(dev, cases, seed):
@@ -1180,6 +1272,7 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
                          "torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kde_tpu_torch import native
     from kde_tpu_torch.ops import tiled_eval
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1199,18 +1292,23 @@ def main():
              if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(so)}; ptxas: {ptxas[:4]}", flush=True)
+    t0 = time.perf_counter()
+    so = native.build()
+    print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
+          f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}",
+          flush=True)
 
     # 3. kernel vs plain twin
     rows, worst = phase_kernel(dev)
 
-    # 4-8. the main paths; only their launches count, each path's read
-    # just after it ran
-    runs = {}
+    # 4-12. the main paths; only their launches count, each path's read
+    # just after it ran (and the native tree builds, likewise)
+    runs, builds = {}, {}
 
     def run(name, fn, *args):
-        tiled_eval.LAUNCHES = 0
+        tiled_eval.LAUNCHES = native.BUILDS = 0
         out = fn(*args)
-        runs[name] = tiled_eval.LAUNCHES
+        runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
         return out
 
     sl, (p, q) = run("slice", phase_slice, dev)
@@ -1240,12 +1338,14 @@ def main():
     runs["shared_card"] = sum(r["log_eval_launches"] for r in sc)
     print(f"parallel 11b, two gloo ranks sharing the card, on {card}: "
           f"{json.dumps(sc)}", flush=True)
+    run("examples", phase_examples, dev)
     for name in ("slice", "device_plan", "batched", "functionals",
                  "manifolds", "parallel", "shared_card"):
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
     main_launches = sum(runs.values())
     print(f"kernel launches per path: {json.dumps(runs)}", flush=True)
+    print(f"native tree builds per path: {json.dumps(builds)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",

@@ -64,6 +64,12 @@ def default_device(device=None) -> torch.device:
     return torch.device(DEVICE if device is None else device)
 
 
+def input_device(x) -> torch.device:
+    """Where the work on input ``x`` runs: a tensor's own device, and
+    :data:`DEVICE` for anything else (NumPy arrays, lists)."""
+    return x.device if isinstance(x, torch.Tensor) else default_device()
+
+
 def set_force_eval_direct(flag: bool = False) -> None:
     """API-compatible setter (reference ``setForceEvalDirect!``,
     src/KernelDensityEstimate.jl:56-60).  Evaluation is exact here, so

@@ -5,7 +5,11 @@ The port carries its own copy because the package never imports
 ``kde_tpu`` (whose ``__init__`` imports JAX).  The builder must stay
 **bit-identical** to ``kde_tpu``'s: the golden fixtures and the trace-exact
 replay of the Gibbs product both depend on the exact leaf arrangement
-(tests/test_torch_balltree.py compares the two array for array).
+(tests/test_torch_balltree.py compares the two array for array).  Trees
+of more than one point are built in C++ by default (``backend="auto"``,
+``csrc/balltree.cpp`` through ``kde_tpu_torch/native.py``), which gives
+the same arrays (tests/test_torch_native_balltree.py); ``backend="python"``
+is the NumPy builder, the plain twin.
 
 Layout: ``2N`` slots, 0-based; internal nodes in slots ``0..N-2`` (root 0),
 leaves in ``N..2N-1`` -- the layout of the reference's golden dumps
@@ -28,6 +32,8 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
 
 NO_CHILD = -1
 
@@ -222,11 +228,17 @@ def _select(pts: np.ndarray, order: np.ndarray, dim: int, position: int,
 
 def build_balltree(points: np.ndarray,
                    weights: np.ndarray,
-                   bandwidth: Optional[np.ndarray] = None) -> FlatBallTree:
+                   bandwidth: Optional[np.ndarray] = None,
+                   backend: str = "auto") -> FlatBallTree:
     """Build the flat ball tree + Gaussian stats for ``points [N, d]``.
 
     ``bandwidth``: kernel variances, ``[d]`` (uniform) or ``[N, d]``
-    (multi-bandwidth); ``None`` gives zeros."""
+    (multi-bandwidth); ``None`` gives zeros.  ``backend``: ``"auto"`` and
+    ``"native"`` build in C++ when ``N > 1`` (a failed build raises),
+    ``"python"`` with NumPy; all give the same arrays."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"backend must be 'auto', 'native' or 'python'; "
+                         f"got {backend!r}")
     pts = np.ascontiguousarray(np.asarray(points, dtype=np.float64))
     if pts.ndim != 2:
         raise ValueError("points must be [N, d]")
@@ -247,6 +259,9 @@ def build_balltree(points: np.ndarray,
             multibw = True
             bw1d = None
             bw_leaf = np.ascontiguousarray(bwa.reshape(N, d))
+
+    if backend != "python" and N > 1:
+        return _build_native(pts, w, bw_leaf, multibw, bw1d)
 
     two_n = 2 * N
     centers = np.zeros((two_n, d))
@@ -324,6 +339,41 @@ def build_balltree(points: np.ndarray,
         permutation=perm, means=means, bandwidth=bw_arr,
         bw_min=bw_min, bw_max=bw_max, multibandwidth=multibw, depth=depth,
     )
+
+
+def _build_native(pts: np.ndarray, w: np.ndarray, bw_leaf: np.ndarray,
+                  multibw: bool, bw1d: Optional[np.ndarray]) -> FlatBallTree:
+    """The C++ builder (``csrc/balltree.cpp``): the arrays of the NumPy
+    path above, with ``bw_min``/``bw_max`` ``[d]`` for a uniform bandwidth
+    and unused depth slots -1 (ports ``kde_tpu/ops/balltree.py:353-395``)."""
+    import ctypes
+    lib = native.get_lib()
+    N, d = pts.shape
+    two_n = 2 * N
+    f64 = lambda *shape: np.zeros(shape)
+    i64 = lambda: np.zeros(two_n, dtype=np.int64)
+    centers, ranges, means, bw_arr = (f64(two_n, d) for _ in range(4))
+    wts = f64(two_n)
+    left, right, lowest, highest, perm, depth = (i64() for _ in range(6))
+    # bw_min/bw_max are read and written only for a multi-bandwidth tree
+    bw_min, bw_max = ((f64(two_n, d), f64(two_n, d)) if multibw
+                      else (f64(1, d), f64(1, d)))
+    dp = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    ip = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    lib.kde_build_balltree(
+        dp(pts), dp(w), dp(np.ascontiguousarray(bw_leaf)), N, d,
+        int(multibw), dp(centers), dp(ranges), dp(wts), ip(left), ip(right),
+        ip(lowest), ip(highest), ip(perm), dp(means), dp(bw_arr),
+        dp(bw_min), dp(bw_max), ip(depth))
+    native.BUILDS += 1
+    return FlatBallTree(
+        dims=d, num_points=N,
+        centers=centers, ranges=ranges, weights=wts,
+        left=left, right=right, lowest_leaf=lowest, highest_leaf=highest,
+        permutation=perm, means=means, bandwidth=bw_arr,
+        bw_min=bw_min if multibw else bw1d,
+        bw_max=bw_max if multibw else bw1d,
+        multibandwidth=multibw, depth=depth)
 
 
 def neighbor_min_max(tree: FlatBallTree) -> Tuple[float, float]:

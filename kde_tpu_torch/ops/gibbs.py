@@ -589,7 +589,13 @@ def _chain_block(n_out: int, plan, itemsize: int) -> int:
     within ``CHAIN_BLOCK_BYTES``.  A batch of ``B`` sets runs ``B`` such
     blocks at once: the split depends on the set's shape alone, so a set's
     gumbel noise is drawn in the same order as in a standalone product."""
-    width = max(w for _, w in plan.offsets)
+    return _chains_per_block(n_out, max(w for _, w in plan.offsets),
+                             itemsize)
+
+
+def _chains_per_block(n_out: int, width: int, itemsize: int) -> int:
+    """:func:`_chain_block` for a plan whose widest level has ``width``
+    candidates."""
     per_chain = _LIVE_TEMPS * width * itemsize
     return max(1, min(n_out, CHAIN_BLOCK_BYTES // per_chain))
 

@@ -209,8 +209,10 @@ def device_fit_arrays(pts_dn: torch.Tensor, weights=None,
 def ksize_bandwidths_device(points: torch.Tensor, weights=None,
                             tol: float = 1e-2, dtype=None) -> torch.Tensor:
     """LOOCV std-dev bandwidths ``[d]`` of ``points [N, d]`` on the tensor's
-    own device (same selection as :func:`ksize_bandwidths`)."""
-    points = torch.as_tensor(points, dtype=dtype)
+    own device, or on ``config.DEVICE`` for NumPy input (same selection as
+    :func:`ksize_bandwidths`)."""
+    points = torch.as_tensor(points, dtype=dtype,
+                             device=config.input_device(points))
     n, d = points.shape
     if weights is None:
         w = torch.full((n,), 1.0 / n, dtype=points.dtype,

@@ -8,7 +8,8 @@ shifted sums, and the LOO entropy adds a ``psum`` over ``chains`` of the
 per-query terms (SURVEY §5: the only places the framework needs
 communication).  Every rank passes the same full inputs and works on its
 own query and component rows, on the device of the first input (a CUDA
-tensor stays on the card whatever the backend).  An axis the mesh lacks counts
+tensor stays on the card whatever the backend; NumPy input goes to
+``config.DEVICE``, the card by default).  An axis the mesh lacks counts
 as size 1; the row counts must divide the axes (pad with zero-weight
 components), except in :func:`ksize_bandwidths_sharded`, which pads.
 """
@@ -20,6 +21,7 @@ import math
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from .. import config
 from ..ops import kernels
 from ..ops.kernels import LOG_2PI, pairwise_quad
 from ..ops.loocv import _golden_core, _slices_on, bracket_rows
@@ -56,8 +58,9 @@ def sharded_log_eval(mesh: DeviceMesh, query, means, var,
     ``kernels.log_eval_gated`` on its components (the tiled kernel K1 above
     ``config.DIRECT_PAIR_LIMIT`` pairs in float32), which sums unnormalized
     ``w_n`` terms, so the shard values combine by log-sum-exp.  Returns
-    ``[M]``, gathered, on the queries' device."""
-    dev = torch.as_tensor(query).device
+    ``[M]``, gathered, on the queries' device (``config.DEVICE`` for
+    NumPy queries)."""
+    dev = config.input_device(query)
     qr = _rows(mesh, CHAINS, query.shape[0])
     kr = _rows(mesh, KERNELS, means.shape[0])
     q = _local(query, qr, dev)
@@ -87,7 +90,7 @@ def sharded_loo_entropy(mesh: DeviceMesh, points, var,
     the diagonal mask is offset by the shard's row and column starts, the
     log-sum-exp over ``kernels`` and the weighted sum over ``chains`` are
     collectives.  Returns a scalar on the points' device."""
-    dev = torch.as_tensor(points).device
+    dev = config.input_device(points)
     n, d = points.shape
     qr, kr = _rows(mesh, CHAINS, n), _rows(mesh, KERNELS, n)
     q, qw = _local(points, qr, dev), _local(weights, qr, dev)
@@ -112,8 +115,8 @@ def ksize_bandwidths_sharded(mesh: DeviceMesh, points, weights=None,
     the mesh with zero-weight rows, which add nothing.  Same selection as
     ``ksize_bandwidths`` up to the order of the sums.  Returns ``[d]``
     std-dev bandwidths on the points' device."""
-    points = torch.as_tensor(points, dtype=dtype)
-    dev = points.device
+    dev = config.input_device(points)
+    points = torch.as_tensor(points, dtype=dtype, device=dev)
     n, d = points.shape
     if weights is None:
         w = torch.full((n,), 1.0 / n, dtype=points.dtype, device=dev)

@@ -11,7 +11,9 @@ torch.set_num_threads(1)
 
 import kde_tpu_torch as kt  # noqa: E402
 from kde_tpu_torch import config  # noqa: E402
-from kde_tpu_torch.ops.loocv import ksize_bandwidths  # noqa: E402
+from kde_tpu_torch import parallel as par  # noqa: E402
+from kde_tpu_torch.ops.loocv import (ksize_bandwidths,  # noqa: E402
+                                     ksize_bandwidths_device)
 from torch_cpu import on_cpu  # noqa: E402,F401
 
 
@@ -95,3 +97,64 @@ def test_default_device_resolves_at_call_time(monkeypatch):
     monkeypatch.setattr(config, "DEVICE", "cuda")
     assert config.default_device() == torch.device("cuda")
     assert config.default_device("cpu") == torch.device("cpu")
+
+
+# The device-level and sharded LOOCV and evaluation: NumPy inputs go to
+# config.DEVICE too (the sharded ones over a one-rank gloo world here).
+
+def _loocv_inputs(as_tensor):
+    rng = np.random.default_rng(1)
+    x = dict(q=rng.normal(size=(8, 2)), pts=rng.normal(size=(40, 2)),
+             var=np.full((40, 2), 0.3), w=np.full(40, 1 / 40))
+    return {k: torch.as_tensor(v) for k, v in x.items()} if as_tensor else x
+
+
+LOOCV_ENTRY_POINTS = {
+    "ksize_bandwidths_device": lambda mesh, x:
+        ksize_bandwidths_device(x["pts"]),
+    "sharded_log_eval": lambda mesh, x:
+        par.sharded_log_eval(mesh, x["q"], x["pts"], x["var"], x["w"]),
+    "sharded_loo_entropy": lambda mesh, x:
+        par.sharded_loo_entropy(mesh, x["pts"], x["var"], x["w"]),
+    "ksize_bandwidths_sharded": lambda mesh, x:
+        par.ksize_bandwidths_sharded(mesh, x["pts"], x["w"]),
+}
+
+
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory):
+    import torch.distributed as dist
+    store = tmp_path_factory.mktemp("world") / "store"
+    par.initialize_multihost(f"file://{store}", 1, 0, backend="gloo",
+                             timeout=60)
+    try:
+        yield par.make_mesh_2d((1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", list(LOOCV_ENTRY_POINTS))
+def test_loocv_numpy_input_follows_config_device(name, mesh):
+    assert config.DEVICE == "cpu"          # the tests' fixture
+    call = LOOCV_ENTRY_POINTS[name]
+    got = call(mesh, _loocv_inputs(False))
+    assert got.device.type == "cpu"
+    torch.testing.assert_close(got, call(mesh, _loocv_inputs(True)),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", list(LOOCV_ENTRY_POINTS))
+def test_loocv_tensor_input_keeps_its_device(name, mesh, monkeypatch):
+    monkeypatch.setattr(config, "DEVICE", "cuda")
+    got = LOOCV_ENTRY_POINTS[name](mesh, _loocv_inputs(True))
+    assert got.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", list(LOOCV_ENTRY_POINTS))
+def test_loocv_card_default_raises_without_card(name, mesh, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default lands there")
+    monkeypatch.setattr(config, "DEVICE", "cuda")
+    with pytest.raises((AssertionError, RuntimeError),
+                       match="CUDA|cuda|GPU"):
+        LOOCV_ENTRY_POINTS[name](mesh, _loocv_inputs(False))

@@ -41,6 +41,32 @@ def test_parallel_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_native_scaling_and_examples_import_leaves_jax_out_and_builds_nothing():
+    twins = sorted(f[:-3] for f in os.listdir(os.path.join(ROOT,
+                                                           "examples_torch"))
+                   if f.endswith(".py") and f != "__init__.py")
+    assert len(twins) == 8
+    code = ("import importlib, os, sys\n"
+            "d = 'kde_tpu_torch/_build'\n"
+            "before = sorted(os.listdir(d)) if os.path.isdir(d) else []\n"
+            "import kde_tpu_torch, kde_tpu_torch.native\n"
+            "import kde_tpu_torch.parallel.scaling_bench\n"
+            f"for name in {twins!r}:\n"
+            "    importlib.import_module('examples_torch.' + name)\n"
+            "from kde_tpu_torch import native\n"
+            "from kde_tpu_torch.ops import tiled_eval\n"
+            "after = sorted(os.listdir(d)) if os.path.isdir(d) else []\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kde_tpu') or "
+            "m.startswith(('jax.', 'kde_tpu.'))]\n"
+            "built = (native._lib, native.BUILDS, tiled_eval._lib,\n"
+            "         tiled_eval.LAUNCHES, before != after)\n"
+            "print(bad, built)\n"
+            "sys.exit(1 if bad or built != (None, 0, None, 0, False) "
+            "else 0)\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_parallel_exports_equal_jax():
     import kde_tpu.parallel
     import kde_tpu_torch.parallel

@@ -162,6 +162,16 @@ def _worker(argv):
         pts, w = _ksize_data()
         res[f"ksize/{name}"] = ksize_bandwidths_sharded(
             meshes[name], pts, w, dtype=f64).numpy()
+    # NumPy inputs (on config.DEVICE) against the same calls on tensors
+    for name, fn, data in (("eval", sharded_log_eval, _eval_data()),
+                           ("loo", sharded_loo_entropy, _loo_data()),
+                           ("ksize", ksize_bandwidths_sharded,
+                            _ksize_data())):
+        for kind, args in (("np", data),
+                           ("t", [torch.as_tensor(x) for x in data])):
+            got = fn(c2k2, *args)
+            res[f"{kind}/{name}"] = got.numpy()
+            res[f"{kind}/{name}/dev"] = np.array(got.device.type)
 
     errors = []
     for fn in (lambda: make_mesh(3), lambda: make_mesh_2d((4, 2)),
@@ -287,6 +297,14 @@ def test_ksize_bandwidths_sharded_matches_dense(res, mesh):
                                ksize_bandwidths(pts, w), rtol=1e-8)
     np.testing.assert_allclose(res[f"ksize/{mesh}"], jax_ksize(pts, w),
                                rtol=1e-8)
+
+
+@pytest.mark.parametrize("name", ["eval", "loo", "ksize"])
+def test_numpy_inputs_equal_tensor_calls(res, name):
+    """NumPy inputs to the three sharded functions land on config.DEVICE
+    (the CPU in the workers) and give bitwise the tensor calls' results."""
+    assert str(res[f"np/{name}/dev"]) == "cpu"
+    np.testing.assert_array_equal(res[f"np/{name}"], res[f"t/{name}"])
 
 
 def test_bad_meshes_and_shapes_raise(res):
