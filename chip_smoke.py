@@ -6,8 +6,9 @@
 Phases, one line of findings each:
   1. device: the card's name and power limit, torch/CUDA versions, TF32
      flags (both off);
-  2. build: nvcc compiles kde_tpu_torch/csrc/tiled_eval.cu (sm_90a), g++
-     the native ball-tree builder kde_tpu_torch/csrc/balltree.cpp;
+  2. build, all started together: nvcc compiles kde_tpu_torch/csrc/
+     tiled_eval.cu and csrc/small_ops.cu (sm_90a, the latter with
+     --fmad=false), g++ the native ball-tree builder csrc/balltree.cpp;
   3. the kernel against its plain torch twin on the card at five shapes,
      rtol = atol = 2e-4: (a) 20k x 20k, d = 2; (b) LOO 20k, d = 1;
      (c) 1000 x 777, d = 3; (d) LOO N = 1 (-inf); (e) LOO 100k, d = 1 (the
@@ -15,6 +16,24 @@ Phases, one line of findings each:
      and (e) beside the kernel's bound (SFU ex2 rate, FP32 rate, bytes) and,
      at (a) and (b), the dense route as context; (f) data at 10^3 against
      the float64 twin (atol 1e-4, rtol 1e-5);
+ 3b. the float64 small-route kernels of csrc/small_ops.cu against their
+     plain twins on the card: loo_golden (one launch for every row's golden
+     search) on README cfg 1 (N = 100, d = 1), N = 120 in 2-D, the 1-D gate
+     edge N = 255, zero-weight kernels, N = 1 and N = 2 (selections to rtol
+     1e-9); small_log_eval at 200 x 100, d = 1, at 200 x 300, d = 4 (the
+     widest under the gate), LOO at N = 100 and 255 and the exp-wrap
+     queries (log p to atol 1e-10).  CUDA-event times of each kernel
+     (loo_golden at cfg 1, 2-D and the gate edge; small_log_eval at the
+     two evaluation shapes) beside its twin, the parent's routes for the
+     same call (the float32 and float64 dense golden loops, the float32
+     dense evaluation), an empty launch of the same library and the bound;
+     at the evaluation shapes also torch.distributions' MixtureSameFamily
+     log_prob, the one PyTorch call that computes the same function;
+ 3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
+     resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
+     the same flow on the CPU, both small kernels launched; flows/s with
+     the gates at their values and with the port's gates at 0 (the
+     parent's routes), in turns;
   4. the `*` slice at 2 x 20,000 components in 2-D: LOOCV fits, the host
      ball trees (built natively: two native builds; p's tree rebuilt once
      with the NumPy builder must equal it array for array), the Gibbs
@@ -112,6 +131,13 @@ KSIZE_RTOL = 1e-5        # sharded vs single-device bandwidths, float32
 SHARED_CHAINS = 1024     # phase 11b kernel-sharded replay chains
 WORKER_TIMEOUT = 300     # seconds: phase 11b workers, collectives
 SCALING = dict(total_chains=4096, n_comp=1000, n_iter=5)   # kde_tpu's run()
+FP64_FLOPS = 34e12       # H100 SXM, FP64 outside the tensor cores
+SMALL_RTOL = 1e-9        # small-route selections (tests/test_host_small.py)
+SMALL_ATOL = 1e-10       # small-route log p
+SMALL_TOL = 1e-2         # the LOOCV search's tolerance (kde's default)
+CFG1_FLOWS = 20          # README cfg 1 flows a timing round...
+CFG1_ROUNDS = 6          # ...best of this many rounds (bench.py:239-244)
+SMALL_GATES = ("HOST_LOOCV_LIMIT", "HOST_EVAL_LIMIT", "HOST_SAMPLE_LIMIT")
 EXAMPLES = ("readme_examples", "evaluating_densities", "extracting_labels",
             "belief_propagation", "circular_fusion", "se2_fusion",
             "consensus_example", "profile_products")
@@ -277,6 +303,304 @@ def phase_kernel(dev):
                  "vs": "float64 twin", "atol": OFFSET_ATOL, "rtol": OFFSET_RTOL}
     print(f"kernel (f): {json.dumps(rows['f'])}", flush=True)
     return rows, worst
+
+
+def cfg1_points(seed):
+    """README cfg 1 (bench.py:220): 50 + 50 bimodal points in 1-D and a
+    200-point grid over their range."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.normal(size=50), 10.0 + 2.0 * rng.normal(size=50)])
+    return x, np.linspace(x.min(), x.max(), 200)
+
+
+def _golden_inputs(name, dev):
+    """Rows [R, N] and normalized weights [N], float64 on ``dev``."""
+    import torch
+    rng = np.random.default_rng(SEED + 11)
+    if name == "cfg1":
+        rows = cfg1_points(SEED)[0][None, :]
+    elif name == "d2":                       # tests/test_host_small.py:20-33
+        rows = (rng.normal(size=(120, 2)) * [1.0, 2.5]).T
+    elif name == "gate_edge":
+        rows = rng.normal(size=(1, 255))
+    elif name == "zero_weights":             # tests/test_host_small.py:143
+        x = np.concatenate([rng.normal(size=95) * 0.01, [500.0]])
+        rows = np.concatenate([x, x + 1e-6])[None, :]
+        w = np.concatenate([np.full(96, 1.0 / 96), np.zeros(96)])
+    else:                                    # "n1", "n2": the guards
+        rows = rng.normal(size=(1, int(name[1:])))
+    if name != "zero_weights":
+        w = np.full(rows.shape[1], 1.0 / rows.shape[1])
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                            device=dev) for a in (rows, w)]
+
+
+def _eval_inputs(name, dev):
+    """Queries [M, d] (the means for LOO), means and variances [N, d],
+    weights [N], float64 on ``dev``; ``loo``."""
+    import torch
+    rng = np.random.default_rng(SEED + 12)
+    loo = name.startswith("loo")
+    if name == "cfg1":
+        x, grid = cfg1_points(SEED)
+        mu, q = x[:, None], grid[:, None]
+        var = np.full_like(mu, 0.36)
+    elif name == "widest":                   # 200 x 300 x 4 <= 2^18
+        mu, q = rng.normal(size=(300, 4)), 1.5 * rng.normal(size=(200, 4))
+        var = rng.uniform(0.05, 0.5, size=(300, 4))
+    elif name == "exp_wrap":                 # tests/test_host_small.py:207
+        mu = (np.arange(9) * 1e-6)[:, None]
+        var = np.full((9, 1), 0.5)
+        q = np.sqrt(np.concatenate([np.linspace(705.0, 715.0, 401),
+                                    np.linspace(2125.0, 2135.0, 401)]))[:, None]
+    else:                                    # "loo100", "loo255"
+        n = int(name[3:])
+        mu = q = rng.normal(size=(n, 1))
+        var = np.full((n, 1), 0.1)
+    w = np.ones(len(mu)) if name == "exp_wrap" else rng.uniform(0.5, 1.5,
+                                                                len(mu))
+    t = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                         device=dev) for a in (q, mu, var, w / w.sum())]
+    return t, loo
+
+
+def _probes(args):
+    """The probes of each row's golden search, counted on the twin (the
+    kernel takes the same bracket steps)."""
+    from kde_tpu_torch.ops import host_small
+    counts, search = [], host_small._golden_scalar
+
+    def counting(f, *a):
+        seen = [0]
+
+        def g(x):
+            seen[0] += 1
+            return f(x)
+        out = search(g, *a)
+        counts.append(seen[0])
+        return out
+    host_small._golden_scalar = counting
+    try:
+        host_small.loo_golden_ref(*args, SMALL_TOL)
+    finally:
+        host_small._golden_scalar = search
+    return counts
+
+
+def golden_bound_ms(rows, w, probes):
+    """The least time an H100 could take for the searches, counting only
+    the work the function needs: once per row, the shifted d2 of each live
+    pair (i != j, w_i > 0, w_j > 0: difference, square, running minimum,
+    shift); per probe, 4 FP64 operations per live pair (scale, exp counted
+    as one, weight, add) and a log per live row; at 34 TFLOP/s.  Bytes:
+    the rows, weights and brackets read once, the result written once, at
+    3.35 TB/s."""
+    r, n = rows.shape
+    live = int((w > 0).sum())
+    pairs = live * (live - 1)
+    ops = sum(4 * pairs + p * (4 * pairs + live) for p in probes)
+    times = {"operations": ops / FP64_FLOPS,
+             "bytes": 8 * (r * n + n + 5 * r) / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def eval_bound_ms(m, n, d, loo):
+    """The least time for one small_log_eval, counting only the work the
+    function needs: 4d + 4 FP64 operations per (query, component) pair
+    (per dim difference, square, scale by 1/var, add; then the component's
+    constant, exp, running maximum, add), the LOO diagonal excluded; 3d + 1
+    per component (1/var, log var and its sum, log w) and 2 per query; each
+    log and exp counted as one, at 34 TFLOP/s.  Bytes: inputs read once,
+    the output written once, at 3.35 TB/s."""
+    pairs = m * n - (m if loo else 0)
+    ops = pairs * (4 * d + 4) + n * (3 * d + 1) + 2 * m
+    times = {"operations": ops / FP64_FLOPS,
+             "bytes": 8 * (m * d + 2 * n * d + n + m) / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def _empty_launch(dev):
+    """A call that launches small_ops.cu's empty kernel on ``dev``'s
+    current stream through the same ctypes path as the two kernels: their
+    timing floor.  Only this script uses that entry; the package does not."""
+    import ctypes
+    import torch
+    from kde_tpu_torch.ops import host_small
+    lib = host_small._load()
+    lib.kde_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.kde_empty_launch.restype = ctypes.c_int
+    stream = torch._C._cuda_getCurrentRawStream(
+        torch.device(dev).index or torch.cuda.current_device())
+    return lambda: host_small._checked("kde_empty_launch",
+                                       lib.kde_empty_launch(stream))
+
+
+def mixture_log_prob(q, mu, var, w):
+    """``log sum_n w_n prod_k N(q_mk; mu_nk, var_nk)`` by one PyTorch call,
+    torch.distributions' MixtureSameFamily of diagonal normals: the library
+    time of small_log_eval (not LOO).  The port never calls it."""
+    from torch.distributions import (Categorical, Independent,
+                                     MixtureSameFamily, Normal)
+    return MixtureSameFamily(
+        Categorical(probs=w, validate_args=False),
+        Independent(Normal(mu, var.sqrt(), validate_args=False), 1,
+                    validate_args=False),
+        validate_args=False).log_prob(q)
+
+
+def phase_small(dev):
+    """Phase 3b: the small-route kernels against their plain twins on the
+    card, timed beside the twins, the parent's routes, an empty launch, the
+    library call and the bounds.  Returns the rows printed and the worst
+    error of each."""
+    import torch
+    from kde_tpu_torch.ops import host_small, kernels, loocv
+    rows, worst = {}, {"loo_golden": 0.0, "small_log_eval": 0.0}
+    empty_ms = _cuda_ms(_empty_launch(dev))
+    for name in ("cfg1", "d2", "gate_edge", "zero_weights", "n1", "n2"):
+        x, w = _golden_inputs(name, dev)
+        base, ax, bx, cx = host_small._bracket(x)
+        args = (x, w, base ** 2, ax, bx, cx)
+        got = host_small.loo_golden(*args, SMALL_TOL) * base
+        _sync()
+        want = host_small.loo_golden_ref(*args, SMALL_TOL) * base
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / want.abs()).max())
+        if not (bool(torch.isfinite(got).all()) and rel <= SMALL_RTOL):
+            raise AssertionError(f"loo_golden ({name}): selection {got} "
+                                 f"against the twin's {want}")
+        worst["loo_golden"] = max(worst["loo_golden"], err)
+        row = {"R": x.shape[0], "N": x.shape[1], "max_abs_err": err,
+               "max_rel_err": rel}
+        if name in ("cfg1", "d2", "gate_edge"):
+            probes = _probes(args)
+            row["probes"] = probes
+            row["bound_ms"], row["bound_by"] = golden_bound_ms(x, w, probes)
+            row["ms"] = _cuda_ms(lambda: host_small.loo_golden(*args,
+                                                               SMALL_TOL))
+            row["ksize_small_ms"] = _cuda_ms(
+                lambda: host_small.ksize_small(x, w, SMALL_TOL))
+            row["plain_ms"] = _cuda_ms(
+                lambda: host_small.loo_golden_ref(*args, SMALL_TOL), reps=3)
+            lo, hi = loocv._slices_on(x.shape[1], dev)
+            for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
+                xr, wr = x.to(dt), w.to(dt)
+                row[f"parent_{tag}_ms"] = _cuda_ms(
+                    lambda: loocv.ksize_rows(xr, wr, lo, hi, tol=SMALL_TOL),
+                    reps=3)
+            row["empty_ms"] = empty_ms
+        rows[f"loo_golden {name}"] = row
+        print(f"small loo_golden ({name}): {json.dumps(row)}", flush=True)
+
+    for name in ("cfg1", "widest", "loo100", "loo255", "exp_wrap"):
+        (q, mu, var, w), loo = _eval_inputs(name, dev)
+        call = (functools.partial(host_small.log_eval_loo_small, mu, var, w)
+                if loo else functools.partial(host_small.log_eval_small,
+                                              q, mu, var, w))
+        got = call()
+        _sync()
+        want = host_small.small_log_eval_ref(q, mu, var, w, loo)
+        err = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= SMALL_ATOL):
+            raise AssertionError(f"small_log_eval ({name}): max |err| {err} "
+                                 f"against the twin, atol {SMALL_ATOL}")
+        worst["small_log_eval"] = max(worst["small_log_eval"], err)
+        m, d = q.shape
+        row = {"M": m, "N": mu.shape[0], "d": d, "loo": loo,
+               "max_abs_err": err}
+        if name in ("cfg1", "widest"):
+            row["bound_ms"], row["bound_by"] = eval_bound_ms(
+                m, mu.shape[0], d, loo)
+            row["ms"] = _cuda_ms(call)
+            row["plain_ms"] = _cuda_ms(
+                lambda: host_small.small_log_eval_ref(q, mu, var, w, loo))
+            f32 = [t.float() for t in (q, mu, var, w)]
+            row["parent_f32_ms"] = _cuda_ms(
+                lambda: kernels.log_eval_gated(*f32))
+            lib = mixture_log_prob(q, mu, var, w)
+            row["library_err"] = float((lib - want).abs().max())
+            if row["library_err"] > SMALL_ATOL:
+                raise AssertionError(f"MixtureSameFamily ({name}): max |err| "
+                                     f"{row['library_err']} against the twin")
+            row["library_ms"] = _cuda_ms(
+                lambda: mixture_log_prob(q, mu, var, w))
+            row["empty_ms"] = empty_ms
+        rows[f"small_log_eval {name}"] = row
+        print(f"small small_log_eval ({name}): {json.dumps(row)}", flush=True)
+    return rows, worst
+
+
+def _cfg1_flow(x, grid, s, device=None):
+    """README cfg 1 (bench.py:229-236) with the package's defaults:
+    fit, evaluate, resample with a LOOCV refit, the LOO evaluation."""
+    import kde_tpu_torch as kt
+    p = kt.kde(x[None, :], device=device)
+    v = p(grid)
+    r = kt.resample(p, 75, "lcv", key=int(s))
+    return p, v, r, p.evaluate(None, lv_flag=True)
+
+
+def phase_cfg1(dev, seed=SEED):
+    """Phase 3c: README cfg 1 end to end on the card, checked against the
+    same flow on the CPU; then flows/s with the gates at their values and
+    with the port's gates at 0 (the parent's routes), in turns."""
+    import torch
+    from kde_tpu_torch import config
+    from kde_tpu_torch.ops import host_small
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    x, grid = cfg1_points(seed)
+    before = dict(host_small.LAUNCHES)
+    p, v, r, lv = _cfg1_flow(x, grid, seed)
+    sync()
+    for k, v2 in host_small.LAUNCHES.items():
+        if v2 <= before[k] and dev.type == "cuda":
+            raise AssertionError(f"README cfg 1 never launched {k}")
+    c, vc, _, lvc = _cfg1_flow(x, grid, seed, device="cpu")
+    bw_rel = float(np.max(np.abs(p.host_bw_std() / c.host_bw_std() - 1.0)))
+    v_rel = float(((v.cpu() - vc).abs() / vc).max())
+    lv_rel = float(((lv.cpu() - lvc).abs() / lvc).max())
+    vv = v.cpu().numpy()
+    mass = float(((vv[1:] + vv[:-1]) / 2 * np.diff(grid)).sum())
+    if not (p.device.type == r.device.type == v.device.type == dev.type
+            and v.dtype == lv.dtype == torch.float64
+            and v.shape == (200,) and lv.shape == (100,) and r.npts == 75
+            and bool(torch.isfinite(v).all() & (v >= 0).all())
+            and bool(torch.isfinite(r.bw).all() & (r.bw > 0).all())
+            and bw_rel <= SMALL_RTOL and v_rel <= 1e-12 and lv_rel <= 1e-12
+            and 0.9 < mass < 1.01):
+        raise AssertionError(f"README cfg 1 on the card: bandwidths "
+                             f"{bw_rel}, p(grid) {v_rel}, LOO {lv_rel} from "
+                             f"the CPU's; mass {mass}; {v.dtype} on "
+                             f"{v.device}")
+
+    def rate(gates_on):
+        saved = {g: getattr(config, g) for g in SMALL_GATES}
+        if not gates_on:
+            for g in SMALL_GATES:
+                setattr(config, g, 0)
+        try:
+            _cfg1_flow(x, grid, seed)
+            best = float("inf")
+            for rnd in range(CFG1_ROUNDS):
+                sync()
+                t0 = time.perf_counter()
+                for i in range(CFG1_FLOWS):
+                    _cfg1_flow(x, grid, seed + CFG1_FLOWS * rnd + i)
+                sync()
+                best = min(best, (time.perf_counter() - t0) / CFG1_FLOWS)
+        finally:
+            for g, val in saved.items():
+                setattr(config, g, val)
+        return 1.0 / best
+
+    rates = {"gates": [], "gates_0": []}
+    for on in (True, False, False, True):
+        rates["gates" if on else "gates_0"].append(rate(on))
+    return dict(bw=p.host_bw_std()[0, 0], bw_rel_vs_cpu=bw_rel,
+                p_rel_vs_cpu=v_rel, loo_rel_vs_cpu=lv_rel, mass=mass,
+                flows_per_s=rates)
 
 
 def _timed(name, fn, sync, stages, launches):
@@ -1272,8 +1596,9 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
                          "torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
     from kde_tpu_torch import native
-    from kde_tpu_torch.ops import tiled_eval
+    from kde_tpu_torch.ops import host_small, tiled_eval
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1285,31 +1610,47 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build
+    # 2. build: the three libraries at once, each timed from the start
     t0 = time.perf_counter()
-    so = tiled_eval.build()
-    ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(so)}; ptxas: {ptxas[:4]}", flush=True)
-    t0 = time.perf_counter()
-    so = native.build()
+
+    def timed_build(build):
+        so = build()
+        return so, time.perf_counter() - t0
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(timed_build, b) for b in
+                (tiled_eval.build, host_small.build, native.build)]
+        (k1_so, k1_s), (small_so, small_s), (tree_so, tree_s) = [
+            j.result() for j in jobs]
+    for name, mod, so, sec in (("", tiled_eval, k1_so, k1_s),
+                               (" small ops", host_small, small_so, small_s)):
+        ptxas = [ln.strip() for ln in mod.BUILD_LOG.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build{name}: {sec:.2f} s -> {os.path.relpath(so)}; ptxas: "
+              f"{ptxas[:6]}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
-          f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}",
-          flush=True)
+          f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
-    # 3. kernel vs plain twin
+    # 3. kernel vs plain twin; 3b. the small-route kernels
     rows, worst = phase_kernel(dev)
+    small_rows, small_worst = phase_small(dev)
 
-    # 4-12. the main paths; only their launches count, each path's read
+    # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds = {}, {}
+    runs, builds, small = {}, {}, {}
 
     def run(name, fn, *args):
         tiled_eval.LAUNCHES = native.BUILDS = 0
+        host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
+        small[name] = dict(host_small.LAUNCHES)
         return out
+
+    c1 = run("cfg1", phase_cfg1, dev)
+    print(f"README cfg 1 on {card}: {json.dumps(c1)}", flush=True)
+    for k in host_small.LAUNCHES:
+        if small["cfg1"][k] < 1:
+            raise AssertionError(f"README cfg 1 never launched {k}")
 
     sl, (p, q) = run("slice", phase_slice, dev)
     print(f"slice 2x{N_SLICE} 2-D `*` on {card}: {json.dumps(sl)}",
@@ -1344,8 +1685,14 @@ def main():
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
     main_launches = sum(runs.values())
+    small_launches = {k: sum(r[k] for r in small.values())
+                      for k in host_small.LAUNCHES}
     print(f"kernel launches per path: {json.dumps(runs)}", flush=True)
+    print(f"small-route kernel launches per path: {json.dumps(small)}",
+          flush=True)
     print(f"native tree builds per path: {json.dumps(builds)}", flush=True)
+    golden, ev = small_rows["loo_golden cfg1"], small_rows[
+        "small_log_eval cfg1"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -1358,7 +1705,26 @@ def main():
         "bound_share_b": rows["b"]["bound_share"],
         "ms_back_to_back": rows["a"]["ms_back_to_back"],
         "ms_b_back_to_back": rows["b"]["ms_back_to_back"],
-        "dense_ms": rows["a"]["dense_ms"]}]}))
+        "dense_ms": rows["a"]["dense_ms"]}, {
+        "name": "loo_golden", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/small_ops.cu",
+        "replaces": "kde_tpu/native/hostops.cpp:260",
+        "launches": small_launches["loo_golden"],
+        "max_abs_err": small_worst["loo_golden"], "ms": golden["ms"],
+        "plain_ms": golden["plain_ms"], "bound_ms": golden["bound_ms"],
+        "bound_by": golden["bound_by"], "library_ms": None,
+        "parent_f32_ms": golden["parent_f32_ms"],
+        "parent_f64_ms": golden["parent_f64_ms"],
+        "empty_ms": golden["empty_ms"]}, {
+        "name": "small_log_eval", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/small_ops.cu",
+        "replaces": "kde_tpu/native/hostops.cpp:292",
+        "launches": small_launches["small_log_eval"],
+        "max_abs_err": small_worst["small_log_eval"], "ms": ev["ms"],
+        "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
+        "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
+        "parent_f32_ms": ev["parent_f32_ms"],
+        "empty_ms": ev["empty_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,22 @@ SELECT_GUMBEL_WIDTH: int = 50000      # gumbel: leaf width where it won...
 SELECT_GUMBEL_BATCH: int = 1 << 30    # ...no set count where it won...
 SELECT_GUMBEL_WORK: int = 1 << 22     # ...or chains x width (cdf won 1e6)
 
+# The small-problem routes (ops/host_small.py), at the JAX package's values
+# and names (kde_tpu/config.py:122-129) so that a test sets both packages'
+# gates side by side.  They are routing semantics: at or below a gate the op
+# computes in float64 on the density's device (the CUDA kernels of
+# csrc/small_ops.cu on the card, their plain twins on the CPU) and returns
+# float64 tensors, whatever the density's dtype.  They engage only for
+# densities built from NumPy (host copies present) with NumPy queries and
+# int or None keys; 0 pins an op to the density-dtype route.  They must
+# equal kde_tpu's values, which decide which calls return float64 there:
+# they are parity settings, not speed thresholds for this card, and are not
+# to be re-tuned for speed (the card's crossover above them is not
+# measured).  On the card the LOOCV route takes N <= host_small.GOLDEN_MAX_N.
+HOST_LOOCV_LIMIT: int = 1 << 16   # LOOCV: N * N * d (N = 256 at d = 1)
+HOST_EVAL_LIMIT: int = 1 << 18    # evaluation: M * N * d
+HOST_SAMPLE_LIMIT: int = 1 << 18  # sampling: n * (N + n) * d
+
 
 def default_device(device=None) -> torch.device:
     """``device``, or :data:`DEVICE` when it is ``None``."""

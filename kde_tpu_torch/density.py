@@ -9,7 +9,10 @@ reference's conventions: ``points`` is ``[d, N]``, ``bw`` holds standard
 deviations that are squared into variances, a scalar broadcasts across
 dims, and omitting ``bw`` selects it by LOOCV (reference src/KDE01.jl:3-84).
 A density may carry per-dimension manifold hooks (manifolds.py): evaluation
-then takes the ``diffop`` path, and products run on the manifold.
+then takes the ``diffop`` path, and products run on the manifold.  Small
+evaluations of a NumPy-built density at NumPy queries take the float64
+route of ops/host_small.py (``config.HOST_EVAL_LIMIT``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from . import config, manifolds
-from .ops import kernels
+from .ops import host_small, kernels
 from .ops.balltree import FlatBallTree, build_balltree
 from .ops.loocv import device_fit_arrays, ksize_bandwidths
 
@@ -75,6 +78,7 @@ class KDE:
         self.get_mu = manifolds.broadcast_ops(get_mu, d)
         self.get_lambda = manifolds.broadcast_ops(get_lambda, d)
         self._tree: Optional[FlatBallTree] = None
+        self._f64 = None
 
     # ---- basic properties ---------------------------------------------------
 
@@ -117,6 +121,17 @@ class KDE:
                 for attr, _ in manifolds.HOOK_DEFAULTS}
 
     # ---- accessors (reference src/KDE01.jl:91-136) --------------------------
+
+    def _small_arrays(self):
+        """``(points, var, weights)``: the host copies as float64 tensors on
+        the density's device, the small routes' inputs (made once)."""
+        if self._f64 is None:
+            self._f64 = tuple(
+                torch.as_tensor(x, dtype=torch.float64,
+                                device=self.device).contiguous()
+                for x in (self._host_points, self._host_bw,
+                          self._host_weights))
+        return self._f64
 
     def _host_var(self) -> np.ndarray:
         if self._host_bw is not None:
@@ -180,14 +195,33 @@ class KDE:
 
     # ---- evaluation ---------------------------------------------------------
 
+    def _small_eval_ok(self, m: int) -> bool:
+        """Take the float64 small route (ops/host_small.py) for ``m``
+        queries that are not a tensor (the density's own points for LOO)?
+        Yes for a density built from NumPy (host copies present), with no
+        ``diffop``, and ``m*N*d <= config.HOST_EVAL_LIMIT``
+        (``kde_tpu/density.py:254-266``)."""
+        return (self._host_points is not None
+                and self._eval_diffop is None
+                and m * self.npts * self.ndim <= config.HOST_EVAL_LIMIT)
+
     def log_eval(self, pos, chunk: Optional[int] = None) -> torch.Tensor:
         """``log p`` at ``pos`` (``[d, M]``, or ``[M]`` for a 1-D density).
 
-        Without ``chunk``, above ``config.DIRECT_PAIR_LIMIT``
+        A small NumPy query of a NumPy-built density (``_small_eval_ok``)
+        is evaluated in float64 on the density's device and gives float64,
+        whatever the density's dtype, as the JAX package's host route.
+        Otherwise, without ``chunk``, above ``config.DIRECT_PAIR_LIMIT``
         query*component pairs a float32 Euclidean density takes the tiled
         route (the CUDA kernel on the card, its plain twin on the CPU);
         other densities chunk the query axis (``kernels.log_eval_gated``).
         A manifold density evaluates with its ``diffop``."""
+        if pos is not None and not isinstance(pos, torch.Tensor):
+            q = np.asarray(pos, dtype=np.float64)
+            if self._small_eval_ok(q.size if q.ndim == 1 else q.shape[-1]):
+                return host_small.log_eval_small(
+                    _as_query(q, self.ndim, torch.float64, self.device),
+                    *self._small_arrays())
         q = _as_query(pos, self.ndim, self.dtype, self.device)
         if chunk is None:
             return kernels.log_eval_gated(q, self.points, self.bw,
@@ -200,9 +234,13 @@ class KDE:
         """Density values at ``pos``; with ``lv_flag``, leave-one-out at the
         KDE's own points (reference evaluateDualTree,
         src/DualTree01.jl:370-421).  ``err_tol`` is accepted for API
-        compatibility; evaluation is exact."""
+        compatibility; evaluation is exact.  Small evaluations take the
+        float64 route as :meth:`log_eval` says, LOO ones too."""
         del err_tol
         if lv_flag:
+            if self._small_eval_ok(self.npts):
+                return torch.exp(host_small.log_eval_loo_small(
+                    *self._small_arrays()))
             return torch.exp(kernels.log_eval_loo(
                 self.points, self.bw, self.weights, self._eval_diffop))
         return torch.exp(self.log_eval(pos, chunk=chunk))

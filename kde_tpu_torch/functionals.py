@@ -232,5 +232,9 @@ def evaluate_dual_tree(p: KDE, pos, lv_flag: bool = False,
     if isinstance(pos, KDE):
         if lv_flag or pos is p:
             return p.evaluate(None, lv_flag=True)
+        if pos._host_points is not None:
+            # a NumPy-built query density stays NumPy, so a small
+            # evaluation takes the float64 route (kde_tpu/functionals.py:272)
+            return p.evaluate(pos.host_points())
         return p.evaluate(pos.get_points())
     return p.evaluate(pos, lv_flag=lv_flag, err_tol=err_tol)

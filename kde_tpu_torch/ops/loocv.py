@@ -72,9 +72,10 @@ def golden_batched(f, ax, bx, cx, tol):
     (``kde_tpu/ops/loocv.py:34-50``; reference ``golden``,
     src/CrossValidation.jl:44-98): ``f`` maps a probe tensor to its values
     elementwise, ``ax < bx < cx`` bracket each minimum.  Returns NumPy
-    ``(xmin, fmin)``."""
+    ``(xmin, fmin)``.  NumPy or list brackets go to ``config.DEVICE``, as
+    the JAX package puts them on its default device; tensors keep theirs."""
     def t(x):
-        x = torch.as_tensor(x)
+        x = torch.as_tensor(x, device=config.input_device(x))
         return x if x.is_floating_point() else x.to(torch.float64)
     xmin, fmin = _golden_core(f, t(ax), t(bx), t(cx), float(tol))
     return xmin.cpu().numpy(), fmin.cpu().numpy()
@@ -169,12 +170,20 @@ def ksize_bandwidths(points: np.ndarray, weights: np.ndarray,
     """Per-dimension LOOCV bandwidths (std-devs, NumPy ``[d]``) for NumPy
     ``points [N, d]`` -- the reference's per-dim ``ksize(marginal(p, [i]))``
     loop (src/KDE01.jl:17-23), all dims searched at once in ``dtype`` on
-    ``device`` (default ``config.DEVICE``, the card)."""
+    ``device`` (default ``config.DEVICE``, the card).  At or below
+    ``config.HOST_LOOCV_LIMIT`` N*N*d the search runs in float64 whatever
+    ``dtype`` is (``ops/host_small.py::ksize_small``, as
+    ``kde_tpu/ops/loocv.py:208-214``)."""
     device = config.default_device(device)
     pts = np.asarray(points, dtype=np.float64)
     n, d = pts.shape
     w = np.asarray(weights, dtype=np.float64).reshape(n)
     w = w / w.sum()
+    if n * n * d <= config.HOST_LOOCV_LIMIT:
+        from .host_small import ksize_small    # host_small imports this
+        rows = torch.as_tensor(np.ascontiguousarray(pts.T), device=device)
+        return ksize_small(rows, torch.as_tensor(w, device=device),
+                           float(tol)).cpu().numpy()
     rows = torch.as_tensor(np.ascontiguousarray(pts.T), dtype=dtype,
                            device=device)
     w_t = torch.as_tensor(w, dtype=dtype, device=device)

@@ -6,17 +6,23 @@ the per-kernel bandwidth.  The reference's sorted-uniform merge scan is
 ``searchsorted(cdf, u, right=True)`` over sorted uniforms.  Each function
 draws from ``utils.random.make_generator(key, p.device)``: uniforms first,
 then normals, on the density's device, so the draws differ from the JAX
-package's for the same seed (its ``sample`` splits one key in two).
+package's for the same seed (its ``sample`` splits one key in two).  A
+small draw from a NumPy-built density with an int or ``None`` key is made
+in float64 (``ops/host_small.py``, ``config.HOST_SAMPLE_LIMIT``), as the
+JAX package's host route.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from .. import config
 from ..density import KDE, kde
 from ..utils.random import make_generator
+from . import host_small
 
 
 def draw_indices(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -30,16 +36,28 @@ def draw_indices(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return ind.clamp(0, weights.shape[0] - 1)
 
 
-def _sorted_uniforms(p: KDE, n: int, gen) -> torch.Tensor:
-    return torch.rand(n, generator=gen, dtype=p.dtype,
-                      device=p.device).sort().values
+def _sorted_uniforms(n: int, gen, like: torch.Tensor) -> torch.Tensor:
+    return torch.rand(n, generator=gen, dtype=like.dtype,
+                      device=like.device).sort().values
+
+
+def _small_sample_ok(p: KDE, n: int, key) -> bool:
+    """Draw in float64 (ops/host_small.py)?  Yes for a density built from
+    NumPy, a key that is ``None`` or an int, and ``n*(N+n)*d <=
+    config.HOST_SAMPLE_LIMIT`` (``kde_tpu/ops/sampling.py:25-33``)."""
+    return (p._host_points is not None
+            and (key is None or isinstance(key, (int, np.integer)))
+            and n * (p.npts + n) * p.ndim <= config.HOST_SAMPLE_LIMIT)
 
 
 def sample(p: KDE, n: int, key=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw ``n`` points; returns ``(points [d, n], kernel_indices [n])``
-    with 0-based indices (reference src/KDE01.jl:164-183)."""
+    with 0-based indices (reference src/KDE01.jl:164-183).  A small draw
+    (``_small_sample_ok``) is float64 whatever ``p``'s dtype."""
     gen = make_generator(key, p.device)
-    ind = draw_indices(p.weights, _sorted_uniforms(p, n, gen))
+    if _small_sample_ok(p, n, key):
+        return host_small.sample_small(*p._small_arrays(), n, gen)
+    ind = draw_indices(p.weights, _sorted_uniforms(n, gen, p.weights))
     noise = torch.randn((n, p.ndim), generator=gen, dtype=p.dtype,
                         device=p.device)
     return (p.points[ind] + torch.sqrt(p.bw[ind]) * noise).T, ind
@@ -69,17 +87,27 @@ def resample(p: KDE, n: Optional[int] = None, ks_type: str = "lcv",
     ``lcv``: jittered samples, bandwidths refit by LOOCV.  ``discrete``:
     kernel centers drawn by weight without jitter, keeping their
     bandwidths.  The jitter is Euclidean, as the reference's randKernel
-    (src/KDE01.jl:155-157, no addop)."""
+    (src/KDE01.jl:155-157, no addop).  A small draw (``_small_sample_ok``)
+    is made in float64 and, as in ``kde_tpu/ops/sampling.py:98-112``, the
+    new density is built from its host copy, in ``p``'s dtype; under
+    ``lcv`` its bandwidth is then selected in float64 too."""
     if n is None:
         n = p.npts
     if ks_type not in ("lcv", "discrete"):
         raise ValueError(
             f"unknown ks_type {ks_type!r}: expected 'lcv' or 'discrete' "
             "(reference resample, src/BallTreeDensity01.jl:312-334)")
+    small = _small_sample_ok(p, n, key)
     if ks_type == "lcv":
-        pts, _ = sample(p, n, key)
-        return kde(pts, **p._hooks)
-    ind = draw_indices(p.weights, _sorted_uniforms(
-        p, n, make_generator(key, p.device)))
-    ks = torch.sqrt(p.bw[ind]).T if p.multibandwidth else torch.sqrt(p.bw[0])
-    return kde(p.points[ind].T, ks, **p._hooks)
+        pts, ks = sample(p, n, key)[0], None
+    else:
+        src, var, w = (p._small_arrays() if small
+                       else (p.points, p.bw, p.weights))
+        gen = make_generator(key, p.device)
+        ind = draw_indices(w, _sorted_uniforms(n, gen, w))
+        pts = src[ind].T
+        ks = torch.sqrt(var[ind]).T if p.multibandwidth else torch.sqrt(var[0])
+    if small:
+        return kde(pts.cpu().numpy(), None if ks is None else ks.cpu().numpy(),
+                   **p._hooks, device=p.device, dtype=p.dtype)
+    return kde(pts, ks, **p._hooks)

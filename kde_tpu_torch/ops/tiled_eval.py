@@ -117,28 +117,39 @@ def _nvcc() -> str:
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernel of tiled_log_eval "
-                       "is built with the CUDA toolkit's nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "with the CUDA toolkit's nvcc")
+
+
+def nvcc_build(source: Path, flags, stem: str) -> Tuple[Path, str]:
+    """Compile ``source`` with ``flags`` into
+    ``_build/lib<stem>_<hash of source and flags>.so``, once: each process
+    compiles to its own temporary file and renames it into place.  Returns
+    the library's path and nvcc's output ("" when it was built already);
+    a failed build raises with that output."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
+                         ).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{stem}_{tag}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    return out, log
 
 
 def build() -> Path:
     """Compile ``csrc/tiled_eval.cu`` (once per source content) and return
     the shared library's path."""
     global BUILD_LOG
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtiled_eval_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_LOG}")
-    os.replace(tmp, out)
+    out, log = nvcc_build(SOURCE, NVCC_FLAGS, "tiled_eval")
+    BUILD_LOG = log or BUILD_LOG
     return out
 
 

@@ -183,12 +183,12 @@ def test_rejects_bad_batches():
 
 @pytest.fixture
 def jax_device_paths():
-    """Pin the JAX package to its device paths (not its NumPy host paths),
-    as tests/test_torch_slice.py does."""
-    saved = kde_tpu.config.HOST_LOOCV_LIMIT
-    kde_tpu.config.HOST_LOOCV_LIMIT = 0
+    """Pin both packages to their device-dtype LOOCV routes (not the
+    float64 small routes), as tests/test_torch_slice.py does."""
+    saved = kde_tpu.config.HOST_LOOCV_LIMIT, tconfig.HOST_LOOCV_LIMIT
+    kde_tpu.config.HOST_LOOCV_LIMIT = tconfig.HOST_LOOCV_LIMIT = 0
     yield
-    kde_tpu.config.HOST_LOOCV_LIMIT = saved
+    kde_tpu.config.HOST_LOOCV_LIMIT, tconfig.HOST_LOOCV_LIMIT = saved
 
 
 def test_product_batched_bandwidths_match_jax(jax_device_paths):

@@ -45,6 +45,7 @@ def test_free_functions_and_force_eval_direct():
 @pytest.mark.parametrize("backing", ["host", "tensor"])
 def test_nloo_ll_and_ksize_match_jax(backing, monkeypatch):
     monkeypatch.setattr(kde_tpu.config, "HOST_LOOCV_LIMIT", 0)
+    monkeypatch.setattr(tconfig, "HOST_LOOCV_LIMIT", 0)
     rng = np.random.default_rng(1)
     pts = rng.normal(size=(2, 80)) * np.array([[1.0], [0.3]])
     if backing == "host":

@@ -393,3 +393,148 @@ def test_gloo_sharded_eval_stays_on_card(gloo_world, cuda, monkeypatch):
                                rtol=2e-4, atol=0)
     torch.testing.assert_close(bws, loocv.ksize_bandwidths_device(pts),
                                rtol=1e-5, atol=0)
+
+
+# ---- the float64 small routes (ops/host_small.py, csrc/small_ops.cu) -------
+
+def _cfg1_points(seed=0):
+    """README cfg 1: 50 + 50 bimodal points in 1-D."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.normal(size=50),
+                           10.0 + 2.0 * rng.normal(size=50)])
+
+
+def _golden_rows(name):
+    rng = np.random.default_rng(11)
+    if name == "cfg1":
+        rows = _cfg1_points()[None, :]
+    elif name == "d2":
+        rows = (rng.normal(size=(120, 2)) * [1.0, 2.5]).T
+    elif name == "gate_edge":
+        rows = rng.normal(size=(1, 255))
+    elif name == "zero_weights":             # tests/test_host_small.py:143
+        x = np.concatenate([rng.normal(size=95) * 0.01, [500.0]])
+        rows = np.concatenate([x, x + 1e-6])[None, :]
+        w = np.concatenate([np.full(96, 1.0 / 96), np.zeros(96)])
+        return rows, w
+    else:                                    # "n1", "n2"
+        rows = rng.normal(size=(1, int(name[1:])))
+    return rows, np.full(rows.shape[1], 1.0 / rows.shape[1])
+
+
+@pytest.mark.parametrize("name", ["cfg1", "d2", "gate_edge", "zero_weights",
+                                  "n1", "n2"])
+def test_loo_golden_matches_twin_on_card(cuda, name):
+    """One launch of loo_golden for all rows against the twin's scalar
+    searches on the CPU: the same selection to rtol 1e-9."""
+    from kde_tpu_torch.ops import host_small
+    rows, w = (torch.as_tensor(np.ascontiguousarray(a))
+               for a in _golden_rows(name))
+    before = host_small.LAUNCHES["loo_golden"]
+    got = host_small.ksize_small(rows.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert host_small.LAUNCHES["loo_golden"] == before + 1
+    assert got.is_cuda and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               host_small.ksize_small_ref(rows, w).numpy(),
+                               rtol=1e-9)
+
+
+def _eval_inputs(name):
+    rng = np.random.default_rng(3)
+    if name == "cfg1":
+        x = _cfg1_points(1)
+        mu = x[:, None]
+        q = np.linspace(x.min(), x.max(), 200)[:, None]
+        var = np.full_like(mu, 0.36)
+    elif name == "widest":
+        mu, q = rng.normal(size=(300, 4)), 1.5 * rng.normal(size=(200, 4))
+        var = rng.uniform(0.05, 0.5, size=(300, 4))
+    else:                                    # "exp_wrap", test_host_small:207
+        mu = (np.arange(9) * 1e-6)[:, None]
+        var = np.full((9, 1), 0.5)
+        q = np.sqrt(np.concatenate([np.linspace(705.0, 715.0, 401),
+                                    np.linspace(2125.0, 2135.0, 401)]))[:, None]
+    w = rng.uniform(0.5, 1.5, size=len(mu))
+    if name == "widest":
+        w[::7] = 0.0                         # zero weights: -inf logits
+    return [torch.as_tensor(np.ascontiguousarray(a))
+            for a in (q, mu, var, w / w.sum())]
+
+
+@pytest.mark.parametrize("name,loo", [("cfg1", False), ("widest", False),
+                                      ("exp_wrap", False), ("cfg1", True),
+                                      ("widest", True)])
+def test_small_log_eval_matches_twin_on_card(cuda, name, loo):
+    from kde_tpu_torch.ops import host_small
+    q, mu, var, w = _eval_inputs(name)
+    before = host_small.LAUNCHES["small_log_eval"]
+    if loo:
+        got = host_small.log_eval_loo_small(mu.to(cuda), var.to(cuda),
+                                            w.to(cuda))
+        want = host_small.log_eval_loo_small(mu, var, w)
+    else:
+        got = host_small.log_eval_small(q.to(cuda), mu.to(cuda), var.to(cuda),
+                                        w.to(cuda))
+        want = host_small.log_eval_small(q, mu, var, w)
+    torch.cuda.synchronize()
+    assert host_small.LAUNCHES["small_log_eval"] == before + 1
+    assert got.is_cuda and got.dtype == torch.float64
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+def test_small_routes_of_readme_cfg1_on_card(cuda):
+    """kde, p(grid), the LOO evaluation and resample("lcv") of README cfg 1
+    with the package's defaults: float64 results on the card, both kernels
+    launched, values equal to the same flow on the CPU."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import host_small
+    x = _cfg1_points(2)
+    grid = np.linspace(x.min(), x.max(), 200)
+    before = dict(host_small.LAUNCHES)
+    p = kt.kde(x[None, :])
+    v = p(grid)
+    lv = p.evaluate(None, lv_flag=True)
+    r = kt.resample(p, 75, "lcv", key=3)
+    torch.cuda.synchronize()
+    assert p.device.type == "cuda" and r.device.type == "cuda"
+    assert v.is_cuda and v.dtype == torch.float64 and lv.dtype == torch.float64
+    assert host_small.LAUNCHES["loo_golden"] >= before["loo_golden"] + 2
+    assert host_small.LAUNCHES["small_log_eval"] >= before["small_log_eval"] + 2
+    c = kt.kde(x[None, :], device="cpu")
+    np.testing.assert_allclose(p.host_bw_std(), c.host_bw_std(), rtol=1e-9)
+    torch.testing.assert_close(v.cpu(), c(grid), rtol=1e-12, atol=0)
+    torch.testing.assert_close(lv.cpu(), c.evaluate(None, lv_flag=True),
+                               rtol=1e-12, atol=0)
+
+
+def test_loo_golden_above_its_row_limit_raises(cuda):
+    """A row longer than the kernel's shared memory holds raises on the
+    card instead of launching, and is not counted."""
+    from kde_tpu_torch.ops import host_small
+    n = host_small.GOLDEN_MAX_N + 1
+    f64 = dict(dtype=torch.float64, device=cuda)
+    before = dict(host_small.LAUNCHES)
+    with pytest.raises(ValueError, match="GOLDEN_MAX_N|N <="):
+        host_small.ksize_small(torch.arange(float(n), **f64)[None],
+                               torch.full((n,), 1.0 / n, **f64))
+    assert host_small.LAUNCHES == before
+
+
+def test_small_ops_without_a_build_raise(cuda, monkeypatch):
+    """CUDA tensors launch the kernels or raise: with a build that fails,
+    neither wrapper falls back to its twin, and nothing is counted."""
+    from kde_tpu_torch.ops import host_small
+    monkeypatch.setattr(host_small, "_lib", None)
+    monkeypatch.setattr(host_small, "NVCC_FLAGS",
+                        [*host_small.NVCC_FLAGS, "--no-such-flag"])
+    f64 = dict(dtype=torch.float64, device=cuda)
+    x = torch.zeros(4, 1, **f64)
+    w = torch.full((4,), 0.25, **f64)
+    before = dict(host_small.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        host_small.log_eval_small(x, x, torch.ones_like(x), w)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        host_small.ksize_small(torch.arange(4.0, **f64)[None], w)
+    assert host_small.LAUNCHES == before

@@ -158,3 +158,39 @@ def test_loocv_card_default_raises_without_card(name, mesh, monkeypatch):
     with pytest.raises((AssertionError, RuntimeError),
                        match="CUDA|cuda|GPU"):
         LOOCV_ENTRY_POINTS[name](mesh, _loocv_inputs(False))
+
+
+# golden_batched: NumPy brackets go to config.DEVICE, tensors keep theirs
+# (kde_tpu/ops/loocv.py:48-50 puts them on its default device).
+
+def _golden(a, b, c, seen):
+    def f(x):
+        seen.append(x.device.type)
+        return (x - 0.3) ** 2
+    return kt.golden_batched(f, a, b, c, 1e-6)
+
+
+def test_golden_batched_numpy_brackets_follow_config_device():
+    assert config.DEVICE == "cpu"          # the tests' fixture
+    seen = []
+    xmin, fmin = _golden(np.zeros(2), np.full(2, 0.5), np.ones(2), seen)
+    assert set(seen) == {"cpu"} and xmin.shape == fmin.shape == (2,)
+    np.testing.assert_allclose(xmin, 0.3, atol=1e-5)
+
+
+def test_golden_batched_tensor_brackets_keep_their_device(monkeypatch):
+    monkeypatch.setattr(config, "DEVICE", "cuda")
+    seen = []
+    xmin, _ = _golden(*(torch.full((2,), v, dtype=torch.float64)
+                        for v in (0.0, 0.5, 1.0)), seen)
+    assert set(seen) == {"cpu"}
+    np.testing.assert_allclose(xmin, 0.3, atol=1e-5)
+
+
+def test_golden_batched_card_default_raises_without_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default lands there")
+    monkeypatch.setattr(config, "DEVICE", "cuda")
+    with pytest.raises((AssertionError, RuntimeError),
+                       match="CUDA|cuda|GPU"):
+        _golden(np.zeros(2), np.full(2, 0.5), np.ones(2), [])

@@ -59,8 +59,10 @@ def test_dense_probe_matches_jax():
 
 
 def test_ksize_bandwidths_match_jax(monkeypatch):
-    # pin the JAX package to its device search (not its NumPy host path)
+    # pin both packages to their device-dtype searches (not the float64
+    # small routes)
     monkeypatch.setattr(kde_tpu.config, "HOST_LOOCV_LIMIT", 0)
+    monkeypatch.setattr(tconfig, "HOST_LOOCV_LIMIT", 0)
     pts, w = _rows(seed=2, d=3, n=120)
     want_host = jloocv.ksize_bandwidths(pts.T, w)
     want_dev = np.asarray(jloocv.ksize_bandwidths_device(

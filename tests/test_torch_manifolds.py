@@ -195,9 +195,10 @@ def test_hooked_evaluation_matches_jax(kinds):
 
 
 def test_hooked_float32_never_takes_the_tiled_route(monkeypatch):
-    """With DIRECT_PAIR_LIMIT = 1 a hooked float32 density evaluates on
-    the chunked diffop path: no kernel launch and no twin call; the same
-    density without hooks goes to the twin once."""
+    """With DIRECT_PAIR_LIMIT = 1 (and the small route's gate at 0) a
+    hooked float32 density evaluates on the chunked diffop path: no kernel
+    launch and no twin call; the same density without hooks goes to the
+    twin once."""
     calls = []
     ref = tiled_eval.tiled_log_eval_ref
 
@@ -206,6 +207,7 @@ def test_hooked_float32_never_takes_the_tiled_route(monkeypatch):
         return ref(*a, **k)
     monkeypatch.setattr(tiled_eval, "tiled_log_eval_ref", spy)
     monkeypatch.setattr(tconfig, "DIRECT_PAIR_LIMIT", 1)
+    monkeypatch.setattr(tconfig, "HOST_EVAL_LIMIT", 0)
     rng = np.random.default_rng(7)
     a, _ = _circ_points(rng, 100)
     q = _wrap(rng.normal(size=(1, 40)) * 3.0)

@@ -98,6 +98,7 @@ def test_resample_discrete(multibw):
 
 def test_resample_lcv_refits_like_jax(monkeypatch):
     monkeypatch.setattr(kde_tpu.config, "HOST_LOOCV_LIMIT", 0)
+    monkeypatch.setattr(kt.config, "HOST_LOOCV_LIMIT", 0)
     p = _density(6)
     r = kt.resample(p, 120, "lcv", key=7)
     assert r.npts == 120 and r.dtype == F64 and not r.multibandwidth

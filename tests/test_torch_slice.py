@@ -27,9 +27,13 @@ N_ITER = 5
 @pytest.fixture(scope="module")
 def slice_f64():
     """Both packages through fit -> product -> refit -> evaluate."""
-    saved = (kde_tpu.config.HOST_LOOCV_LIMIT, kde_tpu.config.HOST_EVAL_LIMIT)
-    # pin the JAX package to its device paths (not its NumPy host paths)
-    kde_tpu.config.HOST_LOOCV_LIMIT = kde_tpu.config.HOST_EVAL_LIMIT = 0
+    # pin both packages to their device-dtype routes (not the float64
+    # small routes of their host_small modules)
+    gates = ("HOST_LOOCV_LIMIT", "HOST_EVAL_LIMIT")
+    saved = [(cfg, g, getattr(cfg, g)) for cfg in (kde_tpu.config, tconfig)
+             for g in gates]
+    for cfg, g, _ in saved:
+        setattr(cfg, g, 0)
     try:
         rng = np.random.default_rng(20)
         a = rng.normal(size=(2, 150))
@@ -52,8 +56,8 @@ def slice_f64():
                    lp_j=np.asarray(jpq.log_eval(jnp.asarray(queries))),
                    lp_t=tpq.log_eval(queries).numpy())
     finally:
-        (kde_tpu.config.HOST_LOOCV_LIMIT,
-         kde_tpu.config.HOST_EVAL_LIMIT) = saved
+        for cfg, g, value in saved:
+            setattr(cfg, g, value)
 
 
 def test_fits_match(slice_f64):
@@ -86,9 +90,9 @@ def test_log_eval_matches(slice_f64):
 
 
 def test_tiled_route_f32(slice_f64, monkeypatch):
-    """With both gates at 1, float32 evaluation and LOO self-evaluation of
-    the refit density take the tiled route: on the CPU, the kernel's plain
-    twin."""
+    """With both gates at 1 (and the small route's at 0), float32
+    evaluation and LOO self-evaluation of the refit density take the tiled
+    route: on the CPU, the kernel's plain twin."""
     s = slice_f64
     calls = []
     ref = tiled_eval.tiled_log_eval_ref
@@ -99,6 +103,7 @@ def test_tiled_route_f32(slice_f64, monkeypatch):
     monkeypatch.setattr(tiled_eval, "tiled_log_eval_ref", spy)
     monkeypatch.setattr(tconfig, "DIRECT_PAIR_LIMIT", 1)
     monkeypatch.setattr(tconfig, "LOOCV_PAIR_LIMIT", 1)
+    monkeypatch.setattr(tconfig, "HOST_EVAL_LIMIT", 0)
     jpq = s["jpq"]
     arrays = [np.asarray(x) for x in (jpq.points, jpq.bw, jpq.weights)]
     t32 = kt.kde_from_numpy(*arrays, False, dtype=torch.float32)
