@@ -17,18 +17,25 @@ Phases, one line of findings each:
      at (a) and (b), the dense route as context; (f) data at 10^3 against
      the float64 twin (atol 1e-4, rtol 1e-5);
  3b. the float64 small-route kernels of csrc/small_ops.cu against their
-     plain twins on the card: loo_golden (one launch for every row's golden
-     search) on README cfg 1 (N = 100, d = 1), N = 120 in 2-D, the 1-D gate
-     edge N = 255, zero-weight kernels, N = 1 and N = 2 (selections to rtol
-     1e-9); small_log_eval at 200 x 100, d = 1, at 200 x 300, d = 4 (the
-     widest under the gate), LOO at N = 100 and 255 and the exp-wrap
-     queries (log p to atol 1e-10).  CUDA-event times of each kernel
-     (loo_golden at cfg 1, 2-D and the gate edge; small_log_eval at the
-     two evaluation shapes) beside its twin, the parent's routes for the
+     plain twins on the card: the LOOCV selection ksize_small (the bracket
+     and every row's golden search in one launch, each row on a
+     thread-block cluster) on README cfg 1 (N = 100, d = 1), N = 120 in
+     2-D, the 1-D gate edge N = 255, zero-weight kernels, N = 1 and N = 2,
+     at every cluster size C the card admits (1, 2, 4, 8, 16) and at the
+     plan's, bitwise the same over repeated launches, and the search alone
+     (loo_golden) from the twin's bracket (selections to rtol 1e-9);
+     small_log_eval at 200 x 100, d = 1, at 200 x 300, d = 4 (the widest
+     under the gate), LOO at N = 100 and 255 and the exp-wrap queries (log
+     p to atol 1e-10).  CUDA-event times (ksize_small at cfg 1, 2-D and the
+     gate edge, at C = 1 and the plan's C; small_log_eval at the two
+     evaluation shapes): one call with its wrapper, 20 back-to-back calls a
+     window (the per-call host floor) and the device time per call from a
+     CUDA graph of 20 calls, beside the twin, the parent's routes for the
      same call (the float32 and float64 dense golden loops, the float32
      dense evaluation), an empty launch of the same library and the bound;
      at the evaluation shapes also torch.distributions' MixtureSameFamily
-     log_prob, the one PyTorch call that computes the same function;
+     log_prob, the one PyTorch call that computes the same function; the
+     registers, shared memory and spills of each small-ops kernel (ptxas);
  3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
      resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
      the same flow on the CPU, both small kernels launched; flows/s with
@@ -94,6 +101,11 @@ refuses to run without a card.
     python3 chip_smoke.py --k1-parent DIR
 
 times K1 only, against the K1 of the checkout in DIR (see k1_parent_ab).
+
+    python3 chip_smoke.py --small-parent DIR
+
+times the small-route kernels only, against those of the checkout in DIR
+(see small_parent_ab).
 """
 
 import contextlib
@@ -387,20 +399,24 @@ def _probes(args):
     return counts
 
 
-def golden_bound_ms(rows, w, probes):
-    """The least time an H100 could take for the searches, counting only
-    the work the function needs: once per row, the shifted d2 of each live
-    pair (i != j, w_i > 0, w_j > 0: difference, square, running minimum,
-    shift); per probe, 4 FP64 operations per live pair (scale, exp counted
-    as one, weight, add) and a log per live row; at 34 TFLOP/s.  Bytes:
-    the rows, weights and brackets read once, the result written once, at
-    3.35 TB/s."""
+def golden_bound_ms(rows, w, probes, bracket=True):
+    """The least time an H100 could take for the selections, counting only
+    the work the function needs: with ``bracket``, a row's sort (n log2 n
+    comparisons) and its n - 1 node extents with their minimum; once per
+    row, the shifted d2 of each live pair (i != j, w_i > 0, w_j > 0:
+    difference, square, running minimum, shift); per probe, 4 FP64
+    operations per live pair (scale, exp counted as one, weight, add) and a
+    log per live row; at 34 TFLOP/s.  Bytes: the rows, weights and (node
+    table or brackets) read once, the result written once, at 3.35 TB/s."""
     r, n = rows.shape
     live = int((w > 0).sum())
     pairs = live * (live - 1)
     ops = sum(4 * pairs + p * (4 * pairs + live) for p in probes)
-    times = {"operations": ops / FP64_FLOPS,
-             "bytes": 8 * (r * n + n + 5 * r) / HBM_BYTES}
+    table = 2 * max(n - 1, 0)
+    if bracket:
+        ops += r * (n * max(1, int(np.ceil(np.log2(max(n, 2))))) + table)
+    nbytes = 8 * (r * n + n + r + (table if bracket else 4 * r))
+    times = {"operations": ops / FP64_FLOPS, "bytes": nbytes / HBM_BYTES}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
 
@@ -423,18 +439,77 @@ def eval_bound_ms(m, n, d, loo):
 
 def _empty_launch(dev):
     """A call that launches small_ops.cu's empty kernel on ``dev``'s
-    current stream through the same ctypes path as the two kernels: their
-    timing floor.  Only this script uses that entry; the package does not."""
+    current stream (read at each call, as the kernels' wrappers do) through
+    the same ctypes path as the two kernels: their timing floor.  Only this
+    script uses that entry; the package does not."""
     import ctypes
     import torch
     from kde_tpu_torch.ops import host_small
     lib = host_small._load()
     lib.kde_empty_launch.argtypes = [ctypes.c_void_p]
     lib.kde_empty_launch.restype = ctypes.c_int
-    stream = torch._C._cuda_getCurrentRawStream(
-        torch.device(dev).index or torch.cuda.current_device())
-    return lambda: host_small._checked("kde_empty_launch",
-                                       lib.kde_empty_launch(stream))
+    index = torch.device(dev).index or torch.cuda.current_device()
+    return lambda: host_small._checked(
+        "kde_empty_launch",
+        lib.kde_empty_launch(torch._C._cuda_getCurrentRawStream(index)))
+
+
+def _graph_ms(fn, calls=20, reps=5):
+    """Device milliseconds per call of ``fn()``: ``calls`` calls captured
+    in one CUDA graph and replayed between CUDA events (median of ``reps``
+    replays, after one warm-up call and one warm-up replay), so no host
+    work sits between the launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def _timings(call, inner=20, graph_call=None):
+    """One call's ms with its wrapper (``ms``), ``inner`` back-to-back calls
+    a window (``ms_inner20``: the per-call host floor once the card keeps
+    up) and the device time per call from a CUDA graph (``device_ms``) of
+    ``graph_call`` (default ``call``)."""
+    return {"ms": _cuda_ms(call), "ms_inner20": _cuda_ms(call, inner=inner),
+            "device_ms": _graph_ms(graph_call or call, calls=inner)}
+
+
+def ptxas_table(log):
+    """Registers, static shared memory and spills of each kernel in the
+    ``-Xptxas -v`` output ``log``, by mangled name."""
+    import re
+    table, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            table[name]["spill_stores"] = int(m.group(1))
+            table[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            table[name]["registers"] = int(m.group(1))
+            table[name]["smem"] = int(m.group(2) or 0)
+    return table
 
 
 def mixture_log_prob(q, mu, var, w):
@@ -450,49 +525,88 @@ def mixture_log_prob(q, mu, var, w):
         validate_args=False).log_prob(q)
 
 
+def _rel(got, want):
+    return float(((got - want).abs() / want.abs()).max())
+
+
 def phase_small(dev):
     """Phase 3b: the small-route kernels against their plain twins on the
-    card, timed beside the twins, the parent's routes, an empty launch, the
-    library call and the bounds.  Returns the rows printed and the worst
-    error of each."""
+    card.  The fused selection (ksize_small: bracket and search in one
+    launch) at every cluster size the card admits, bitwise the same from
+    launch to launch, and the search alone (loo_golden) from the twin's
+    bracket; both timed, at C = 1 and at the plan's C, beside the twins,
+    the parent's routes, an empty launch, the library call and the bounds.
+    Returns the rows printed and the worst error of each kernel."""
     import torch
     from kde_tpu_torch.ops import host_small, kernels, loocv
     rows, worst = {}, {"loo_golden": 0.0, "small_log_eval": 0.0}
-    empty_ms = _cuda_ms(_empty_launch(dev))
+    empty = _empty_launch(dev)
+    floor = {"empty_ms": _cuda_ms(empty),
+             "empty_ms_inner20": _cuda_ms(empty, inner=20),
+             "empty_device_ms": _graph_ms(empty)}
+    print(f"small empty launch: {json.dumps(floor)}", flush=True)
     for name in ("cfg1", "d2", "gate_edge", "zero_weights", "n1", "n2"):
         x, w = _golden_inputs(name, dev)
+        r, n = x.shape
+        want = host_small.ksize_small_ref(x, w, SMALL_TOL)
+        plan = host_small._cluster(r, n, x.device, None)
+        sizes = [c for c in (1, 2, 4, 8, 16) if c < 16
+                 or host_small.max_clusters(n, c, x.device.index) > 0]
+        errs = {}
+        for c in sizes:
+            got = [host_small.ksize_small(x, w, SMALL_TOL, cluster=c)
+                   for _ in range(3)]
+            _sync()
+            if not all(torch.equal(g, got[0]) for g in got[1:]):
+                raise AssertionError(f"ksize_small ({name}, C = {c}): not "
+                                     "bitwise the same from launch to launch")
+            errs[c] = _rel(got[0], want)
+            if not (bool(torch.isfinite(got[0]).all())
+                    and errs[c] <= SMALL_RTOL):
+                raise AssertionError(f"ksize_small ({name}, C = {c}): "
+                                     f"selection {got[0]} against the twin's "
+                                     f"{want}")
+        got = host_small.ksize_small(x, w, SMALL_TOL)
         base, ax, bx, cx = host_small._bracket(x)
         args = (x, w, base ** 2, ax, bx, cx)
-        got = host_small.loo_golden(*args, SMALL_TOL) * base
+        search = host_small.loo_golden(*args, SMALL_TOL) * base
         _sync()
-        want = host_small.loo_golden_ref(*args, SMALL_TOL) * base
         err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / want.abs()).max())
-        if not (bool(torch.isfinite(got).all()) and rel <= SMALL_RTOL):
-            raise AssertionError(f"loo_golden ({name}): selection {got} "
-                                 f"against the twin's {want}")
+        search_rel = _rel(search, want)
+        if not (torch.equal(got, host_small.ksize_small(
+                x, w, SMALL_TOL, cluster=plan)) and search_rel <= SMALL_RTOL):
+            raise AssertionError(f"ksize_small ({name}): the plan's call or "
+                                 f"the search alone ({search}) off the twin")
         worst["loo_golden"] = max(worst["loo_golden"], err)
-        row = {"R": x.shape[0], "N": x.shape[1], "max_abs_err": err,
-               "max_rel_err": rel}
+        row = {"R": r, "N": n, "cluster": plan, "max_abs_err": err,
+               "max_rel_err_by_cluster": errs, "search_rel_err": search_rel}
         if name in ("cfg1", "d2", "gate_edge"):
             probes = _probes(args)
             row["probes"] = probes
             row["bound_ms"], row["bound_by"] = golden_bound_ms(x, w, probes)
-            row["ms"] = _cuda_ms(lambda: host_small.loo_golden(*args,
-                                                               SMALL_TOL))
-            row["ksize_small_ms"] = _cuda_ms(
-                lambda: host_small.ksize_small(x, w, SMALL_TOL))
+            row.update(_timings(lambda: host_small.ksize_small(x, w,
+                                                                SMALL_TOL)))
+            c1 = _timings(lambda: host_small.ksize_small(
+                x, w, SMALL_TOL, cluster=1))
+            row.update({f"{k}_c1": v for k, v in c1.items()})
+            row["ms_by_cluster"] = {c: _cuda_ms(
+                lambda: host_small.ksize_small(x, w, SMALL_TOL, cluster=c))
+                for c in sizes}
+            row["search_ms"] = _cuda_ms(lambda: host_small.loo_golden(
+                *args, SMALL_TOL))
+            row["search_ms_c1"] = _cuda_ms(lambda: host_small.loo_golden(
+                *args, SMALL_TOL, cluster=1))
             row["plain_ms"] = _cuda_ms(
-                lambda: host_small.loo_golden_ref(*args, SMALL_TOL), reps=3)
-            lo, hi = loocv._slices_on(x.shape[1], dev)
+                lambda: host_small.ksize_small_ref(x, w, SMALL_TOL), reps=3)
+            lo, hi = loocv._slices_on(n, dev)
             for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
                 xr, wr = x.to(dt), w.to(dt)
                 row[f"parent_{tag}_ms"] = _cuda_ms(
                     lambda: loocv.ksize_rows(xr, wr, lo, hi, tol=SMALL_TOL),
                     reps=3)
-            row["empty_ms"] = empty_ms
+            row.update(floor)
         rows[f"loo_golden {name}"] = row
-        print(f"small loo_golden ({name}): {json.dumps(row)}", flush=True)
+        print(f"small ksize_small ({name}): {json.dumps(row)}", flush=True)
 
     for name in ("cfg1", "widest", "loo100", "loo255", "exp_wrap"):
         (q, mu, var, w), loo = _eval_inputs(name, dev)
@@ -513,7 +627,7 @@ def phase_small(dev):
         if name in ("cfg1", "widest"):
             row["bound_ms"], row["bound_by"] = eval_bound_ms(
                 m, mu.shape[0], d, loo)
-            row["ms"] = _cuda_ms(call)
+            row.update(_timings(call))
             row["plain_ms"] = _cuda_ms(
                 lambda: host_small.small_log_eval_ref(q, mu, var, w, loo))
             f32 = [t.float() for t in (q, mu, var, w)]
@@ -526,7 +640,7 @@ def phase_small(dev):
                                      f"{row['library_err']} against the twin")
             row["library_ms"] = _cuda_ms(
                 lambda: mixture_log_prob(q, mu, var, w))
-            row["empty_ms"] = empty_ms
+            row.update(floor)
         rows[f"small_log_eval {name}"] = row
         print(f"small small_log_eval ({name}): {json.dumps(row)}", flush=True)
     return rows, worst
@@ -1590,6 +1704,98 @@ def k1_parent_ab(parent):
     print(_card())
 
 
+def small_parent_ab(parent):
+    """Time this checkout's small-route kernels against ``parent``'s (the
+    ``csrc/small_ops.cu`` of another checkout, e.g. an unpacked ``git
+    archive`` of the commit before the cluster search, built here with the
+    same flags) on this card, in turns: parent, change, change, parent.
+    The parent's ``ksize_small`` is its wrapper's sequence: the node table
+    copied to the card, the torch ``bracket_rows``, one search launch of
+    one block a row, ``* base`` (its device time comes from a graph of the
+    same sequence with the table uploaded before: a copy from pageable
+    host memory cannot be captured); its ``small_log_eval`` has this
+    checkout's C signature.  Each side must match this checkout's twin
+    (rtol 1e-9 / atol 1e-10) and is timed as phase 3b times it
+    (``_timings``)."""
+    import ctypes
+    from pathlib import Path
+    import torch
+    from kde_tpu_torch.ops import host_small, loocv, tiled_eval
+    src = Path(parent).resolve() / "kde_tpu_torch" / "csrc" / "small_ops.cu"
+    so, _ = tiled_eval.nvcc_build(src, host_small.NVCC_FLAGS,
+                                  "small_ops_parent")
+    old = ctypes.CDLL(str(so))
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    old.kde_loo_golden.argtypes = [vp] * 7 + [i, i, f, i, f, f, vp]
+    old.kde_loo_golden.restype = i
+    old.kde_small_log_eval.argtypes = [vp] * 5 + [i] * 4 + [vp]
+    old.kde_small_log_eval.restype = i
+    new = host_small._load()
+    dev = torch.device("cuda")
+    stream = lambda: torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device())
+
+    def parent_ksize(x, w, table=None):
+        r, n = x.shape
+        base, ax, bx, cx = loocv.bracket_rows(
+            x, *(table or loocv._slices_on(n, dev)))
+        bv = base ** 2
+        xmin = torch.empty(r, dtype=torch.float64, device=dev)
+        host_small._checked("parent kde_loo_golden", old.kde_loo_golden(
+            x.data_ptr(), w.data_ptr(), bv.data_ptr(), ax.data_ptr(),
+            bx.data_ptr(), cx.data_ptr(), xmin.data_ptr(), r, n, SMALL_TOL,
+            host_small.golden_max_iters(SMALL_TOL), loocv._C, loocv._R,
+            stream()))
+        return xmin * base
+
+    def with_lib(lib, fn):
+        def call():
+            host_small._lib = lib
+            try:
+                return fn()
+            finally:
+                host_small._lib = new
+        return call
+
+    for name in ("cfg1", "d2", "gate_edge"):
+        x, w = _golden_inputs(name, dev)
+        want = host_small.ksize_small_ref(x, w, SMALL_TOL)
+        calls = {"parent": lambda: parent_ksize(x, w),
+                 "change": lambda: host_small.ksize_small(x, w, SMALL_TOL)}
+        row = {"N": x.shape[1], "R": x.shape[0],
+               "cluster": host_small._cluster(*x.shape, x.device, None)}
+        for side, call in calls.items():
+            row[f"{side}_rel_err"] = _rel(call(), want)
+            if row[f"{side}_rel_err"] > SMALL_RTOL:
+                raise AssertionError(f"{side} ksize_small ({name}) off the "
+                                     "twin")
+        table = loocv._slices_on(x.shape[1], dev)
+        graph_calls = {"parent": lambda: parent_ksize(x, w, table),
+                       "change": calls["change"]}
+        for side in ("parent", "change", "change", "parent"):
+            for k, v in _timings(calls[side],
+                                 graph_call=graph_calls[side]).items():
+                row.setdefault(f"{side}_{k}", []).append(v)
+        print(f"small ab ksize_small ({name}): {json.dumps(row)}", flush=True)
+    for name in ("cfg1", "widest"):
+        (q, mu, var, w), loo = _eval_inputs(name, dev)
+        want = host_small.small_log_eval_ref(q, mu, var, w, loo)
+        fn = functools.partial(host_small.log_eval_small, q, mu, var, w)
+        calls = {"parent": with_lib(old, fn), "change": with_lib(new, fn)}
+        row = {"M": q.shape[0], "N": mu.shape[0], "d": q.shape[1]}
+        for side, call in calls.items():
+            row[f"{side}_max_abs_err"] = float((call() - want).abs().max())
+            if row[f"{side}_max_abs_err"] > SMALL_ATOL:
+                raise AssertionError(f"{side} small_log_eval ({name}) off "
+                                     "the twin")
+        for side in ("parent", "change", "change", "parent"):
+            for k, v in _timings(calls[side]).items():
+                row.setdefault(f"{side}_{k}", []).append(v)
+        print(f"small ab small_log_eval ({name}): {json.dumps(row)}",
+              flush=True)
+    print(_card())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1621,12 +1827,13 @@ def main():
                 (tiled_eval.build, host_small.build, native.build)]
         (k1_so, k1_s), (small_so, small_s), (tree_so, tree_s) = [
             j.result() for j in jobs]
-    for name, mod, so, sec in (("", tiled_eval, k1_so, k1_s),
-                               (" small ops", host_small, small_so, small_s)):
-        ptxas = [ln.strip() for ln in mod.BUILD_LOG.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"build{name}: {sec:.2f} s -> {os.path.relpath(so)}; ptxas: "
-              f"{ptxas[:6]}", flush=True)
+    ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"build: {k1_s:.2f} s -> {os.path.relpath(k1_so)}; ptxas: "
+          f"{ptxas[:6]}", flush=True)
+    print(f"build small ops: {small_s:.2f} s -> {os.path.relpath(small_so)}; "
+          f"ptxas per kernel: {json.dumps(ptxas_table(host_small.BUILD_LOG))}",
+          flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
@@ -1707,12 +1914,18 @@ def main():
         "ms_b_back_to_back": rows["b"]["ms_back_to_back"],
         "dense_ms": rows["a"]["dense_ms"]}, {
         "name": "loo_golden", "route": "cuda",
+        "entry": "ksize_small: bracket and golden search, one launch",
         "source": "kde_tpu_torch/csrc/small_ops.cu",
         "replaces": "kde_tpu/native/hostops.cpp:260",
         "launches": small_launches["loo_golden"],
         "max_abs_err": small_worst["loo_golden"], "ms": golden["ms"],
         "plain_ms": golden["plain_ms"], "bound_ms": golden["bound_ms"],
         "bound_by": golden["bound_by"], "library_ms": None,
+        "cluster": golden["cluster"], "ms_c1": golden["ms_c1"],
+        "ms_inner20": golden["ms_inner20"],
+        "device_ms": golden["device_ms"],
+        "device_ms_c1": golden["device_ms_c1"],
+        "search_ms": golden["search_ms"],
         "parent_f32_ms": golden["parent_f32_ms"],
         "parent_f64_ms": golden["parent_f64_ms"],
         "empty_ms": golden["empty_ms"]}, {
@@ -1723,8 +1936,10 @@ def main():
         "max_abs_err": small_worst["small_log_eval"], "ms": ev["ms"],
         "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
         "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
+        "ms_inner20": ev["ms_inner20"], "device_ms": ev["device_ms"],
         "parent_f32_ms": ev["parent_f32_ms"],
-        "empty_ms": ev["empty_ms"]}]}))
+        "empty_ms": ev["empty_ms"],
+        "empty_device_ms": ev["empty_device_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1738,5 +1953,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k1-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k1_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--small-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        small_parent_ab(sys.argv[2])
     else:
         main()

@@ -8,11 +8,14 @@ float64 work runs on the density's device: the name says where the
 counterpart lives, not where the work runs.  On the card it takes the CUDA
 kernels of ``csrc/small_ops.cu``; CPU tensors take their plain twins.
 
-  * :func:`ksize_small` is ``ksize_host_np``: the bracket of
-    ``ops/loocv.py::bracket_rows`` on the float64 rows, then
-    :func:`loo_golden`, every row's whole golden search in one launch
-    (twin :func:`loo_golden_ref`, which is ``ksize_host_np``'s search with
-    ``_golden_scalar``'s Python-float bracket arithmetic);
+  * :func:`ksize_small` is ``ksize_host_np`` with ``bracket_rows_np``: one
+    launch of the ``ksize_golden`` kernel does every row's bracket and
+    whole golden search, each row on a thread-block cluster of
+    :func:`golden_plan`'s size (twin :func:`ksize_small_ref`: the torch
+    ``ops/loocv.py::bracket_rows`` and :func:`loo_golden_ref`, which is
+    ``ksize_host_np``'s search with ``_golden_scalar``'s Python-float
+    bracket arithmetic).  :func:`loo_golden` runs the same kernel's search
+    alone from a given bracket;
   * :func:`log_eval_small` and :func:`log_eval_loo_small` are
     ``log_eval_np`` and ``log_eval_loo_np``: one launch of the
     ``small_log_eval`` kernel (twin :func:`small_log_eval_ref`);
@@ -20,9 +23,10 @@ kernels of ``csrc/small_ops.cu``; CPU tensors take their plain twins.
     draw_indices`` and a gather in plain torch, no kernel.
 
 A wrapper takes the twin only for CPU tensors; CUDA tensors launch the
-kernel or raise.  The library is built with nvcc into ``_build/`` at the
-first launch, with ``--fmad=false`` so that the bracket arithmetic rounds as
-``_golden_scalar``'s does.  The routing lives with the callers
+kernel or raise, a refused cluster size included.  The library is built
+with nvcc into ``_build/`` at the first launch, with ``--fmad=false`` so
+that the bracket arithmetic rounds as ``bracket_rows`` and
+``_golden_scalar`` do.  The routing lives with the callers
 (``ops/loocv.py::ksize_bandwidths``, ``density.KDE.log_eval`` /
 ``evaluate``, ``ops/sampling.py``).
 """
@@ -30,21 +34,31 @@ first launch, with ``--fmad=false`` so that the bracket arithmetic rounds as
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .loocv import _C, _R, _slices_on, bracket_rows
-from .tiled_eval import nvcc_build
+from . import loocv
+from .loocv import _C, _R, _internal_slices
+from .tiled_eval import _sm_count, nvcc_build
 
 LOG_2PI = math.log(2.0 * math.pi)
-# The most points a loo_golden row may have on the card: its nearest-
-# neighbour shifts must fit a block's 48 KiB of shared memory
-# (csrc/small_ops.cu's kMaxGoldenN).  The gate N*N*d <= HOST_LOOCV_LIMIT
-# keeps N <= 256.
+# The most points a row may have on the card: every block of its cluster
+# keeps x, w and the nearest-neighbour shifts (3 N doubles) in dynamic
+# shared memory (csrc/small_ops.cu's kMaxGoldenN).  The gate
+# N*N*d <= HOST_LOOCV_LIMIT keeps N <= 256.
 GOLDEN_MAX_N = 6000
+# Rows i a block of the search takes a probe with one row a warp: the
+# kernel's kWarps (512 threads).
+GOLDEN_ROWS_PER_BLOCK = 16
+# The plan's largest cluster: 16 blocks, a size the kernel admits with the
+# non-portable attribute (the portable limit is 8).  At N = 255 on an H100
+# it read 0.129 ms a call against C = 8's 0.164 (chip_smoke.py phase 3b);
+# a card that holds no such cluster gets 8.
+GOLDEN_MAX_CLUSTER = 16
 
 # Launches of each CUDA kernel; a run sets them to 0 and reads them to show
 # the path went through the kernels.
@@ -74,8 +88,13 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.kde_loo_golden.argtypes = [vp] * 7 + [i, i, f, i, f, f, vp]
+        lib.kde_ksize_small.argtypes = [vp] * 4 + [i, vp, i, i, f, i, f, f,
+                                                   i, vp]
+        lib.kde_ksize_small.restype = i
+        lib.kde_loo_golden.argtypes = [vp] * 7 + [i, i, f, i, f, f, i, vp]
         lib.kde_loo_golden.restype = i
+        lib.kde_golden_max_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.kde_golden_max_clusters.restype = i
         lib.kde_small_log_eval.argtypes = [vp] * 5 + [i] * 4 + [vp]
         lib.kde_small_log_eval.restype = i
         _lib = lib
@@ -110,34 +129,123 @@ def golden_max_iters(tol: float) -> int:
     return int(math.ceil(math.log(max(tol, 1e-18)) / math.log(_R))) + 60
 
 
+def golden_plan(r: int, n: int, sms: int) -> int:
+    """Blocks C of the cluster that searches each of ``r`` rows of ``n``
+    points on a card with ``sms`` SMs: the least power of two that gives
+    every warp at most one row i a probe (``GOLDEN_ROWS_PER_BLOCK`` rows a
+    block), at most ``GOLDEN_MAX_CLUSTER``, with the ``r * C`` blocks no
+    more than the SMs.  C = 1 is one block a row."""
+    c = 1
+    while (c < GOLDEN_MAX_CLUSTER and c * GOLDEN_ROWS_PER_BLOCK < n
+           and 2 * c * r <= sms):
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=256)
+def node_table(n: int, device: torch.device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The internal ball-tree nodes' leaf slices ``(lo, hi)`` of an
+    ``n``-point row (``ops/loocv.py::_internal_slices``, root first), as
+    int64 tensors on ``device``: uploaded once per ``(n, device)``, so a
+    call of :func:`ksize_small` copies nothing to the card."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _internal_slices(n))
+
+
+@functools.lru_cache(maxsize=1024)
+def max_clusters(n: int, cluster: int, index: int) -> int:
+    """How many clusters of ``cluster`` search blocks for rows of ``n``
+    points card ``index`` holds at once (``cudaOccupancyMaxActiveClusters``;
+    0: the size is not admitted); a query the card refuses raises."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _checked("kde_golden_max_clusters", _load().kde_golden_max_clusters(
+            n, cluster, ctypes.byref(count)))
+    return count.value
+
+
+def _cluster(r: int, n: int, dev: torch.device,
+             cluster: Optional[int]) -> int:
+    """The cluster size of a launch: ``cluster`` as given (the launch
+    raises if the card refuses it), else :func:`golden_plan`'s, halved
+    while the card holds no such cluster."""
+    if cluster is not None:
+        if int(cluster) < 1:
+            raise ValueError(f"cluster must be >= 1, got {cluster}")
+        return int(cluster)
+    c = golden_plan(r, n, _sm_count(dev.index))
+    while c > 1 and max_clusters(n, c, dev.index) < 1:
+        c //= 2
+    return c
+
+
+def _check_rows(name: str, rows: torch.Tensor, w: torch.Tensor) -> None:
+    if rows.dim() != 2 or w.shape != rows.shape[1:] or rows.shape[1] < 1:
+        raise ValueError(f"{name} needs rows [R, N >= 1] and w [N]; got "
+                         f"{tuple(rows.shape)}, {tuple(w.shape)}")
+
+
+def _card_rows(name: str, rows: torch.Tensor) -> None:
+    if rows.shape[1] > GOLDEN_MAX_N:
+        raise ValueError(f"{name} on the card takes N <= {GOLDEN_MAX_N} "
+                         f"points a row, got {rows.shape[1]}")
+
+
+def ksize_small(rows: torch.Tensor, w: torch.Tensor, tol: float = 1e-2,
+                cluster: Optional[int] = None) -> torch.Tensor:
+    """LOOCV std-dev bandwidths ``[R]`` of the float64 rows ``rows [R, N]``
+    with normalized weights ``w [N]``, on their device (the counterpart of
+    ``ksize_host_np`` with ``bracket_rows_np``).  CUDA tensors: one launch
+    of the ``ksize_golden`` kernel, the bracket and the whole search of
+    every row, each row on a cluster of ``cluster`` blocks (default
+    :func:`golden_plan`), ``N <= GOLDEN_MAX_N``."""
+    _check_rows("ksize_small", rows, w)
+    dev = _device("ksize_small", rows, w)
+    if dev.type == "cpu":
+        return ksize_small_ref(rows, w, tol)
+    _card_rows("ksize_small", rows)
+    r, n = rows.shape
+    lo, hi = node_table(n, dev)
+    out = torch.empty(r, dtype=F64, device=dev)
+    with torch.cuda.device(dev):
+        _checked("kde_ksize_small", _load().kde_ksize_small(
+            rows.data_ptr(), w.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            lo.numel(), out.data_ptr(), r, n, float(tol),
+            golden_max_iters(tol), _C, _R, _cluster(r, n, dev, cluster),
+            torch._C._cuda_getCurrentRawStream(dev.index)))
+    if r:
+        LAUNCHES["loo_golden"] += 1
+    return out
+
+
 def loo_golden(rows: torch.Tensor, w: torch.Tensor, base_var: torch.Tensor,
                ax: torch.Tensor, bx: torch.Tensor, cx: torch.Tensor,
-               tol: float) -> torch.Tensor:
+               tol: float, cluster: Optional[int] = None) -> torch.Tensor:
     """The minimizing ``x`` of each row's golden search ``[R]`` over the LOO
     objective of ``rows [R, N]`` (weights ``w [N]``) with variance
-    ``base_var * x^2``, from the bracket ``ax < bx < cx`` (each ``[R]``).
-    CUDA tensors: one launch of the ``loo_golden`` kernel for every row,
-    ``N <= GOLDEN_MAX_N``."""
-    if rows.dim() != 2 or w.shape != rows.shape[1:] or rows.shape[1] < 1 \
-            or any(t.shape != rows.shape[:1] for t in (base_var, ax, bx, cx)):
-        raise ValueError(f"loo_golden needs rows [R, N >= 1], w [N] and "
-                         f"[R] brackets; got {tuple(rows.shape)}, "
-                         f"{tuple(w.shape)}, {tuple(ax.shape)}")
+    ``base_var * x^2``, from the bracket ``ax < bx < cx`` (each ``[R]``):
+    the search of :func:`ksize_small` alone.  CUDA tensors: one launch of
+    the same kernel, with the bracket passed in."""
+    _check_rows("loo_golden", rows, w)
+    if any(t.shape != rows.shape[:1] for t in (base_var, ax, bx, cx)):
+        raise ValueError(f"loo_golden needs [R] brackets for rows "
+                         f"{tuple(rows.shape)}, got {tuple(ax.shape)}")
     dev = _device("loo_golden", rows, w, base_var, ax, bx, cx)
     if dev.type == "cpu":
         return loo_golden_ref(rows, w, base_var, ax, bx, cx, tol)
+    _card_rows("loo_golden", rows)
     r, n = rows.shape
-    if n > GOLDEN_MAX_N:
-        raise ValueError(f"loo_golden on the card takes N <= {GOLDEN_MAX_N} "
-                         f"points a row, got {n}")
     xmin = torch.empty(r, dtype=F64, device=dev)
     with torch.cuda.device(dev):
         _checked("kde_loo_golden", _load().kde_loo_golden(
             rows.data_ptr(), w.data_ptr(), base_var.data_ptr(),
             ax.data_ptr(), bx.data_ptr(), cx.data_ptr(), xmin.data_ptr(),
             r, n, float(tol), golden_max_iters(tol), _C, _R,
+            _cluster(r, n, dev, cluster),
             torch._C._cuda_getCurrentRawStream(dev.index)))
-    LAUNCHES["loo_golden"] += 1
+    if r:
+        LAUNCHES["loo_golden"] += 1
     return xmin
 
 
@@ -205,22 +313,13 @@ def loo_golden_ref(rows: torch.Tensor, w: torch.Tensor,
 
 
 def _bracket(rows: torch.Tensor):
-    lo, hi = _slices_on(rows.shape[1], rows.device)
-    return bracket_rows(rows, lo, hi)
-
-
-def ksize_small(rows: torch.Tensor, w: torch.Tensor,
-                tol: float = 1e-2) -> torch.Tensor:
-    """LOOCV std-dev bandwidths ``[R]`` of the float64 rows ``rows [R, N]``
-    with normalized weights ``w [N]``, on their device (the counterpart of
-    ``ksize_host_np`` with ``bracket_rows_np``)."""
-    base, ax, bx, cx = _bracket(rows)
-    return loo_golden(rows, w, base ** 2, ax, bx, cx, tol) * base
+    return loocv.bracket_rows(rows, *node_table(rows.shape[1], rows.device))
 
 
 def ksize_small_ref(rows: torch.Tensor, w: torch.Tensor,
                     tol: float = 1e-2) -> torch.Tensor:
-    """:func:`ksize_small` through the plain twin, on any device."""
+    """Plain twin of :func:`ksize_small`, on any device: the torch
+    ``bracket_rows``, then :func:`loo_golden_ref`."""
     base, ax, bx, cx = _bracket(rows)
     return loo_golden_ref(rows, w, base ** 2, ax, bx, cx, tol) * base
 
@@ -245,7 +344,8 @@ def _log_eval(query, means, var, weights, loo: bool) -> torch.Tensor:
             query.data_ptr(), means.data_ptr(), var.data_ptr(),
             weights.data_ptr(), out.data_ptr(), m, means.shape[0], d,
             int(loo), torch._C._cuda_getCurrentRawStream(dev.index)))
-    LAUNCHES["small_log_eval"] += 1
+    if m:
+        LAUNCHES["small_log_eval"] += 1
     return out
 
 

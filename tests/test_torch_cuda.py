@@ -440,6 +440,119 @@ def test_loo_golden_matches_twin_on_card(cuda, name):
                                rtol=1e-9)
 
 
+GOLDEN_CASES = ("cfg1", "d2", "gate_edge", "zero_weights", "n1", "n2")
+CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def _admitted(host_small, n, cluster):
+    """Whether the card holds a cluster of ``cluster`` search blocks for
+    rows of ``n`` points (16 needs the non-portable size)."""
+    try:
+        return host_small.max_clusters(n, cluster,
+                                       torch.cuda.current_device()) > 0
+    except RuntimeError:
+        return False
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("name", GOLDEN_CASES)
+def test_ksize_small_every_cluster_matches_twin(cuda, name, cluster):
+    """The fused selection at a forced cluster size against the twin to
+    rtol 1e-9, bitwise the same over 10 launches; the search alone from
+    the twin's bracket, on the same kernel, too."""
+    from kde_tpu_torch.ops import host_small
+    rows, w = (torch.as_tensor(np.ascontiguousarray(a))
+               for a in _golden_rows(name))
+    if not _admitted(host_small, rows.shape[1], cluster):
+        pytest.skip(f"the card admits no cluster of {cluster} blocks")
+    want = host_small.ksize_small_ref(rows, w).numpy()
+    rc, wc = rows.to(cuda), w.to(cuda)
+    got = [host_small.ksize_small(rc, wc, cluster=cluster) for _ in range(10)]
+    torch.cuda.synchronize()
+    for g in got[1:]:
+        assert torch.equal(g, got[0])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want, rtol=1e-9)
+    base, ax, bx, cx = host_small._bracket(rc)
+    xmin = host_small.loo_golden(rc, wc, base ** 2, ax, bx, cx, 1e-2,
+                                 cluster=cluster)
+    np.testing.assert_allclose((xmin * base).cpu().numpy(), want, rtol=1e-9)
+
+
+def test_ksize_small_is_one_launch(cuda, monkeypatch):
+    """On the card the bracket runs in the kernel: one launch a call, no
+    torch bracket, and no ATen op but the output's empty."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from kde_tpu_torch.ops import host_small, loocv
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def no_bracket(*a, **k):
+        raise AssertionError("the torch bracket ran on the card's path")
+    monkeypatch.setattr(loocv, "bracket_rows", no_bracket)
+    rows, w = (torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+               for a in _golden_rows("d2"))
+    host_small.ksize_small(rows, w)          # the node table, the plan
+    torch.cuda.synchronize()
+    before = host_small.LAUNCHES["loo_golden"]
+    with Ops() as seen:
+        out = host_small.ksize_small(rows, w)
+    torch.cuda.synchronize()
+    assert host_small.LAUNCHES["loo_golden"] == before + 1
+    assert seen.ops == ["aten.empty.memory_format"]
+    assert out.shape == (2,) and bool(torch.isfinite(out).all())
+
+
+def test_refused_cluster_size_raises(cuda):
+    """A cluster the card does not admit (32 blocks) is refused by the
+    launch and raises; nothing falls back and nothing is counted, and the
+    next call runs."""
+    from kde_tpu_torch.ops import host_small
+    rows, w = (torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+               for a in _golden_rows("cfg1"))
+    before = dict(host_small.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        host_small.ksize_small(rows, w, cluster=32)
+    with pytest.raises(ValueError, match="cluster"):
+        host_small.ksize_small(rows, w, cluster=0)
+    assert host_small.LAUNCHES == before
+    ok = host_small.ksize_small(rows, w, cluster=1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ok).all())
+
+
+@pytest.mark.parametrize("name", ["cfg1", "widest", "loo100", "loo255",
+                                  "exp_wrap"])
+def test_small_log_eval_at_phase_3b_shapes(cuda, name):
+    """chip_smoke.py phase 3b's five evaluation shapes (200 x 100 x 1,
+    200 x 300 x 4, LOO at N = 100 and 255 in 1-D, the exp-wrap queries):
+    the kernel within 1e-10 of its twin."""
+    from kde_tpu_torch.ops import host_small
+    loo = name.startswith("loo")
+    if loo:
+        rng = np.random.default_rng(12)
+        n = int(name[3:])
+        mu = torch.as_tensor(rng.normal(size=(n, 1)))
+        var = torch.full((n, 1), 0.1, dtype=torch.float64)
+        w = torch.as_tensor(rng.uniform(0.5, 1.5, n))
+        q, w = mu, w / w.sum()
+    else:
+        q, mu, var, w = _eval_inputs(name)
+    args = [t.to(cuda) for t in (q, mu, var, w)]
+    got = (host_small.log_eval_loo_small(*args[1:]) if loo
+           else host_small.log_eval_small(*args))
+    torch.cuda.synchronize()
+    want = host_small.small_log_eval_ref(q, mu, var, w, loo)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
 def _eval_inputs(name):
     rng = np.random.default_rng(3)
     if name == "cfg1":

@@ -324,12 +324,17 @@ def test_gates_equal_kde_tpu_values(gate):
 
 
 def test_golden_row_limit_matches_the_kernel_source():
-    """The wrapper's row limit is the kernel's shared-memory bound, and
-    the LOOCV gate stays below it."""
+    """The wrapper's row limit is the kernel's shared-memory bound (x, w
+    and dmin, 3 N doubles a block, beside 50 static doubles, within the
+    227 KB a block may opt into), the LOOCV gate stays below it, and the
+    plan's rows a block are the kernel's warps."""
     src = ths.SOURCE.read_text()
     assert f"constexpr int kMaxGoldenN = {ths.GOLDEN_MAX_N};" in src
-    assert ths.GOLDEN_MAX_N * 8 + 17 * 8 <= 48 * 1024
+    assert "kMaxGoldenSmem = 3 * kMaxGoldenN * (int)sizeof(double);" in src
+    assert 3 * ths.GOLDEN_MAX_N * 8 + 50 * 8 <= 232448
     assert ths.GOLDEN_MAX_N ** 2 > tconfig.HOST_LOOCV_LIMIT
+    threads = f"constexpr int kThreads = {32 * ths.GOLDEN_ROWS_PER_BLOCK};"
+    assert threads in src
 
 
 @pytest.mark.parametrize("gate", GATES)

@@ -140,6 +140,8 @@ def test_small_ops_off_the_cpu_never_take_the_plain_twins():
     with pytest.raises(ValueError, match="CUDA"):
         host_small.loo_golden(q.T.contiguous(), w, *[torch.ones(
             2, dtype=f64, device="meta")] * 4, 1e-2)
+    with pytest.raises(ValueError, match="CUDA"):
+        host_small.ksize_small(q.T.contiguous(), w)
     with pytest.raises(TypeError, match="float64"):
         host_small.log_eval_loo_small(torch.zeros(4, 2), torch.ones(4, 2),
                                       torch.full((4,), 0.25))
