@@ -7,8 +7,9 @@ Phases, one line of findings each:
   1. device: the card's name and power limit, torch/CUDA versions, TF32
      flags (both off);
   2. build, all started together: nvcc compiles kde_tpu_torch/csrc/
-     tiled_eval.cu and csrc/small_ops.cu (sm_90a, the latter with
-     --fmad=false), g++ the native ball-tree builder csrc/balltree.cpp;
+     tiled_eval.cu, csrc/small_ops.cu and csrc/gibbs_select.cu (sm_90a,
+     the last two with --fmad=false), g++ the native ball-tree builder
+     csrc/balltree.cpp; ptxas registers, shared memory and spills;
   3. the kernel against its plain torch twin on the card at five shapes,
      rtol = atol = 2e-4: (a) 20k x 20k, d = 2; (b) LOO 20k, d = 1;
      (c) 1000 x 777, d = 3; (d) LOO N = 1 (-inf); (e) LOO 100k, d = 1 (the
@@ -36,6 +37,16 @@ Phases, one line of findings each:
      at the evaluation shapes also torch.distributions' MixtureSameFamily
      log_prob, the one PyTorch call that computes the same function; the
      registers, shared memory and spills of each small-ops kernel (ptxas);
+ 3d. the Gibbs selection kernel gibbs_select (csrc/gibbs_select.cu)
+     against its plain twin: the slice's leaf stages (20,000 chains x
+     20,000 candidates, d = 2, sweep with cov and conditioning without,
+     cdf and gumbel, float32), float64 replay streams, circular and SE(2)
+     stages, padding with forced-dead rows and a mixed active dim, d =
+     1..8 at a small width, and widths at the warp/block and shared-memory
+     switch points; gumbel labels equal on every row, cdf labels but for
+     float64 CDF ties within 1e-12 of u (listed), gathered stats equal;
+     the leaf stages timed (one call, 20 back-to-back) beside the twin, the
+     bound (k2_bound_ms) and torch.multinomial, for scale only;
  3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
      resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
      the same flow on the CPU, both small kernels launched; flows/s with
@@ -46,16 +57,19 @@ Phases, one line of findings each:
      with the NumPy builder must equal it array for array), the Gibbs
      product (20,000 chains, Niter 5), the LOOCV refit of the samples and
      the evaluation at 20,000 queries -- fit, refit and evaluate must
-     launch the kernel;
+     launch the kernel; the product again with every Gibbs selection on
+     gibbs_select's twin (_on_gibbs_twin, the same seed and chain blocks),
+     the A/B of its Gibbs stage;
   5. serving: ProductSampler over 2 x 50,000-component densities,
-     256 chains per request;
+     256 chains per request, then the same requests on the twin;
   6. the device-built plan at full width: device-resident copies of
      phase 4's densities (no host arrays, no tree), `p' * q'` and the
      chained `(p'q') * q'`; no host tree may be built, the refits must
      launch the kernel, the means must match the analytic products;
   7. the batched product: product_batched over B = 4 device-resident sets
      of two 20,000-component 2-D densities (plan build, Gibbs, refit),
-     set 0 against its standalone draw, then a refresh;
+     the same call on the twin, set 0 against its standalone draw, then a
+     refresh;
   8. label selection: samples/s of cdf, blocked and gumbel at the bench
      headline (B = 6 x [2 x 1000], 1000 chains, Niter 5), at B = 8, at
      phase 5's 2 x 50,000 with 256 chains and at phase 4's Gibbs stage
@@ -72,7 +86,8 @@ Phases, one line of findings each:
      components (`*` must land near pi; its hooked evaluation must not
      launch the kernel and matches float64 on the CPU), SE(2) 3-D beliefs
      of 2 x 20,000, and a hooked BatchedProductSampler over B = 4 circular
-     sets, set 0 against its standalone draw;
+     sets, set 0 against its standalone draw; each product and the batch
+     again on the twin;
  11. the distributed layer (kde_tpu_torch.parallel).  (a) In a one-rank
      NCCL world: the chain-sharded product of phase 4's densities
      (20,000 chains) and the kernel-sharded replay product of phase 5's
@@ -94,6 +109,8 @@ Phases, one line of findings each:
      that a sharded call is compared with are not counted;
  12. the eight examples_torch twins on the card at their own sizes, one
      line each (their checks raise; they stay below the kernel's gates).
+gibbs_select must launch on the slice, serve, device plan, batched,
+select, manifolds, parallel (chain- and set-sharded) and examples paths.
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
@@ -106,6 +123,11 @@ times K1 only, against the K1 of the checkout in DIR (see k1_parent_ab).
 
 times the small-route kernels only, against those of the checkout in DIR
 (see small_parent_ab).
+
+    python3 chip_smoke.py --k2-diag
+
+times gibbs_select under each layout, its wrapper's host cost and a serve
+request without it (see k2_diag).
 """
 
 import contextlib
@@ -133,6 +155,10 @@ N_UNSCENTED = 100_000    # kernel case (e): the unscented kld's LOO fit
 N_OFFSET = 4096          # kernel case (f): data at 10^3
 OFFSET_ATOL, OFFSET_RTOL = 1e-4, 1e-5   # (f) against float64, see phase 3
 SFU_EX2_PER_CLK = 16     # per SM, compute capability 9.0
+FP32_LANES_PER_CLK = 128 # FP32 lanes per SM, compute capability 9.0
+K2_TIE = 1e-12           # gibbs_select cdf labels may differ from the
+                         # twin's only where its float64 CDF is this near u
+K2_MAX_TIES = 100        # ...on at most this many rows of a case
 FP32_FLOPS = 67e12       # H100 SXM, outside the tensor cores
 HBM_BYTES = 3.35e12      # H100 SXM
 AGREE_MIN = 0.999        # sharded vs unsharded: share of chains that agree
@@ -646,6 +672,234 @@ def phase_small(dev):
     return rows, worst
 
 
+def k2_inputs(seed, dev, b, c, dn, w, d, js, dtype, cov, codes, mode,
+              pad=0, dead=0, mixed=False):
+    """``gibbs_select``'s arguments for one level: ``b`` sets of ``dn``
+    densities of ``w`` candidates in ``d`` dims (bandwidths at Silverman's
+    scale for ``w`` points, weights uniform(0.5, 1.5), each slab's labels a
+    permutation), ``c`` chains at N(0, I) (angles uniform on circular
+    dims), ``cov`` at the same scale or None; ``pad`` padded candidates in
+    the last set, ``dead`` chains of set 0 at 10^3 on the Euclidean dims,
+    ``mixed``: density 1's first dim inactive in set 0.  The uniforms
+    (``cdf``) or the clamped Gumbel uniforms (``gumbel``, laid out as
+    ``ops/gibbs.py::_gumbel_noise`` lays them) come from a generator on the
+    card seeded with ``seed``.  Returns ``(args, codes, kwargs)``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    circ = np.asarray(codes, dtype=bool)
+    mean = rng.normal(size=(b, dn, w, d))
+    mean[..., circ] = rng.uniform(-np.pi, np.pi, size=(b, dn, w, circ.sum()))
+    h2 = (1.06 * max(w, 2) ** -0.2) ** 2
+    bw = h2 * rng.uniform(0.5, 1.5, size=(b, dn, w, d))
+    wt = rng.uniform(0.5, 1.5, size=(b, dn, w))
+    logw = np.log(wt / wt.sum(axis=-1, keepdims=True))
+    if pad:
+        logw[-1, :, -pad:] = -np.inf
+    perm = np.argsort(rng.random((b, dn, w)), axis=-1)
+    mu = rng.normal(size=(b, c, d))
+    mu[..., circ] = rng.uniform(-np.pi, np.pi, size=(b, c, circ.sum()))
+    if dead:
+        mu[0, :dead, ~circ] = 1e3
+    active = np.ones((b, dn, d), dtype=bool)
+    if mixed:
+        active[0, 1, 0] = False
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    covv = t(h2 * rng.uniform(0.5, 1.5, size=(b, c, d))) if cov else None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kw = dict(u=None, noise=None)
+    if mode == "cdf":
+        kw["u"] = torch.rand((b, c, len(js)), generator=gen, dtype=dtype,
+                             device=dev)
+    else:
+        fi = torch.finfo(dtype)
+        kw["noise"] = torch.rand((b, len(js), c, w), generator=gen,
+                                 dtype=dtype, device=dev).clamp_(
+            fi.tiny, 1.0 - fi.eps).permute(0, 2, 1, 3)
+    args = (t(mean), t(bw), t(logw), torch.as_tensor(perm, device=dev),
+            tuple(js), t(mu), covv, torch.as_tensor(active, device=dev))
+    return args, tuple(codes), kw
+
+
+def _k2_index(perm_slab, label):
+    """The candidate index of ``label`` in a slab's permutation."""
+    return int((perm_slab == label).nonzero()[0, 0])
+
+
+def _twin_cdf(args, codes, bi, ci, jj):
+    """The twin's float64 CDF of one row (set ``bi``, chain ``ci``, the
+    ``jj``-th density of the stage), by ``ops/gibbs.py``'s own steps."""
+    import torch
+    from kde_tpu_torch.ops import gibbs, gibbs_select
+    lm, lb, lw, lp, js, mu, cov, act = args
+    j = js[jj]
+    one = lambda x: None if x is None else x[bi:bi + 1, ci:ci + 1]
+    lvl = tuple(x[bi:bi + 1] for x in (lm, lb, lw, lp))
+    a1 = act[bi:bi + 1]
+    stage = gibbs._Stage((j,), one(mu), one(cov), None, a1, a1.cpu().numpy(),
+                         gibbs_select.diffop_of(codes))
+    lg = stage.logits(j, lvl)
+    lg = gibbs._apply_dead_fallback(lg, lvl[2][:, j], gibbs._dead_predicate(lg))
+    e = torch.exp(lg - lg.max(dim=-1, keepdim=True).values).double()
+    return torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)[0, 0]
+
+
+def k2_compare(args, codes, kw, what):
+    """``gibbs_select`` against ``gibbs_select_ref`` on the same inputs.
+    Gumbel labels must be equal on every row; cdf labels on every row but
+    those where the twin's float64 CDF lies within K2_TIE of u between the
+    two labels (each listed with its |u - cdf|); the gathered mean and
+    variance must equal the twin's wherever the labels do.  Returns the
+    row of findings and the kernel's labels."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_select
+    got = gibbs_select.gibbs_select(*args, codes, **kw)
+    _sync()
+    want = gibbs_select.gibbs_select_ref(*args, codes, **kw)
+    same = got[2] == want[2]
+    bad = (~same).nonzero().tolist()
+    if bad and (kw["u"] is None or len(bad) > K2_MAX_TIES):
+        raise AssertionError(f"gibbs_select ({what}): {len(bad)} labels off "
+                             "the twin's")
+    ties = []
+    for bi, ci, jj in bad:
+        slab = args[3][bi, args[4][jj]]
+        zk = _k2_index(slab, got[2][bi, ci, jj])
+        zt = _k2_index(slab, want[2][bi, ci, jj])
+        cdf = _twin_cdf(args, codes, bi, ci, jj)
+        u = float(kw["u"][bi, ci, jj])
+        gap = float((cdf[min(zk, zt):max(zk, zt)] - u).abs().max())
+        if gap > K2_TIE:
+            raise AssertionError(f"gibbs_select ({what}): row {bi, ci, jj} "
+                                 f"takes {zk}, the twin {zt}, |u - cdf| "
+                                 f"{gap}")
+        ties.append(gap)
+    keep = same[..., None].expand_as(got[0])
+    err = max(float((g - w)[keep].abs().max()) if bool(keep.any()) else 0.0
+              for g, w in zip(got[:2], want[:2]))
+    if err != 0.0:
+        raise AssertionError(f"gibbs_select ({what}): gathered stats "
+                             f"{err} off the twin's at equal labels")
+    return dict(rows=same.numel(), label_mismatches=len(bad),
+                cdf_ties=ties, max_abs_err=err), got[2]
+
+
+def k2_bound_ms(args, codes, kw, labels, sms, clock_hz):
+    """The least time an H100 could take for one ``gibbs_select`` call,
+    counting what these inputs need.  Per (row, candidate) pair with k
+    active dims: k logs, k divisions (one reciprocal each) and the dead
+    test's exp on the SFU, 5k + 5 FP32 operations (difference, square,
+    scale, log add, accumulate; weight, max, shift, sum); gumbel adds two
+    logs and 4 operations a pair, cdf an exp, a float64 reciprocal and 4
+    operations for each candidate the scan needs (up to the label).  SFU
+    at 16 a clock an SM, FP32 on 128 lanes an SM; bytes (the level,
+    mu, cov, u or noise read once, the outputs written once) at
+    3.35 TB/s."""
+    import torch
+    lm, lb, lw, lp, js, mu, cov, act = args
+    b, dn, w, d = lm.shape
+    c, n_js, item = mu.shape[1], len(js), lm.element_size()
+    k = int(act[:, list(js)].sum()) / (b * n_js)       # active dims a row
+    pairs = b * c * n_js * w
+    if kw["u"] is None:
+        sfu, fp32 = pairs * (2 * k + 3), pairs * (5 * k + 9)
+    else:
+        inv = torch.argsort(lp[:, list(js)], dim=-1)       # label -> index
+        idx = torch.gather(inv, 2, labels.permute(0, 2, 1)).double()
+        scanned = float((idx + 1).sum())
+        sfu = pairs * (2 * k + 1) + 2 * scanned
+        fp32 = pairs * (5 * k + 5) + 4 * scanned
+    nbytes = (n_js * b * w * (2 * d + 2) * item + b * c * d * item
+              * (2 if cov is not None else 1) + b * c * n_js * (2 * d * item + 8)
+              + (b * c * n_js * item if kw["u"] is not None
+                 else pairs * item))
+    times = {"operations": max(sfu / (SFU_EX2_PER_CLK * sms * clock_hz),
+                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz)),
+             "bytes": nbytes / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def phase_gibbs_select(dev):
+    """Phase 3d: the Gibbs selection kernel against its plain twin at the
+    slice's shapes and at the edges of its layouts; the leaf stages timed
+    (one call, 20 back-to-back) beside the twin, the bound and, for scale
+    only, torch.multinomial over precomputed probabilities.  Returns the
+    rows printed."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_select
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    f32, f64 = torch.float32, torch.float64
+    n = N_SLICE
+    # name: (b, c, dn, w, d, js, dtype, cov, codes, mode, extras)
+    cases = {
+        "leaf sweep cdf": (1, n, 2, n, 2, (0,), f32, True, (0, 0), "cdf", {}),
+        "leaf sweep gumbel": (1, n, 2, n, 2, (1,), f32, True, (0, 0),
+                              "gumbel", {}),
+        "leaf cond cdf": (1, n, 2, n, 2, (0, 1), f32, False, (0, 0), "cdf",
+                          {}),
+        "leaf cond gumbel": (1, n, 2, n, 2, (0, 1), f32, False, (0, 0),
+                             "gumbel", {}),
+        "f64 replay": (1, SERVE_CHAINS, 2, 2000, 2, (0, 1), f64, False,
+                       (0, 0), "cdf", {}),
+        "f64 replay sweep": (1, SERVE_CHAINS, 2, 2000, 2, (1,), f64, True,
+                             (0, 0), "cdf", {}),
+        "circular cdf": (1, 4000, 2, n, 1, (0,), f32, True, (1,), "cdf", {}),
+        "circular gumbel": (1, 4000, 2, n, 1, (0, 1), f32, False, (1,),
+                            "gumbel", {}),
+        "se2 cdf": (1, 4000, 2, n, 3, (1,), f32, True, (0, 0, 1), "cdf", {}),
+        "se2 gumbel": (1, 4000, 2, n, 3, (0, 1), f32, False, (0, 0, 1),
+                       "gumbel", {}),
+        "pad dead cdf": (2, 512, 2, 1000, 2, (0, 1), f32, False, (0, 0),
+                         "cdf", dict(pad=37, dead=5, mixed=True)),
+        "pad dead gumbel": (2, 512, 2, 1000, 2, (0, 1), f32, True, (0, 0),
+                            "gumbel", dict(pad=37, dead=5, mixed=True)),
+    }
+    for d in range(1, 9):
+        cases[f"d={d} cdf"] = (2, 256, 2, 64, d, (0, 1), f32, d % 2 == 0,
+                               (0,) * d, "cdf", dict(mixed=d > 1))
+        cases[f"d={d} gumbel f64"] = (1, 256, 2, 64, d, (1,), f64, True,
+                                      (0,) * d, "gumbel", {})
+    for w in (gibbs_select.WARP_MAX_WIDTH, gibbs_select.WARP_MAX_WIDTH + 1):
+        for dt in (f32, f64):
+            for mode in ("cdf", "gumbel"):
+                cases[f"w={w} {str(dt)[-7:]} {mode}"] = (
+                    1, 512, 2, w, 2, (0,), dt, True, (0, 0), mode, {})
+    # the shared-memory cache's edge: (w + 2d) itemsize + d <= CACHE_MAX_BYTES
+    for dt in (f32, f64):
+        item = 4 if dt == f32 else 8
+        edge = (gibbs_select.CACHE_MAX_BYTES - 2) // item - 4
+        for w in (edge, edge + 1):
+            cases[f"w={w} {str(dt)[-7:]} cache edge"] = (
+                1, 64, 2, w, 2, (0, 1), dt, False, (0, 0), "cdf", {})
+    rows = {}
+    for i, (name, (b, c, dn, w, d, js, dt, cov, codes, mode, ex)) in \
+            enumerate(cases.items()):
+        args, codes, kw = k2_inputs(SEED + 20 + i, dev, b, c, dn, w, d, js,
+                                    dt, cov, codes, mode, **ex)
+        row, labels = k2_compare(args, codes, kw, name)
+        row.update(B=b, C=c, w=w, d=d, js=list(js), dtype=str(dt), mode=mode,
+                   plan=gibbs_select.launch_plan(w, d, args[0].element_size()))
+        if name.startswith("leaf"):
+            call = functools.partial(gibbs_select.gibbs_select, *args, codes,
+                                     **kw)
+            row["ms"] = _cuda_ms(call)
+            row["ms_inner20"] = _cuda_ms(call, inner=20)
+            row["plain_ms"] = _cuda_ms(functools.partial(
+                gibbs_select.gibbs_select_ref, *args, codes, **kw), reps=3)
+            row["bound_ms"], row["bound_by"] = k2_bound_ms(
+                args, codes, kw, labels, sms, clock)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            probs = torch.rand((b * c * len(js), w), device=dev)
+            row["multinomial_ms_for_scale"] = _cuda_ms(
+                lambda: torch.multinomial(probs, 1))
+        rows[name] = row
+        print(f"gibbs_select ({name}): {json.dumps(row)}", flush=True)
+        del args, kw, labels
+    return rows
+
+
 def _cfg1_flow(x, grid, s, device=None):
     """README cfg 1 (bench.py:229-236) with the package's defaults:
     fit, evaluate, resample with a LOOCV refit, the LOO evaluation."""
@@ -754,6 +1008,29 @@ def _timed_product(run, sync, stages, launches, prefix="", where=None):
     return out
 
 
+@contextlib.contextmanager
+def _on_gibbs_twin():
+    """Every Gibbs selection on the gibbs_select kernel's plain twin
+    instead of the kernel (ops/gibbs.py launches it through this one
+    name); the chain blocks stay the kernel route's, so keyed draws are
+    the same.  The run is a reference: its K1 launches (the refits) are
+    not the path's."""
+    from kde_tpu_torch.ops import gibbs_select
+    saved = gibbs_select.gibbs_select
+    gibbs_select.gibbs_select = gibbs_select.gibbs_select_ref
+    try:
+        with _uncounted():
+            yield
+    finally:
+        gibbs_select.gibbs_select = saved
+
+
+def _same_share(a, b):
+    """Share of the rows of ``[..., n, d]`` sample points equal in every
+    coordinate."""
+    return float((a == b).all(dim=-1).double().mean())
+
+
 def _check_mean(k, want, what, n):
     """The sample mean of KDE ``k``'s points is within MEAN_TOL of ``want``
     in every dim (the bound widens only for a small rehearsal on the CPU)."""
@@ -804,6 +1081,12 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
 
     kt.set_seed(seed)
     pq = _timed_product(lambda: p * q, sync, stages, launches)
+    # the same product with every selection on the kernel's plain twin
+    # (same seed, same chain blocks): its Gibbs stage is the A/B
+    kt.set_seed(seed)
+    with _on_gibbs_twin():
+        twin = _timed_product(lambda: p * q, sync, stages, launches, "twin_")
+    same_points = _same_share(pq.points, twin.points)
 
     sync()
     t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
@@ -838,7 +1121,7 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     err = compare(lp[:m_ref].cpu(), ref.float(), "evaluate vs float64 CPU")
     return dict(seconds=stages, launches=launches, product_mean=mean.tolist(),
                 fit_bw=bw.tolist(), refit_bw=torch.sqrt(pq.bw[0]).tolist(),
-                eval_err_vs_f64=err), (p, q)
+                eval_err_vs_f64=err, twin_same_points=same_points), (p, q)
 
 
 TREE_FIELDS = ("centers", "ranges", "weights", "means", "bandwidth", "left",
@@ -862,17 +1145,27 @@ def phase_serve(dev, n=N_SERVE, seed=SEED):
     pts, _ = sampler.sample(seed)
     sync()
     first = time.perf_counter() - t0
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    t0 = time.perf_counter()
-    outs = [sampler.sample(gen)[0] for _ in range(SERVE_CALLS)]
-    sync()
-    dt = time.perf_counter() - t0
+
+    def serve_calls():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        sync()
+        t0 = time.perf_counter()
+        outs = [sampler.sample(gen)[0] for _ in range(SERVE_CALLS)]
+        sync()
+        return outs, time.perf_counter() - t0
+    outs, dt = serve_calls()
+    with _on_gibbs_twin():               # the A/B: the same calls, twin
+        twin, twin_dt = serve_calls()
     for o in [pts] + outs:
         if o.shape != (2, SERVE_CHAINS) or not bool(torch.isfinite(o).all()):
             raise AssertionError("serving: wrong shape or non-finite sample")
+    same = _same_share(torch.cat(outs, 1).T, torch.cat(twin, 1).T)
     return dict(first_call_s=first, calls=SERVE_CALLS, seconds=dt,
-                samples_per_s=SERVE_CALLS * SERVE_CHAINS / dt), sampler
+                samples_per_s=SERVE_CALLS * SERVE_CHAINS / dt,
+                twin_seconds=twin_dt,
+                twin_samples_per_s=SERVE_CALLS * SERVE_CHAINS / twin_dt,
+                twin_same_points=same), sampler
 
 
 def phase_device_plan(dev, p, q, seed=SEED):
@@ -925,19 +1218,28 @@ def phase_batched(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
 
     sets = make_sets()
     stages, launches = {}, {}
-    saved = gibbs.batched_device_plans, gibbs.ksize_rows
-    gibbs.batched_device_plans = _timed("plan", saved[0], sync, stages,
-                                        launches)
-    gibbs.ksize_rows = _timed("refit", saved[1], sync, stages, launches)
-    try:
-        sync()
-        t0 = time.perf_counter()
-        outs = kt.product_batched(sets, key=seed)
-        sync()
-        total = time.perf_counter() - t0
-    finally:
-        gibbs.batched_device_plans, gibbs.ksize_rows = saved
-    stages["gibbs"] = total - stages["plan"] - stages["refit"]
+
+    def batched(prefix=""):
+        saved = gibbs.batched_device_plans, gibbs.ksize_rows
+        gibbs.batched_device_plans = _timed(prefix + "plan", saved[0], sync,
+                                            stages, launches)
+        gibbs.ksize_rows = _timed(prefix + "refit", saved[1], sync, stages,
+                                  launches)
+        try:
+            sync()
+            t0 = time.perf_counter()
+            outs = kt.product_batched(sets, key=seed)
+            sync()
+            total = time.perf_counter() - t0
+        finally:
+            gibbs.batched_device_plans, gibbs.ksize_rows = saved
+        stages[prefix + "gibbs"] = (total - stages[prefix + "plan"]
+                                    - stages[prefix + "refit"])
+        return outs
+    outs = batched()
+    with _on_gibbs_twin():               # the A/B: the same call, twin
+        twin = batched("twin_")
+    twin_same = [_same_share(k.points, t.points) for k, t in zip(outs, twin)]
     if launches["refit"] < 1 and dev.type == "cuda":
         raise AssertionError("the batched refit never launched the kernel")
     if len(outs) != b or any(k.npts != n or k.device != sets[0][0].device
@@ -974,7 +1276,7 @@ def phase_batched(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
         raise AssertionError("refresh: wrong shape or non-finite sample")
     return dict(seconds=stages, launches=launches, means=means,
                 select=select, set0_label_mismatches=mismatches,
-                set0_max_abs_dx=diff)
+                set0_max_abs_dx=diff, twin_same_points=twin_same)
 
 
 def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
@@ -1212,6 +1514,11 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     pa, pb = circ_pair()
     kt.set_seed(seed)
     pq = _timed_product(lambda: pa * pb, sync, stages, launches)
+    kt.set_seed(seed)
+    with _on_gibbs_twin():               # the A/B: the same product, twin
+        twin = _timed_product(lambda: pa * pb, sync, stages, launches,
+                              "twin_")
+    out["twin_same_points"] = _same_share(pq.points, twin.points)
     out["circular"] = _check_near_pi(pq.points[:, 0], "circular `*`")
     if pq.get_mu[0] is not circ["get_mu"][0]:
         raise AssertionError("circular `*` lost its hooks")
@@ -1235,7 +1542,13 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
         return kt.kde(f32(pts), [0.08, 0.08, 0.05], **se2)
 
     sa, sb = belief(2.0, 1.0, np.pi - 0.15), belief(2.3, 0.8, -np.pi + 0.15)
+    kt.set_seed(seed)
     fused = _timed_product(lambda: sa * sb, sync, stages, launches, "se2_")
+    kt.set_seed(seed)
+    with _on_gibbs_twin():
+        twin = _timed_product(lambda: sa * sb, sync, stages, launches,
+                              "twin_se2_")
+    out["twin_se2_same_points"] = _same_share(fused.points, twin.points)
     xy = fused.points[:, :2].double().mean(dim=0).cpu().numpy()
     at_wrap = float((fused.points[:, 2].abs() > np.pi / 2).double().mean())
     out["se2_xy"], out["se2_at_wrap"] = xy.tolist(), at_wrap
@@ -1249,6 +1562,11 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
                                   batch=b)
     pts, idx = _timed("batched_gibbs", sampler.sample, sync, stages,
                       launches)(seed, select=select)
+    with _on_gibbs_twin():
+        twin, _ = _timed("twin_batched_gibbs", sampler.sample, sync, stages,
+                         launches)(seed, select=select)
+    out["twin_batched_same_points"] = _same_share(pts.transpose(1, 2),
+                                                  twin.transpose(1, 2))
     pts0, idx0 = kt.ProductSampler(sets[0], n_out=n, n_iter=5).sample(
         split(seed, b)[0], select=select)
     same = (idx[0] == idx0).all(dim=0)
@@ -1307,14 +1625,14 @@ def _replay_streams(rng, n_out, dens, n_iter):
 @contextlib.contextmanager
 def _uncounted():
     """Kernel launches inside the block belong to a reference that the
-    path is compared with, not to the path: the count is put back after
+    path is compared with, not to the path: the counts are put back after
     it."""
-    from kde_tpu_torch.ops import tiled_eval
-    n = tiled_eval.LAUNCHES
+    from kde_tpu_torch.ops import gibbs_select, tiled_eval
+    n, k = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES
     try:
         yield
     finally:
-        tiled_eval.LAUNCHES = n
+        tiled_eval.LAUNCHES, gibbs_select.LAUNCHES = n, k
 
 
 def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
@@ -1326,11 +1644,15 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
     import kde_tpu_torch as kt
     from kde_tpu_torch import parallel as par
     from kde_tpu_torch.ops import kernels, loocv
+    from kde_tpu_torch.ops import gibbs_select
     from kde_tpu_torch.parallel import product as par_product
-    stages, launches, out = {}, {}, {}
+    stages, launches, out, k2 = {}, {}, {}, {}
 
     def stage(name, fn, *args, **kw):
-        return _timed(name, fn, _sync, stages, launches)(*args, **kw)
+        n0 = gibbs_select.LAUNCHES
+        res = _timed(name, fn, _sync, stages, launches)(*args, **kw)
+        k2[name] = k2.get(name, 0) + gibbs_select.LAUNCHES - n0
+        return res
 
     def reference(name, fn, *args, **kw):
         with _uncounted():
@@ -1454,6 +1776,8 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         _launched(launches, ("sharded_refit", "batched_sharded",
                              "sharded_log_eval", "sharded_log_eval_numpy"),
                   dev)
+        _launched(k2, ("chain_sharded", "batched_sharded"), dev)
+        out["gibbs_select_launches"] = k2
     finally:
         dist.destroy_process_group()
     out["scaling"] = phase_scaling()
@@ -1796,6 +2120,118 @@ def small_parent_ab(parent):
     print(_card())
 
 
+def _k2_raw(args, codes, kw, group, cache):
+    """A call of kde_gibbs_select with the layout ``group`` threads a row
+    and ``cache`` forced (ops/gibbs_select.py::launch_plan picks them on
+    the package's path), into fresh outputs; returns the labels."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_select as gs
+    lm, lb, lw, lp, js, mu, cov, act = args
+    b, dn, w, d = lm.shape
+    c, dev = mu.shape[1], mu.device
+    noise, u = kw["noise"], kw["u"]
+    om = torch.empty((b, c, len(js), d), dtype=mu.dtype, device=dev)
+    ov = torch.empty_like(om)
+    ol = torch.empty((b, c, len(js)), dtype=torch.int64, device=dev)
+    ns = (0, 0, 0) if noise is None else noise.stride()[:3]
+    two_pi, inv = gs._two_pi(mu.dtype)
+    codes_t = gs._codes_on(tuple(codes), dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def call():
+        rc = gs._load().kde_gibbs_select(
+            lm.element_size(), int(noise is not None), group, cache,
+            lm.data_ptr(), lb.data_ptr(), lw.data_ptr(), lp.data_ptr(),
+            lm.stride(0), lm.stride(1), lw.stride(0), lw.stride(1),
+            mu.data_ptr(), ptr(cov), act.data_ptr(), codes_t.data_ptr(),
+            ptr(u), ptr(noise), *ns, om.data_ptr(), ov.data_ptr(),
+            ol.data_ptr(), b, c, len(js), js[0], dn, w, d, two_pi, inv,
+            gs.LOG_DEAD, torch._C._cuda_getCurrentRawStream(dev.index or 0))
+        if rc != 0:
+            raise RuntimeError(f"kde_gibbs_select: CUDA error {rc}")
+        return ol
+    return call
+
+
+def k2_diag(seed=SEED):
+    """Where K2's time goes on this card: the leaf sweep stage (20,000 rows
+    x 20,000 candidates) and the serve shape (256 x 50,000), cdf and
+    gumbel, under each layout the C entry takes (a 512-thread block a row
+    with the logits cached or recomputed each pass, a warp a row
+    recomputing), each checked equal to the plan's labels; the wrapper's
+    host microseconds a call beside its bare ctypes call (2,000 calls at a
+    tiny shape); and a serve request (2 x 50,000, 256 chains) as is and
+    with gibbs_select's outputs precomputed (no launch, no wrapper), so
+    the eager ops around K2 are timed alone."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs_select as gs
+    dev = torch.device("cuda")
+    gs.build()
+    f32 = torch.float32
+    layouts = ((gs.CTA_THREADS, 1), (gs.CTA_THREADS, 0), (32, 0))
+    for shape, (c, w) in (("leaf", (N_SLICE, N_SLICE)),
+                          ("serve", (SERVE_CHAINS, N_SERVE))):
+        for mode, js in (("cdf", (0,)), ("gumbel", (1,))):
+            args, codes, kw = k2_inputs(seed + 1, dev, 1, c, 2, w, 2, js,
+                                        f32, True, (0, 0), mode)
+            want = gs.gibbs_select(*args, codes, **kw)[2]
+            row = {}
+            for group, cache in layouts:
+                call = _k2_raw(args, codes, kw, group, cache)
+                if not torch.equal(call(), want):
+                    raise AssertionError(f"k2 diag {shape} {mode}: layout "
+                                         f"{group}x{cache} off the plan's")
+                row[f"{group}x{cache}"] = _cuda_ms(call)
+            print(f"k2 diag {shape} {mode}, ms by layout (threads a row x "
+                  f"cache): {json.dumps(row)}", flush=True)
+    args, codes, kw = k2_inputs(seed + 2, dev, 1, 8, 2, 16, 2, (0,), f32,
+                                True, (0, 0), "cdf")
+    calls = {"wrapper": functools.partial(gs.gibbs_select, *args, codes,
+                                          **kw),
+             "ctypes": _k2_raw(args, codes, kw, 32, 1)}
+    host = {}
+    for name in ("wrapper", "ctypes", "ctypes", "wrapper"):
+        calls[name]()
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(K1_HOST_CALLS):
+            calls[name]()
+        _sync()
+        host.setdefault(name, []).append(
+            1e6 * (time.perf_counter() - t0) / K1_HOST_CALLS)
+    print(f"k2 diag host us per call: {json.dumps(host)}", flush=True)
+    rng = np.random.default_rng(seed + 1)
+    bw = [float(1.06 * N_SERVE ** -0.2)]
+    dens = [kt.kde((rng.normal(size=(2, N_SERVE)) + s).astype(np.float32),
+                   bw, device=dev, dtype=f32) for s in (0.0, 0.5)]
+    sampler = kt.ProductSampler(dens, n_out=SERVE_CHAINS, n_iter=5)
+    real, outs = gs.gibbs_select, {}
+
+    def precomputed(lm, lb, lw, lp, js, mu, cov, act, codes, u=None,
+                    noise=None):
+        key = (tuple(mu.shape), len(js))
+        if key not in outs:
+            b, c, d = mu.shape
+            outs[key] = (torch.zeros((b, c, len(js), d), device=dev),
+                         torch.ones((b, c, len(js), d), device=dev),
+                         torch.zeros((b, c, len(js)), dtype=torch.int64,
+                                     device=dev))
+        return outs[key]
+    for select in ("gumbel", "cdf"):
+        row = {}
+        for name in ("kernel", "precomputed", "precomputed", "kernel"):
+            gs.gibbs_select = real if name == "kernel" else precomputed
+            try:
+                row.setdefault(name, []).append(_host_ms(
+                    lambda: sampler.sample(seed, select=select), _sync))
+            finally:
+                gs.gibbs_select = real
+        print(f"k2 diag serve request ms, {select}: {json.dumps(row)}",
+              flush=True)
+    print(_card())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1804,7 +2240,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from concurrent.futures import ThreadPoolExecutor
     from kde_tpu_torch import native
-    from kde_tpu_torch.ops import host_small, tiled_eval
+    from kde_tpu_torch.ops import gibbs_select, host_small, tiled_eval
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1816,17 +2252,18 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build: the three libraries at once, each timed from the start
+    # 2. build: the four libraries at once, each timed from the start
     t0 = time.perf_counter()
 
     def timed_build(build):
         so = build()
         return so, time.perf_counter() - t0
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(timed_build, b) for b in
-                (tiled_eval.build, host_small.build, native.build)]
-        (k1_so, k1_s), (small_so, small_s), (tree_so, tree_s) = [
-            j.result() for j in jobs]
+                (tiled_eval.build, host_small.build, gibbs_select.build,
+                 native.build)]
+        ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s),
+         (tree_so, tree_s)) = [j.result() for j in jobs]
     ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {k1_s:.2f} s -> {os.path.relpath(k1_so)}; ptxas: "
@@ -1834,23 +2271,29 @@ def main():
     print(f"build small ops: {small_s:.2f} s -> {os.path.relpath(small_so)}; "
           f"ptxas per kernel: {json.dumps(ptxas_table(host_small.BUILD_LOG))}",
           flush=True)
+    print(f"build gibbs_select: {k2_s:.2f} s -> {os.path.relpath(k2_so)}; "
+          f"ptxas per kernel: "
+          f"{json.dumps(ptxas_table(gibbs_select.BUILD_LOG))}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
-    # 3. kernel vs plain twin; 3b. the small-route kernels
+    # 3. kernel vs plain twin; 3b. the small-route kernels; 3d. the Gibbs
+    # selection kernel
     rows, worst = phase_kernel(dev)
     small_rows, small_worst = phase_small(dev)
+    k2_rows = phase_gibbs_select(dev)
 
     # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds, small = {}, {}, {}
+    runs, builds, small, k2 = {}, {}, {}, {}
 
     def run(name, fn, *args):
-        tiled_eval.LAUNCHES = native.BUILDS = 0
+        tiled_eval.LAUNCHES = native.BUILDS = gibbs_select.LAUNCHES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
         small[name] = dict(host_small.LAUNCHES)
+        k2[name] = gibbs_select.LAUNCHES
         return out
 
     c1 = run("cfg1", phase_cfg1, dev)
@@ -1891,6 +2334,10 @@ def main():
                  "manifolds", "parallel", "shared_card"):
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
+    for name in ("slice", "serve", "device_plan", "batched", "select",
+                 "manifolds", "parallel", "examples"):
+        if k2[name] < 1:
+            raise AssertionError(f"path {name} never launched gibbs_select")
     main_launches = sum(runs.values())
     small_launches = {k: sum(r[k] for r in small.values())
                       for k in host_small.LAUNCHES}
@@ -1898,8 +2345,10 @@ def main():
     print(f"small-route kernel launches per path: {json.dumps(small)}",
           flush=True)
     print(f"native tree builds per path: {json.dumps(builds)}", flush=True)
+    print(f"gibbs_select launches per path: {json.dumps(k2)}", flush=True)
     golden, ev = small_rows["loo_golden cfg1"], small_rows[
         "small_log_eval cfg1"]
+    leaf = k2_rows["leaf sweep cdf"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -1939,7 +2388,26 @@ def main():
         "ms_inner20": ev["ms_inner20"], "device_ms": ev["device_ms"],
         "parent_f32_ms": ev["parent_f32_ms"],
         "empty_ms": ev["empty_ms"],
-        "empty_device_ms": ev["empty_device_ms"]}]}))
+        "empty_device_ms": ev["empty_device_ms"]}, {
+        "name": "gibbs_select", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/gibbs_select.cu",
+        "replaces": "kde_tpu/ops/gibbs.py:267 (_kernel_logits_raw, "
+                    "_dead_predicate, _apply_dead_fallback, _select_label "
+                    "or _select_label_gumbel, select_stats; XLA-fused)",
+        "launches": sum(k2.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows.values()),
+        "label_mismatches": sum(r["label_mismatches"]
+                                for r in k2_rows.values()),
+        "max_cdf_tie": max([t for r in k2_rows.values()
+                            for t in r["cdf_ties"]] or [0.0]),
+        "ms": leaf["ms"], "plain_ms": leaf["plain_ms"],
+        "bound_ms": leaf["bound_ms"], "bound_by": leaf["bound_by"],
+        "bound_share": leaf["bound_share"], "library_ms": None,
+        "multinomial_ms_for_scale": leaf["multinomial_ms_for_scale"],
+        "ms_inner20": leaf["ms_inner20"],
+        "ms_gumbel": k2_rows["leaf sweep gumbel"]["ms"],
+        "bound_ms_gumbel": k2_rows["leaf sweep gumbel"]["bound_ms"],
+        "plain_ms_gumbel": k2_rows["leaf sweep gumbel"]["plain_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1956,5 +2424,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--small-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         small_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k2-diag"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k2_diag()
     else:
         main()

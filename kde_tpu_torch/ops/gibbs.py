@@ -44,6 +44,7 @@ import torch
 from .. import config, manifolds
 from ..density import KDE, kde
 from ..utils.random import make_generator, split
+from . import gibbs_select as _gs
 from .balltree import n_levels as _n_levels
 from .balltree import pack_levels
 from .device_plan import DeviceProductPlan, batched_device_plans
@@ -54,7 +55,9 @@ from .loocv import _slices_on, ksize_rows, select_loo_impl
 # only.
 CHAIN_BLOCK_BYTES: int = 2 << 30
 
-# about this many [chains, width] temporaries are alive at once
+# about this many [chains, width] temporaries are alive at once on the eager
+# twin route; the kernel route keeps none but a gumbel stage's noise
+# (:func:`_live_temps`)
 _LIVE_TEMPS = 8
 
 # log(1e-99): the reference's degenerate-likelihood threshold
@@ -442,12 +445,29 @@ def _select_label_gumbel(gens, logits):
     distribution of the inverse-CDF draw.  ``U`` is clamped away from 0 and
     1 so ``G`` stays finite; dead rows (0 for real candidates, -inf for
     padding) then give a uniform draw that never lands on padding."""
-    shape, dt = logits.shape[1:], logits.dtype
-    u = torch.stack([torch.rand(shape, generator=g, dtype=dt,
-                                device=logits.device) for g in gens])
-    fi = torch.finfo(dt)
-    u = u.clamp(fi.tiny, 1.0 - fi.eps)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    _, c, w = logits.shape
+    noise = _gumbel_noise(gens, c, 1, w, logits.dtype, logits.device)
+    return _gumbel_argmax(logits, noise[:, :, 0])
+
+
+def _gumbel_noise(gens, c: int, n_js: int, w: int, dtype, device):
+    """The uniforms of one gumbel stage of ``n_js`` densities: ``[B, C,
+    n_js, w]`` (a view of a ``[B, n_js, C, w]`` buffer), drawn density by
+    density and, within a density, set by set, each ``[C, w]`` from the
+    set's generator as one ``torch.rand`` call, then clamped to ``[tiny,
+    1 - eps]``."""
+    buf = torch.empty((len(gens), n_js, c, w), dtype=dtype, device=device)
+    for jj in range(n_js):
+        for b, g in enumerate(gens):
+            torch.rand((c, w), generator=g, out=buf[b, jj])
+    fi = torch.finfo(dtype)
+    return buf.clamp_(fi.tiny, 1.0 - fi.eps).permute(0, 2, 1, 3)
+
+
+def _gumbel_argmax(logits, noise):
+    """``argmax(logits - log(-log noise))`` over the last axis, the first
+    index winning ties."""
+    return torch.argmax(logits - torch.log(-torch.log(noise)), dim=-1)
 
 
 def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool,
@@ -466,34 +486,83 @@ def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool,
                         for k in range(mu.shape[-1])], dim=-1)
 
 
-def _local_choose(select: str = "cdf", gens=None):
-    """The single-device selection step of :func:`_run_chain`: for each
-    density ``j`` of ``js``, the degenerate fallback on ``logits_of(j)``
-    ``[B, C, w]``, ``select``'s draw (``u_of(j)`` ``[B, C]`` is read only
-    by ``cdf`` and ``blocked``) and a gather of the winner's mean, variance
-    and original label from the level ``lvl``."""
-    def draw(u_slot, logits):
-        w = logits.shape[-1]
-        if select == "gumbel":
-            return _select_label_gumbel(gens, logits)
-        if select == "blocked" and w > 128:   # narrow levels keep the scan
-            return _select_label_blocked(u_slot(), logits,
-                                         _blocked_block_size(w))
-        return _select_label(u_slot(), logits)
+class _Stage(NamedTuple):
+    """The raw inputs of one selection step of :func:`_run_chain`: the
+    densities ``js`` (a contiguous range: all of them in the conditioning
+    step, one in a sweep), the Gaussian each candidate is scored against
+    (mean ``mu [B, C, d]``, added covariance ``cov [B, C, d]`` or None),
+    the uniforms ``u [B, C, |js|]`` (None for gumbel), the active dims
+    ``active [B, dn, d]`` with their host copy, and the per-dim ``diffop``
+    (None: Euclidean)."""
+    js: Tuple[int, ...]
+    mu: torch.Tensor
+    cov: Optional[torch.Tensor]
+    u: Optional[torch.Tensor]
+    active: torch.Tensor
+    active_host: np.ndarray
+    diffop: Optional[tuple]
 
-    def choose(js, u_of, logits_of, lvl):
-        lvl_mean, lvl_bw, lvl_logw, lvl_perm = lvl
-        sets = torch.arange(lvl_mean.shape[0],
-                            device=lvl_mean.device)[:, None]
-        out = []
-        for j in js:
-            logits = logits_of(j)
-            logits = _apply_dead_fallback(logits, lvl_logw[:, j],
-                                          _dead_predicate(logits))
-            z = draw(lambda: u_of(j), logits)
-            out.append((lvl_mean[sets, j, z], lvl_bw[sets, j, z],
-                        lvl_perm[sets, j, z]))
-        return out
+    def logits(self, j: int, lvl):
+        """Density ``j``'s raw candidate logits ``[B, C, w]`` at the level
+        ``lvl``, in eager torch ops (:func:`_kernel_logits_raw`)."""
+        return _kernel_logits_raw(lvl[0][:, j], lvl[1][:, j], lvl[2][:, j],
+                                  self.mu, self.cov,
+                                  (self.active[:, j], self.active_host[:, j]),
+                                  self.diffop)
+
+
+def _select_eager(stage: _Stage, lvl, draw):
+    """The selection step in eager torch ops, density by density: the raw
+    logits, the degenerate fallback, ``draw(jj, logits)``'s labels ``[B,
+    C]`` for the ``jj``-th density of ``stage.js``, and the gather of the
+    winner's mean, variance and original label from ``lvl``.  Returns
+    ``(mean, var [B, C, |js|, d], label [B, C, |js|])``."""
+    lvl_mean, lvl_bw, lvl_logw, lvl_perm = lvl
+    sets = torch.arange(lvl_mean.shape[0], device=lvl_mean.device)[:, None]
+    outs = []
+    for jj, j in enumerate(stage.js):
+        logits = stage.logits(j, lvl)
+        logits = _apply_dead_fallback(logits, lvl_logw[:, j],
+                                      _dead_predicate(logits))
+        z = draw(jj, logits)
+        outs.append((lvl_mean[sets, j, z], lvl_bw[sets, j, z],
+                     lvl_perm[sets, j, z]))
+    return tuple(torch.stack(parts, dim=2) for parts in zip(*outs))
+
+
+def _local_choose(select: str = "cdf", gens=None):
+    """The single-device selection step of :func:`_run_chain`:
+    ``choose(stage, lvl)`` gives each density of ``stage.js`` its winner's
+    ``(mean [B, C, d], var [B, C, d], label [B, C])``.  ``cdf`` and
+    ``gumbel`` go through :func:`gibbs_select.gibbs_select` (the kernel on
+    the card), ``gumbel`` with a stage of noise from :func:`_gumbel_noise`;
+    ``blocked`` and a user's own ``diffop``, which no kernel runs, take the
+    eager twin by design (counted in ``gibbs_select.TWIN_STAGES``)."""
+    def choose(stage: _Stage, lvl):
+        _, c, d = stage.mu.shape
+        codes = _gs.diff_codes(stage.diffop, d)
+        noise = None
+        if select == "gumbel":
+            noise = _gumbel_noise(gens, c, len(stage.js), lvl[2].shape[-1],
+                                  stage.mu.dtype, stage.mu.device)
+        if select == "blocked" or codes is None:
+            _gs.TWIN_STAGES += 1
+
+            def draw(jj, logits):
+                w = logits.shape[-1]
+                if noise is not None:
+                    return _gumbel_argmax(logits, noise[:, :, jj])
+                if select == "blocked" and w > 128:   # narrow: the scan
+                    return _select_label_blocked(stage.u[:, :, jj], logits,
+                                                 _blocked_block_size(w))
+                return _select_label(stage.u[:, :, jj], logits)
+            mean, var, label = _select_eager(stage, lvl, draw)
+        else:
+            mean, var, label = _gs.gibbs_select(
+                *lvl, stage.js, stage.mu, stage.cov, stage.active, codes,
+                u=stage.u if noise is None else None, noise=noise)
+        return [(mean[:, :, i], var[:, :, i], label[:, :, i])
+                for i in range(len(stage.js))]
     return choose
 
 
@@ -511,11 +580,12 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     than 128) or ``gumbel``, which draws fresh noise from the sets'
     generators ``gens`` for every (level, sweep, density) stage and takes
     ``u = None``.  ``hooks``: the normalized manifold quadruple
-    (:func:`normalize_hooks`).  ``choose(js, u_of, logits_of, lvl)``
-    replaces the selection (default :func:`_local_choose`): it gives each
-    density of ``js`` its winner's ``(mean [B, C, d], var [B, C, d], label
-    [B, C])`` from the raw logits, the uniforms and ``plans.level(l)``;
-    the kernel-sharded engine passes one that selects across shards.
+    (:func:`normalize_hooks`).  ``choose(stage, lvl)`` replaces the
+    selection (default :func:`_local_choose`): it gives each density of
+    ``stage.js`` its winner's ``(mean [B, C, d], var [B, C, d], label [B,
+    C])`` from the stage's raw inputs (:class:`_Stage`) and
+    ``plans.level(l)``; the kernel-sharded engine passes one that selects
+    across shards.
     Returns ``points [B, C, d]``, final labels ``[B, C, dn]`` and per-level
     labels ``[B, C, L, dn]`` (0-based original point indices).  The
     reference's ``levelDown!`` label remap (:512-513) is left out: the
@@ -532,7 +602,8 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
         for j in range(dn)], dim=1)
     act_all = mask & union_other                              # [B, dn, d]
     act_host = act_all.cpu().numpy()
-    active = [(act_all[:, j], act_host[:, j]) for j in range(dn)]
+    stage = lambda js, mu, cov, us: _Stage(tuple(js), mu, cov, us, act_all,
+                                           act_host, diffop)
     if u is not None:
         per_level = u[:, :, dn:].reshape(b, c, L, (1 + n_iter) * dn)
         u_cond = per_level[..., :dn]
@@ -555,15 +626,12 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
 
     for l in range(1, L + 1):
         lvl = plans.level(l)
-        lvl_mean, lvl_bw, lvl_logw = lvl[:3]
         # (1) draw X from the product of the current selections (:594)
         x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True,
                           hooks)
         # (2) re-select every density's label conditioned on X (:600)
-        sels = choose(range(dn), lambda j: u_cond[:, :, l - 1, j],
-                      lambda j: _kernel_logits_raw(
-                          lvl_mean[:, j], lvl_bw[:, j], lvl_logw[:, j], x,
-                          None, active[j], diffop), lvl)
+        sels = choose(stage(range(dn), x, None,
+                            None if u is None else u_cond[:, :, l - 1]), lvl)
         for j in range(dn):
             pick(j, sels[j])
         # (3) n_iter sweeps of sequential LOO Gibbs over densities (:604-608)
@@ -571,11 +639,8 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
             for j in range(dn):
                 mu, cov = _gauss_product(mu_sel, var_sel, mask, j, get_mu,
                                          get_lambda)
-                pick(j, choose([j], lambda j: u_gibbs[:, :, l - 1, t, j],
-                               lambda j: _kernel_logits_raw(
-                                   lvl_mean[:, j], lvl_bw[:, j],
-                                   lvl_logw[:, j], mu, cov, active[j],
-                                   diffop), lvl)[0])
+                us = None if u is None else u_gibbs[:, :, l - 1, t, j:j + 1]
+                pick(j, choose(stage([j], mu, cov, us), lvl)[0])
         labels.append(perms.clone())
 
     # final draw (:612-625)
@@ -584,19 +649,44 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     return x, labels[-1], torch.stack(labels, dim=2)
 
 
-def _chain_block(n_out: int, plan, itemsize: int) -> int:
-    """Chains per block and per set, so one set's live temporaries stay
+def _route(select: str, diffop, device) -> str:
+    """Where the local engine's selections run: ``kernel`` on the card for
+    ``cdf`` and ``gumbel`` with Euclidean or circular differences (the
+    ``gibbs_select`` kernel), ``twin`` (eager torch ops) otherwise."""
+    d = 1 if diffop is None else len(diffop)
+    if (torch.device(device).type == "cuda" and select in ("cdf", "gumbel")
+            and _gs.diff_codes(diffop, d) is not None):
+        return "kernel"
+    return "twin"
+
+
+def _live_temps(route: str, select: str, dn: int) -> int:
+    """The ``[chains, level width]`` temporaries a chain block keeps alive
+    on ``route``: about ``_LIVE_TEMPS`` on the eager twin; on the kernel
+    none, but a gumbel stage's noise, one per density of the conditioning
+    step."""
+    if route == "twin":
+        return _LIVE_TEMPS
+    return dn if select == "gumbel" else 0
+
+
+def _chain_block(n_out: int, plan, itemsize: int,
+                 live: int = _LIVE_TEMPS) -> int:
+    """Chains per block and per set, so one set's ``live`` temporaries stay
     within ``CHAIN_BLOCK_BYTES``.  A batch of ``B`` sets runs ``B`` such
     blocks at once: the split depends on the set's shape alone, so a set's
     gumbel noise is drawn in the same order as in a standalone product."""
     return _chains_per_block(n_out, max(w for _, w in plan.offsets),
-                             itemsize)
+                             itemsize, live)
 
 
-def _chains_per_block(n_out: int, width: int, itemsize: int) -> int:
+def _chains_per_block(n_out: int, width: int, itemsize: int,
+                      live: int = _LIVE_TEMPS) -> int:
     """:func:`_chain_block` for a plan whose widest level has ``width``
-    candidates."""
-    per_chain = _LIVE_TEMPS * width * itemsize
+    candidates; with no live temporary every chain is one block."""
+    per_chain = live * width * itemsize
+    if per_chain == 0:
+        return max(1, n_out)
     return max(1, min(n_out, CHAIN_BLOCK_BYTES // per_chain))
 
 
@@ -604,10 +694,14 @@ def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
                       add_entropy: bool, select: str = "cdf", gens=None,
                       hooks=_NO_HOOKS, choose=None):
     """All chains of ``B`` sets (``nrm [B, n_out, bn]``), in blocks of
-    :func:`_chain_block` chains per set (the block count depends only on
-    the plan's widths and ``n_out``, which every rank of a mesh shares)."""
+    :func:`_chain_block` chains per set, sized for the selection's route
+    (the block count depends only on the plan's widths, ``n_out`` and the
+    route, which every rank of a mesh shares)."""
     n_out = nrm.shape[1]
-    block = _chain_block(n_out, plans, nrm.element_size())
+    route = "twin" if choose is not None else _route(select, hooks[1],
+                                                     nrm.device)
+    block = _chain_block(n_out, plans, nrm.element_size(),
+                         _live_temps(route, select, mask.shape[1]))
     outs = [_run_chain(None if u is None else u[:, s:s + block],
                        nrm[:, s:s + block], plans, mask, n_iter, add_entropy,
                        select, gens, hooks, choose)

@@ -1,0 +1,277 @@
+"""One selection step of the Gibbs chain in one launch (the port's K2; on
+the TPU this is part of the XLA-fused ``kde_tpu/ops/gibbs.py::_run_chain``:
+``_kernel_logits_raw`` :267-282, ``_dead_predicate`` :290-308,
+``_apply_dead_fallback`` :311-319, ``_select_label`` :335-354 or
+``_select_label_gumbel`` :400-414, and ``select_stats`` :557-564).
+
+For every row (set b, chain c, density j of ``js``) of a level,
+:func:`gibbs_select` scores the level's candidates against the Gaussian of
+mean ``mu[b, c]`` and covariance ``bw + cov[b, c]``, applies the degenerate
+fallback, draws the label (``cdf`` from the stage's uniforms ``u``, or
+``gumbel`` from the noise the caller drew) and gathers the winner's mean,
+variance and label.  CUDA tensors launch the hand-written kernel
+``csrc/gibbs_select.cu``; CPU tensors take the plain twin
+:func:`gibbs_select_ref`, the eager ops of ``ops/gibbs.py``.  The library
+is built with nvcc (``--fmad=false``) into ``_build/`` at the first launch;
+a failed build, a refused launch or an input the kernel does not take
+raises, and nothing falls back.
+
+Per-dimension differences are coded: 0 Euclidean, 1
+``manifolds.circular_diff``.  Any other ``diffop`` is a user's Python
+callable, which no kernel runs: :func:`diff_codes` gives None for it, and
+the local engine then takes its eager twin by design (``TWIN_STAGES``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import manifolds
+from .tiled_eval import nvcc_build
+
+# Launches of the kernel; a run sets it to 0 and reads it to show the path
+# went through the kernel.
+LAUNCHES = 0
+# Selection stages the local engine ran on its eager twin because no kernel
+# runs them (``select="blocked"``, a user's diffop), counted on any device.
+TWIN_STAGES = 0
+
+# The kernel's layouts: a warp a row (8 rows a block) up to this width, one
+# 512-thread block a row above it; the row's logits stay in shared memory
+# where they take at most CACHE_MAX_BYTES (float32 at w = 50,000 does),
+# and are recomputed in each pass otherwise.
+WARP_MAX_WIDTH = 1024
+CTA_THREADS = 512
+WARP_ROWS = 8
+CACHE_MAX_BYTES = 200 * 1024
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gibbs_select.cu"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+# log(1e-99): the reference's degenerate-likelihood threshold
+# (src/MSGibbs01.jl:311); ops/gibbs.py::_LOG_DEAD
+LOG_DEAD = float(np.log(1e-99))
+
+_lib = None
+BUILD_LOG = ""
+_CPU = torch.device("cpu")
+_FLOATS = (torch.float32, torch.float64)
+
+
+def build() -> Path:
+    """Compile ``csrc/gibbs_select.cu`` (once per source and flags) and
+    return the shared library's path; a failed build raises."""
+    global BUILD_LOG
+    out, log = nvcc_build(SOURCE, NVCC_FLAGS, "gibbs_select")
+    BUILD_LOG = log or BUILD_LOG
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_double)
+        lib.kde_gibbs_select.argtypes = ([i] * 4 + [vp] * 4 + [ll] * 4
+                                         + [vp] * 6 + [ll] * 3 + [vp] * 3
+                                         + [i] * 7 + [f] * 3 + [vp])
+        lib.kde_gibbs_select.restype = i
+        _lib = lib
+    return _lib
+
+
+def diff_codes(diffop, d: int) -> Optional[Tuple[int, ...]]:
+    """The kernel's per-dimension difference codes of a normalized
+    ``diffop`` tuple (None: all Euclidean): 0 for ``euclid_diff``, 1 for
+    ``circular_diff``; None when any dimension carries another callable."""
+    if diffop is None:
+        return (0,) * d
+    codes = []
+    for op in diffop:
+        if op is manifolds.euclid_diff:
+            codes.append(0)
+        elif op is manifolds.circular_diff:
+            codes.append(1)
+        else:
+            return None
+    return tuple(codes)
+
+
+def diffop_of(codes: Sequence[int]) -> Optional[tuple]:
+    """The per-dim ``diffop`` tuple of ``codes`` (None when all are 0),
+    the inverse of :func:`diff_codes`."""
+    if not any(codes):
+        return None
+    return tuple(manifolds.circular_diff if k else manifolds.euclid_diff
+                 for k in codes)
+
+
+def launch_plan(w: int, d: int, itemsize: int) -> Tuple[int, bool, int]:
+    """``(group, cache, smem)`` of a level of ``w`` candidates in ``d``
+    dims: ``group`` threads a row (32, a warp, up to ``WARP_MAX_WIDTH``;
+    ``CTA_THREADS`` above), whether the row's logits stay in shared memory,
+    and the block's dynamic shared memory in bytes (csrc/gibbs_select.cu's
+    ``smem_bytes``: per row mu and cov, the cache, then d flag bytes)."""
+    if w <= WARP_MAX_WIDTH:
+        group, rows, cache = 32, WARP_ROWS, True
+    else:
+        group, rows = CTA_THREADS, 1
+        cache = (w + 2 * d) * itemsize + d <= CACHE_MAX_BYTES
+    smem = rows * ((2 * d + (w if cache else 0)) * itemsize + d)
+    return group, cache, smem
+
+
+def _check(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu, cov, active, codes,
+           u, noise):
+    """Shapes and the one device of the inputs; returns ``js`` as a tuple
+    and the device.  Raises on anything else."""
+    js = tuple(int(j) for j in js)
+    b, dn, w, d = lvl_mean.shape
+    c = mu.shape[1] if mu.dim() == 3 else -1
+    n_js = len(js)
+    want = {"lvl_bw": (lvl_bw, (b, dn, w, d)),
+            "lvl_logw": (lvl_logw, (b, dn, w)),
+            "lvl_perm": (lvl_perm, (b, dn, w)),
+            "mu": (mu, (b, c, d)), "active": (active, (b, dn, d))}
+    if cov is not None:
+        want["cov"] = (cov, (b, c, d))
+    if (u is None) == (noise is None):
+        raise ValueError("gibbs_select takes exactly one of u (cdf) and "
+                         "noise (gumbel)")
+    if u is not None:
+        want["u"] = (u, (b, c, n_js))
+    else:
+        want["noise"] = (noise, (b, c, n_js, w))
+    bad = [f"{k} {tuple(t.shape)} (want {s})" for k, (t, s) in want.items()
+           if tuple(t.shape) != s]
+    if (bad or c < 0 or w < 1 or d < 1 or not js
+            or js != tuple(range(js[0], js[0] + n_js))
+            or js[0] < 0 or js[-1] >= dn):
+        raise ValueError(f"gibbs_select: level [B, dn, w, d] = "
+                         f"{tuple(lvl_mean.shape)}, js {js}; {bad}")
+    if codes is None or len(codes) != d or any(k not in (0, 1) for k in codes):
+        raise ValueError(f"gibbs_select: codes must be d = {d} of 0/1, got "
+                         f"{codes}")
+    tensors = [t for t, _ in want.values()] + [lvl_mean]
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
+        raise ValueError("gibbs_select: inputs must all lie on the CPU or on "
+                         f"one CUDA device, got {sorted(map(str, devs))}")
+    floats = [lvl_mean, lvl_bw, lvl_logw, mu] + [t for t in (cov, u, noise)
+                                                 if t is not None]
+    dts = {t.dtype for t in floats}
+    if (len(dts) != 1 or dts.pop() not in _FLOATS
+            or lvl_perm.dtype != torch.int64 or active.dtype != torch.bool):
+        raise TypeError("gibbs_select: float32 or float64 level, mu, cov, u "
+                        "and noise of one dtype, int64 lvl_perm and bool "
+                        f"active; got {[t.dtype for t in floats]}, "
+                        f"{lvl_perm.dtype}, {active.dtype}")
+    return js, next(iter(devs))
+
+
+def gibbs_select(lvl_mean: torch.Tensor, lvl_bw: torch.Tensor,
+                 lvl_logw: torch.Tensor, lvl_perm: torch.Tensor,
+                 js: Sequence[int], mu: torch.Tensor,
+                 cov: Optional[torch.Tensor], active: torch.Tensor,
+                 codes: Sequence[int], u: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None):
+    """One selection step of the densities ``js`` (a contiguous range) at
+    one level.
+
+    ``lvl_mean``/``lvl_bw`` ``[B, dn, w, d]``, ``lvl_logw``/``lvl_perm``
+    ``[B, dn, w]`` (``plans.level(l)``; a ``[w, d]`` slab contiguous per set
+    and density); ``mu`` and ``cov`` (or None) ``[B, C, d]``; ``active
+    [B, dn, d]`` bool; ``codes`` per dim (:func:`diff_codes`); either the
+    uniforms ``u [B, C, |js|]`` (the inverse-CDF draw) or the Gumbel
+    uniforms ``noise [B, C, |js|, w]`` (clamped, as ``ops/gibbs.py::
+    _gumbel_noise`` draws them).  Returns the winners' ``(mean, var [B, C,
+    |js|, d], label [B, C, |js|])``, the labels taken from ``lvl_perm``."""
+    global LAUNCHES
+    js, dev = _check(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu, cov,
+                     active, codes, u, noise)
+    if dev == _CPU:
+        return gibbs_select_ref(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu,
+                                cov, active, codes, u, noise)
+    b, dn, w, d = lvl_mean.shape
+    c, n_js = mu.shape[1], len(js)
+    if (lvl_mean.stride()[2:] != (d, 1) or lvl_bw.stride() != lvl_mean.stride()
+            or lvl_logw.stride(2) != 1 or lvl_perm.stride() != lvl_logw.stride()
+            or (noise is not None and noise.stride(3) != 1)):
+        raise ValueError("gibbs_select: each (set, density) slab of the level "
+                         "must be contiguous, lvl_bw laid out as lvl_mean and "
+                         "lvl_perm as lvl_logw, noise rows contiguous")
+    mu, active = mu.contiguous(), active.contiguous()
+    cov = None if cov is None else cov.contiguous()
+    u = None if u is None else u.contiguous()
+    item = lvl_mean.element_size()
+    group, cache, _ = launch_plan(w, d, item)
+    out_mean = torch.empty((b, c, n_js, d), dtype=mu.dtype, device=dev)
+    out_var = torch.empty_like(out_mean)
+    out_label = torch.empty((b, c, n_js), dtype=torch.int64, device=dev)
+    two_pi, inv_two_pi = _two_pi(mu.dtype)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ns = (0, 0, 0) if noise is None else noise.stride()[:3]
+    with torch.cuda.device(dev):
+        rc = _load().kde_gibbs_select(
+            item, int(noise is not None), group, int(cache),
+            lvl_mean.data_ptr(), lvl_bw.data_ptr(), lvl_logw.data_ptr(),
+            lvl_perm.data_ptr(), lvl_mean.stride(0), lvl_mean.stride(1),
+            lvl_logw.stride(0), lvl_logw.stride(1), mu.data_ptr(), ptr(cov),
+            active.data_ptr(), _codes_on(tuple(codes), dev).data_ptr(),
+            ptr(u), ptr(noise), *ns, out_mean.data_ptr(), out_var.data_ptr(),
+            out_label.data_ptr(), b, c, n_js, js[0], dn, w, d, two_pi,
+            inv_two_pi, LOG_DEAD,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"kde_gibbs_select launch failed: CUDA error {rc}")
+    if b * c:
+        LAUNCHES += 1
+    return out_mean, out_var, out_label
+
+
+@functools.lru_cache(maxsize=64)
+def _codes_on(codes: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``codes`` as a uint8 tensor on ``device``, uploaded once."""
+    return torch.as_tensor(codes, dtype=torch.uint8, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _two_pi(dtype) -> Tuple[float, float]:
+    """2 pi and its reciprocal as torch forms them for ``d / (2 pi)`` and
+    ``2 pi * r`` with a Python scalar on the card: the scalar rounded to
+    the tensor's dtype, the division a product with ``1 / scalar`` taken
+    in that dtype."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    tp = np_dt(2.0 * math.pi)
+    return float(tp), float(np_dt(1.0) / tp)
+
+
+def gibbs_select_ref(lvl_mean: torch.Tensor, lvl_bw: torch.Tensor,
+                     lvl_logw: torch.Tensor, lvl_perm: torch.Tensor,
+                     js: Sequence[int], mu: torch.Tensor,
+                     cov: Optional[torch.Tensor], active: torch.Tensor,
+                     codes: Sequence[int], u: Optional[torch.Tensor] = None,
+                     noise: Optional[torch.Tensor] = None):
+    """Plain twin of :func:`gibbs_select`, on any device: the eager ops of
+    ``ops/gibbs.py`` (``_kernel_logits_raw``, ``_dead_predicate``,
+    ``_apply_dead_fallback``, then ``_select_label`` on ``u`` or
+    ``_gumbel_argmax`` on ``noise``, and the gather) density by density."""
+    from . import gibbs as _g       # ops/gibbs.py imports this module
+    stage = _g._Stage(tuple(int(j) for j in js), mu, cov, u, active,
+                      active.cpu().numpy(), diffop_of(codes))
+
+    def draw(jj, logits):
+        if noise is not None:
+            return _g._gumbel_argmax(logits, noise[:, :, jj])
+        return _g._select_label(u[:, :, jj], logits)
+    return _g._select_eager(stage, (lvl_mean, lvl_bw, lvl_logw, lvl_perm),
+                            draw)

@@ -188,14 +188,14 @@ def _sharded_choose(mesh: DeviceMesh, d: int):
     """The selection step of ``ops/gibbs.py::_run_chain`` with the
     candidates sharded over ``kernels``: the densities of ``js`` are
     selected in one batch of collectives (all ``dn`` of them in the
-    conditioning step), their ``[1, C]`` uniforms and ``[1, C, w]`` logits
-    stacked on the density axis; the winners' mean, variance and label
-    come from :func:`_winner_stats`."""
-    def choose(js, u_of, logits_of, lvl):
-        js = list(js)
+    conditioning step), their ``[C]`` uniforms and ``[1, C, w]`` logits
+    (computed eagerly, ``_Stage.logits``) stacked on the density axis; the
+    winners' mean, variance and label come from :func:`_winner_stats`."""
+    def choose(stage, lvl):
+        js = list(stage.js)
         _, _, lvl_logw, lvl_stats = lvl
-        z, own = _select_sharded(torch.cat([u_of(j) for j in js]),
-                                 torch.cat([logits_of(j) for j in js]),
+        z, own = _select_sharded(stage.u[0].T,
+                                 torch.cat([stage.logits(j, lvl) for j in js]),
                                  lvl_logw[0, js], mesh)
         sel = _winner_stats(lvl_stats[0, js], z, own, mesh)  # [|js|, C, *]
         dt = lvl_logw.dtype

@@ -34,10 +34,11 @@ def estimate_product_memory(densities: Sequence, n_out: int,
     """Bytes of the keyed product ``prod_appx_ms_gibbs`` runs for
     ``densities`` at ``n_out`` chains: ``args`` (the level plan's tensors,
     built or taken from the plan cache, and the mask), ``temp`` (the
-    uniform and normal streams, no uniforms for ``gumbel``, and
-    ``_LIVE_TEMPS`` ``[block, leaf width]`` temporaries of one chain
-    block), ``out`` (points and labels) and their ``total``, with the
-    ``select`` mode the call resolves to."""
+    uniform and normal streams, no uniforms for ``gumbel``, and the
+    ``[block, widest level]`` temporaries one chain block keeps alive on
+    the selection's route, ``ops/gibbs.py::_live_temps``), ``out`` (points
+    and labels) and their ``total``, with the ``select`` mode the call
+    resolves to."""
     densities = list(densities)
     device = densities[0].device
     impl = _g._resolve_plan_impl(densities, "auto", replay=False)
@@ -49,9 +50,10 @@ def estimate_product_memory(densities: Sequence, n_out: int,
     args = sum(getattr(plan, f).nbytes for f in _g._PLAN_TENSORS) + dn * d
     bu, bn = _g._stream_sizes(dn, d, plan.n_levels, n_iter)
     streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
-    block = _g._chain_block(n_out, plan, item)
-    temp = streams + _g._LIVE_TEMPS * max(w for _, w in plan.offsets) \
-        * item * block
+    diffop = _g.normalize_hooks(*_g._density_hooks(densities), d)[1]
+    live = _g._live_temps(_g._route(sel, diffop, device), sel, dn)
+    block = _g._chain_block(n_out, plan, item, live)
+    temp = streams + live * max(w for _, w in plan.offsets) * item * block
     out = n_out * (d * item + dn * 8)
     return {"args": int(args), "temp": int(temp), "out": int(out),
             "total": int(args + temp + out), "select": sel}

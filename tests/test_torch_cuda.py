@@ -651,3 +651,144 @@ def test_small_ops_without_a_build_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         host_small.ksize_small(torch.arange(4.0, **f64)[None], w)
     assert host_small.LAUNCHES == before
+
+
+# ---- the Gibbs selection kernel (csrc/gibbs_select.cu) ---------------------
+
+K2_CASES = {
+    # name: (b, c, dn, w, d, js, dtype, cov, codes, mode, extras)
+    "sweep cdf": (1, 2000, 2, 3000, 2, (0,), "f32", True, (0, 0), "cdf", {}),
+    "cond cdf": (1, 2000, 2, 3000, 2, (0, 1), "f32", False, (0, 0), "cdf",
+                 {}),
+    "f64 cdf": (1, 256, 2, 2000, 2, (0, 1), "f64", True, (0, 0), "cdf", {}),
+    "circular cdf": (1, 1000, 2, 3000, 1, (1,), "f32", True, (1,), "cdf", {}),
+    "se2 cdf": (1, 1000, 2, 3000, 3, (0, 1), "f32", False, (0, 0, 1), "cdf",
+                {}),
+    "pad dead cdf": (2, 300, 2, 700, 2, (0, 1), "f32", True, (0, 0), "cdf",
+                     dict(pad=29, dead=4, mixed=True)),
+    "w 1024 cdf": (1, 300, 2, 1024, 2, (1,), "f64", True, (0, 0), "cdf", {}),
+    "w 1025 cdf": (1, 300, 2, 1025, 2, (1,), "f32", True, (0, 0), "cdf", {}),
+    "f32 cache edge": (1, 32, 2, 51195, 2, (0, 1), "f32", False, (0, 0),
+                       "cdf", {}),
+    "f32 past cache": (1, 32, 2, 51196, 2, (0, 1), "f32", False, (0, 0),
+                       "cdf", {}),
+    "f64 past cache": (1, 32, 2, 25596, 2, (0,), "f64", True, (0, 0), "cdf",
+                       {}),
+}
+K2_CASES.update({k.replace("cdf", "gumbel"): v[:9] + ("gumbel", v[10])
+                 for k, v in list(K2_CASES.items())})
+
+
+def _k2_case(name, cuda, seed):
+    import chip_smoke as cs
+    b, c, dn, w, d, js, dt, cov, codes, mode, ex = K2_CASES[name]
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    return cs.k2_inputs(seed, cuda, b, c, dn, w, d, js, dtype, cov, codes,
+                        mode, **ex)
+
+
+@pytest.mark.parametrize("name", sorted(K2_CASES))
+def test_gibbs_select_matches_twin(cuda, name):
+    """The kernel against its twin (chip_smoke.py phase 3d's check): gumbel
+    labels equal on every row, cdf labels on every row but float64 CDF
+    ties within 1e-12 of u, each listed; the gathered mean and variance
+    equal at equal labels; one launch counted."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_select
+    args, codes, kw = _k2_case(name, cuda, sorted(K2_CASES).index(name))
+    before = gibbs_select.LAUNCHES
+    row, labels = cs.k2_compare(args, codes, kw, name)
+    assert gibbs_select.LAUNCHES == before + 1
+    assert row["max_abs_err"] == 0.0
+    if kw["u"] is None:
+        assert row["label_mismatches"] == 0
+    assert all(t <= 1e-12 for t in row["cdf_ties"])
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+@pytest.mark.parametrize("mode", ["cdf", "gumbel"])
+def test_gibbs_select_every_dim(cuda, d, mode):
+    """Every d the package takes runs on the kernel (d is a runtime bound):
+    1..8 at a small width, mixed active dims."""
+    import chip_smoke as cs
+    args, codes, kw = cs.k2_inputs(40 + d, cuda, 2, 256, 2, 64, d, (0, 1),
+                                   torch.float32, d % 2 == 0, (0,) * d, mode,
+                                   mixed=d > 1)
+    row, _ = cs.k2_compare(args, codes, kw, f"d={d}")
+    assert row["max_abs_err"] == 0.0
+
+
+def test_gibbs_select_replay_product_equals_twin_route(cuda):
+    """Float64 replay streams through a whole prod_appx_ms_gibbs: the
+    kernel route equals the same call with every selection on the twin
+    (the same chain blocks), labels and points."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import balltree, gibbs, gibbs_select
+    rng = np.random.default_rng(21)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 500)) + s, **f64),
+                   [0.2]) for s in (0.0, 0.5)]
+    n_out, n_iter = 400, 3
+    L = balltree.n_levels(n_out, [500, 500])
+    bu, bn = gibbs._stream_sizes(2, 2, L, n_iter)
+    ru, rn = rng.uniform(size=n_out * bu), rng.normal(size=n_out * bn)
+    before = gibbs_select.LAUNCHES
+    got = kt.prod_appx_ms_gibbs(n_out, dens, n_iter=n_iter, rand_u=ru,
+                                rand_n=rn, record_labels=True)
+    assert gibbs_select.LAUNCHES == before + L * (1 + n_iter * 2)
+    saved = gibbs_select.gibbs_select
+    gibbs_select.gibbs_select = gibbs_select.gibbs_select_ref
+    try:
+        want = kt.prod_appx_ms_gibbs(n_out, dens, n_iter=n_iter, rand_u=ru,
+                                     rand_n=rn, record_labels=True)
+    finally:
+        gibbs_select.gibbs_select = saved
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_gibbs_select_refuses_mixed_devices_and_dtypes(cuda):
+    """A CPU/CUDA mix raises ValueError, float16 raises TypeError, and a
+    failed build raises RuntimeError; nothing runs the twin instead and
+    nothing is counted."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_select
+    args, codes, kw = cs.k2_inputs(3, cuda, 1, 16, 2, 50, 2, (0, 1),
+                                   torch.float32, True, (0, 0), "cdf")
+    before = gibbs_select.LAUNCHES
+    mixed = args[:5] + (args[5].cpu(),) + args[6:]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gibbs_select.gibbs_select(*mixed, codes, **kw)
+    half = tuple(a.half() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gibbs_select.gibbs_select(*half, codes, u=kw["u"].half())
+    saved_lib, saved_flags = gibbs_select._lib, gibbs_select.NVCC_FLAGS
+    gibbs_select._lib = None
+    gibbs_select.NVCC_FLAGS = [*saved_flags, "--no-such-flag"]
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            gibbs_select.gibbs_select(*args, codes, **kw)
+    finally:
+        gibbs_select._lib, gibbs_select.NVCC_FLAGS = saved_lib, saved_flags
+    assert gibbs_select.LAUNCHES == before
+
+
+def test_blocked_and_user_diffop_take_the_twin_on_card(cuda):
+    """On the card cdf and gumbel launch the kernel; blocked and a user's
+    diffop run the eager twin by design and are counted as such."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs_select
+    rng = np.random.default_rng(22)
+    dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 300)),
+                                   dtype=torch.float32, device=cuda), [0.2])
+            for _ in range(2)]
+    for select, kw, kernel in (("cdf", {}, True), ("gumbel", {}, True),
+                               ("blocked", {}, False),
+                               ("cdf", {"diffop": (lambda a, b: a - b,)},
+                                False)):
+        k0, t0 = gibbs_select.LAUNCHES, gibbs_select.TWIN_STAGES
+        kt.prod_appx_ms_gibbs(200, dens, n_iter=2, key=1, select=select, **kw)
+        torch.cuda.synchronize()
+        assert (gibbs_select.LAUNCHES > k0) == kernel
+        assert (gibbs_select.TWIN_STAGES > t0) == (not kernel)

@@ -1,0 +1,370 @@
+"""The Gibbs selection step ``ops/gibbs_select.py`` (K2) against the JAX
+package.
+
+``gibbs_select_ref``, the plain twin of the ``gibbs_select`` kernel, is held
+to ``kde_tpu/ops/gibbs.py``'s ``_kernel_logits`` + ``_select_label`` and the
+``select_stats`` gather, run per chain under ``jax.vmap`` on the same NumPy
+inputs: in float64 labels and gathered statistics equal and logits within
+1e-12; labels equal except where ``u`` lies on the JAX CDF at the
+boundary, within 1e-12 in float64 (``u = 1`` against a total that XLA's
+cumsum rounds to 1 and torch's just under it) and 1e-6 in float32 (the
+port accumulates the CDF in float64, JAX in float32).  The Gumbel draw with injected uniforms is held to
+``argmax(_kernel_logits - log(-log u))``.  The wrapper's routing, checks
+and launch plan, and the chain blocks of each route, are checked here too;
+the kernel itself runs only on the card (tests/test_torch_cuda.py)."""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_cpu import on_cpu  # noqa: E402,F401
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from fixtures import gibbs_streams  # noqa: E402
+from kde_tpu import manifolds as jman  # noqa: E402
+from kde_tpu.ops import gibbs as jgibbs  # noqa: E402
+from kde_tpu_torch import kde as tkde, manifolds  # noqa: E402
+from kde_tpu_torch import prod_appx_ms_gibbs  # noqa: E402
+from kde_tpu_torch.ops import gibbs as tgibbs  # noqa: E402
+from kde_tpu_torch.ops import gibbs_select as gs  # noqa: E402
+
+F64, F32 = torch.float64, torch.float32
+
+
+def _inputs(seed, d, with_cov, circular, dtype, b=2, dn=2, w=40, c=24):
+    """One level of ``b`` sets x ``dn`` densities, ``c`` chains, as NumPy:
+    a NaN candidate, -inf padding, an inactive and a mixed dim, a
+    far-apart chain (dead unless every dim is circular), u at 0 and 1.
+    ``circular``: the last dim is an angle."""
+    rng = np.random.default_rng(seed)
+    codes = tuple(int(circular and k == d - 1) for k in range(d))
+    mean = rng.normal(size=(b, dn, w, d))
+    mu = 0.7 * rng.normal(size=(b, c, d))
+    if circular:
+        mean[..., -1] = rng.uniform(-np.pi, np.pi, size=(b, dn, w))
+        mu[..., -1] = rng.uniform(-np.pi, np.pi, size=(b, c))
+    mean[0, 0, 2, 0] = np.nan
+    if not circular or d > 1:
+        mu[1, 0, 0] = 1e3                                  # far apart: dead
+    bw = rng.uniform(0.05, 0.6, size=(b, dn, w, d))
+    wt = rng.uniform(0.1, 1.0, size=(b, dn, w))
+    logw = np.log(wt / wt.sum(axis=-1, keepdims=True))
+    logw[0, 1, -3:] = -np.inf                             # padding
+    logw[1, 0, -1:] = -np.inf
+    perm = np.stack([np.stack([rng.permutation(w) for _ in range(dn)])
+                     for _ in range(b)])
+    active = np.ones((b, dn, d), dtype=bool)
+    if d >= 2:
+        active[:, 0, d - 1] = False                       # inactive
+    active[0, 1, 0] = False                               # mixed over sets
+    cov = rng.uniform(0.01, 0.3, size=(b, c, d)) if with_cov else None
+    u = rng.uniform(size=(b, c, dn))
+    u[0, 1] = 0.0
+    u[1, 2] = 1.0
+    cast = lambda x: x.astype(np.float32 if dtype == F32 else np.float64)
+    arrs = dict(mean=cast(mean), bw=cast(bw), logw=cast(logw), perm=perm,
+                mu=cast(mu), cov=None if cov is None else cast(cov),
+                active=active, u=cast(u))
+    return arrs, codes
+
+
+def _torch_args(a, js=(0, 1), u=True):
+    t = lambda x: None if x is None else torch.as_tensor(x)
+    us = t(a["u"][:, :, list(js)]) if u else None
+    return (t(a["mean"]), t(a["bw"]), t(a["logw"]), t(a["perm"]), js,
+            t(a["mu"]), t(a["cov"]), t(a["active"])), us
+
+
+def _jax_diffop(codes):
+    if not any(codes):
+        return None
+    return tuple(jman.circular_diff if k else jman.euclid_diff
+                 for k in codes)
+
+
+def _jax_logits(a, codes, bi, j):
+    """``kde_tpu``'s ``_kernel_logits`` of set ``bi``, density ``j``, per
+    chain under ``jax.vmap``: ``[C, w]``."""
+    cov = a["cov"] if a["cov"] is not None else np.zeros_like(a["mu"])
+    fn = lambda m, cv: jgibbs._kernel_logits(
+        jnp.asarray(a["mean"][bi, j]), jnp.asarray(a["bw"][bi, j]),
+        jnp.asarray(a["logw"][bi, j]), m, cv,
+        jnp.asarray(a["active"][bi, j]), _jax_diffop(codes),
+        with_cov=a["cov"] is not None)
+    return jax.vmap(fn)(jnp.asarray(a["mu"][bi]), jnp.asarray(cov[bi]))
+
+
+@pytest.mark.parametrize("circular", [False, True], ids=["euclid", "circ"])
+@pytest.mark.parametrize("dtype", [F64, F32], ids=["f64", "f32"])
+@pytest.mark.parametrize("with_cov", [False, True], ids=["x", "cov"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_ref_matches_jax_cdf(d, with_cov, dtype, circular):
+    """Logits, labels and the gathered mean and variance of every (set,
+    chain, density) row against kde_tpu (d = 3 with a circular last dim is
+    the SE(2) mix)."""
+    a, codes = _inputs(100 * d + 10 * with_cov + circular, d, with_cov,
+                       circular, dtype)
+    args, u = _torch_args(a)
+    mean, var, label = gs.gibbs_select_ref(*args, codes, u=u)
+    b, c, n_js, _ = mean.shape
+    assert label.shape == (b, c, n_js) and label.dtype == torch.int64
+    stage = tgibbs._Stage(args[4], args[5], args[6], u, args[7],
+                          a["active"], gs.diffop_of(codes))
+    lvl = args[:4]
+    tol, bound = (1e-12, 1e-12) if dtype == F64 else (1e-5, 1e-6)
+    flips = 0
+    for bi in range(b):
+        for jj, j in enumerate(args[4]):
+            want = np.asarray(_jax_logits(a, codes, bi, j))
+            got = stage.logits(j, lvl)
+            got = tgibbs._apply_dead_fallback(
+                got, lvl[2][:, j], tgibbs._dead_predicate(got))[bi].numpy()
+            np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+            fin = np.isfinite(want)
+            np.testing.assert_allclose(got[fin], want[fin], rtol=tol,
+                                       atol=tol)
+            uj = jnp.asarray(a["u"][bi, :, j])
+            z = np.asarray(jax.vmap(jgibbs._select_label)(uj, want))
+            want_label = a["perm"][bi, j][z]
+            same = label[bi, :, jj].numpy() == want_label
+            # a flip only where u sits on the JAX CDF at the boundary: u = 1
+            # against a total that rounds to 1 or just under it, or (float32)
+            # a CDF JAX sums in float32
+            cdf = np.asarray(jax.vmap(lambda lg: jnp.cumsum(
+                jnp.exp(lg - lg.max()) / jnp.sum(jnp.exp(lg - lg.max()))
+            ))(want)).astype(np.float64)
+            for ci in np.flatnonzero(~same):
+                zt = int(np.flatnonzero(a["perm"][bi, j]
+                                        == int(label[bi, ci, jj]))[0])
+                lo = min(zt, int(z[ci]))
+                assert abs(cdf[ci, lo] - a["u"][bi, ci, j]) < bound
+                flips += 1
+            zs, keep = z[same], torch.as_tensor(same)
+            np.testing.assert_array_equal(
+                mean[bi, keep, jj].numpy(), a["mean"][bi, j][zs])
+            np.testing.assert_array_equal(
+                var[bi, keep, jj].numpy(), a["bw"][bi, j][zs])
+    assert flips <= 2
+
+
+@pytest.mark.parametrize("with_cov", [False, True], ids=["x", "cov"])
+@pytest.mark.parametrize("d,circular", [(1, False), (2, False), (1, True),
+                                        (3, True)])
+def test_ref_matches_jax_gumbel(d, circular, with_cov):
+    """The Gumbel draw on injected uniforms: labels equal kde_tpu's
+    ``argmax(_kernel_logits - log(-log u))`` (float64), dead rows
+    included."""
+    a, codes = _inputs(7 + d, d, with_cov, circular, F64)
+    rng = np.random.default_rng(8 + d)
+    b, c = a["mu"].shape[:2]
+    w = a["logw"].shape[-1]
+    fi = np.finfo(np.float64)
+    noise = np.clip(rng.uniform(size=(b, c, 2, w)), fi.tiny, 1 - fi.eps)
+    args, _ = _torch_args(a, u=False)
+    mean, var, label = gs.gibbs_select_ref(*args, codes,
+                                           noise=torch.as_tensor(noise))
+    for bi in range(b):
+        for j in range(2):
+            lg = np.asarray(_jax_logits(a, codes, bi, j))
+            z = np.argmax(lg - np.log(-np.log(noise[bi, :, j])), axis=-1)
+            np.testing.assert_array_equal(label[bi, :, j].numpy(),
+                                          a["perm"][bi, j][z])
+            np.testing.assert_array_equal(mean[bi, :, j].numpy(),
+                                          a["mean"][bi, j][z])
+            np.testing.assert_array_equal(var[bi, :, j].numpy(),
+                                          a["bw"][bi, j][z])
+
+
+def test_dead_rows_are_uniform_over_real_candidates():
+    """The far-apart chain is dead for both densities of set 1: its labels
+    are the reference's uniform fallback, which never lands on padding,
+    and u = 0 takes the first real candidate."""
+    a, codes = _inputs(3, 2, False, False, F64)
+    a["u"][1, 0] = 0.0
+    args, u = _torch_args(a)
+    lvl = args[:4]
+    stage = tgibbs._Stage(args[4], args[5], None, u, args[7], a["active"],
+                          None)
+    for j in range(2):
+        assert bool(tgibbs._dead_predicate(stage.logits(j, lvl))[1, 0])
+    _, _, label = gs.gibbs_select_ref(*args, codes, u=u)
+    assert label[1, 0, 0] == a["perm"][1, 0, 0]
+    assert label[1, 0, 1] == a["perm"][1, 1, 0]
+
+
+def test_single_density_stage_is_a_slice_of_the_conditioning_stage():
+    """A sweep stage (one density) selects what the conditioning stage
+    (all densities) selects for that density on the same rows."""
+    a, codes = _inputs(5, 2, True, False, F64)
+    both = gs.gibbs_select_ref(*_torch_args(a)[0], codes,
+                               u=_torch_args(a)[1])
+    args, u = _torch_args(a, js=(1,))
+    one = gs.gibbs_select_ref(*args, codes, u=u)
+    for x, y in zip(both, one):
+        assert torch.equal(x[:, :, 1:], y)
+
+
+def test_wrapper_takes_the_twin_on_the_cpu_and_checks_inputs():
+    a, codes = _inputs(6, 2, True, True, F32)
+    args, u = _torch_args(a)
+    n = gs.LAUNCHES
+    got = gs.gibbs_select(*args, codes, u=u)
+    want = gs.gibbs_select_ref(*args, codes, u=u)
+    assert gs.LAUNCHES == n
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    lm, lb, lw, lp, js, mu, cov, act = args
+    with pytest.raises(ValueError, match="exactly one"):
+        gs.gibbs_select(*args, codes)
+    with pytest.raises(ValueError, match="js"):
+        gs.gibbs_select(lm, lb, lw, lp, (1, 0), mu, cov, act, codes, u=u)
+    with pytest.raises(ValueError, match="codes"):
+        gs.gibbs_select(*args, (0, 2), u=u)
+    with pytest.raises(ValueError, match="mu"):
+        gs.gibbs_select(lm, lb, lw, lp, js, mu[:, :, :1], cov, act, codes,
+                        u=u)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gs.gibbs_select(lm, lb, lw, lp, js, mu.double(), cov, act, codes,
+                        u=u)
+    with pytest.raises(TypeError, match="int64"):
+        gs.gibbs_select(lm, lb, lw, lp.int(), js, mu, cov, act, codes, u=u)
+    assert gs.LAUNCHES == n
+
+
+def test_diff_codes():
+    e, c = manifolds.euclid_diff, manifolds.circular_diff
+    assert gs.diff_codes(None, 3) == (0, 0, 0)
+    assert gs.diff_codes((e, e, c), 3) == (0, 0, 1)
+    assert gs.diff_codes((c,), 1) == (1,)
+    assert gs.diff_codes((e, lambda x, y: x - y), 2) is None
+    assert gs.diffop_of((0, 0)) is None
+    assert gs.diffop_of((0, 1)) == (e, c)
+
+
+def test_launch_plan():
+    """A warp a row up to WARP_MAX_WIDTH, a block above; the logits cached
+    where they fit CACHE_MAX_BYTES (float32 at 50,000 candidates, float64
+    not); shared memory as the kernel's smem_bytes counts it."""
+    assert gs.launch_plan(1, 2, 4) == (32, True, 8 * (4 * 4 + 1 * 4 + 2))
+    g, cache, smem = gs.launch_plan(gs.WARP_MAX_WIDTH, 8, 8)
+    assert (g, cache) == (32, True) and smem == 8 * ((16 + 1024) * 8 + 8)
+    assert gs.launch_plan(gs.WARP_MAX_WIDTH + 1, 2, 4)[:2] == (512, True)
+    assert gs.launch_plan(50_000, 2, 4) == (512, True,
+                                            (50_000 + 4) * 4 + 2)
+    assert gs.launch_plan(50_000, 2, 8) == (512, False, 4 * 8 + 2)
+    assert gs.launch_plan(20_000, 2, 8)[1]
+    for w in (1, 1000, 1024, 1025, 25_000, 60_000):
+        for d in (1, 2, 8):
+            for item in (4, 8):
+                assert gs.launch_plan(w, d, item)[2] <= 226 * 1024
+
+
+def test_gumbel_noise_is_the_twins_draw():
+    """The stage noise is the uniforms the eager draw takes: per density,
+    per set, one ``torch.rand([C, w])`` from the set's generator, clamped
+    to [tiny, 1 - eps]; so keyed gumbel draws do not change."""
+    gens = lambda: [torch.Generator().manual_seed(s) for s in (3, 4)]
+    noise = tgibbs._gumbel_noise(gens(), 5, 2, 7, F32, torch.device("cpu"))
+    assert noise.shape == (2, 5, 2, 7)
+    fi = torch.finfo(F32)
+    gs_ = gens()
+    for jj in range(2):
+        for bi, g in enumerate(gs_):
+            want = torch.rand((5, 7), generator=g, dtype=F32).clamp(
+                fi.tiny, 1.0 - fi.eps)
+            assert torch.equal(noise[bi, :, jj], want)
+    lg = torch.randn((2, 5, 7), dtype=F32)
+    old = torch.stack([torch.rand((5, 7), generator=g, dtype=F32)
+                       for g in gens()]).clamp(fi.tiny, 1.0 - fi.eps)
+    want = torch.argmax(lg - torch.log(-torch.log(old)), dim=-1)
+    assert torch.equal(tgibbs._select_label_gumbel(gens(), lg), want)
+
+
+def test_twin_stages_count_the_routes_no_kernel_runs():
+    """blocked and a user's diffop take the eager twin by design and are
+    counted; cdf and gumbel with the package's hooks go through
+    gibbs_select."""
+    rng = np.random.default_rng(15)
+    dens = [tkde(rng.normal(size=(1, 20)), [0.3], dtype=F64)
+            for _ in range(2)]
+    for select, hooks, counted in (("cdf", {}, False),
+                                   ("gumbel", {}, False),
+                                   ("blocked", {}, True),
+                                   ("cdf", {"diffop": (manifolds.circular_diff,)},
+                                    False),
+                                   ("cdf", {"diffop": (lambda x, y: x - y,)},
+                                    True)):
+        n = gs.TWIN_STAGES
+        prod_appx_ms_gibbs(8, dens, key=0, select=select, **hooks)
+        assert (gs.TWIN_STAGES > n) == counted, (select, hooks)
+
+
+def test_custom_diffop_twin_equals_kernel_route():
+    """A user's diffop doing Euclidean arithmetic takes the eager twin and
+    draws exactly the product the gibbs_select route draws, cdf and
+    gumbel."""
+    rng = np.random.default_rng(16)
+    dens = [tkde(rng.normal(size=(2, 30)), [0.3], dtype=F64)
+            for _ in range(2)]
+    for select in ("cdf", "gumbel"):
+        a = prod_appx_ms_gibbs(16, dens, key=1, select=select,
+                               diffop=(lambda x, y: x - y,))
+        b = prod_appx_ms_gibbs(16, dens, key=1, select=select)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_chain_block_per_route():
+    """The twin route keeps ~_LIVE_TEMPS [chains, width] temporaries, the
+    kernel none (cdf) or a stage's noise (gumbel, one per density): at the
+    2 x 20,000 slice (width 20,000, float32) the twin runs 20,000 chains
+    in 6 blocks, the kernel's cdf in one, its gumbel in 2."""
+    assert tgibbs._route("cdf", None, "cuda") == "kernel"
+    assert tgibbs._route("gumbel", (manifolds.circular_diff,), "cuda") == \
+        "kernel"
+    assert tgibbs._route("blocked", None, "cuda") == "twin"
+    assert tgibbs._route("cdf", (lambda x, y: x - y,), "cuda") == "twin"
+    assert tgibbs._route("cdf", None, "cpu") == "twin"
+    live = {(r, s): tgibbs._live_temps(r, s, 2)
+            for r in ("twin", "kernel") for s in ("cdf", "gumbel")}
+    assert live == {("twin", "cdf"): tgibbs._LIVE_TEMPS,
+                    ("twin", "gumbel"): tgibbs._LIVE_TEMPS,
+                    ("kernel", "cdf"): 0, ("kernel", "gumbel"): 2}
+    blocks = lambda live: -(-20_000 // tgibbs._chains_per_block(
+        20_000, 20_000, 4, live))
+    assert (blocks(8), blocks(0), blocks(2)) == (6, 1, 2)
+
+
+@pytest.mark.parametrize("route", ["twin", "kernel"])
+def test_chain_blocking_is_layout_only_on_each_route(route, monkeypatch):
+    """Replay products with every chain in one block and with the budget
+    at 1 byte (one chain a block on the twin route; the kernel's cdf keeps
+    no [chains, width] temporary, so all chains stay one block) are
+    identical, and equal across the routes."""
+    rng = np.random.default_rng(12)
+    d, ns, n_out, n_iter = 2, (20, 30), 50, 2
+    dens = [tkde(rng.normal(size=(d, n)), [0.4], dtype=F64) for n in ns]
+    ru, rn, _ = gibbs_streams(rng, 2, d, n_out, n_iter, max(ns + (n_out,)))
+    one = prod_appx_ms_gibbs(n_out, dens, n_iter=n_iter, rand_u=ru,
+                             rand_n=rn, record_labels=True)
+    monkeypatch.setattr(tgibbs, "_route", lambda *a: route)
+    monkeypatch.setattr(tgibbs, "CHAIN_BLOCK_BYTES", 1)
+    plan = tgibbs._get_plan(dens, n_out, F64, torch.device("cpu"))
+    live = tgibbs._live_temps(route, "cdf", 2)
+    assert tgibbs._chain_block(n_out, plan, 8, live) == \
+        (1 if route == "twin" else n_out)
+    blocked = prod_appx_ms_gibbs(n_out, dens, n_iter=n_iter, rand_u=ru,
+                                 rand_n=rn, record_labels=True)
+    for a, b in zip(one, blocked):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_two_pi_as_torch_rounds_the_scalar():
+    tp, inv = gs._two_pi(F32)
+    assert tp == float(np.float32(2 * math.pi))
+    assert inv == float(np.float32(1.0) / np.float32(2 * math.pi))
+    assert gs._two_pi(F64) == (2 * math.pi, 1.0 / (2 * math.pi))
