@@ -784,15 +784,17 @@ def k2_compare(args, codes, kw, what):
                 cdf_ties=ties, max_abs_err=err), got[2]
 
 
-def k2_bound_ms(args, codes, kw, labels, sms, clock_hz):
+def k2_bound_ms(args, codes, kw, labels, sms, clock_hz, scan=True):
     """The least time an H100 could take for one ``gibbs_select`` call,
     counting what these inputs need.  Per (row, candidate) pair with k
     active dims: k logs, k divisions (one reciprocal each) and the dead
     test's exp on the SFU, 5k + 5 FP32 operations (difference, square,
     scale, log add, accumulate; weight, max, shift, sum); gumbel adds two
     logs and 4 operations a pair, cdf an exp, a float64 reciprocal and 4
-    operations for each candidate the scan needs (up to the label).  SFU
-    at 16 a clock an SM, FP32 on 128 lanes an SM; bytes (the level,
+    operations for each candidate the scan needs (up to the label); with
+    ``scan`` False, not (the count chain_bound_ms takes: the scan reuses
+    the exps the sum needs).  SFU at 16 a clock an SM, FP32 on 128 lanes
+    an SM; bytes (the level,
     mu, cov, u or noise read once, the outputs written once) at
     3.35 TB/s."""
     import torch
@@ -806,7 +808,7 @@ def k2_bound_ms(args, codes, kw, labels, sms, clock_hz):
     else:
         inv = torch.argsort(lp[:, list(js)], dim=-1)       # label -> index
         idx = torch.gather(inv, 2, labels.permute(0, 2, 1)).double()
-        scanned = float((idx + 1).sum())
+        scanned = float((idx + 1).sum()) if scan else 0.0
         sfu = pairs * (2 * k + 1) + 2 * scanned
         fp32 = pairs * (5 * k + 5) + 4 * scanned
     nbytes = (n_js * b * w * (2 * d + 2) * item + b * c * d * item
@@ -891,12 +893,295 @@ def phase_gibbs_select(dev):
             row["bound_ms"], row["bound_by"] = k2_bound_ms(
                 args, codes, kw, labels, sms, clock)
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["bound_ms_chain_count"] = k2_bound_ms(
+                args, codes, kw, labels, sms, clock, scan=False)[0]
+            row["bound_share_chain_count"] = (row["bound_ms_chain_count"]
+                                              / row["ms"])
             probs = torch.rand((b * c * len(js), w), device=dev)
             row["multinomial_ms_for_scale"] = _cuda_ms(
                 lambda: torch.multinomial(probs, 1))
         rows[name] = row
         print(f"gibbs_select ({name}): {json.dumps(row)}", flush=True)
         del args, kw, labels
+    return rows
+
+
+def chain_inputs(seed, dev, dtype, n, d=2, b=1, dn=2, n_out=None,
+                 n_iter=5, kinds=None, mask=None, far=False):
+    """``gibbs_chain``'s arguments for ``b`` sets of ``dn`` densities of
+    ``n`` points in ``d`` dims, N(0.5 j + 0.1 i, I) (``far``: 100 j apart,
+    so every selection after the roots is dead) with Silverman's bandwidth,
+    circular dims (``kinds`` "c") on either side of pi; the host plan;
+    ``n_out`` (default ``n``) chains whose uniform and normal streams come
+    from a generator on the card seeded with ``seed``; ``mask [dn][d]``
+    for every set or all dims."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs
+    rng = np.random.default_rng(seed)
+    kinds = kinds or "e" * d
+    circ = np.array([k == "c" for k in kinds])
+    h = float(1.06 * n ** -0.2)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    sets = []
+    for i in range(b):
+        dens = []
+        for j in range(dn):
+            x = rng.normal(size=(d, n)) + (100.0 if far else 0.5) * j + 0.1 * i
+            x[circ] = _wrap(np.pi - 0.2 + 0.4 * j + 0.1 * i
+                            + 0.1 * rng.normal(size=(int(circ.sum()), n)))
+            dens.append(kt.kde(x.astype(np_dt), [h] * d, device=dev,
+                               dtype=dtype))
+        sets.append(dens)
+    n_out = n_out or n
+    plans = gibbs._stack_plans([gibbs._get_plan(ds, n_out, dtype, dev, "host")
+                                for ds in sets])
+    bu, bn = gibbs._stream_sizes(dn, d, plans.n_levels, n_iter)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = torch.rand((b, n_out, bu), generator=gen, dtype=dtype, device=dev)
+    nrm = torch.randn((b, n_out, bn), generator=gen, dtype=dtype, device=dev)
+    m = torch.ones((b, dn, d), dtype=torch.bool, device=dev)
+    if mask is not None:
+        m = torch.as_tensor(np.asarray(mask, dtype=bool), device=dev
+                            )[None].expand(b, dn, d).contiguous()
+    return (u, nrm, plans, m, n_iter, True,
+            tuple(int(k == "c") for k in kinds))
+
+
+def _set_of(args, i):
+    """Set ``i`` of ``gibbs_chain``'s arguments, alone."""
+    from kde_tpu_torch.ops import gibbs
+    u, nrm, plans, m, n_iter, ent, codes = args
+    one = gibbs._SetPlans(*(getattr(plans, f)[i:i + 1]
+                            for f in gibbs._PLAN_TENSORS),
+                          plans.offsets, plans.n_levels,
+                          plans.lvl_uniform[i:i + 1])
+    return (u[i:i + 1], nrm[i:i + 1], one, m[i:i + 1], n_iter, ent, codes)
+
+
+def _chain_tie_gap(args, bi, ci, level):
+    """The smallest |u - cdf| of the twin's float64 CDFs over the stages of
+    ``level`` (0-based) of chain (set ``bi``, chain ``ci``), by
+    ``ops/gibbs.py``'s own steps; infinite for the final draw (no
+    selection)."""
+    import torch
+    from kde_tpu_torch.ops import gibbs, gibbs_chain, gibbs_select
+    u, nrm, plans, m, n_iter, ent, codes = _set_of(args, bi)
+    if level >= plans.n_levels:
+        return float("inf")
+    dn = m.shape[1]
+    per_level, stages, gaps = 1 + n_iter * dn, [0], []
+
+    def choose(stage, lvl):
+        if stages[0] // per_level == level:
+            for jj, j in enumerate(stage.js):
+                lg = stage.logits(j, lvl)
+                lg = gibbs._apply_dead_fallback(lg, lvl[2][:, j],
+                                                gibbs._dead_predicate(lg))
+                e = torch.exp(lg - lg.max(dim=-1, keepdim=True).values
+                              ).double()
+                cdf = torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)
+                gaps.append(float((cdf - stage.u[..., jj:jj + 1].double())
+                                  .abs().min()))
+        stages[0] += 1
+        mean, var, label = gibbs_select.gibbs_select_ref(
+            *lvl, stage.js, stage.mu, stage.cov, stage.active, codes,
+            u=stage.u)
+        return [(mean[:, :, i], var[:, :, i], label[:, :, i])
+                for i in range(len(stage.js))]
+    gibbs._run_chain(u[:, ci:ci + 1], nrm[:, ci:ci + 1], plans, m, n_iter,
+                     ent, "cdf", hooks=gibbs_chain.hooks_of(codes),
+                     choose=choose)
+    return min(gaps)
+
+
+def chain_compare(args, what):
+    """``gibbs_chain`` against ``gibbs_chain_ref`` on the same inputs: the
+    share of chains whose per-level labels and points are equal; a chain
+    that differs is listed with its first differing level and that
+    level's float64 tie gap (_chain_tie_gap), which must be within
+    K2_TIE of u (a CDF tie), and at most K2_MAX_TIES chains a case may
+    differ.  Returns the row of findings and the kernel's outputs."""
+    from kde_tpu_torch.ops import gibbs_chain
+    got = gibbs_chain.gibbs_chain(*args)
+    _sync()
+    want = gibbs_chain.gibbs_chain_ref(*args)
+    labels_same = (got[2] == want[2]).all(dim=-1).all(dim=-1)
+    same = labels_same & (got[0] == want[0]).all(dim=-1)
+    bad = (~same).nonzero().tolist()
+    if len(bad) > K2_MAX_TIES:
+        raise AssertionError(f"gibbs_chain ({what}): {len(bad)} chains off "
+                             "the twin's")
+    listed = []
+    for bi, ci in bad:
+        lv = (got[2][bi, ci] != want[2][bi, ci]).any(dim=-1).nonzero()
+        level = int(lv[0]) if len(lv) else args[2].n_levels
+        gap = _chain_tie_gap(args, bi, ci, level)
+        listed.append(dict(set=bi, chain=ci, level=level, tie_gap=gap))
+        if gap > K2_TIE:
+            raise AssertionError(f"gibbs_chain ({what}): chain {bi, ci} "
+                                 f"differs from level {level}, tie gap {gap}")
+    err = float((got[0] - want[0])[labels_same].abs().max()) \
+        if bool(labels_same.any()) else 0.0
+    return dict(chains=same.numel(), same_share=float(same.double().mean()),
+                differing=listed, max_abs_err=err), got
+
+
+def chain_bound_ms(args, sms, clock_hz):
+    """The least time an H100 could take for one ``gibbs_chain`` call,
+    counting what these inputs need: per selection of density j at level
+    l (1 + n_iter a chain) and per candidate, k IEEE divisions (a
+    reciprocal each on the SFU), an exp, k logs or, where the level's
+    bandwidth is uniform in a dim, one log a selection, and 5k + 5 FP32
+    operations (difference, square, scale, log add, accumulate; weight,
+    max, shift, sum), k the active dims; the scan to the label reuses the
+    exps the sum needs.  SFU at 16 a clock an SM, FP32 on 128 lanes an SM;
+    bytes (the plan and the streams read once, points and labels written
+    once) at 3.35 TB/s."""
+    u, nrm, plans, m, n_iter, ent, codes = args
+    b, c = nrm.shape[:2]
+    dn, d = m.shape[1:]
+    mi = m.int()
+    act = (m & (mi.sum(dim=1, keepdim=True) - mi > 0)).cpu().numpy()
+    uni = plans.lvl_uniform.bool().cpu().numpy()
+    sfu = fp32 = 0.0
+    sel = (1 + n_iter) * c
+    for l, (o, w) in enumerate(plans.offsets):
+        for j in range(dn):
+            k = act[:, j].sum(axis=-1).astype(float)               # [B]
+            ku = (act[:, j] & uni[:, j, l]).sum(axis=-1).astype(float)
+            sfu += float((sel * w * (2 * k + 1 - ku) + sel * ku).sum())
+            fp32 += float((sel * w * (5 * k + 5)).sum())
+    nbytes = sum(getattr(plans, f).nbytes for f in
+                 ("lvl_mean", "lvl_bw", "lvl_logw", "lvl_perm")) \
+        + u.nbytes + nrm.nbytes + b * c * (d * u.element_size()
+                                           + 8 * dn * (plans.n_levels + 1))
+    times = {"operations": max(sfu / (SFU_EX2_PER_CLK * sms * clock_hz),
+                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz)),
+             "bytes": nbytes / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def dn_sum(terms, fastest):
+    """``terms [..., dn]`` summed over the last axis in the order the chain
+    kernel takes (csrc/gibbs_chain.cu's ``dn_sum``, torch's CUDA reduction
+    order): off the fastest-striding dim (``fastest`` False), four
+    accumulators (term j into j % 4), then ((a0 + a1) + a2) + a3; on it,
+    last_pow2(dn) lanes (lane t: terms t and t + lanes), then a tree at
+    offsets lanes / 2, ..., 1."""
+    dn, zero = terms.shape[-1], terms.new_zeros(terms.shape[:-1])
+    t = lambda j: terms[..., j]
+    if not fastest:
+        acc = [zero] * 4
+        for j in range(dn):
+            acc[j % 4] = acc[j % 4] + t(j)
+        return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    lanes = 1 << (dn.bit_length() - 1)
+    v = [(((zero + t(i)) + (zero + t(i + lanes) if i + lanes < dn else zero))
+          + zero) + zero for i in range(lanes)]
+    o = lanes // 2
+    while o:
+        for i in range(o):
+            v[i] = v[i] + v[i + o]
+        o //= 2
+    return v[0]
+
+
+def _sum_order_probe(dev):
+    """The share of entries of torch's ``.sum`` over the density axis equal
+    to :func:`dn_sum`'s order, float32, at dn = 3, 5 and 8: the
+    reduction off the fastest-striding dim for ``[B, C, dn, d].sum(dim=2)``
+    with d > 1, on it with d = 1, for the dim-k slices the hooked sums
+    take and for the fresh ``[B, C, dn]`` products the hooked means sum."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    out = {}
+    for shape in ((1, 7, 3, 1), (1, 20000, 3, 1), (1, 2000, 3, 2),
+                  (4, 5000, 3, 3), (1, 256, 5, 1), (1, 256, 5, 2),
+                  (1, 256, 8, 1), (1, 256, 8, 3), (2, 300, 3, 1)):
+        x = torch.rand(shape, generator=gen, device=dev) * torch.exp(
+            8 * torch.rand(shape, generator=gen, device=dev))
+        row = {"dim2": float((x.sum(dim=2) == dn_sum(
+            x.movedim(2, -1), shape[3] == 1)).double().mean())}
+        if shape[3] > 1:
+            xs = x[..., 1]
+            row["slice"] = float((xs.sum(dim=-1) == dn_sum(xs, True))
+                                 .double().mean())
+            xc = xs * 1.0
+            row["fresh"] = float((xc.sum(dim=-1) == dn_sum(xc, True))
+                                 .double().mean())
+        out[str(shape)] = row
+    return out
+
+
+def phase_gibbs_chain(dev):
+    """Phase 3e: the chain kernel against its plain twin on the card:
+    float64 replay streams at a small size and at the slice, keyed float32
+    cdf at the slice (20,000 chains) and at serve (256 chains over
+    2 x 50,000), circular, SE(2), a partial-dim mask, dead rows, B = 4
+    sets and one of them drawn alone, dn = 3 with n_iter 0, 1 and 5,
+    d = 1..8, a float64 case on the block layout; the share of chains
+    equal to the twin's, the differing ones listed with their tie gaps.
+    The slice and serve calls are timed (one call) beside the twin and the
+    bound (chain_bound_ms).  Returns the rows printed."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_chain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    f32, f64 = torch.float32, torch.float64
+    order = _sum_order_probe(dev)
+    print(f"gibbs_chain sum order over the densities (share equal to "
+          f"dn_sum's): {json.dumps(order)}", flush=True)
+    if min(v for r in order.values() for v in r.values()) < 1.0:
+        raise AssertionError("torch sums over the densities in another "
+                             "order than the chain kernel")
+    # name: (dtype, n, kwargs of chain_inputs)
+    cases = {
+        "replay f64 small": (f64, 500, dict(n_out=400, n_iter=3)),
+        "replay f64 slice": (f64, N_SLICE, {}),
+        "keyed f32 slice": (f32, N_SLICE, {}),
+        "keyed f32 serve": (f32, N_SERVE, dict(n_out=SERVE_CHAINS)),
+        "f64 block layout": (f64, 8000, dict(n_out=300, n_iter=2)),
+        "circular": (f32, 5000, dict(d=1, kinds="c")),
+        "se2": (f32, 5000, dict(d=3, kinds="eec")),
+        "partial mask": (f32, 2000, dict(dn=3, mask=[[1, 0], [1, 1],
+                                                     [0, 1]])),
+        "dead rows": (f32, 500, dict(far=True)),
+        "B=4": (f32, 5000, dict(b=4)),
+    }
+    for it in (0, 1, 5):
+        cases[f"dn=3 n_iter={it}"] = (f32, 2000, dict(dn=3, n_iter=it))
+    for d in range(1, 9):
+        cases[f"d={d}"] = (f32, 1000, dict(d=d, n_out=512, n_iter=2))
+    rows = {}
+    for i, (name, (dt, n, kw)) in enumerate(cases.items()):
+        args = chain_inputs(SEED + 60 + i, dev, dt, n, **kw)
+        row, got = chain_compare(args, name)
+        w = max(w for _, w in args[2].offsets)
+        row.update(dtype=str(dt), n=n, chains=args[1].shape[1],
+                   sets=args[1].shape[0], levels=args[2].n_levels,
+                   group=gibbs_chain.launch_plan(args[1].shape[1], w))
+        if name == "B=4":
+            alone = gibbs_chain.gibbs_chain(*_set_of(args, 2))
+            row["set2_alone_equal"] = all(
+                torch.equal(a[0], g[2]) for a, g in zip(alone, got))
+            if not row["set2_alone_equal"]:
+                raise AssertionError("gibbs_chain: set 2 drawn in the batch "
+                                     "differs from its draw alone")
+        if name in ("keyed f32 slice", "keyed f32 serve"):
+            call = functools.partial(gibbs_chain.gibbs_chain, *args)
+            row["ms"] = _cuda_ms(call)
+            row["plain_ms"] = _cuda_ms(functools.partial(
+                gibbs_chain.gibbs_chain_ref, *args), reps=1)
+            row["bound_ms"], row["bound_by"] = chain_bound_ms(args, sms,
+                                                              clock)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        print(f"gibbs_chain ({name}): {json.dumps(row)}", flush=True)
+        del args, got
     return rows
 
 
@@ -1009,17 +1294,36 @@ def _timed_product(run, sync, stages, launches, prefix="", where=None):
 
 
 @contextlib.contextmanager
+def _on_stage_route():
+    """Every product that would take the chain kernel (ops/gibbs.py::
+    _route gives "chain") on the stage route instead: one gibbs_select
+    launch a selection step, the eager Gaussian products and point draws
+    between them (the parent's route).  cdf keeps no [chains, width]
+    temporary on either route, so the chain blocks and keyed draws are the
+    same.  The run is a reference: its launches are not the path's."""
+    from kde_tpu_torch.ops import gibbs
+    saved = gibbs._route
+    gibbs._route = lambda *a: ("kernel" if saved(*a) == "chain"
+                               else saved(*a))
+    try:
+        with _uncounted():
+            yield
+    finally:
+        gibbs._route = saved
+
+
+@contextlib.contextmanager
 def _on_gibbs_twin():
-    """Every Gibbs selection on the gibbs_select kernel's plain twin
-    instead of the kernel (ops/gibbs.py launches it through this one
-    name); the chain blocks stay the kernel route's, so keyed draws are
-    the same.  The run is a reference: its K1 launches (the refits) are
-    not the path's."""
+    """The stage route with every Gibbs selection on the gibbs_select
+    kernel's plain twin (ops/gibbs.py launches it through this one name):
+    the whole chain in eager torch ops, the same chain blocks, so keyed
+    draws are the same.  The run is a reference: its K1 launches (the
+    refits) are not the path's."""
     from kde_tpu_torch.ops import gibbs_select
     saved = gibbs_select.gibbs_select
     gibbs_select.gibbs_select = gibbs_select.gibbs_select_ref
     try:
-        with _uncounted():
+        with _on_stage_route():
             yield
     finally:
         gibbs_select.gibbs_select = saved
@@ -1081,12 +1385,18 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
 
     kt.set_seed(seed)
     pq = _timed_product(lambda: p * q, sync, stages, launches)
-    # the same product with every selection on the kernel's plain twin
-    # (same seed, same chain blocks): its Gibbs stage is the A/B
+    # the same product on the stage route (a gibbs_select launch a step)
+    # and with every selection on that kernel's plain twin (same seed,
+    # same chain blocks): its Gibbs stage is the A/B
+    kt.set_seed(seed)
+    with _on_stage_route():
+        stage = _timed_product(lambda: p * q, sync, stages, launches,
+                               "stage_")
     kt.set_seed(seed)
     with _on_gibbs_twin():
         twin = _timed_product(lambda: p * q, sync, stages, launches, "twin_")
     same_points = _same_share(pq.points, twin.points)
+    stage_same = _same_share(pq.points, stage.points)
 
     sync()
     t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
@@ -1121,7 +1431,8 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     err = compare(lp[:m_ref].cpu(), ref.float(), "evaluate vs float64 CPU")
     return dict(seconds=stages, launches=launches, product_mean=mean.tolist(),
                 fit_bw=bw.tolist(), refit_bw=torch.sqrt(pq.bw[0]).tolist(),
-                eval_err_vs_f64=err, twin_same_points=same_points), (p, q)
+                eval_err_vs_f64=err, twin_same_points=same_points,
+                stage_same_points=stage_same), (p, q)
 
 
 TREE_FIELDS = ("centers", "ranges", "weights", "means", "bandwidth", "left",
@@ -1155,7 +1466,9 @@ def phase_serve(dev, n=N_SERVE, seed=SEED):
         sync()
         return outs, time.perf_counter() - t0
     outs, dt = serve_calls()
-    with _on_gibbs_twin():               # the A/B: the same calls, twin
+    with _on_stage_route():              # the A/B: the same calls, stage
+        stage, stage_dt = serve_calls()
+    with _on_gibbs_twin():               # and twin routes
         twin, twin_dt = serve_calls()
     for o in [pts] + outs:
         if o.shape != (2, SERVE_CHAINS) or not bool(torch.isfinite(o).all()):
@@ -1163,6 +1476,10 @@ def phase_serve(dev, n=N_SERVE, seed=SEED):
     same = _same_share(torch.cat(outs, 1).T, torch.cat(twin, 1).T)
     return dict(first_call_s=first, calls=SERVE_CALLS, seconds=dt,
                 samples_per_s=SERVE_CALLS * SERVE_CHAINS / dt,
+                stage_seconds=stage_dt,
+                stage_samples_per_s=SERVE_CALLS * SERVE_CHAINS / stage_dt,
+                stage_same_points=_same_share(torch.cat(outs, 1).T,
+                                              torch.cat(stage, 1).T),
                 twin_seconds=twin_dt,
                 twin_samples_per_s=SERVE_CALLS * SERVE_CHAINS / twin_dt,
                 twin_same_points=same), sampler
@@ -1184,6 +1501,13 @@ def phase_device_plan(dev, p, q, seed=SEED):
     build("plan", [p2, q2])
     kt.set_seed(seed)
     pq = _timed_product(lambda: p2 * q2, sync, stages, launches)
+    same = {}
+    for route, ctx in (("stage", _on_stage_route), ("twin", _on_gibbs_twin)):
+        kt.set_seed(seed)
+        with ctx():
+            ref = _timed_product(lambda: p2 * q2, sync, stages, launches,
+                                 route + "_")
+        same[route + "_same_points"] = _same_share(pq.points, ref.points)
     build("chained_plan", [pq, q2])
     pqq = _timed_product(lambda: pq * q2, sync, stages, launches, "chained_")
     if any(k._tree is not None for k in (p2, q2, pq)):
@@ -1193,7 +1517,7 @@ def phase_device_plan(dev, p, q, seed=SEED):
             raise AssertionError(f"stage {stage} never launched the kernel")
     # N(0, I) x N(0.5, I) = N(0.25, I/2); N(0.25, I/2) x N(0.5, I) has mean
     # (2 * 0.25 + 0.5) / 3 = 1/3
-    return dict(seconds=stages, launches=launches,
+    return dict(seconds=stages, launches=launches, **same,
                 mean=_check_mean(pq, 0.25, "p' * q'", n),
                 chained_mean=_check_mean(pqq, 1.0 / 3.0, "(p'q') * q'", n))
 
@@ -1237,9 +1561,13 @@ def phase_batched(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
                                     - stages[prefix + "refit"])
         return outs
     outs = batched()
-    with _on_gibbs_twin():               # the A/B: the same call, twin
+    with _on_stage_route():              # the A/B: the same call, stage
+        stage = batched("stage_")
+    with _on_gibbs_twin():               # and twin routes
         twin = batched("twin_")
     twin_same = [_same_share(k.points, t.points) for k, t in zip(outs, twin)]
+    stage_same = [_same_share(k.points, t.points)
+                  for k, t in zip(outs, stage)]
     if launches["refit"] < 1 and dev.type == "cuda":
         raise AssertionError("the batched refit never launched the kernel")
     if len(outs) != b or any(k.npts != n or k.device != sets[0][0].device
@@ -1276,7 +1604,8 @@ def phase_batched(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
         raise AssertionError("refresh: wrong shape or non-finite sample")
     return dict(seconds=stages, launches=launches, means=means,
                 select=select, set0_label_mismatches=mismatches,
-                set0_max_abs_dx=diff, twin_same_points=twin_same)
+                set0_max_abs_dx=diff, twin_same_points=twin_same,
+                stage_same_points=stage_same)
 
 
 def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
@@ -1515,7 +1844,12 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     kt.set_seed(seed)
     pq = _timed_product(lambda: pa * pb, sync, stages, launches)
     kt.set_seed(seed)
-    with _on_gibbs_twin():               # the A/B: the same product, twin
+    with _on_stage_route():              # the A/B: the same product, stage
+        ref = _timed_product(lambda: pa * pb, sync, stages, launches,
+                             "stage_")
+    out["stage_same_points"] = _same_share(pq.points, ref.points)
+    kt.set_seed(seed)
+    with _on_gibbs_twin():               # and twin routes
         twin = _timed_product(lambda: pa * pb, sync, stages, launches,
                               "twin_")
     out["twin_same_points"] = _same_share(pq.points, twin.points)
@@ -1545,6 +1879,11 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     kt.set_seed(seed)
     fused = _timed_product(lambda: sa * sb, sync, stages, launches, "se2_")
     kt.set_seed(seed)
+    with _on_stage_route():
+        ref = _timed_product(lambda: sa * sb, sync, stages, launches,
+                             "stage_se2_")
+    out["stage_se2_same_points"] = _same_share(fused.points, ref.points)
+    kt.set_seed(seed)
     with _on_gibbs_twin():
         twin = _timed_product(lambda: sa * sb, sync, stages, launches,
                               "twin_se2_")
@@ -1562,6 +1901,11 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
                                   batch=b)
     pts, idx = _timed("batched_gibbs", sampler.sample, sync, stages,
                       launches)(seed, select=select)
+    with _on_stage_route():
+        ref, _ = _timed("stage_batched_gibbs", sampler.sample, sync, stages,
+                        launches)(seed, select=select)
+    out["stage_batched_same_points"] = _same_share(pts.transpose(1, 2),
+                                                   ref.transpose(1, 2))
     with _on_gibbs_twin():
         twin, _ = _timed("twin_batched_gibbs", sampler.sample, sync, stages,
                          launches)(seed, select=select)
@@ -1627,12 +1971,13 @@ def _uncounted():
     """Kernel launches inside the block belong to a reference that the
     path is compared with, not to the path: the counts are put back after
     it."""
-    from kde_tpu_torch.ops import gibbs_select, tiled_eval
-    n, k = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES
+    from kde_tpu_torch.ops import gibbs_chain, gibbs_select, tiled_eval
+    n, k, c = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
     try:
         yield
     finally:
         tiled_eval.LAUNCHES, gibbs_select.LAUNCHES = n, k
+        gibbs_chain.LAUNCHES = c
 
 
 def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
@@ -1644,14 +1989,14 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
     import kde_tpu_torch as kt
     from kde_tpu_torch import parallel as par
     from kde_tpu_torch.ops import kernels, loocv
-    from kde_tpu_torch.ops import gibbs_select
+    from kde_tpu_torch.ops import gibbs_chain
     from kde_tpu_torch.parallel import product as par_product
-    stages, launches, out, k2 = {}, {}, {}, {}
+    stages, launches, out, k3 = {}, {}, {}, {}
 
     def stage(name, fn, *args, **kw):
-        n0 = gibbs_select.LAUNCHES
+        n0 = gibbs_chain.LAUNCHES
         res = _timed(name, fn, _sync, stages, launches)(*args, **kw)
-        k2[name] = k2.get(name, 0) + gibbs_select.LAUNCHES - n0
+        k3[name] = k3.get(name, 0) + gibbs_chain.LAUNCHES - n0
         return res
 
     def reference(name, fn, *args, **kw):
@@ -1776,8 +2121,8 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         _launched(launches, ("sharded_refit", "batched_sharded",
                              "sharded_log_eval", "sharded_log_eval_numpy"),
                   dev)
-        _launched(k2, ("chain_sharded", "batched_sharded"), dev)
-        out["gibbs_select_launches"] = k2
+        _launched(k3, ("chain_sharded", "batched_sharded"), dev)
+        out["gibbs_chain_launches"] = k3
     finally:
         dist.destroy_process_group()
     out["scaling"] = phase_scaling()
@@ -2223,8 +2568,9 @@ def k2_diag(seed=SEED):
         for name in ("kernel", "precomputed", "precomputed", "kernel"):
             gs.gibbs_select = real if name == "kernel" else precomputed
             try:
-                row.setdefault(name, []).append(_host_ms(
-                    lambda: sampler.sample(seed, select=select), _sync))
+                with _on_stage_route():
+                    row.setdefault(name, []).append(_host_ms(
+                        lambda: sampler.sample(seed, select=select), _sync))
             finally:
                 gs.gibbs_select = real
         print(f"k2 diag serve request ms, {select}: {json.dumps(row)}",
@@ -2240,7 +2586,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from concurrent.futures import ThreadPoolExecutor
     from kde_tpu_torch import native
-    from kde_tpu_torch.ops import gibbs_select, host_small, tiled_eval
+    from kde_tpu_torch.ops import gibbs_chain, gibbs_select, host_small
+    from kde_tpu_torch.ops import tiled_eval
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2252,17 +2599,17 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build: the four libraries at once, each timed from the start
+    # 2. build: the five libraries at once, each timed from the start
     t0 = time.perf_counter()
 
     def timed_build(build):
         so = build()
         return so, time.perf_counter() - t0
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = [pool.submit(timed_build, b) for b in
                 (tiled_eval.build, host_small.build, gibbs_select.build,
-                 native.build)]
-        ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s),
+                 gibbs_chain.build, native.build)]
+        ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s), (k3_so, k3_s),
          (tree_so, tree_s)) = [j.result() for j in jobs]
     ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -2274,26 +2621,31 @@ def main():
     print(f"build gibbs_select: {k2_s:.2f} s -> {os.path.relpath(k2_so)}; "
           f"ptxas per kernel: "
           f"{json.dumps(ptxas_table(gibbs_select.BUILD_LOG))}", flush=True)
+    print(f"build gibbs_chain: {k3_s:.2f} s -> {os.path.relpath(k3_so)}; "
+          f"ptxas per kernel: "
+          f"{json.dumps(ptxas_table(gibbs_chain.BUILD_LOG))}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
     # 3. kernel vs plain twin; 3b. the small-route kernels; 3d. the Gibbs
-    # selection kernel
+    # selection kernel; 3e. the Gibbs chain kernel
     rows, worst = phase_kernel(dev)
     small_rows, small_worst = phase_small(dev)
     k2_rows = phase_gibbs_select(dev)
+    k3_rows = phase_gibbs_chain(dev)
 
     # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds, small, k2 = {}, {}, {}, {}
+    runs, builds, small, k2, k3 = {}, {}, {}, {}, {}
 
     def run(name, fn, *args):
         tiled_eval.LAUNCHES = native.BUILDS = gibbs_select.LAUNCHES = 0
+        gibbs_chain.LAUNCHES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
         small[name] = dict(host_small.LAUNCHES)
-        k2[name] = gibbs_select.LAUNCHES
+        k2[name], k3[name] = gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
         return out
 
     c1 = run("cfg1", phase_cfg1, dev)
@@ -2336,8 +2688,10 @@ def main():
             raise AssertionError(f"path {name} never launched the kernel")
     for name in ("slice", "serve", "device_plan", "batched", "select",
                  "manifolds", "parallel", "examples"):
-        if k2[name] < 1:
-            raise AssertionError(f"path {name} never launched gibbs_select")
+        if k3[name] < 1:
+            raise AssertionError(f"path {name} never launched gibbs_chain")
+    if k2["select"] < 1:
+        raise AssertionError("phase 8's gumbel never launched gibbs_select")
     main_launches = sum(runs.values())
     small_launches = {k: sum(r[k] for r in small.values())
                       for k in host_small.LAUNCHES}
@@ -2346,9 +2700,11 @@ def main():
           flush=True)
     print(f"native tree builds per path: {json.dumps(builds)}", flush=True)
     print(f"gibbs_select launches per path: {json.dumps(k2)}", flush=True)
+    print(f"gibbs_chain launches per path: {json.dumps(k3)}", flush=True)
     golden, ev = small_rows["loo_golden cfg1"], small_rows[
         "small_log_eval cfg1"]
     leaf = k2_rows["leaf sweep cdf"]
+    chain, chain_serve = k3_rows["keyed f32 slice"], k3_rows["keyed f32 serve"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -2407,7 +2763,24 @@ def main():
         "ms_inner20": leaf["ms_inner20"],
         "ms_gumbel": k2_rows["leaf sweep gumbel"]["ms"],
         "bound_ms_gumbel": k2_rows["leaf sweep gumbel"]["bound_ms"],
-        "plain_ms_gumbel": k2_rows["leaf sweep gumbel"]["plain_ms"]}]}))
+        "plain_ms_gumbel": k2_rows["leaf sweep gumbel"]["plain_ms"]}, {
+        "name": "gibbs_chain", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/gibbs_chain.cu",
+        "replaces": "kde_tpu/ops/gibbs.py:498 (_run_chain; XLA-fused, the "
+                    "chain has no Pallas kernel)",
+        "launches": sum(k3.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows.values()),
+        "same_share_min": min(r["same_share"] for r in k3_rows.values()),
+        "differing_chains": sum(len(r["differing"])
+                                for r in k3_rows.values()),
+        "max_tie_gap": max([c["tie_gap"] for r in k3_rows.values()
+                            for c in r["differing"]] or [0.0]),
+        "ms": chain["ms"], "plain_ms": chain["plain_ms"],
+        "bound_ms": chain["bound_ms"], "bound_by": chain["bound_by"],
+        "bound_share": chain["bound_share"], "library_ms": None,
+        "ms_serve": chain_serve["ms"], "plain_ms_serve":
+        chain_serve["plain_ms"], "bound_ms_serve": chain_serve["bound_ms"],
+        "bound_share_serve": chain_serve["bound_share"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,17 +46,19 @@ LOOCV_CHUNK: int = 1024
 GIBBS_SELECT: str = "size"
 
 # "size" thresholds, set from the H100 readings of chip_smoke.py phase 8
-# (PERF.md §6, table "PR 2 select cells"; NVIDIA H100 80GB HBM3, 700 W):
-# cdf won the bench headline (B = 6 x [2 x 1000], 1000 chains) and B = 8;
-# gumbel won 2 x 50,000 at 256 chains and the 2 x 20,000 `*` Gibbs stage
-# (20,000 chains); blocked won no cell, so no problem routes to it.  Four
-# cells leave the split points coarse: the crossovers between them are not
-# measured (ROADMAP keeps the full M10 grid open).
+# with cdf on the gibbs_chain kernel, gumbel on gibbs_select and blocked on
+# the eager twin (NVIDIA H100 80GB HBM3, 700.00 W; samples/s, cdf / blocked
+# / gumbel): the bench headline B = 6 x [2 x 1000], 1000 chains, 1,433,117
+# / 32,072 / 114,511; B = 8, 1,474,886 / 43,077 / 96,960; 2 x 50,000 at 256
+# chains 39,165 / 1,134 / 3,159; the 2 x 20,000 `*` Gibbs stage (20,000
+# chains) 108,133 / 9,269 / 61,839.  cdf won every cell, so no problem
+# routes to blocked or gumbel.  Four cells leave the crossovers unmeasured
+# (ROADMAP keeps the full M10 grid open).
 SELECT_BLOCKED_WIDTH: int = 1 << 30   # blocked: leaf width...
 SELECT_BLOCKED_MAX_CHAINS: int = 0    # ...and chains
-SELECT_GUMBEL_WIDTH: int = 50000      # gumbel: leaf width where it won...
-SELECT_GUMBEL_BATCH: int = 1 << 30    # ...no set count where it won...
-SELECT_GUMBEL_WORK: int = 1 << 22     # ...or chains x width (cdf won 1e6)
+SELECT_GUMBEL_WIDTH: int = 1 << 30   # gumbel: leaf width...
+SELECT_GUMBEL_BATCH: int = 1 << 30   # ...set count...
+SELECT_GUMBEL_WORK: int = 1 << 62    # ...or chains x width
 
 # The small-problem routes (ops/host_small.py), at the JAX package's values
 # and names (kde_tpu/config.py:122-129) so that a test sets both packages'

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .balltree import NO_CHILD, level_lists, n_levels, pack_levels, topology
+from .gibbs_chain import level_uniform
 
 _EPS = float(np.finfo(np.float64).eps)
 
@@ -94,6 +95,21 @@ def _topology_on(n: int, device: str):
                  for pd in topo["per_depth"]]
     merges = [tuple(dev(a) for a in m) for m in topo["merges"]]
     return per_depth, merges
+
+
+def build_bytes(npts, d: int) -> int:
+    """Device memory a plan built here for densities of ``npts`` points in
+    ``d`` dims holds beyond its own tensors: the topology index tensors
+    cached on the device once per N (:func:`_topology_on`) and the float64
+    slice gather and deviations of the split search at its widest depth."""
+    total = 0
+    for n in set(npts):
+        topo = _topology(n)
+        total += sum(v.nbytes for pd in topo["per_depth"] if pd is not None
+                     for v in pd.values())
+        total += sum(a.nbytes for m in topo["merges"] for a in m)
+        total += 2 * n * d * 8
+    return total
 
 
 @functools.lru_cache(maxsize=128)
@@ -169,8 +185,9 @@ def batched_device_plans(density_sets, n_out: int, dtype):
     belief-propagation iteration swaps in fresh message densities).
 
     Returns ``(t_mean, t_bw, lvl_mean, lvl_bw, lvl_logw, lvl_perm,
-    offsets, n_levels)``, every tensor with a leading set axis: ``t_*``
-    ``[B, dn, 2 maxN, ...]``, ``lvl_*`` ``[B, dn, T, ...]``."""
+    offsets, n_levels, lvl_uniform)``, every tensor with a leading set axis:
+    ``t_*`` ``[B, dn, 2 maxN, ...]``, ``lvl_*`` ``[B, dn, T, ...]``,
+    ``lvl_uniform [B, dn, L, d]`` (``gibbs_chain.level_uniform``)."""
     sets = [list(ds) for ds in density_sets]
     dn, d = len(sets[0]), sets[0][0].ndim
     device = sets[0][0].device
@@ -198,9 +215,10 @@ def batched_device_plans(density_sets, n_out: int, dtype):
     jj = torch.arange(dn, device=device)[:, None]
     nodes = torch.as_tensor(nodes, device=device)
     pad = torch.where(torch.as_tensor(valid, device=device), 0.0, -np.inf)
-    return (t_mean, t_bw, t_mean[:, jj, nodes], t_bw[:, jj, nodes],
+    lvl_bw = t_bw[:, jj, nodes]
+    return (t_mean, t_bw, t_mean[:, jj, nodes], lvl_bw,
             t_logw[:, jj, nodes] + pad.to(dtype), t_perm[:, jj, nodes],
-            list(offsets), n_lv)
+            list(offsets), n_lv, level_uniform(lvl_bw, offsets))
 
 
 class DeviceProductPlan:
@@ -208,7 +226,8 @@ class DeviceProductPlan:
     interface of ``ops/gibbs.py::_ProductPlan`` (``ndens``, ``ndim``,
     ``n_levels``, ``offsets``, ``t_mean``/``t_bw`` ``[dn, 2N, d]``,
     ``lvl_mean``/``lvl_bw`` ``[dn, T, d]``, ``lvl_logw``/``lvl_perm``
-    ``[dn, T]``) with no host tree and no copy to the host."""
+    ``[dn, T]``, ``lvl_uniform [dn, L, d]``) with no host tree and no copy
+    to the host."""
 
     def __init__(self, densities: Sequence, n_out: int, dtype):
         dims = {p.ndim for p in densities}
@@ -217,7 +236,9 @@ class DeviceProductPlan:
                              "(reference src/MSGibbs01.jl:721)")
         self.ndens, self.ndim = len(densities), dims.pop()
         (t_mean, t_bw, lvl_mean, lvl_bw, lvl_logw, lvl_perm, self.offsets,
-         self.n_levels) = batched_device_plans([densities], n_out, dtype)
+         self.n_levels, uniform) = batched_device_plans([densities], n_out,
+                                                        dtype)
+        self.lvl_uniform = uniform[0]
         self.t_mean, self.t_bw = t_mean[0], t_bw[0]
         self.lvl_mean, self.lvl_bw = lvl_mean[0], lvl_bw[0]
         self.lvl_logw, self.lvl_perm = lvl_logw[0], lvl_perm[0]

@@ -44,6 +44,7 @@ import torch
 from .. import config, manifolds
 from ..density import KDE, kde
 from ..utils.random import make_generator, split
+from . import gibbs_chain as _gc
 from . import gibbs_select as _gs
 from .balltree import n_levels as _n_levels
 from .balltree import pack_levels
@@ -74,7 +75,9 @@ class _ProductPlan:
     host in NumPy from the densities' ball trees and moved to ``device``:
     ``t_mean``/``t_bw`` ``[dn, 2N, d]``, ``lvl_mean``/``lvl_bw``
     ``[dn, T, d]``, ``lvl_logw``/``lvl_perm`` ``[dn, T]``; level ``l`` is
-    the node slice ``offsets[l-1]``."""
+    the node slice ``offsets[l-1]``; ``lvl_uniform [dn, L, d]``, which
+    levels have one bandwidth a dim (``gibbs_chain.level_uniform``, taken on
+    the host)."""
 
     def __init__(self, densities: Sequence[KDE], n_out: int, dtype, device):
         self.ndens = len(densities)
@@ -112,6 +115,9 @@ class _ProductPlan:
         self.lvl_bw = dev(t_bw[idx_j, nodes])
         self.lvl_logw = dev(lvl_logw)
         self.lvl_perm = torch.as_tensor(t_perm[idx_j, nodes], device=device)
+        self.lvl_uniform = _gc.level_uniform(
+            torch.as_tensor(t_bw[idx_j, nodes], dtype=dtype),
+            self.offsets).to(device)
 
 
 _PLAN_TENSORS = ("t_mean", "t_bw", "lvl_mean", "lvl_bw", "lvl_logw",
@@ -122,7 +128,8 @@ class _SetPlans(NamedTuple):
     """The plans of ``B`` same-shaped density sets with a leading set axis
     (the plan arrays of ``kde_tpu/ops/gibbs.py:1076-1091``):
     ``t_mean``/``t_bw`` ``[B, dn, 2N, d]``, ``lvl_mean``/``lvl_bw``
-    ``[B, dn, T, d]``, ``lvl_logw``/``lvl_perm`` ``[B, dn, T]``."""
+    ``[B, dn, T, d]``, ``lvl_logw``/``lvl_perm`` ``[B, dn, T]``, and
+    ``lvl_uniform [B, dn, L, d]`` (``gibbs_chain.level_uniform``)."""
     t_mean: torch.Tensor
     t_bw: torch.Tensor
     lvl_mean: torch.Tensor
@@ -131,6 +138,7 @@ class _SetPlans(NamedTuple):
     lvl_perm: torch.Tensor
     offsets: List[Tuple[int, int]]
     n_levels: int
+    lvl_uniform: torch.Tensor
 
     def level(self, l: int):
         """Level ``l`` (1-based): mean/bw ``[B, dn, w, d]``, logw and perm
@@ -148,7 +156,8 @@ def _stack_plans(plans) -> _SetPlans:
     stack = (lambda xs: xs[0][None]) if len(plans) == 1 else torch.stack
     return _SetPlans(*(stack([getattr(p, f) for p in plans])
                        for f in _PLAN_TENSORS),
-                     list(p0.offsets), p0.n_levels)
+                     list(p0.offsets), p0.n_levels,
+                     stack([p.lvl_uniform for p in plans]))
 
 
 def _resolve_plan_impl(densities: Sequence[KDE], plan: str,
@@ -649,20 +658,29 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     return x, labels[-1], torch.stack(labels, dim=2)
 
 
-def _route(select: str, diffop, device) -> str:
-    """Where the local engine's selections run: ``kernel`` on the card for
-    ``cdf`` and ``gumbel`` with Euclidean or circular differences (the
-    ``gibbs_select`` kernel), ``twin`` (eager torch ops) otherwise."""
-    d = 1 if diffop is None else len(diffop)
-    if (torch.device(device).type == "cuda" and select in ("cdf", "gumbel")
-            and _gs.diff_codes(diffop, d) is not None):
+def _route(select: str, hooks, device, dn: int, d: int) -> str:
+    """Where the local engine's chains run, fixed before any launch, from
+    the selection, the normalized hook quadruple (None: Euclidean), the
+    device and the densities and dims: ``chain`` on the card for ``cdf``
+    with Euclidean or circular hooks (one ``gibbs_chain`` launch for every
+    chain); ``kernel`` on the card for ``gumbel``, and for ``cdf`` with
+    Euclidean or circular differences that the chain kernel does not take
+    (one ``gibbs_select`` launch a selection step); ``twin`` (eager torch
+    ops) otherwise."""
+    hooks = hooks or _NO_HOOKS
+    if torch.device(device).type != "cuda" or select not in ("cdf", "gumbel"):
+        return "twin"
+    if (select == "cdf" and dn <= _gc.MAX_DENS and d <= _gc.MAX_DIM
+            and _gc.hook_codes(hooks, d) is not None):
+        return "chain"
+    if _gs.diff_codes(hooks[1], d) is not None:
         return "kernel"
     return "twin"
 
 
 def _live_temps(route: str, select: str, dn: int) -> int:
     """The ``[chains, level width]`` temporaries a chain block keeps alive
-    on ``route``: about ``_LIVE_TEMPS`` on the eager twin; on the kernel
+    on ``route``: about ``_LIVE_TEMPS`` on the eager twin; on the kernels
     none, but a gumbel stage's noise, one per density of the conditioning
     step."""
     if route == "twin":
@@ -693,13 +711,18 @@ def _chains_per_block(n_out: int, width: int, itemsize: int,
 def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
                       add_entropy: bool, select: str = "cdf", gens=None,
                       hooks=_NO_HOOKS, choose=None):
-    """All chains of ``B`` sets (``nrm [B, n_out, bn]``), in blocks of
+    """All chains of ``B`` sets (``nrm [B, n_out, bn]``): on the ``chain``
+    route one ``gibbs_chain`` launch; otherwise in blocks of
     :func:`_chain_block` chains per set, sized for the selection's route
     (the block count depends only on the plan's widths, ``n_out`` and the
     route, which every rank of a mesh shares)."""
     n_out = nrm.shape[1]
-    route = "twin" if choose is not None else _route(select, hooks[1],
-                                                     nrm.device)
+    dn, d = mask.shape[1:]
+    route = "twin" if choose is not None else _route(select, hooks,
+                                                     nrm.device, dn, d)
+    if route == "chain":
+        return _gc.gibbs_chain(u, nrm, plans, mask, n_iter, add_entropy,
+                               _gc.hook_codes(hooks, d))
     block = _chain_block(n_out, plans, nrm.element_size(),
                          _live_temps(route, select, mask.shape[1]))
     outs = [_run_chain(None if u is None else u[:, s:s + block],

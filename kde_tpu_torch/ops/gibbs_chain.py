@@ -1,0 +1,269 @@
+"""The whole Gibbs chain in one launch (the port's K3, with the selection
+step K2 of ``ops/gibbs_select.py`` as its inner step; on the TPU the chain
+is the XLA-fused ``kde_tpu/ops/gibbs.py::_run_chain``, :498-651).
+
+:func:`gibbs_chain` runs every chain of ``B`` density sets from the roots to
+the final draw for ``select = "cdf"``: per level the point draw, the
+conditioning selection of every density and ``n_iter`` leave-one-out
+sweeps, with no host step between stages.  CUDA tensors launch the
+hand-written kernel ``csrc/gibbs_chain.cu`` once; CPU tensors take the
+plain twin :func:`gibbs_chain_ref`, the eager ``ops/gibbs.py::_run_chain``
+with ``gibbs_select_ref`` as its selection.  The library is built with nvcc
+(``--fmad=false``) into ``_build/`` at the first launch; a failed build, a
+refused launch or an input the kernel does not take raises, and nothing
+falls back.
+
+Manifold hooks are coded per dimension (:func:`hook_codes`): 0 for the
+Euclidean quadruple, 1 for the circular one of ``manifolds.py``.  Any
+other callable is a user's, which no kernel runs: the codes are then None
+and ``ops/gibbs.py::_route`` keeps such a product off this route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .. import manifolds
+from . import gibbs_select as _gs
+from .tiled_eval import nvcc_build
+
+# Launches of the kernel; a run sets it to 0 and reads it to show the path
+# went through the kernel.
+LAUNCHES = 0
+
+# The kernel's layouts: a warp a chain (8 chains a block) when a set has at
+# least WARP_MIN_CHAINS chains or its widest level at most WARP_MAX_WIDTH
+# candidates, one CTA_THREADS-thread block a chain otherwise.  The choice
+# reads the set's shape alone, so a set drawn in a batch runs as it does
+# alone.
+WARP_MIN_CHAINS = 1024
+WARP_MAX_WIDTH = 2048
+CTA_THREADS = 512
+# csrc/gibbs_chain.cu's kMaxDens and kMaxDim
+MAX_DENS = 16
+MAX_DIM = 16
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gibbs_chain.cu"
+NVCC_FLAGS = _gs.NVCC_FLAGS
+
+_lib = None
+BUILD_LOG = ""
+_CPU = torch.device("cpu")
+
+_EUCLID = (manifolds.euclid_add, manifolds.euclid_diff, manifolds.euclid_mu,
+           manifolds.euclid_lambda)
+_CIRCULAR = (manifolds.circular_add, manifolds.circular_diff,
+             manifolds.circular_mu, manifolds.circular_lambda)
+
+
+def build() -> Path:
+    """Compile ``csrc/gibbs_chain.cu`` (once per source and flags) and
+    return the shared library's path; a failed build raises."""
+    global BUILD_LOG
+    out, log = nvcc_build(SOURCE, NVCC_FLAGS, "gibbs_chain")
+    BUILD_LOG = log or BUILD_LOG
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_double)
+        lib.kde_gibbs_chain.argtypes = (
+            [i] * 2 + [vp] * 2 + [ll] * 2 + [vp] * 4 + [ll] * 4 + [vp] * 5
+            + [ll] * 2 + [vp] + [ll] * 2 + [vp] * 2 + [i] * 7 + [f] * 3
+            + [vp])
+        lib.kde_gibbs_chain.restype = i
+        _lib = lib
+    return _lib
+
+
+def hook_codes(hooks, d: int) -> Optional[Tuple[int, ...]]:
+    """The kernel's per-dimension codes of a normalized hook quadruple
+    ``(addop, diffop, get_mu, get_lambda)`` (``ops/gibbs.py::
+    normalize_hooks``; None entries are Euclidean): 0 where all four are
+    the Euclidean defaults, 1 where all four are ``manifolds``' circular
+    hooks; None when any dimension carries anything else."""
+    per_dim = [h if h is not None else (e,) * d
+               for h, e in zip(hooks or (None,) * 4, _EUCLID)]
+    codes = []
+    for k in range(d):
+        ops = tuple(h[k] for h in per_dim)
+        if ops == _EUCLID:
+            codes.append(0)
+        elif ops == _CIRCULAR:
+            codes.append(1)
+        else:
+            return None
+    return tuple(codes)
+
+
+def hooks_of(codes: Sequence[int]):
+    """The normalized hook quadruple of ``codes``, the inverse of
+    :func:`hook_codes` (all None when every code is 0)."""
+    if not any(codes):
+        return (None,) * 4
+    return tuple(tuple(_CIRCULAR[i] if k else _EUCLID[i] for k in codes)
+                 for i in range(4))
+
+
+def level_uniform(lvl_bw: torch.Tensor, offsets) -> torch.Tensor:
+    """``uint8 [..., dn, L, d]``: 1 where every node of level ``l`` has the
+    same bandwidth in that dim, so the kernel takes ``log c`` once a
+    selection (padded slots repeat a real node, so they never break it).
+    ``lvl_bw [..., dn, T, d]``; computed once, when a plan is built."""
+    flags = [(lvl_bw[..., o:o + w, :] == lvl_bw[..., o:o + 1, :]).all(dim=-2)
+             for o, w in offsets]
+    return torch.stack(flags, dim=-2).to(torch.uint8)
+
+
+def launch_plan(chains: int, width: int) -> int:
+    """Threads a chain, 32 (a warp, 8 chains a block) or ``CTA_THREADS`` (a
+    block), for a set of ``chains`` chains whose widest level has ``width``
+    candidates."""
+    if chains >= WARP_MIN_CHAINS or width <= WARP_MAX_WIDTH:
+        return 32
+    return CTA_THREADS
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets_on(offsets: Tuple[Tuple[int, int], ...],
+                device: torch.device) -> torch.Tensor:
+    """The level offsets as an int32 ``[L, 2]`` tensor on ``device``,
+    uploaded once."""
+    return torch.as_tensor(offsets, dtype=torch.int32, device=device)
+
+
+def _check(u, nrm, plans, mask, n_iter, codes):
+    """Shapes, dtypes and the one device of the inputs; returns the
+    device.  Raises on anything else."""
+    b, dn, t_len, d = plans.lvl_mean.shape
+    c = nrm.shape[1] if nrm.dim() == 3 else -1
+    L = plans.n_levels
+    bu, bn = dn * (1 + L * (1 + n_iter)), d * (L + 1)
+    want = {"u": (u, (b, c, bu)), "nrm": (nrm, (b, c, bn)),
+            "mask": (mask, (b, dn, d)),
+            "lvl_bw": (plans.lvl_bw, (b, dn, t_len, d)),
+            "lvl_logw": (plans.lvl_logw, (b, dn, t_len)),
+            "lvl_perm": (plans.lvl_perm, (b, dn, t_len))}
+    if u is None:
+        raise ValueError("gibbs_chain draws with cdf: it needs the uniform "
+                         "stream u")
+    bad = [f"{k} {tuple(x.shape)} (want {s})" for k, (x, s) in want.items()
+           if tuple(x.shape) != s]
+    bad += [f"{k} {tuple(x.shape)}" for k, x in (("t_mean", plans.t_mean),
+                                                  ("t_bw", plans.t_bw))
+            if x.dim() != 4 or tuple(x.shape[:2]) != (b, dn)
+            or x.shape[3] != d or x.shape[2] < 1]
+    offs = [tuple(int(v) for v in ow) for ow in plans.offsets]
+    if (bad or c < 0 or n_iter < 0 or L < 1 or len(offs) != L
+            or any(w < 1 or o < 0 or o + w > t_len for o, w in offs)
+            or not 1 <= dn <= MAX_DENS or not 1 <= d <= MAX_DIM):
+        raise ValueError(f"gibbs_chain: level [B, dn, T, d] = "
+                         f"{tuple(plans.lvl_mean.shape)}, offsets {offs}, "
+                         f"n_iter {n_iter} (dn, d at most {MAX_DENS}, "
+                         f"{MAX_DIM}); {bad}")
+    if codes is None or len(codes) != d or any(k not in (0, 1) for k in codes):
+        raise ValueError(f"gibbs_chain: codes must be d = {d} of 0/1, got "
+                         f"{codes}")
+    floats = [u, nrm, plans.t_mean, plans.t_bw, plans.lvl_mean, plans.lvl_bw,
+              plans.lvl_logw]
+    tensors = floats + [mask, plans.lvl_perm]
+    devs = {x.device for x in tensors}
+    if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
+        raise ValueError("gibbs_chain: inputs must all lie on the CPU or on "
+                         f"one CUDA device, got {sorted(map(str, devs))}")
+    dts = {x.dtype for x in floats}
+    if (len(dts) != 1 or dts.pop() not in (torch.float32, torch.float64)
+            or plans.lvl_perm.dtype != torch.int64
+            or mask.dtype != torch.bool):
+        raise TypeError("gibbs_chain: float32 or float64 streams and plan of "
+                        "one dtype, int64 lvl_perm and bool mask; got "
+                        f"{[x.dtype for x in floats]}, {plans.lvl_perm.dtype}"
+                        f", {mask.dtype}")
+    return next(iter(devs))
+
+
+def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
+                n_iter: int, add_entropy: bool, codes: Sequence[int]):
+    """Every chain of ``B`` density sets, drawn with ``cdf``.
+
+    ``u [B, C, bu]`` and ``nrm [B, C, bn]``: the streams in the reference's
+    consumption order (``ops/gibbs.py::_run_chain``); ``plans``: a
+    ``_SetPlans`` (``t_mean``/``t_bw`` ``[B, dn, 2N, d]``, ``lvl_mean``/
+    ``lvl_bw`` ``[B, dn, T, d]``, ``lvl_logw``/``lvl_perm`` ``[B, dn, T]``,
+    ``offsets``, ``n_levels``, ``lvl_uniform [B, dn, L, d]``);
+    ``mask [B, dn, d]`` bool; ``codes`` per dim (:func:`hook_codes`).
+    Returns ``points [B, C, d]``, final labels ``[B, C, dn]`` and per-level
+    labels ``[B, C, L, dn]``, as ``_run_chain``."""
+    global LAUNCHES
+    dev = _check(u, nrm, plans, mask, n_iter, codes)
+    if dev == _CPU:
+        return gibbs_chain_ref(u, nrm, plans, mask, n_iter, add_entropy, codes)
+    b, dn, _, d = plans.lvl_mean.shape
+    c, L = nrm.shape[1], plans.n_levels
+    lm, lb, lw, lp = plans.lvl_mean, plans.lvl_bw, plans.lvl_logw, \
+        plans.lvl_perm
+    tm, tb = plans.t_mean, plans.t_bw
+    if (lm.stride()[2:] != (d, 1) or lb.stride() != lm.stride()
+            or lw.stride(2) != 1 or lp.stride() != lw.stride()
+            or tm.stride(3) != 1 or tb.stride() != tm.stride()
+            or u.stride(2) != 1 or nrm.stride(2) != 1):
+        raise ValueError("gibbs_chain: each (set, density) slab of the plan "
+                         "must be contiguous, lvl_bw laid out as lvl_mean, "
+                         "lvl_perm as lvl_logw, t_bw as t_mean, and the "
+                         "streams' rows contiguous")
+    uni = plans.lvl_uniform
+    if tuple(uni.shape) != (b, dn, L, d) or uni.device != dev:
+        raise ValueError(f"gibbs_chain: lvl_uniform {tuple(uni.shape)} on "
+                         f"{uni.device}, want {(b, dn, L, d)} on {dev}")
+    uni = uni.to(torch.uint8).contiguous()
+    mask = mask.contiguous()
+    item = lm.element_size()
+    width = max(w for _, w in plans.offsets)
+    group = launch_plan(c, width)
+    out_x = torch.empty((b, c, d), dtype=lm.dtype, device=dev)
+    out_lv = torch.empty((b, c, L, dn), dtype=torch.int64, device=dev)
+    two_pi, inv_two_pi = _gs._two_pi(lm.dtype)
+    offs = _offsets_on(tuple((int(o), int(w)) for o, w in plans.offsets), dev)
+    with torch.cuda.device(dev):
+        rc = _load().kde_gibbs_chain(
+            item, group, tm.data_ptr(), tb.data_ptr(), tm.stride(0),
+            tm.stride(1), lm.data_ptr(), lb.data_ptr(), lw.data_ptr(),
+            lp.data_ptr(), lm.stride(0), lm.stride(1), lw.stride(0),
+            lw.stride(1), offs.data_ptr(), uni.data_ptr(), mask.data_ptr(),
+            _gs._codes_on(tuple(codes), dev).data_ptr(), u.data_ptr(),
+            u.stride(0), u.stride(1), nrm.data_ptr(), nrm.stride(0),
+            nrm.stride(1), out_x.data_ptr(), out_lv.data_ptr(), b, c, dn, d,
+            L, n_iter, int(bool(add_entropy)), two_pi, inv_two_pi,
+            _gs.LOG_DEAD, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"kde_gibbs_chain launch failed: CUDA error {rc}")
+    if b * c:
+        LAUNCHES += 1
+    return out_x, out_lv[:, :, L - 1], out_lv
+
+
+def gibbs_chain_ref(u: torch.Tensor, nrm: torch.Tensor, plans,
+                    mask: torch.Tensor, n_iter: int, add_entropy: bool,
+                    codes: Sequence[int]):
+    """Plain twin of :func:`gibbs_chain`, on any device: the eager
+    ``ops/gibbs.py::_run_chain`` with ``cdf`` draws, every selection
+    through ``gibbs_select_ref``."""
+    from . import gibbs as _g       # ops/gibbs.py imports this module
+
+    def choose(stage, lvl):
+        mean, var, label = _gs.gibbs_select_ref(
+            *lvl, stage.js, stage.mu, stage.cov, stage.active, codes,
+            u=stage.u)
+        return [(mean[:, :, i], var[:, :, i], label[:, :, i])
+                for i in range(len(stage.js))]
+    return _g._run_chain(u, nrm, plans, mask, n_iter, add_entropy, "cdf",
+                         hooks=hooks_of(codes), choose=choose)

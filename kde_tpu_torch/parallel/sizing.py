@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops import gibbs as _g
+from ..ops.device_plan import build_bytes
 
 # Share of a CUDA device's memory a product may take: the rest is left to
 # the densities themselves, other resident tensors and allocator slack.
@@ -33,7 +34,9 @@ def estimate_product_memory(densities: Sequence, n_out: int,
                             select: str = "auto") -> dict:
     """Bytes of the keyed product ``prod_appx_ms_gibbs`` runs for
     ``densities`` at ``n_out`` chains: ``args`` (the level plan's tensors,
-    built or taken from the plan cache, and the mask), ``temp`` (the
+    built or taken from the plan cache, the mask and, for a plan built on
+    the device, its topology cache and build workspace,
+    ``device_plan.build_bytes``), ``temp`` (the
     uniform and normal streams, no uniforms for ``gumbel``, and the
     ``[block, widest level]`` temporaries one chain block keeps alive on
     the selection's route, ``ops/gibbs.py::_live_temps``), ``out`` (points
@@ -48,10 +51,12 @@ def estimate_product_memory(densities: Sequence, n_out: int,
     sel = _g.resolve_select(select, n_out, width)
     item = torch.empty((), dtype=dtype).element_size()
     args = sum(getattr(plan, f).nbytes for f in _g._PLAN_TENSORS) + dn * d
+    if impl == "device":
+        args += build_bytes([p.npts for p in densities], d)
     bu, bn = _g._stream_sizes(dn, d, plan.n_levels, n_iter)
     streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
-    diffop = _g.normalize_hooks(*_g._density_hooks(densities), d)[1]
-    live = _g._live_temps(_g._route(sel, diffop, device), sel, dn)
+    hooks = _g.normalize_hooks(*_g._density_hooks(densities), d)
+    live = _g._live_temps(_g._route(sel, hooks, device, dn, d), sel, dn)
     block = _g._chain_block(n_out, plan, item, live)
     temp = streams + live * max(w for _, w in plan.offsets) * item * block
     out = n_out * (d * item + dn * 8)

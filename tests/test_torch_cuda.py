@@ -213,7 +213,8 @@ def test_device_plan_build_is_deterministic(cuda):
     sets = _cuda_sets(cuda, rng, 3, 5000)
     one = batched_device_plans(sets, 5000, torch.float32)
     two = batched_device_plans(sets, 5000, torch.float32)
-    assert one[6:] == two[6:]
+    assert one[6:8] == two[6:8]
+    assert torch.equal(one[8], two[8])
     for a, b in zip(one[:6], two[:6]):
         assert a.is_cuda and torch.equal(a, b)
 
@@ -718,12 +719,15 @@ def test_gibbs_select_every_dim(cuda, d, mode):
     assert row["max_abs_err"] == 0.0
 
 
-def test_gibbs_select_replay_product_equals_twin_route(cuda):
-    """Float64 replay streams through a whole prod_appx_ms_gibbs: the
-    kernel route equals the same call with every selection on the twin
-    (the same chain blocks), labels and points."""
+def test_gibbs_select_replay_product_equals_twin_route(cuda, monkeypatch):
+    """Float64 replay streams through a whole prod_appx_ms_gibbs on the
+    stage route: the kernel route equals the same call with every
+    selection on the twin (the same chain blocks), labels and points."""
     import kde_tpu_torch as kt
     from kde_tpu_torch.ops import balltree, gibbs, gibbs_select
+    route = gibbs._route
+    monkeypatch.setattr(gibbs, "_route", lambda *a: (
+        "kernel" if route(*a) == "chain" else route(*a)))
     rng = np.random.default_rng(21)
     f64 = dict(dtype=torch.float64, device=cuda)
     dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 500)) + s, **f64),
@@ -775,20 +779,141 @@ def test_gibbs_select_refuses_mixed_devices_and_dtypes(cuda):
 
 
 def test_blocked_and_user_diffop_take_the_twin_on_card(cuda):
-    """On the card cdf and gumbel launch the kernel; blocked and a user's
-    diffop run the eager twin by design and are counted as such."""
+    """On the card gumbel launches gibbs_select and cdf the chain kernel;
+    blocked and a user's diffop run the eager twin by design and are
+    counted as such."""
     import kde_tpu_torch as kt
-    from kde_tpu_torch.ops import gibbs_select
+    from kde_tpu_torch.ops import gibbs_chain, gibbs_select
     rng = np.random.default_rng(22)
     dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 300)),
                                    dtype=torch.float32, device=cuda), [0.2])
             for _ in range(2)]
-    for select, kw, kernel in (("cdf", {}, True), ("gumbel", {}, True),
-                               ("blocked", {}, False),
-                               ("cdf", {"diffop": (lambda a, b: a - b,)},
-                                False)):
+    for select, kw, route in (("cdf", {}, "chain"), ("gumbel", {}, "kernel"),
+                              ("blocked", {}, "twin"),
+                              ("cdf", {"diffop": (lambda a, b: a - b,)},
+                               "twin")):
         k0, t0 = gibbs_select.LAUNCHES, gibbs_select.TWIN_STAGES
+        c0 = gibbs_chain.LAUNCHES
         kt.prod_appx_ms_gibbs(200, dens, n_iter=2, key=1, select=select, **kw)
         torch.cuda.synchronize()
-        assert (gibbs_select.LAUNCHES > k0) == kernel
-        assert (gibbs_select.TWIN_STAGES > t0) == (not kernel)
+        assert (gibbs_select.LAUNCHES > k0) == (route == "kernel")
+        assert (gibbs_chain.LAUNCHES - c0) == (route == "chain")
+        assert (gibbs_select.TWIN_STAGES > t0) == (route == "twin")
+
+
+# ---- the Gibbs chain kernel (csrc/gibbs_chain.cu) --------------------------
+
+K3_CASES = {
+    # name: (dtype, n, kwargs of chip_smoke.chain_inputs)
+    "replay f64": ("f64", 400, dict(n_out=300, n_iter=3)),
+    "keyed f32": ("f32", 3000, {}),
+    "block layout f32": ("f32", 6000, dict(n_out=200, n_iter=2)),
+    "block layout f64": ("f64", 6000, dict(n_out=100, n_iter=1)),
+    "circular": ("f32", 2000, dict(d=1, kinds="c")),
+    "se2": ("f32", 2000, dict(d=3, kinds="eec")),
+    "circular dn 3": ("f32", 1000, dict(d=1, dn=3, kinds="c")),
+    "se2 dn 3": ("f64", 1000, dict(d=3, dn=3, kinds="eec")),
+    "partial mask": ("f32", 1500, dict(dn=3, mask=[[1, 0], [1, 1],
+                                                   [0, 1]])),
+    "dead rows": ("f32", 300, dict(far=True)),
+    "B 4": ("f32", 2000, dict(b=4)),
+    "dn 3 n_iter 0": ("f32", 1500, dict(dn=3, n_iter=0)),
+    "dn 5 d 1": ("f32", 800, dict(dn=5, d=1, n_iter=1)),
+    "dn 5 d 2": ("f64", 800, dict(dn=5, d=2, n_iter=1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_gibbs_chain_matches_twin(cuda, name):
+    """The chain kernel against its twin (chip_smoke.py phase 3e's check at
+    small sizes): every chain's per-level labels and point equal, but for
+    listed float64 CDF ties within 1e-12 of u; one launch counted."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_chain
+    dt, n, kw = K3_CASES[name]
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    args = cs.chain_inputs(sorted(K3_CASES).index(name), cuda, dtype, n, **kw)
+    before = gibbs_chain.LAUNCHES
+    row, _ = cs.chain_compare(args, name)
+    assert gibbs_chain.LAUNCHES == before + 1
+    assert row["max_abs_err"] == 0.0
+    assert all(c["tie_gap"] <= 1e-12 for c in row["differing"])
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+def test_gibbs_chain_every_dim(cuda, d):
+    """Every d up to 8 runs on the chain kernel (d is a runtime bound)."""
+    import chip_smoke as cs
+    args = cs.chain_inputs(70 + d, cuda, torch.float32, 600, d=d, n_out=256,
+                           n_iter=2)
+    row, _ = cs.chain_compare(args, f"d={d}")
+    assert row["max_abs_err"] == 0.0
+
+
+def test_gibbs_chain_set_in_a_batch_equals_its_draw_alone(cuda):
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_chain
+    args = cs.chain_inputs(5, cuda, torch.float32, 2000, b=3)
+    got = gibbs_chain.gibbs_chain(*args)
+    alone = gibbs_chain.gibbs_chain(*cs._set_of(args, 1))
+    for a, g in zip(alone, got):
+        assert torch.equal(a[0], g[1])
+
+
+def test_product_is_one_chain_launch(cuda, monkeypatch):
+    """A keyed cdf product, a replay product and a batched sampler each
+    launch the chain kernel once and nothing of the stage route: no
+    gibbs_select launch and no eager _run_chain between stages."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import balltree, gibbs, gibbs_chain, gibbs_select
+
+    def stage_route(*a, **k):
+        raise AssertionError("the stage route ran")
+    monkeypatch.setattr(gibbs, "_run_chain", stage_route)
+    rng = np.random.default_rng(23)
+    dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 800)) + s,
+                                   dtype=torch.float32, device=cuda), [0.2])
+            for s in (0.0, 0.5)]
+    L = balltree.n_levels(600, [800, 800])
+    bu, bn = gibbs._stream_sizes(2, 2, L, 3)
+    calls = (
+        lambda: kt.prod_appx_ms_gibbs(600, dens, n_iter=3, key=2,
+                                      select="cdf"),
+        lambda: kt.prod_appx_ms_gibbs(600, dens, n_iter=3,
+                                      rand_u=rng.uniform(size=600 * bu),
+                                      rand_n=rng.normal(size=600 * bn)),
+        lambda: kt.BatchedProductSampler([dens] * 3, n_out=600,
+                                         n_iter=3).sample(4, select="cdf"))
+    for call in calls:
+        c0, k0 = gibbs_chain.LAUNCHES, gibbs_select.LAUNCHES
+        pts = call()[0]
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(pts).all())
+        assert gibbs_chain.LAUNCHES == c0 + 1
+        assert gibbs_select.LAUNCHES == k0
+
+
+def test_gibbs_chain_refuses_bad_inputs_and_a_failed_build(cuda):
+    """A CPU/CUDA mix raises ValueError, float16 raises TypeError, and a
+    failed build raises RuntimeError; nothing runs the twin instead and
+    nothing is counted."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_chain
+    u, nrm, plans, m, n_iter, ent, codes = cs.chain_inputs(
+        6, cuda, torch.float32, 200, n_out=64, n_iter=1)
+    before = gibbs_chain.LAUNCHES
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gibbs_chain.gibbs_chain(u.cpu(), nrm, plans, m, n_iter, ent, codes)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gibbs_chain.gibbs_chain(u.half(), nrm, plans, m, n_iter, ent, codes)
+    with pytest.raises(ValueError, match="codes"):
+        gibbs_chain.gibbs_chain(u, nrm, plans, m, n_iter, ent, None)
+    saved_lib, saved_flags = gibbs_chain._lib, gibbs_chain.NVCC_FLAGS
+    gibbs_chain._lib = None
+    gibbs_chain.NVCC_FLAGS = [*saved_flags, "--no-such-flag"]
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            gibbs_chain.gibbs_chain(u, nrm, plans, m, n_iter, ent, codes)
+    finally:
+        gibbs_chain._lib, gibbs_chain.NVCC_FLAGS = saved_lib, saved_flags
+    assert gibbs_chain.LAUNCHES == before

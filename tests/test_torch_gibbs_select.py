@@ -320,20 +320,27 @@ def test_custom_diffop_twin_equals_kernel_route():
 
 def test_chain_block_per_route():
     """The twin route keeps ~_LIVE_TEMPS [chains, width] temporaries, the
-    kernel none (cdf) or a stage's noise (gumbel, one per density): at the
+    kernels none (cdf) or a stage's noise (gumbel, one per density): at the
     2 x 20,000 slice (width 20,000, float32) the twin runs 20,000 chains
-    in 6 blocks, the kernel's cdf in one, its gumbel in 2."""
-    assert tgibbs._route("cdf", None, "cuda") == "kernel"
-    assert tgibbs._route("gumbel", (manifolds.circular_diff,), "cuda") == \
-        "kernel"
-    assert tgibbs._route("blocked", None, "cuda") == "twin"
-    assert tgibbs._route("cdf", (lambda x, y: x - y,), "cuda") == "twin"
-    assert tgibbs._route("cdf", None, "cpu") == "twin"
+    in 6 blocks, the kernels' cdf in one, gibbs_select's gumbel in 2.  cdf
+    on the card with Euclidean hooks takes the chain kernel, gumbel and a
+    circular diffop alone (no circular quadruple) gibbs_select."""
+    diff = lambda ops: (None, ops, None, None)
+    assert tgibbs._route("cdf", None, "cuda", 2, 1) == "chain"
+    assert tgibbs._route("gumbel", diff((manifolds.circular_diff,)),
+                         "cuda", 2, 1) == "kernel"
+    assert tgibbs._route("cdf", diff((manifolds.circular_diff,)),
+                         "cuda", 2, 1) == "kernel"
+    assert tgibbs._route("blocked", None, "cuda", 2, 1) == "twin"
+    assert tgibbs._route("cdf", diff((lambda x, y: x - y,)), "cuda", 2,
+                         1) == "twin"
+    assert tgibbs._route("cdf", None, "cpu", 2, 1) == "twin"
     live = {(r, s): tgibbs._live_temps(r, s, 2)
-            for r in ("twin", "kernel") for s in ("cdf", "gumbel")}
+            for r in ("twin", "kernel", "chain") for s in ("cdf", "gumbel")}
     assert live == {("twin", "cdf"): tgibbs._LIVE_TEMPS,
                     ("twin", "gumbel"): tgibbs._LIVE_TEMPS,
-                    ("kernel", "cdf"): 0, ("kernel", "gumbel"): 2}
+                    ("kernel", "cdf"): 0, ("kernel", "gumbel"): 2,
+                    ("chain", "cdf"): 0, ("chain", "gumbel"): 2}
     blocks = lambda live: -(-20_000 // tgibbs._chains_per_block(
         20_000, 20_000, 4, live))
     assert (blocks(8), blocks(0), blocks(2)) == (6, 1, 2)
