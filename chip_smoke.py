@@ -128,6 +128,16 @@ times the small-route kernels only, against those of the checkout in DIR
 
 times gibbs_select under each layout, its wrapper's host cost and a serve
 request without it (see k2_diag).
+
+    python3 chip_smoke.py --k3-diag
+
+times the chain kernel's layouts with ablations built from its source, and
+the switch between them (see k3_diag).
+
+    python3 chip_smoke.py --k3-parent DIR
+
+times the chain kernel only, against the one of the checkout in DIR (see
+k3_parent_ab).
 """
 
 import contextlib
@@ -996,15 +1006,16 @@ def _chain_tie_gap(args, bi, ci, level):
     return min(gaps)
 
 
-def chain_compare(args, what):
-    """``gibbs_chain`` against ``gibbs_chain_ref`` on the same inputs: the
+def chain_compare(args, what, kernel=None):
+    """``gibbs_chain`` (or the module ``kernel``'s, e.g. a parent
+    checkout's) against ``gibbs_chain_ref`` on the same inputs: the
     share of chains whose per-level labels and points are equal; a chain
     that differs is listed with its first differing level and that
     level's float64 tie gap (_chain_tie_gap), which must be within
     K2_TIE of u (a CDF tie), and at most K2_MAX_TIES chains a case may
     differ.  Returns the row of findings and the kernel's outputs."""
     from kde_tpu_torch.ops import gibbs_chain
-    got = gibbs_chain.gibbs_chain(*args)
+    got = (kernel or gibbs_chain).gibbs_chain(*args)
     _sync()
     want = gibbs_chain.gibbs_chain_ref(*args)
     labels_same = (got[2] == want[2]).all(dim=-1).all(dim=-1)
@@ -1117,16 +1128,26 @@ def _sum_order_probe(dev):
     return out
 
 
+# phase 3e's timed rows beyond the slice and serve: the bench headline's
+# shape (bench.py:37-40, 6 sets of 1,000 chains over 2 x 1,000), phase 7's
+# batched product (4 sets of 20,000 chains over 2 x 20,000) and 1,024
+# chains over 2 x 10,000, the fewest chains the launch plan stages
+K3_TIMED = {"headline": (None, 1000, dict(b=6)),
+            "batched": (None, N_SLICE, dict(b=BATCH_SETS)),
+            "switch": (None, 10_000, dict(n_out=1024))}
+
+
 def phase_gibbs_chain(dev):
     """Phase 3e: the chain kernel against its plain twin on the card:
     float64 replay streams at a small size and at the slice, keyed float32
     cdf at the slice (20,000 chains) and at serve (256 chains over
     2 x 50,000), circular, SE(2), a partial-dim mask, dead rows, B = 4
     sets and one of them drawn alone, dn = 3 with n_iter 0, 1 and 5,
-    d = 1..8, a float64 case on the block layout; the share of chains
-    equal to the twin's, the differing ones listed with their tie gaps.
-    The slice and serve calls are timed (one call) beside the twin and the
-    bound (chain_bound_ms).  Returns the rows printed."""
+    d = 1..8, a float64 case on the block layout, the headline's, the
+    batched product's and the fewest chains the plan stages (K3_TIMED);
+    the share of chains equal to the twin's, the differing ones listed
+    with their tie gaps.  The slice, serve and K3_TIMED calls are timed (one call) beside
+    the twin and the bound (chain_bound_ms).  Returns the rows printed."""
     import torch
     from kde_tpu_torch.ops import gibbs_chain
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1156,14 +1177,17 @@ def phase_gibbs_chain(dev):
         cases[f"dn=3 n_iter={it}"] = (f32, 2000, dict(dn=3, n_iter=it))
     for d in range(1, 9):
         cases[f"d={d}"] = (f32, 1000, dict(d=d, n_out=512, n_iter=2))
+    cases.update(K3_TIMED)
     rows = {}
     for i, (name, (dt, n, kw)) in enumerate(cases.items()):
+        dt = dt or f32
         args = chain_inputs(SEED + 60 + i, dev, dt, n, **kw)
         row, got = chain_compare(args, name)
         w = max(w for _, w in args[2].offsets)
         row.update(dtype=str(dt), n=n, chains=args[1].shape[1],
                    sets=args[1].shape[0], levels=args[2].n_levels,
-                   group=gibbs_chain.launch_plan(args[1].shape[1], w))
+                   layout=gibbs_chain.launch_plan(args[1].shape[1], w, dt,
+                                                  args[3].shape[2]))
         if name == "B=4":
             alone = gibbs_chain.gibbs_chain(*_set_of(args, 2))
             row["set2_alone_equal"] = all(
@@ -1171,7 +1195,7 @@ def phase_gibbs_chain(dev):
             if not row["set2_alone_equal"]:
                 raise AssertionError("gibbs_chain: set 2 drawn in the batch "
                                      "differs from its draw alone")
-        if name in ("keyed f32 slice", "keyed f32 serve"):
+        if name in ("keyed f32 slice", "keyed f32 serve") or name in K3_TIMED:
             call = functools.partial(gibbs_chain.gibbs_chain, *args)
             row["ms"] = _cuda_ms(call)
             row["plain_ms"] = _cuda_ms(functools.partial(
@@ -2578,6 +2602,205 @@ def k2_diag(seed=SEED):
     print(_card())
 
 
+# --k3-diag: each ablation is csrc/gibbs_chain.cu built with -DK3_DIAG and
+# its define into a library of its own (the package's build takes none)
+K3_ABLATIONS = {"base": (), "a_pass2_only": ("-DK3_DIAG_PASS2_ONLY",),
+                "b_no_loads": ("-DK3_DIAG_NO_LOADS",),
+                "c_no_log": ("-DK3_DIAG_NO_LOG",),
+                "d_div_mul": ("-DK3_DIAG_DIV_MUL",)}
+
+
+def k3_diag_libs():
+    """Every ablation of K3_ABLATIONS built at once: {name: (library bound
+    by gibbs_chain.bind, nvcc's output, the .so's path)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kde_tpu_torch.ops import gibbs_chain, tiled_eval
+
+    def one(item):
+        name, defs = item
+        so, log = tiled_eval.nvcc_build(
+            gibbs_chain.SOURCE, [*gibbs_chain.NVCC_FLAGS, "-DK3_DIAG", *defs],
+            f"gibbs_chain_diag_{name}")
+        return name, so, log
+    with ThreadPoolExecutor(len(K3_ABLATIONS)) as pool:
+        built = list(pool.map(one, K3_ABLATIONS.items()))
+    return {name: (gibbs_chain.bind(so), log, so) for name, so, log in built}
+
+
+SASS_CLASSES = ("MUFU", "FCHK", "CALL", "BRA", "FFMA", "FMUL", "FADD",
+                "FSETP", "FSEL", "LDS", "LDG", "LD", "DADD", "F2F")
+
+
+def sass_counts(so, name_part):
+    """Static SASS instructions (NOPs left out) of each kernel of the
+    library ``so`` whose name holds ``name_part``, and their counts by
+    opcode for SASS_CLASSES, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    import re
+    from pathlib import Path
+    from kde_tpu_torch.ops import tiled_eval
+    tool = Path(tiled_eval._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        return {"error": res.stderr[-300:]}
+    table, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if name_part in m.group(1) else None
+            if name:
+                table[name] = dict.fromkeys(("instructions",) + SASS_CLASSES,
+                                            0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)", line)
+        if name and m and m.group(1) != "NOP":
+            row = table[name]
+            row["instructions"] += 1
+            if m.group(1) in row:
+                row[m.group(1)] += 1
+    return table
+
+
+K3_SWEEP_WIDTHS = (1000, 10_000, N_SERVE)     # components a density
+K3_SWEEP_CHAINS = (256, 1024, 2048, 4096)
+
+
+def k3_diag(seed=SEED):
+    """Where K3's time goes on this card: at the slice (20,000 chains over
+    2 x 20,000, d = 2, float32, Niter 5) and at serve (256 chains over
+    2 x 50,000), the warp and block layouts and the staged layout, each
+    timed one call between CUDA events (_cuda_ms) with every ablation of
+    K3_ABLATIONS (the base build checked equal to the package's call);
+    then the switch between the layouts: chains (K3_SWEEP_CHAINS) over 2
+    densities of K3_SWEEP_WIDTHS components, the warp or block layout
+    against the staged layout in turns (plan, staged, staged, plan), each
+    checked equal to the other; last each build's ptxas registers, spills
+    and shared memory, and the SASS of one logit at d = 2
+    (k3_logit_probe) by cuobjdump."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_chain
+    dev = torch.device("cuda")
+    libs = k3_diag_libs()
+    base = libs["base"][0]
+    f32 = torch.float32
+    shapes = {"slice": (N_SLICE, {}),
+              "serve": (N_SERVE, dict(n_out=SERVE_CHAINS))}
+    layouts = {"slice": ["warp", "staged"],
+               "serve": ["block", "warp", "staged"]}
+
+    def same(got, want):
+        return all(torch.equal(g, x) for g, x in zip(got, want))
+    for shape, (n, kw) in shapes.items():
+        args = chain_inputs(seed + 60, dev, f32, n, **kw)
+        want = gibbs_chain.gibbs_chain(*args)
+        w = max(w for _, w in args[2].offsets)
+        print(f"k3 diag {shape}: plan "
+              f"{gibbs_chain.launch_plan(args[1].shape[1], w, f32, 2)}",
+              flush=True)
+        for lay in layouts[shape]:
+            row = {}
+            for name, (lib, _, _) in libs.items():
+                call = functools.partial(gibbs_chain._launch, lib, lay,
+                                         *args)
+                if name == "base" and not same(call(), want):
+                    raise AssertionError(f"k3 diag {shape}: {lay} off the "
+                                         "package's draw")
+                row[name] = _cuda_ms(call)
+            print(f"k3 diag {shape} {lay}, ms by ablation: "
+                  f"{json.dumps(row)}", flush=True)
+        del args, want
+    for n in K3_SWEEP_WIDTHS:
+        for chains in K3_SWEEP_CHAINS:
+            args = chain_inputs(seed + 61, dev, f32, n, n_out=chains)
+            w = max(w for _, w in args[2].offsets)
+            old = gibbs_chain.launch_plan(chains, w, torch.float64, 2)
+            calls = {lay: functools.partial(gibbs_chain._launch, base, lay,
+                                            *args)
+                     for lay in (old, "staged")}
+            if not same(calls["staged"](), calls[old]()):
+                raise AssertionError(f"k3 diag switch 2 x {n}, {chains}: "
+                                     "staged off the warp / block draw")
+            row = {"plan": gibbs_chain.launch_plan(chains, w, f32, 2)}
+            for lay in (old, "staged", "staged", old):
+                row.setdefault(f"{lay}_ms", []).append(_cuda_ms(calls[lay]))
+            print(f"k3 diag switch, 2 x {n} components, {chains} chains: "
+                  f"{json.dumps(row)}", flush=True)
+            del args, calls
+    for name, (_, log, so) in libs.items():
+        print(f"k3 diag ptxas ({name}): {json.dumps(ptxas_table(log))}",
+              flush=True)
+        print(f"k3 diag sass of one logit ({name}): "
+              f"{json.dumps(sass_counts(so, 'probe'))}", flush=True)
+    print(_card())
+
+
+K3_AB_SHAPES = {"slice": (N_SLICE, {}),
+                "serve": (N_SERVE, dict(n_out=SERVE_CHAINS)),
+                **{k: (n, kw) for k, (_, n, kw) in K3_TIMED.items()}}
+
+
+def k3_parent_ab(parent):
+    """Time this checkout's K3 against ``parent``'s (the ``ops/
+    gibbs_chain.py`` of another checkout, e.g. an unpacked ``git archive``,
+    loaded as a module of this package so that it builds the parent's
+    ``csrc/gibbs_chain.cu``) on this card, in turns: parent, change,
+    change, parent, each one call between CUDA events (``_cuda_ms``), at
+    the slice, serve and phase 3e's other timed shapes (K3_AB_SHAPES),
+    beside ``chain_bound_ms``; both sides checked against this checkout's
+    twin (``chain_compare``); then both builds' ptxas registers and
+    spills, from builds of their own (``gibbs_chain_ab_<side>``), so that
+    a library already in ``_build`` does not hide them."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from kde_tpu_torch.ops import gibbs_chain, tiled_eval
+    path = os.path.join(os.path.abspath(parent), "kde_tpu_torch", "ops",
+                        "gibbs_chain.py")
+    spec = importlib.util.spec_from_file_location(
+        "kde_tpu_torch.ops._k3_parent", path)
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    mods = {"parent": old, "change": gibbs_chain}
+
+    def build(item):
+        name, mod = item
+        mod.build()
+        return tiled_eval.nvcc_build(mod.SOURCE, mod.NVCC_FLAGS,
+                                     f"gibbs_chain_ab_{name}")[1]
+    with ThreadPoolExecutor(2) as pool:
+        logs = dict(zip(mods, pool.map(build, mods.items())))
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    f32 = torch.float32
+    for shape, (n, kw) in K3_AB_SHAPES.items():
+        args = chain_inputs(SEED + 70, dev, f32, n, **kw)
+        w = max(w for _, w in args[2].offsets)
+        row = {"chains": args[1].shape[1], "sets": args[1].shape[0],
+               "layout": gibbs_chain.launch_plan(args[1].shape[1], w, f32,
+                                                 2)}
+        row["bound_ms"], row["bound_by"] = chain_bound_ms(args, sms, clock)
+        for name, mod in mods.items():
+            found, _ = chain_compare(args, f"{name} {shape}", mod)
+            row[f"{name}_same_share"] = found["same_share"]
+            row[f"{name}_differing"] = found["differing"]
+        for name in ("parent", "change", "change", "parent"):
+            row.setdefault(f"{name}_ms", []).append(_cuda_ms(
+                functools.partial(mods[name].gibbs_chain, *args)))
+        print(f"k3 ab {shape}: {json.dumps(row)}", flush=True)
+        del args
+    for name, log in logs.items():
+        table = {k.split("gibbs_chain")[-1][:40]: v for k, v in
+                 ptxas_table(log).items()}
+        if not log:
+            table = "gibbs_chain_ab library already built: no ptxas output"
+        print(f"k3 ab ptxas ({name}): {json.dumps(table)}", flush=True)
+    print(_card())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2780,7 +3003,9 @@ def main():
         "bound_share": chain["bound_share"], "library_ms": None,
         "ms_serve": chain_serve["ms"], "plain_ms_serve":
         chain_serve["plain_ms"], "bound_ms_serve": chain_serve["bound_ms"],
-        "bound_share_serve": chain_serve["bound_share"]}]}))
+        "bound_share_serve": chain_serve["bound_share"],
+        **{f"{k}_{name}": k3_rows[name][k] for name in K3_TIMED
+           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2800,5 +3025,11 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k2-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k2_diag()
+    elif sys.argv[1:2] == ["--k3-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k3_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k3-diag"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k3_diag()
     else:
         main()

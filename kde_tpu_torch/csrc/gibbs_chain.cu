@@ -34,28 +34,58 @@
 // circular_mu, logf/log and expf/exp, built with --fmad=false, so points and
 // labels are meant to be bitwise the twin's.
 //
-// What bounds it: per (row, candidate) pair d IEEE divisions, d logs (none
-// where the level's bandwidth is uniform in that dim: log c is then taken
-// once a selection, bitwise the same value) and an exp, twice (pass 1 finds
-// the max, pass 2 the sums), from L2 (a level of both densities sits in the
-// 50 MB L2; a uniform dim reads no bandwidth).  The design:
+// What bounds it: per (chain, candidate) pair d IEEE divisions, d logs
+// (none where the level's bandwidth is uniform in that dim: log c is then
+// taken once a selection, bitwise the same value) and an exp, in two passes
+// (pass 1 finds the max, pass 2 the sums).  chip_smoke.py --k3-diag's
+// ablations on the H100 bind the kernel by the instruction throughput of
+// that arithmetic, not by its loads: at the slice pass 1 is 42 % of the
+// time, the accurate logf 28 %, the division 14 %, and making the
+// candidates from their index instead of loading them is no faster
+// (PERF.md §6).  With the bits fixed
+// by the twin, none of that arithmetic can go; what the layouts change is
+// how the chains share the card.
+//
+// Layouts (the wrapper's launch_plan picks one from the set's dtype, d,
+// chain count and widest level, so a set drawn in a batch runs as alone):
+//   * staged (float32, d = 1, 2, 3, many chains over wide levels;
+//     gibbs_chain_staged): a block holds up to 16 chains of one set, a warp
+//     a chain, all in lockstep (every chain of a set makes the same
+//     selections in the same order).  A level's candidates (the contiguous
+//     [w, d] means and, where an active dim's bandwidth varies, bandwidths,
+//     and [w] log weights) go to shared memory by cp.async: where the level
+//     of every density fits the block's stage, once for all the level's
+//     selections (the warps then run them without a block barrier);
+//     otherwise each selection streams them through a ring of kStages
+//     slots.  Either way a candidate leaves L2 once a block, not once a
+//     chain; 4-byte copies keep any level offset aligned.  A set's last
+//     block may hold fewer chains (its spare warps follow a copy of the
+//     last chain and write nothing).
+//   * warp and block (the first layouts, gibbs_chain_kernel): a warp a chain
+//     (8 chains a 256-thread block), or a 512-thread block a chain; every
+//     chain reads its candidates from L2.  Float64 (the replay paths) and
+//     d >= 4 take these by shape, and so do the float32 shapes where they
+//     measured faster or were not measured against the staged layout:
+//     narrow levels and up to about a thousand chains (a warp a chain) and
+//     a few hundred chains over wide levels (a block a chain).
+// Common to all:
 //   * no host step between stages: the chain's state (selections [dn, d],
 //     labels [dn], x, mu, cov) stays in shared memory for the whole chain;
-//   * a warp a chain (8 chains a 256-thread block) when the launch has
-//     chains enough to fill the card or its levels are narrow; a 512-thread
-//     block a chain otherwise (the wrapper's launch_plan picks, from the
-//     set's chain count and widest level, so a set drawn in a batch runs as
-//     it runs alone);
-//   * no logits cache and no per-candidate float64 division: pass 1 the
-//     max; pass 2 the exps, their sum in the chain's type (the dead test)
-//     and fixed-order float64 sums of at most kMaxTiles contiguous tiles;
-//     the label from a scan of the tile sums against u * sum, then a scan
-//     inside that one tile;
+//   * no logits cache and no per-candidate float64 division: pass 2 the
+//     exps, their sum in the chain's type (the dead test) and fixed-order
+//     float64 sums of at most kMaxTiles contiguous tiles of a multiple of
+//     32 candidates (of the block's threads on the block layout); the
+//     label from a scan of the tile sums against u * sum, then a scan
+//     inside that one tile from L2.  A lane adds its candidates in the
+//     same order on the warp and the staged layouts, so their draws are
+//     the same bits;
 //   * every reduction in a fixed order, so a chain's draw does not depend
 //     on the launch it is part of.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,6 +110,100 @@ __device__ __forceinline__ double sq_root(double x) { return sqrt(x); }
 template <typename T>
 __device__ __forceinline__ T neg_inf() { return -(T)INFINITY; }
 
+// Ablations for chip_smoke.py --k3-diag, built into a separate library with
+// -DK3_DIAG and one of the defines below; the package's build takes none.
+//   K3_DIAG_PASS2_ONLY  no pass 1: the max is given (0)
+//   K3_DIAG_NO_LOADS    candidates made from their index, no loads
+//   K3_DIAG_NO_LOG      c instead of log c off the uniform dims
+//   K3_DIAG_DIV_MUL     d^2 * c instead of d^2 / c
+#ifdef K3_DIAG_NO_LOADS
+#define K3_CAND(load, alt) (alt)
+#else
+#define K3_CAND(load, alt) (load)
+#endif
+#ifdef K3_DIAG_NO_LOG
+#define K3_LOG_C(x) (x)
+#else
+#define K3_LOG_C(x) lg(x)
+#endif
+#ifdef K3_DIAG_DIV_MUL
+#define K3_QUAD(a, b) ((a) * (b))
+#else
+#define K3_QUAD(a, b) ((a) / (b))
+#endif
+
+template <typename T>
+__device__ __forceinline__ T circ_wrap(T x, T two_pi, T inv_two_pi) {
+  const T q = x * inv_two_pi;
+  return x - two_pi * rnd(q);
+}
+
+// A selection's per-dim query constants: the query mean x, the added
+// covariance q and, for uniform dims, c and log c; flags f (1 active, 2
+// circular, 4 uniform).  In registers for a d known at compile time (D >
+// 0); read from shared memory otherwise.
+template <typename T, int D>
+struct Sel {
+  T x[D], q[D], c[D], lc[D];
+  unsigned char f[D];
+  __device__ __forceinline__ int dims() const { return D; }
+  __device__ __forceinline__ T X(int k) const { return x[k]; }
+  __device__ __forceinline__ T Q(int k) const { return q[k]; }
+  __device__ __forceinline__ T C(int k) const { return c[k]; }
+  __device__ __forceinline__ T LC(int k) const { return lc[k]; }
+  __device__ __forceinline__ unsigned char F(int k) const { return f[k]; }
+};
+template <typename T>
+struct Sel<T, 0> {
+  const T *x, *q, *c, *lc;
+  const unsigned char* f;
+  int d;
+  __device__ __forceinline__ int dims() const { return d; }
+  __device__ __forceinline__ T X(int k) const { return x[k]; }
+  __device__ __forceinline__ T Q(int k) const { return q[k]; }
+  __device__ __forceinline__ T C(int k) const { return c[k]; }
+  __device__ __forceinline__ T LC(int k) const { return lc[k]; }
+  __device__ __forceinline__ unsigned char F(int k) const { return f[k]; }
+};
+
+// The logit of candidate i (mean m[0..d), bandwidth bw[0..d), log weight
+// *lw, read after the dims, which holds one register less
+// across them): logw - 1/2 sum_{k active} [delta^2 / c + log c], a NaN
+// dim 0, a NaN logit -inf; the twin's operations in the twin's order.
+template <typename T, int D>
+__device__ __forceinline__ T logit_at(const Sel<T, D>& s, bool has_cov,
+                                      const T* m, const T* bw, const T* lw,
+                                      int i, T two_pi, T inv_two_pi) {
+  const T zero = (T)0;
+  T acc = zero;
+#pragma unroll
+  for (int k = 0; k < s.dims(); ++k) {
+    const unsigned char f = s.F(k);
+    if (!(f & 1)) continue;
+    const T qk = s.X(k);
+    T cv, lcv;
+    if (f & 4) {
+      cv = s.C(k);
+      lcv = s.LC(k);
+    } else {
+      cv = K3_CAND(bw[k], (T)0.5 + (T)(i & 7) * (T)0.125);
+      if (has_cov) cv = cv + s.Q(k);
+      lcv = K3_LOG_C(cv);
+    }
+    const T mk = K3_CAND(m[k], qk + (T)(i & 63) * (T)0.015625);
+    const T dl = (f & 2) ? circ_wrap(mk - qk, two_pi, inv_two_pi) : mk - qk;
+    const T sq = dl * dl;
+    const T quad = K3_QUAD(sq, cv);
+    T pd = quad + lcv;
+    if (isnan(pd)) pd = zero;
+    acc = acc + pd;
+  }
+  const T half = (T)0.5 * acc;
+  T lv = K3_CAND(*lw, -(T)(i & 15)) - half;
+  if (isnan(lv)) lv = neg_inf<T>();
+  return lv;
+}
+
 struct Params {
   const void* t_mean;        // [B, dn, 2N, d]: slot 0, the roots, is read
   const void* t_bw;
@@ -102,6 +226,93 @@ struct Params {
   long long rows;            // B * C
   int C, dn, d, L, n_iter, add_entropy;
   double two_pi, inv_two_pi, log_dead;
+};
+
+// ---- a chain's products ----------------------------------------------------
+
+// ops/gibbs.py::_gauss_product and _sample_point over a chain's current
+// selections (mask mk, means mu_sel, bandwidths var_sel, all [dn * d]):
+// the twin's IEEE reciprocals and circular wrap, and its sums over the
+// densities in the order torch's CUDA reduction takes them.  Not on the
+// fastest-striding dim (the unhooked [B, C, dn, d] sums with d > 1): one
+// thread, the j-th term into accumulator j % 4, then ((a0 + a1) + a2) + a3.
+// On it (`tree`: d = 1, and every hooked sum, a dim-k slice or a fresh
+// [B, C, dn] product): last_pow2(dn) lanes, lane t adding terms t and
+// t + lanes the same way, then a shuffle tree at offsets lanes / 2, ..., 1.
+template <typename T>
+struct Products {
+  const unsigned char* mk;
+  const T* mu_sel;
+  const T* var_sel;
+  const unsigned char* codes;
+  int dn, d;
+  bool tree;
+  T two_pi, inv_two_pi;
+
+  template <typename F>
+  __device__ T dn_sum(F term) const {
+    const T zero = (T)0;
+    if (!tree) {
+      T acc[4] = {zero, zero, zero, zero};
+      for (int j = 0; j < dn; ++j) acc[j & 3] = acc[j & 3] + term(j);
+      return ((acc[0] + acc[1]) + acc[2]) + acc[3];
+    }
+    T v[kMaxDens];
+    int lanes = 1;
+    while (2 * lanes <= dn) lanes *= 2;
+    for (int t = 0; t < lanes; ++t) {
+      const T a0 = zero + term(t);
+      const T a1 = t + lanes < dn ? zero + term(t + lanes) : zero;
+      v[t] = ((a0 + a1) + zero) + zero;
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1)
+      for (int t = 0; t < o; ++t) v[t] = v[t] + v[t + o];
+    return v[0];
+  }
+
+  // dim k of the product leaving out `skip` (-1: none): mean and cov
+  __device__ void dim(int k, int skip, T& m_out, T& c_out) const {
+    const T zero = (T)0;
+    bool has = false;
+    for (int j = 0; j < dn; ++j) has = has || (mk[j * d + k] && j != skip);
+    auto lam_of = [&](int j) -> T {
+      const T v = var_sel[j * d + k];
+      return (mk[j * d + k] && j != skip && v > zero) ? (T)1 / v : zero;
+    };
+    const T lt = dn_sum(lam_of);
+    const T cov = has ? (T)1 / lt : zero;
+    c_out = cov;
+    if (codes[k] == 0) {
+      const T s = dn_sum([&](int j) -> T {
+        return lam_of(j) * mu_sel[j * d + k];
+      });
+      m_out = cov * s;
+    } else if (!has) {
+      m_out = zero;
+    } else {
+      int anchor = 0;
+      T best = lam_of(0);
+      for (int j = 1; j < dn; ++j) {
+        const T lj = lam_of(j);
+        if (lj > best) { best = lj; anchor = j; }
+      }
+      const T ref = mu_sel[anchor * d + k];
+      const T s = dn_sum([&](int j) -> T {
+        return circ_wrap(mu_sel[j * d + k] - ref, two_pi, inv_two_pi)
+               * lam_of(j);
+      });
+      m_out = circ_wrap(ref + cov * s, two_pi, inv_two_pi);
+    }
+  }
+
+  // dim k of the product of every selection, then (jitter) the step
+  __device__ T point(int k, const T* normals, bool jitter) const {
+    T m, cv;
+    dim(k, -1, m, cv);
+    if (!jitter) return m;
+    const T step = sq_root(cv) * normals[k];
+    return codes[k] ? circ_wrap(m + step, two_pi, inv_two_pi) : m + step;
+  }
 };
 
 // ---- reductions over a chain's group of G threads ----------------------
@@ -231,17 +442,6 @@ gibbs_chain_kernel(const Params p) {
 
   const T two_pi = (T)p.two_pi, inv_two_pi = (T)p.inv_two_pi;
   const T zero = (T)0;
-  auto circ_diff = [&](T a, T r) -> T {
-    const T dl = a - r;
-    const T q = dl * inv_two_pi;
-    return dl - two_pi * rnd(q);
-  };
-  auto circ_add = [&](T a, T s) -> T {
-    const T x = a + s;
-    const T q = x * inv_two_pi;
-    return x - two_pi * rnd(q);
-  };
-
   // the roots, the masks and the LOO active dims (mask and carried by
   // another density)
   const unsigned char* mask_b = p.mask + b * dn * d;
@@ -264,80 +464,15 @@ gibbs_chain_kernel(const Params p) {
   const T* U = static_cast<const T*>(p.u) + b * p.us_b + c * p.us_c;
   const T* NR = static_cast<const T*>(p.nrm) + b * p.ns_b + c * p.ns_c;
 
-  // A sum over the densities in the order torch's CUDA reduction takes.
-  // Not on the fastest-striding dim (the unhooked [B, C, dn, d] sums with
-  // d > 1): one thread, the j-th term into accumulator j % 4, then
-  // ((a0 + a1) + a2) + a3.  On it (d = 1, and every hooked sum: a dim-k
-  // slice or a fresh [B, C, dn] product): last_pow2(dn) lanes, lane t
-  // adding terms t and t + lanes the same way, then a shuffle tree at
-  // offsets lanes / 2, ..., 2, 1.
   bool hooked = false;
   for (int k = 0; k < d; ++k) hooked = hooked || p.codes[k] != 0;
-  const bool tree = hooked || d == 1;
-  auto dn_sum = [&](auto term) -> T {
-    if (!tree) {
-      T acc[4] = {zero, zero, zero, zero};
-      for (int j = 0; j < dn; ++j) acc[j & 3] = acc[j & 3] + term(j);
-      return ((acc[0] + acc[1]) + acc[2]) + acc[3];
-    }
-    T v[kMaxDens];
-    int lanes = 1;
-    while (2 * lanes <= dn) lanes *= 2;
-    for (int t = 0; t < lanes; ++t) {
-      const T a0 = zero + term(t);
-      const T a1 = t + lanes < dn ? zero + term(t + lanes) : zero;
-      v[t] = ((a0 + a1) + zero) + zero;
-    }
-    for (int o = lanes >> 1; o > 0; o >>= 1)
-      for (int t = 0; t < o; ++t) v[t] = v[t] + v[t + o];
-    return v[0];
-  };
-
-  // _gauss_product for dim k leaving out `skip` (-1: none): mean and cov
+  const Products<T> prod{mk, mu_sel, var_sel, p.codes, dn, d,
+                         hooked || d == 1, two_pi, inv_two_pi};
   auto product_dim = [&](int k, int skip, T& m_out, T& c_out) {
-    bool has = false;
-    for (int j = 0; j < dn; ++j) has = has || (mk[j * d + k] && j != skip);
-    auto lam_of = [&](int j) -> T {
-      const T v = var_sel[j * d + k];
-      return (mk[j * d + k] && j != skip && v > zero) ? (T)1 / v : zero;
-    };
-    const T lt = dn_sum(lam_of);
-    const T cov = has ? (T)1 / lt : zero;
-    c_out = cov;
-    if (p.codes[k] == 0) {
-      const T s = dn_sum([&](int j) -> T {
-        return lam_of(j) * mu_sel[j * d + k];
-      });
-      m_out = cov * s;
-    } else if (!has) {
-      m_out = zero;
-    } else {
-      int anchor = 0;
-      T best = lam_of(0);
-      for (int j = 1; j < dn; ++j) {
-        const T lj = lam_of(j);
-        if (lj > best) { best = lj; anchor = j; }
-      }
-      const T ref = mu_sel[anchor * d + k];
-      const T s = dn_sum([&](int j) -> T {
-        return circ_diff(mu_sel[j * d + k], ref) * lam_of(j);
-      });
-      m_out = circ_add(ref, cov * s);
-    }
+    prod.dim(k, skip, m_out, c_out);
   };
-
-  // _sample_point: the product of every selection, then the step
   auto sample_point = [&](const T* normals, bool jitter, T* out) {
-    for (int k = t; k < d; k += G) {
-      T m, cv;
-      product_dim(k, -1, m, cv);
-      T x = m;
-      if (jitter) {
-        const T step = sq_root(cv) * normals[k];
-        x = p.codes[k] ? circ_add(m, step) : m + step;
-      }
-      out[k] = x;
-    }
+    for (int k = t; k < d; k += G) out[k] = prod.point(k, normals, jitter);
   };
 
   // one selection of density j at level l against N(xq, bw (+ cq)); returns
@@ -358,59 +493,38 @@ gibbs_chain_kernel(const Params p) {
                               | (un ? 4 : 0));
     }
     group_sync<G>();
-    constexpr int DR = D > 0 ? D : 1;
-    T rx[DR], rq[DR], rc[DR], rl[DR];
-    unsigned char rf[DR];
+    Sel<T, D> sel;
     if constexpr (D > 0) {
 #pragma unroll
       for (int k = 0; k < D; ++k) {
-        rx[k] = xq[k];
-        rq[k] = cq[k];
-        rc[k] = cc[k];
-        rl[k] = lc[k];
-        rf[k] = fl[k];
+        sel.x[k] = xq[k];
+        sel.q[k] = cq[k];
+        sel.c[k] = cc[k];
+        sel.lc[k] = lc[k];
+        sel.f[k] = fl[k];
       }
+    } else {
+      sel = Sel<T, 0>{xq, cq, cc, lc, fl, d};
     }
-
     auto logit = [&](int i) -> T {
-      const T* m = mean + (long long)i * d;
-      const T* s = bw + (long long)i * d;
-      T acc = zero;
-#pragma unroll (D > 0 ? D : 1)
-      for (int k = 0; k < d; ++k) {
-        const unsigned char f = D > 0 ? rf[k] : fl[k];
-        if (!(f & 1)) continue;
-        const T qk = D > 0 ? rx[k] : xq[k];
-        T cv, lcv;
-        if (f & 4) {
-          cv = D > 0 ? rc[k] : cc[k];
-          lcv = D > 0 ? rl[k] : lc[k];
-        } else {
-          cv = s[k];
-          if (has_cov) cv = cv + (D > 0 ? rq[k] : cq[k]);
-          lcv = lg(cv);
-        }
-        const T dl = (f & 2) ? circ_diff(m[k], qk) : m[k] - qk;
-        const T sq = dl * dl;
-        const T quad = sq / cv;
-        T pd = quad + lcv;
-        if (isnan(pd)) pd = zero;
-        acc = acc + pd;
-      }
-      const T half = (T)0.5 * acc;
-      T lv = logw[i] - half;
-      if (isnan(lv)) lv = neg_inf<T>();
-      return lv;
+      return logit_at<T, D>(sel, has_cov, mean + (long long)i * d,
+                            bw + (long long)i * d, logw + i, i, two_pi,
+                            inv_two_pi);
+    };
+    auto real = [&](int i) -> bool {
+      return K3_CAND(logw[i], -(T)(i & 15)) != neg_inf<T>();
     };
 
     // pass 1: the max, two candidates a step for the loads in flight
     T mx = neg_inf<T>();
+#ifndef K3_DIAG_PASS2_ONLY
     for (int i = t; i < w; i += 2 * G) {
       const T l0 = logit(i);
       const T l1 = i + G < w ? logit(i + G) : neg_inf<T>();
       if (l0 > mx) mx = l0;
       if (l1 > mx) mx = l1;
     }
+#endif
     mx = group_all<G>(mx, MaxOp(), s_t);
     const T ms = mx == neg_inf<T>() ? zero : mx;
 
@@ -431,12 +545,12 @@ gibbs_chain_kernel(const Params p) {
         const T e0 = ex(l0 - ms);
         sum_t = sum_t + e0;
         acc += (double)e0;
-        cnt += logw[i] == neg_inf<T>() ? 0 : 1;
+        cnt += real(i) ? 1 : 0;
         if (two) {
           const T e1 = ex(l1 - ms);
           sum_t = sum_t + e1;
           acc += (double)e1;
-          cnt += logw[i + G] == neg_inf<T>() ? 0 : 1;
+          cnt += real(i + G) ? 1 : 0;
         }
       }
       for (int s = 16; s > 0; s >>= 1) {
@@ -483,7 +597,7 @@ gibbs_chain_kernel(const Params p) {
         double q = 0.0;
         if (i < te) {
           T e;
-          if (dead) e = logw[i] == neg_inf<T>() ? zero : (T)1;
+          if (dead) e = real(i) ? (T)1 : zero;
           else e = ex(logit(i) - ms);
           q = (double)e;
         }
@@ -565,13 +679,546 @@ int launch(const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- the staged layout: float, d = 1, 2, 3 ---------------------------------
+
+constexpr int kStages = 3;            // ring slots
+constexpr int kStageCands = 512;      // candidates a ring slot holds
+constexpr int kBlockChains = 16;      // chains a block (a warp each)
+constexpr int kStagedDim = 3;         // the largest d of the layout
+constexpr int kStagedMinBlocks = 2;   // up to 64 registers a thread
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Floats of the stage: kStages ring slots, each kStageCands candidates'
+// means [.., D], log weights and bandwidths [.., D].
+__host__ __device__ constexpr int stage_floats(int D) {
+  return kStages * kStageCands * (2 * D + 1);
+}
+
+// A chain's shared memory (a warp's): its float64 tile sums, labels, real
+// counts a tile, selections (means, bandwidths [dn * d]) and query (x,
+// cov [d]), at fixed offsets so that one register addresses them all.
+struct ChainSmem {
+  double tsum[kMaxTiles];
+  long long perms[kMaxDens];
+  int tcnt[kMaxTiles];
+  float mu[kMaxDens * kStagedDim];
+  float var[kMaxDens * kStagedDim];
+  float xq[kStagedDim];
+  float cq[kStagedDim];
+};
+
+// A block's: its chains' and the set's mask and active dims [dn * d]; the
+// stage (stage_floats(D): the ring, or a level's candidates of every
+// density, resident for all its selections) follows, from kStagedHead
+// bytes.
+struct BlockSmem {
+  ChainSmem ch[kBlockChains];
+  unsigned char mk[kMaxDens * kStagedDim];
+  unsigned char act[kMaxDens * kStagedDim];
+};
+constexpr size_t kStagedHead = (sizeof(BlockSmem) + 15) & ~(size_t)15;
+
+template <int D>
+__device__ __forceinline__ void load_cand(const float* src, float (&dst)[D]) {
+  if constexpr (D == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < D; ++k) dst[k] = src[k];
+  }
+}
+
+__device__ __forceinline__ float warp_fmax(float v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(kFull, v, o);
+    v = y > v ? y : v;
+  }
+  return v;
+}
+
+// A block holds up to kBlockChains chains of one set, a warp a chain, all
+// in lockstep.  gridDim.x = B * groups, groups = ceil(C / kBlockChains).
+template <int D>
+__global__ void __launch_bounds__(32 * kBlockChains, kStagedMinBlocks)
+gibbs_chain_staged(const Params p, int groups) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long blk = blockIdx.x;
+  const long long b = blk / groups;
+  const int c_real = (int)(blk % groups) * kBlockChains + warp;
+  // a set's last block may hold fewer than kBlockChains chains: its other
+  // warps run a copy of the set's last chain (the block moves in lockstep)
+  // and write nothing
+  const bool live = c_real < p.C;
+  const long long c = live ? c_real : p.C - 1;
+  const long long row = b * p.C + c;
+  const int dn = p.dn, L = p.L;
+  constexpr int kSlot = kStageCands * (2 * D + 1);
+  constexpr int kCap = stage_floats(D);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  BlockSmem& sm = *reinterpret_cast<BlockSmem*>(smem);
+  ChainSmem& me = sm.ch[warp];
+  float* stage = reinterpret_cast<float*>(smem + kStagedHead);
+  double* tsum = me.tsum;
+  int* tcnt = me.tcnt;
+  long long* perms = me.perms;
+  float* mu_sel = me.mu;
+  float* var_sel = me.var;
+  float* xq = me.xq;
+  float* cq = me.cq;
+  unsigned char* mk = sm.mk;
+  unsigned char* act = sm.act;
+
+  const float two_pi = (float)p.two_pi, inv_two_pi = (float)p.inv_two_pi;
+  const float ninf = neg_inf<float>();
+
+  // the set's masks and LOO active dims; the chain's roots
+  const unsigned char* mask_b = p.mask + b * dn * D;
+  for (int e = threadIdx.x; e < dn * D; e += blockDim.x) {
+    const int j = e / D, k = e % D;
+    bool other = false;
+    for (int jj = 0; jj < dn; ++jj)
+      if (jj != j && mask_b[jj * D + k]) other = true;
+    mk[e] = mask_b[e] ? 1 : 0;
+    act[e] = (mask_b[e] && other) ? 1 : 0;
+  }
+  const float* root_m = static_cast<const float*>(p.t_mean) + b * p.ts_b;
+  const float* root_v = static_cast<const float*>(p.t_bw) + b * p.ts_b;
+  for (int e = lane; e < dn * D; e += 32) {
+    const int j = e / D, k = e % D;
+    const bool m = mask_b[e] != 0;
+    mu_sel[e] = m ? root_m[j * p.ts_j + k] : 0.0f;
+    var_sel[e] = m ? root_v[j * p.ts_j + k] : 0.0f;
+  }
+  for (int j = lane; j < dn; j += 32) perms[j] = 0;
+  __syncthreads();
+
+  bool hooked = false;
+  for (int k = 0; k < D; ++k) hooked = hooked || p.codes[k] != 0;
+  const Products<float> prod{mk, mu_sel, var_sel, p.codes, dn, D,
+                             hooked || D == 1, two_pi, inv_two_pi};
+  const float* U = static_cast<const float*>(p.u) + b * p.us_b + c * p.us_c;
+  const float* NR = static_cast<const float*>(p.nrm) + b * p.ns_b + c * p.ns_c;
+
+  // level l's tile partition (K3's: at most kMaxTiles tiles of a multiple
+  // of 32 candidates)
+  int tile = 0, ntiles = 0;
+  // does density j need its bandwidths at level l (an active dim whose
+  // bandwidth is not uniform)?
+  auto needs_bw = [&](int j, int l) {
+    const unsigned char* uni = p.uniform + ((b * dn + j) * L + l) * D;
+    bool need = false;
+    for (int k = 0; k < D; ++k) need = need || (act[j * D + k] && !uni[k]);
+    return need;
+  };
+  // a level of n candidates on the stage: means [n, D], log weights [n]
+  // and, where needed, bandwidths [n, D], each from a multiple of 4 floats
+  auto pad4 = [](int x) { return (x + 3) & ~3; };
+  auto part_floats = [&](int j, int l, int n) {
+    return pad4(n * D) + pad4(n) + (needs_bw(j, l) ? pad4(n * D) : 0);
+  };
+  bool resident = false;
+
+  // one selection of density j at level l against N(xq, bw (+ cq)); returns
+  // the candidate index, the same on every lane
+  auto select = [&](int j, int l, int o, int w, bool has_cov,
+                    float uval) -> int {
+    const long long sb = b * p.ms_b + j * p.ms_j + (long long)o * D;
+    const float* gmean = static_cast<const float*>(p.mean) + sb;
+    const float* gbw = static_cast<const float*>(p.bw) + sb;
+    const float* glogw =
+        static_cast<const float*>(p.logw) + b * p.ls_b + j * p.ls_j + o;
+    const unsigned char* uni = p.uniform + ((b * dn + j) * L + l) * D;
+    Sel<float, D> sel;
+    const bool need_bw = needs_bw(j, l);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const bool un = uni[k] != 0, ac = act[j * D + k] != 0;
+      float c0 = gbw[k];
+      if (has_cov) c0 = c0 + cq[k];
+      sel.x[k] = xq[k];
+      sel.q[k] = cq[k];
+      sel.c[k] = c0;
+      sel.lc[k] = un ? lg(c0) : 0.0f;
+      sel.f[k] = (unsigned char)((ac ? 1 : 0) | (p.codes[k] ? 2 : 0)
+                                 | (un ? 4 : 0));
+    }
+    auto glogit = [&](int i) -> float {
+      return logit_at<float, D>(sel, has_cov, gmean + (long long)i * D,
+                                gbw + (long long)i * D, glogw + i, i, two_pi,
+                                inv_two_pi);
+    };
+
+    // pass 1, on `cnt` staged candidates whose first is candidate i0: the
+    // max, two candidates a lane in flight
+    float mx = ninf;
+    auto pass1 = [&](auto nb, const float* tm, const float* tlw,
+                     const float* ts, int i0, int cnt) {
+      constexpr bool NB = decltype(nb)::value;
+      auto cand = [&](int ii, float (&m)[D], float (&s)[D]) {
+        load_cand<D>(tm + ii * D, m);
+        if constexpr (NB) load_cand<D>(ts + ii * D, s);
+      };
+      for (int ii = lane; ii < cnt; ii += 64) {
+        float m[D], s[D];
+        cand(ii, m, s);
+        const float l0 = logit_at<float, D>(sel, has_cov, m, s, tlw + ii,
+                                            i0 + ii, two_pi, inv_two_pi);
+        float l1 = ninf;
+        if (ii + 32 < cnt) {
+          cand(ii + 32, m, s);
+          l1 = logit_at<float, D>(sel, has_cov, m, s, tlw + ii + 32,
+                                  i0 + ii + 32, two_pi, inv_two_pi);
+        }
+        if (l0 > mx) mx = l0;
+        if (l1 > mx) mx = l1;
+      }
+    };
+
+    // pass 2: the exps (their sum in float is the dead test) and, per
+    // tile, their float64 sum and the real candidates; a lane adds its
+    // candidates in the order the warp layout does, so the sums are its
+    // bits
+    float ms = 0.0f, sum_t = 0.0f;
+    double acc = 0.0;
+    int cnt = 0, cur = -1;
+    auto flush = [&]() {
+      for (int o = 16; o > 0; o >>= 1) {
+        acc += __shfl_xor_sync(kFull, acc, o);
+        cnt += __shfl_xor_sync(kFull, cnt, o);
+      }
+      if (lane == 0) {
+        tsum[cur] = acc;
+        tcnt[cur] = cnt;
+      }
+      acc = 0.0;
+      cnt = 0;
+    };
+    auto add = [&](int tau, bool valid, float e, bool real) {
+      if (tau != cur) {
+        if (cur >= 0) flush();
+        cur = tau;
+      }
+      if (valid) {
+        sum_t = sum_t + e;
+        acc += (double)e;
+        cnt += real ? 1 : 0;
+      }
+    };
+    auto pass2 = [&](auto nb, const float* tm, const float* tlw,
+                     const float* ts, int i0, int cnt_) {
+      constexpr bool NB = decltype(nb)::value;
+      auto exp_of = [&](int ii) -> float {
+        float m[D], s[D];
+        load_cand<D>(tm + ii * D, m);
+        if constexpr (NB) load_cand<D>(ts + ii * D, s);
+        return ex(logit_at<float, D>(sel, has_cov, m, s, tlw + ii, i0 + ii,
+                                     two_pi, inv_two_pi) - ms);
+      };
+      auto real = [&](int ii) {
+        return K3_CAND(tlw[ii], -(float)((i0 + ii) & 15)) != ninf;
+      };
+      for (int k0 = 0; k0 < cnt_; k0 += 64) {
+        const int ia = k0 + lane, ib = ia + 32;
+        float ea = 0.0f, eb = 0.0f;
+        bool ra = false, rb = false;
+        if (ia < cnt_) {
+          ea = exp_of(ia);
+          ra = real(ia);
+        }
+        if (ib < cnt_) {
+          eb = exp_of(ib);
+          rb = real(ib);
+        }
+        add((i0 + k0) / tile, ia < cnt_, ea, ra);
+        if (k0 + 32 < cnt_) add((i0 + k0 + 32) / tile, ib < cnt_, eb, rb);
+      }
+    };
+
+    const int nst = (w + kStageCands - 1) / kStageCands;
+#ifdef K3_DIAG_PASS2_ONLY
+    const int njobs = resident ? 0 : nst;
+#else
+    const int njobs = resident ? 0 : 2 * nst;
+#endif
+    // ring job q stages tile q mod nst of the level into slot q mod kStages
+    auto copy_job = [&](int q) {
+      if (q < njobs) {
+        const int i0 = (q % nst) * kStageCands;
+        const int cnt = min(kStageCands, w - i0);
+        float* sl = stage + (q % kStages) * kSlot;
+#ifndef K3_DIAG_NO_LOADS
+        const float* gm = gmean + (long long)i0 * D;
+        for (int e = threadIdx.x; e < cnt * D; e += blockDim.x)
+          cp_async4(sl + e, gm + e);
+        for (int e = threadIdx.x; e < cnt; e += blockDim.x)
+          cp_async4(sl + kStageCands * D + e, glogw + i0 + e);
+        if (need_bw) {
+          const float* gb = gbw + (long long)i0 * D;
+          for (int e = threadIdx.x; e < cnt * D; e += blockDim.x)
+            cp_async4(sl + kStageCands * (D + 1) + e, gb + e);
+        }
+#endif
+      }
+      cp_async_commit();
+    };
+    // the slot of job q once every thread's copies have landed; the
+    // barrier also frees the slot of job q - 1 for job q + kStages - 1
+    auto arrive = [&](int q) -> const float* {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      copy_job(q + kStages - 1);
+      return stage + (q % kStages) * kSlot;
+    };
+    const float* rm = nullptr;   // the resident level of density j
+    if (resident) {
+      int off = 0;
+      for (int jj = 0; jj < j; ++jj) off += part_floats(jj, l, w);
+      rm = stage + off;
+    } else {
+      __syncthreads();   // the previous selection's slots are free
+      for (int q = 0; q < kStages - 1; ++q) copy_job(q);
+    }
+    const float* rlw = rm + pad4(w * D);
+    const float* rs = rlw + pad4(w);
+    // each pass over the level: resident, or job by job through the ring
+    auto max_pass = [&](auto nb) {
+      if (resident) {
+#ifndef K3_DIAG_PASS2_ONLY
+        pass1(nb, rm, rlw, rs, 0, w);
+#endif
+        return;
+      }
+#ifndef K3_DIAG_PASS2_ONLY
+      for (int q = 0; q < nst; ++q) {
+        const float* sl = arrive(q);
+        const int i0 = q * kStageCands;
+        pass1(nb, sl, sl + kStageCands * D, sl + kStageCands * (D + 1), i0,
+              min(kStageCands, w - i0));
+      }
+#endif
+    };
+    auto sum_pass = [&](auto nb) {
+      if (resident) {
+        pass2(nb, rm, rlw, rs, 0, w);
+        return;
+      }
+      for (int q = njobs - nst; q < njobs; ++q) {
+        const float* sl = arrive(q);
+        const int i0 = (q - (njobs - nst)) * kStageCands;
+        pass2(nb, sl, sl + kStageCands * D, sl + kStageCands * (D + 1), i0,
+              min(kStageCands, w - i0));
+      }
+    };
+    if (need_bw) max_pass(std::true_type{}); else max_pass(std::false_type{});
+    mx = warp_fmax(mx);
+    ms = mx == ninf ? 0.0f : mx;
+    if (need_bw) sum_pass(std::true_type{}); else sum_pass(std::false_type{});
+    if (cur >= 0) flush();
+    for (int o = 16; o > 0; o >>= 1)
+      sum_t = sum_t + __shfl_xor_sync(kFull, sum_t, o);
+    __syncwarp();
+    const bool dead = ms + lg(sum_t) < (float)p.log_dead;
+    auto tval = [&](int tau) -> double {
+      return dead ? (double)tcnt[tau] : tsum[tau];
+    };
+
+    // the tile where the running sum reaches u * sum, then the scan in it
+    // with the exps from L2
+    double total = 0.0;
+    for (int tau = 0; tau < ntiles; ++tau) total += tval(tau);
+    const double target = (double)uval * total;
+    double off = 0.0;
+    int ft = -1;
+    for (int tau = 0; tau < ntiles; ++tau) {
+      const double next = off + tval(tau);
+      if (!(next < target)) { ft = tau; break; }
+      off = next;
+    }
+    if (ft < 0) return w - 1;
+    const int tb = ft * tile, te = min(tb + tile, w);
+    int z = -1;
+    for (int sb2 = tb; z < 0 && sb2 < te; sb2 += 32 * kPer) {
+      const int i0 = sb2 + lane * kPer;
+      double loc[kPer];
+      double run_s = 0.0;
+#pragma unroll
+      for (int v = 0; v < kPer; ++v) {
+        const int i = i0 + v;
+        double qv = 0.0;
+        if (i < te) {
+          float e;
+          if (dead)
+            e = K3_CAND(glogw[i], -(float)(i & 15)) != ninf ? 1.0f : 0.0f;
+          else
+            e = ex(glogit(i) - ms);
+          qv = (double)e;
+        }
+        run_s += qv;
+        loc[v] = run_s;
+      }
+      double sub;
+      const double start = off + group_scan<32>(run_s, nullptr, sub);
+      int found = 0x7fffffff;
+#pragma unroll
+      for (int v = 0; v < kPer; ++v) {
+        const int i = i0 + v;
+        if (i < te && found == 0x7fffffff && !(start + loc[v] < target))
+          found = i;
+      }
+      found = group_all<32>(found, MinOp(), (int*)nullptr);
+      if (found != 0x7fffffff) z = found;
+      off = off + sub;
+    }
+    return z < 0 ? te - 1 : z;
+  };
+
+  // the winner's statistics into the selection, masked
+  auto pick = [&](int j, int o, int z) {
+    const long long sb = b * p.ms_b + j * p.ms_j + (long long)(o + z) * D;
+    const float* mean = static_cast<const float*>(p.mean) + sb;
+    const float* bw = static_cast<const float*>(p.bw) + sb;
+    for (int k = lane; k < D; k += 32) {
+      const bool m = mk[j * D + k] != 0;
+      mu_sel[j * D + k] = m ? mean[k] : 0.0f;
+      var_sel[j * D + k] = m ? bw[k] : 0.0f;
+    }
+    if (lane == 0) perms[j] = p.perm[b * p.ls_b + j * p.ls_j + o + z];
+    __syncwarp();
+  };
+
+  const int per_level = (1 + p.n_iter) * dn;
+  long long* labels = p.out_labels + row * L * dn;
+  for (int l = 0; l < L; ++l) {
+    const int o = p.offsets[2 * l], w = p.offsets[2 * l + 1];
+    tile = 32 * (((w + kMaxTiles - 1) / kMaxTiles + 31) / 32);
+    ntiles = (w + tile - 1) / tile;
+    // the level of every density on the stage, for all its selections,
+    // where it fits
+    int need = 0;
+    for (int j = 0; j < dn; ++j) need += part_floats(j, l, w);
+    resident = need <= kCap;
+#ifdef K3_DIAG_NO_LOADS
+    resident = false;
+#endif
+    if (resident) {
+      __syncthreads();   // the stage's last readers are done
+      float* dst = stage;
+      for (int j = 0; j < dn; ++j) {
+        const long long sb = b * p.ms_b + j * p.ms_j + (long long)o * D;
+        const float* gm = static_cast<const float*>(p.mean) + sb;
+        const float* gb = static_cast<const float*>(p.bw) + sb;
+        const float* gl = static_cast<const float*>(p.logw) + b * p.ls_b
+                          + j * p.ls_j + o;
+        float* dl = dst + pad4(w * D);
+        for (int e = threadIdx.x; e < w * D; e += blockDim.x)
+          cp_async4(dst + e, gm + e);
+        for (int e = threadIdx.x; e < w; e += blockDim.x)
+          cp_async4(dl + e, gl + e);
+        if (needs_bw(j, l))
+          for (int e = threadIdx.x; e < w * D; e += blockDim.x)
+            cp_async4(dl + pad4(w) + e, gb + e);
+        dst += part_floats(j, l, w);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const float* ul = U + dn + (long long)l * per_level;
+    // (1) x from the product of the current selections
+    for (int k = lane; k < D; k += 32)
+      xq[k] = prod.point(k, NR + (long long)l * D, true);
+    __syncwarp();
+    // (2) every density re-selects conditioned on x
+    for (int j = 0; j < dn; ++j) pick(j, o, select(j, l, o, w, false, ul[j]));
+    // (3) n_iter sweeps of leave-one-out Gibbs over the densities
+    for (int it = 0; it < p.n_iter; ++it) {
+      for (int j = 0; j < dn; ++j) {
+        for (int k = lane; k < D; k += 32) prod.dim(k, j, xq[k], cq[k]);
+        __syncwarp();
+        pick(j, o, select(j, l, o, w, true, ul[dn + it * dn + j]));
+      }
+    }
+    if (live)
+      for (int j = lane; j < dn; j += 32) labels[l * dn + j] = perms[j];
+    __syncwarp();
+  }
+  // the final draw
+  if (live) {
+    float* out = static_cast<float*>(p.out_x) + row * D;
+    for (int k = lane; k < D; k += 32)
+      out[k] = prod.point(k, NR + (long long)L * D, p.add_entropy != 0);
+  }
+}
+
+template <int D>
+int launch_staged(const Params& p, cudaStream_t st) {
+  auto kern = gibbs_chain_staged<D>;
+  const size_t smem = kStagedHead + align16((size_t)stage_floats(D) * 4);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  const long long groups = (p.C + kBlockChains - 1) / kBlockChains;
+  const long long blocks = (p.rows / p.C) * groups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, 32 * kBlockChains, smem, st>>>(p, (int)groups);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+#ifdef K3_DIAG
+// One logit a thread at d = D (chip_smoke.py --k3-diag counts its SASS):
+// qv holds x, q, c, lc and the flags, D values each.
+template <int D>
+__global__ void k3_logit_probe(const float* m, const float* bw,
+                               const float* lw, const float* qv, float* out,
+                               int has_cov) {
+  Sel<float, D> s;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    s.x[k] = qv[k];
+    s.q[k] = qv[D + k];
+    s.c[k] = qv[2 * D + k];
+    s.lc[k] = qv[3 * D + k];
+    s.f[k] = (unsigned char)qv[4 * D + k];
+  }
+  const int i = threadIdx.x;
+  out[i] = logit_at<float, D>(s, has_cov != 0, m + i * D, bw + i * D, lw + i,
+                              i, qv[5 * D], qv[5 * D + 1]);
+}
+template __global__ void k3_logit_probe<2>(const float*, const float*,
+                                           const float*, const float*,
+                                           float*, int);
+
+#endif
+
 // Every chain of B sets x C chains (see the header).  itemsize 4 or 8 picks
-// float or double; strides are in elements.  Returns the CUDA error of the
-// launch (an argument the kernel does not take: cudaErrorInvalidValue).
+// float or double; layout 0 is a warp a chain, 1 a block a chain, 2 the
+// staged layout (float, d <= 3).  Strides are in elements.  Returns the
+// CUDA error of the launch (an argument the kernel does not take:
+// cudaErrorInvalidValue).
 extern "C" int kde_gibbs_chain(
-    int itemsize, int group,
+    int itemsize, int layout,
     const void* t_mean, const void* t_bw, long long ts_b, long long ts_j,
     const void* mean, const void* bw, const void* logw, const long long* perm,
     long long ms_b, long long ms_j, long long ls_b, long long ls_j,
@@ -582,7 +1229,8 @@ extern "C" int kde_gibbs_chain(
     void* out_x, long long* out_labels,
     int B, int C, int dn, int d, int L, int n_iter, int add_entropy,
     double two_pi, double inv_two_pi, double log_dead, void* stream) {
-  if ((itemsize != 4 && itemsize != 8) || (group != 32 && group != kCtaThreads)
+  if ((itemsize != 4 && itemsize != 8) || layout < 0 || layout > 2
+      || (layout == 2 && (itemsize != 4 || d > 3))
       || B < 0 || C < 0 || dn < 1 || dn > kMaxDens || d < 1 || d > kMaxDim
       || L < 1 || n_iter < 0 || u == nullptr || nrm == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -592,6 +1240,14 @@ extern "C" int kde_gibbs_chain(
            add_entropy, two_pi, inv_two_pi, log_dead};
   if (p.rows == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (layout == 2) {
+    switch (d) {
+      case 1: return launch_staged<1>(p, st);
+      case 2: return launch_staged<2>(p, st);
+      default: return launch_staged<3>(p, st);
+    }
+  }
+  const int group = layout == 0 ? 32 : kCtaThreads;
   if (itemsize == 8)
     return group == 32 ? launch<double, 32, 0>(p, st)
                        : launch<double, kCtaThreads, 0>(p, st);

@@ -17,6 +17,15 @@ Manifold hooks are coded per dimension (:func:`hook_codes`): 0 for the
 Euclidean quadruple, 1 for the circular one of ``manifolds.py``.  Any
 other callable is a user's, which no kernel runs: the codes are then None
 and ``ops/gibbs.py::_route`` keeps such a product off this route.
+
+:func:`launch_plan` picks the kernel's layout from the set's shape: float32
+chains at d <= 3 in sets of 1,024 chains and more over wide levels (the
+slice, the batched product, the device plan, the manifolds) take the
+staged layout, chains of a set in lockstep sharing candidate tiles staged
+in shared memory; float64 chains (the replay paths), d >= 4, narrow
+levels (the bench headline, ``scaling_bench``) and a few hundred chains
+over wide levels (serve) take the warp or block layout.  That is a route
+by shape: each layout raises on a refused launch like the other.
 """
 
 from __future__ import annotations
@@ -36,14 +45,27 @@ from .tiled_eval import nvcc_build
 # went through the kernel.
 LAUNCHES = 0
 
-# The kernel's layouts: a warp a chain (8 chains a block) when a set has at
-# least WARP_MIN_CHAINS chains or its widest level at most WARP_MAX_WIDTH
-# candidates, one CTA_THREADS-thread block a chain otherwise.  The choice
-# reads the set's shape alone, so a set drawn in a batch runs as it does
-# alone.
+# The kernel's layouts, by what measured faster on the H100 (chip_smoke.py
+# --k3-diag, PERF.md §6).  Float32 chains at d <= STAGED_MAX_DIM in a set
+# of at least STAGED_MIN_CHAINS chains whose widest level has at least
+# STAGED_MIN_WIDTH candidates take the staged layout: 16 chains of one set
+# a block, in lockstep, the candidates staged in shared memory.  Everything
+# else (float64, d > STAGED_MAX_DIM, narrow levels, fewer chains) takes the
+# first layouts: a warp a chain (8 chains a block) when a set has at least
+# WARP_MIN_CHAINS chains or its widest level at most WARP_MAX_WIDTH
+# candidates, one CTA_THREADS-thread block a chain otherwise.  Every
+# choice reads the set's shape alone, so a set drawn in a batch runs as it
+# does alone.
+STAGED_MAX_DIM = 3
+STAGED_MIN_WIDTH = 4096
+STAGED_MIN_CHAINS = 1024
+STAGED_CHAINS = 16
 WARP_MIN_CHAINS = 1024
 WARP_MAX_WIDTH = 2048
 CTA_THREADS = 512
+LAYOUTS = {"warp": 0, "block": 1, "staged": 2}
+
+
 # csrc/gibbs_chain.cu's kMaxDens and kMaxDim
 MAX_DENS = 16
 MAX_DIM = 16
@@ -70,18 +92,22 @@ def build() -> Path:
     return out
 
 
+def bind(path) -> ctypes.CDLL:
+    """The library at ``path`` with ``kde_gibbs_chain``'s signature set."""
+    lib = ctypes.CDLL(str(path))
+    vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_double)
+    lib.kde_gibbs_chain.argtypes = (
+        [i] * 2 + [vp] * 2 + [ll] * 2 + [vp] * 4 + [ll] * 4 + [vp] * 5
+        + [ll] * 2 + [vp] + [ll] * 2 + [vp] * 2 + [i] * 7 + [f] * 3 + [vp])
+    lib.kde_gibbs_chain.restype = i
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_double)
-        lib.kde_gibbs_chain.argtypes = (
-            [i] * 2 + [vp] * 2 + [ll] * 2 + [vp] * 4 + [ll] * 4 + [vp] * 5
-            + [ll] * 2 + [vp] + [ll] * 2 + [vp] * 2 + [i] * 7 + [f] * 3
-            + [vp])
-        lib.kde_gibbs_chain.restype = i
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -124,13 +150,18 @@ def level_uniform(lvl_bw: torch.Tensor, offsets) -> torch.Tensor:
     return torch.stack(flags, dim=-2).to(torch.uint8)
 
 
-def launch_plan(chains: int, width: int) -> int:
-    """Threads a chain, 32 (a warp, 8 chains a block) or ``CTA_THREADS`` (a
-    block), for a set of ``chains`` chains whose widest level has ``width``
-    candidates."""
+def launch_plan(chains: int, width: int, dtype=torch.float32,
+                d: int = 2) -> str:
+    """The layout (a key of LAYOUTS) of a set of ``chains`` chains whose
+    widest level has ``width`` candidates, in ``dtype`` at ``d`` dims (see
+    LAYOUTS' comment): staged for float32 at d <= STAGED_MAX_DIM with many
+    chains over wide levels; the warp or block layout otherwise."""
+    if (dtype == torch.float32 and d <= STAGED_MAX_DIM
+            and chains >= STAGED_MIN_CHAINS and width >= STAGED_MIN_WIDTH):
+        return "staged"
     if chains >= WARP_MIN_CHAINS or width <= WARP_MAX_WIDTH:
-        return 32
-    return CTA_THREADS
+        return "warp"
+    return "block"
 
 
 @functools.lru_cache(maxsize=64)
@@ -202,7 +233,9 @@ def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
     ``offsets``, ``n_levels``, ``lvl_uniform [B, dn, L, d]``);
     ``mask [B, dn, d]`` bool; ``codes`` per dim (:func:`hook_codes`).
     Returns ``points [B, C, d]``, final labels ``[B, C, dn]`` and per-level
-    labels ``[B, C, L, dn]``, as ``_run_chain``."""
+    labels ``[B, C, L, dn]``, as ``_run_chain``.  The layout is
+    :func:`launch_plan`'s: staged for float32 at d <= 3 with many chains
+    over wide levels, the warp or block layout for the other shapes."""
     global LAUNCHES
     dev = _check(u, nrm, plans, mask, n_iter, codes)
     if dev == _CPU:
@@ -224,20 +257,36 @@ def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
     if tuple(uni.shape) != (b, dn, L, d) or uni.device != dev:
         raise ValueError(f"gibbs_chain: lvl_uniform {tuple(uni.shape)} on "
                          f"{uni.device}, want {(b, dn, L, d)} on {dev}")
-    uni = uni.to(torch.uint8).contiguous()
-    mask = mask.contiguous()
-    item = lm.element_size()
     width = max(w for _, w in plans.offsets)
-    group = launch_plan(c, width)
+    out = _launch(_load(), launch_plan(c, width, lm.dtype, d), u, nrm, plans,
+                  mask, n_iter, add_entropy, codes)
+    if b * c:
+        LAUNCHES += 1
+    return out
+
+
+def _launch(lib, layout: str, u, nrm, plans, mask, n_iter, add_entropy,
+            codes):
+    """One ``kde_gibbs_chain`` call of ``lib`` with ``layout`` on
+    inputs :func:`gibbs_chain` has checked; raises on a refused launch."""
+    b, dn, _, d = plans.lvl_mean.shape
+    c, L = nrm.shape[1], plans.n_levels
+    lm, lb, lw, lp = plans.lvl_mean, plans.lvl_bw, plans.lvl_logw, \
+        plans.lvl_perm
+    tm, tb = plans.t_mean, plans.t_bw
+    dev = lm.device
+    uni = plans.lvl_uniform.to(torch.uint8).contiguous()
+    mask = mask.contiguous()
     out_x = torch.empty((b, c, d), dtype=lm.dtype, device=dev)
     out_lv = torch.empty((b, c, L, dn), dtype=torch.int64, device=dev)
     two_pi, inv_two_pi = _gs._two_pi(lm.dtype)
     offs = _offsets_on(tuple((int(o), int(w)) for o, w in plans.offsets), dev)
     with torch.cuda.device(dev):
-        rc = _load().kde_gibbs_chain(
-            item, group, tm.data_ptr(), tb.data_ptr(), tm.stride(0),
-            tm.stride(1), lm.data_ptr(), lb.data_ptr(), lw.data_ptr(),
-            lp.data_ptr(), lm.stride(0), lm.stride(1), lw.stride(0),
+        rc = lib.kde_gibbs_chain(
+            lm.element_size(), LAYOUTS[layout], tm.data_ptr(),
+            tb.data_ptr(), tm.stride(0), tm.stride(1), lm.data_ptr(),
+            lb.data_ptr(), lw.data_ptr(), lp.data_ptr(), lm.stride(0),
+            lm.stride(1), lw.stride(0),
             lw.stride(1), offs.data_ptr(), uni.data_ptr(), mask.data_ptr(),
             _gs._codes_on(tuple(codes), dev).data_ptr(), u.data_ptr(),
             u.stride(0), u.stride(1), nrm.data_ptr(), nrm.stride(0),
@@ -245,9 +294,8 @@ def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
             L, n_iter, int(bool(add_entropy)), two_pi, inv_two_pi,
             _gs.LOG_DEAD, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"kde_gibbs_chain launch failed: CUDA error {rc}")
-    if b * c:
-        LAUNCHES += 1
+        raise RuntimeError(f"kde_gibbs_chain launch failed: CUDA error {rc} "
+                           f"({layout} layout)")
     return out_x, out_lv[:, :, L - 1], out_lv
 
 

@@ -823,13 +823,36 @@ K3_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(K3_CASES))
-def test_gibbs_chain_matches_twin(cuda, name):
+# the layouts a case is run on: the launch plan's, the warp and block
+# layouts, and (float32, d <= 3) the staged layout
+K3_LAYOUTS = ("plan", "warp", "block", "staged")
+
+
+def _k3_layouts(name):
+    dt, _, kw = K3_CASES[name]
+    staged = dt == "f32" and kw.get("d", 2) <= 3
+    return [lay for lay in K3_LAYOUTS if staged or lay != "staged"]
+
+
+def _force_layout(monkeypatch, layout):
+    """Make gibbs_chain launch ``layout`` (K3_LAYOUTS); "plan" leaves the
+    launch plan's own choice."""
+    from kde_tpu_torch.ops import gibbs_chain
+    if layout != "plan":
+        monkeypatch.setattr(gibbs_chain, "launch_plan",
+                            lambda *a, **k: layout)
+
+
+@pytest.mark.parametrize("name,layout", [(n, lay) for n in sorted(K3_CASES)
+                                         for lay in _k3_layouts(n)])
+def test_gibbs_chain_matches_twin(cuda, monkeypatch, name, layout):
     """The chain kernel against its twin (chip_smoke.py phase 3e's check at
-    small sizes): every chain's per-level labels and point equal, but for
-    listed float64 CDF ties within 1e-12 of u; one launch counted."""
+    small sizes) on each layout: every chain's per-level labels and point
+    equal, but for listed float64 CDF ties within 1e-12 of u; one launch
+    counted."""
     import chip_smoke as cs
     from kde_tpu_torch.ops import gibbs_chain
+    _force_layout(monkeypatch, layout)
     dt, n, kw = K3_CASES[name]
     dtype = torch.float32 if dt == "f32" else torch.float64
     args = cs.chain_inputs(sorted(K3_CASES).index(name), cuda, dtype, n, **kw)
@@ -838,6 +861,27 @@ def test_gibbs_chain_matches_twin(cuda, name):
     assert gibbs_chain.LAUNCHES == before + 1
     assert row["max_abs_err"] == 0.0
     assert all(c["tie_gap"] <= 1e-12 for c in row["differing"])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 4), (torch.float64, 2),
+                                     (torch.float64, 3)])
+def test_gibbs_chain_keeps_warp_and_block_layouts_for_f64_and_d4(cuda, dtype,
+                                                                 d):
+    """Float64 and d = 4 take the warp or block layout (a route by
+    shape): the plan says so, the launch is counted, and the chains equal
+    the twin's."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_chain
+    for n, n_out in ((600, 300), (6000, 100)):
+        args = cs.chain_inputs(40 + d, cuda, dtype, n, d=d, n_out=n_out,
+                               n_iter=2)
+        w = max(w for _, w in args[2].offsets)
+        assert gibbs_chain.launch_plan(n_out, w, dtype, d) in ("warp",
+                                                               "block")
+        before = gibbs_chain.LAUNCHES
+        row, _ = cs.chain_compare(args, f"{dtype} d={d}")
+        assert gibbs_chain.LAUNCHES == before + 1
+        assert row["max_abs_err"] == 0.0
 
 
 @pytest.mark.parametrize("d", range(1, 9))
@@ -850,14 +894,36 @@ def test_gibbs_chain_every_dim(cuda, d):
     assert row["max_abs_err"] == 0.0
 
 
-def test_gibbs_chain_set_in_a_batch_equals_its_draw_alone(cuda):
+@pytest.mark.parametrize("layout", ["plan", "warp", "staged"])
+def test_gibbs_chain_set_in_a_batch_equals_its_draw_alone(cuda, monkeypatch,
+                                                          layout):
     import chip_smoke as cs
     from kde_tpu_torch.ops import gibbs_chain
+    _force_layout(monkeypatch, layout)
     args = cs.chain_inputs(5, cuda, torch.float32, 2000, b=3)
     got = gibbs_chain.gibbs_chain(*args)
     alone = gibbs_chain.gibbs_chain(*cs._set_of(args, 1))
     for a, g in zip(alone, got):
         assert torch.equal(a[0], g[1])
+
+
+@pytest.mark.parametrize("layout", ["plan", "staged"])
+def test_gibbs_chain_partial_last_blocks(cuda, monkeypatch, layout):
+    """B = 3 sets of 1,001 chains (not a multiple of the staged layout's
+    chains a block): each set's last block is partly empty and no block
+    holds two sets, so every set equals its draw alone and the twin's."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_chain
+    _force_layout(monkeypatch, layout)
+    args = cs.chain_inputs(9, cuda, torch.float32, 1500, b=3, n_out=1001,
+                           n_iter=2)
+    assert 1001 % gibbs_chain.STAGED_CHAINS
+    row, got = cs.chain_compare(args, "partial last blocks")
+    assert row["max_abs_err"] == 0.0
+    for i in range(3):
+        alone = gibbs_chain.gibbs_chain(*cs._set_of(args, i))
+        for a, g in zip(alone, got):
+            assert torch.equal(a[0], g[i])
 
 
 def test_product_is_one_chain_launch(cuda, monkeypatch):

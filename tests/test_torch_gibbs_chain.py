@@ -8,7 +8,7 @@ streams and against the serial oracle
 rtol 1e-9 / atol 1e-12 (the tolerance of tests/test_replay_parity.py).  A
 NumPy emulation of ``csrc/gibbs_chain.cu``'s per-chain arithmetic (stream
 cursors, level offsets, the uniform-bandwidth log hoist, tile sums and the
-in-tile scan, for both layouts' tile sizes) draws the twin's labels, and
+in-tile scan, for the layouts' tile sizes) draws the twin's labels, and
 its points agree to 1e-12: only the order of float64 sums differs."""
 import math
 
@@ -336,6 +336,9 @@ def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group):
     return xs, labels, hoisted[0] / max(hoisted[1], 1)
 
 
+# the tile partitions of the layouts: 32 threads (the warp layout, and the
+# staged layout, whose lanes take a warp's candidates and tiles) and
+# CTA_THREADS (the block layout)
 @pytest.mark.parametrize("group", [32, gc.CTA_THREADS])
 @pytest.mark.parametrize("name", ["d2 dn 3", "dn 3 partial mask",
                                   "dead rows", "B = 2", "circular B = 2",
@@ -353,7 +356,7 @@ def test_kernel_emulation_draws_the_twins_labels(name, group):
 @pytest.mark.parametrize("group", [32, gc.CTA_THREADS])
 def test_kernel_emulation_wide_levels_and_mixed_bandwidths(group):
     """Levels wide enough for many tiles (600 components: the leaf splits
-    into 64 / 2 tiles of 32 / 512 candidates), one density with a
+    into 19 / 2 tiles of 32 / 512 candidates), one density with a
     bandwidth a kernel (no hoist) and one uniform (hoisted at every
     level), B = 2: labels equal, points to 1e-12, and both kinds of
     dims present."""
@@ -555,10 +558,27 @@ def test_wrapper_refuses_more_dims_than_the_kernel_holds():
 
 
 def test_launch_plan_reads_the_set_shape():
-    """A warp a chain for many chains or narrow levels, a block a chain
-    for few chains over wide levels (the serve cell)."""
-    assert gc.launch_plan(20_000, 20_000) == 32
-    assert gc.launch_plan(1000, 1000) == 32
-    assert gc.launch_plan(256, 50_000) == gc.CTA_THREADS
-    assert gc.launch_plan(gc.WARP_MIN_CHAINS - 1,
-                          gc.WARP_MAX_WIDTH + 1) == gc.CTA_THREADS
+    """Float32 at d <= 3 with STAGED_MIN_CHAINS chains and more over levels
+    of STAGED_MIN_WIDTH and more (the slice, the batched product), a
+    multiple of the staged layout's chains a block or not: the staged
+    layout; narrow levels (the headline, ``scaling_bench``) at any chain
+    count, fewer chains over wide levels (serve), float64 and d = 4 keep
+    the warp layout for many chains or narrow levels and a block a chain
+    for few chains over wide levels."""
+    assert gc.launch_plan(20_000, 20_000) == "staged"
+    assert gc.launch_plan(20_001, 20_000, torch.float32, 1) == "staged"
+    assert gc.launch_plan(1024, 10_000, torch.float32, 3) == "staged"
+    assert gc.launch_plan(gc.STAGED_MIN_CHAINS, gc.STAGED_MIN_WIDTH) == \
+        "staged"
+    assert gc.launch_plan(1001, 50_000) == "block"
+    assert gc.launch_plan(4096, 1000) == "warp"
+    assert gc.launch_plan(1000, 1000) == "warp"
+    assert gc.launch_plan(20_000, gc.STAGED_MIN_WIDTH - 1) == "warp"
+    assert gc.launch_plan(256, 50_000) == "block"
+    assert gc.launch_plan(gc.STAGED_MIN_CHAINS - 1, 50_000) == "block"
+    for dt, d in ((F64, 2), (torch.float32, 4)):
+        assert gc.launch_plan(20_000, 20_000, dt, d) == "warp"
+        assert gc.launch_plan(1000, 1000, dt, d) == "warp"
+        assert gc.launch_plan(256, 50_000, dt, d) == "block"
+        assert gc.launch_plan(gc.WARP_MIN_CHAINS - 1, gc.WARP_MAX_WIDTH + 1,
+                              dt, d) == "block"
