@@ -7,8 +7,9 @@ Phases, one line of findings each:
   1. device: the card's name and power limit, torch/CUDA versions, TF32
      flags (both off);
   2. build, all started together: nvcc compiles kde_tpu_torch/csrc/
-     tiled_eval.cu, csrc/small_ops.cu and csrc/gibbs_select.cu (sm_90a,
-     the last two with --fmad=false), g++ the native ball-tree builder
+     tiled_eval.cu, csrc/small_ops.cu, csrc/gibbs_select.cu,
+     csrc/gibbs_chain.cu and csrc/loo_search.cu (sm_90a, all but the
+     first with --fmad=false), g++ the native ball-tree source
      csrc/balltree.cpp; ptxas registers, shared memory and spills;
   3. the kernel against its plain torch twin on the card at five shapes,
      rtol = atol = 2e-4: (a) 20k x 20k, d = 2; (b) LOO 20k, d = 1;
@@ -47,6 +48,16 @@ Phases, one line of findings each:
      float64 CDF ties within 1e-12 of u (listed), gathered stats equal;
      the leaf stages timed (one call, 20 back-to-back) beside the twin, the
      bound (k2_bound_ms) and torch.multinomial, for scale only;
+ 3e. the Gibbs chain kernel gibbs_chain (csrc/gibbs_chain.cu) against
+     its plain twin (phase_gibbs_chain);
+ 3f. the LOOCV search kernel loo_search (K4, csrc/loo_search.cu) against
+     its plain twin at the main path's searches (K4_CASES: the slice's
+     fit and refit, the batched refit, the dense range, the unscented
+     fit, phase 9's float64 ksize): float64 to rtol 1e-10, float32 probe
+     values within 2e-5 of the twin's entropies and picks within the
+     final bracket, bitwise repeats, one launch a call; timed beside
+     k4_bound_ms, the twin and ksize_rows on the twin (the parent's
+     route);
  3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
      resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
      the same flow on the CPU, both small kernels launched; flows/s with
@@ -56,8 +67,8 @@ Phases, one line of findings each:
      ball trees (built natively: two native builds; p's tree rebuilt once
      with the NumPy builder must equal it array for array), the Gibbs
      product (20,000 chains, Niter 5), the LOOCV refit of the samples and
-     the evaluation at 20,000 queries -- fit, refit and evaluate must
-     launch the kernel; the product again with every Gibbs selection on
+     the evaluation at 20,000 queries -- fit and refit must launch K4,
+     evaluate K1; the product again with every Gibbs selection on
      gibbs_select's twin (_on_gibbs_twin, the same seed and chain blocks),
      the A/B of its Gibbs stage;
   5. serving: ProductSampler over 2 x 50,000-component densities,
@@ -65,7 +76,7 @@ Phases, one line of findings each:
   6. the device-built plan at full width: device-resident copies of
      phase 4's densities (no host arrays, no tree), `p' * q'` and the
      chained `(p'q') * q'`; no host tree may be built, the refits must
-     launch the kernel, the means must match the analytic products;
+     launch K4, the means must match the analytic products;
   7. the batched product: product_batched over B = 4 device-resident sets
      of two 20,000-component 2-D densities (plan build, Gibbs, refit),
      the same call on the twin, set 0 against its standalone draw, then a
@@ -92,11 +103,12 @@ Phases, one line of findings each:
      NCCL world: the chain-sharded product of phase 4's densities
      (20,000 chains) and the kernel-sharded replay product of phase 5's
      (256 chains) against the unsharded engine (labels on >= 99.9 % of
-     chains), product_sharded (its refit must launch the kernel),
+     chains), product_sharded (its refit must launch K4),
      product_batched(mesh=) over 4 x [2 x 20,000] against the unsharded
      batch, sharded_log_eval at 20,000 x 20,000 (must launch the kernel),
      sharded_loo_entropy and ksize_bandwidths_sharded against their
-     single-device calls, the same three and ksize_bandwidths_device on
+     single-device calls (the bandwidths against the search on K4's
+     twin, the same eager probes), the same three and ksize_bandwidths_device on
      NumPy inputs (on the card, equal to the tensor calls),
      estimate_product_memory against the allocator's peak (ratio in
      [0.5, 2]), then scaling_bench.run at S = 1 (4,096 chains,
@@ -109,8 +121,11 @@ Phases, one line of findings each:
      that a sharded call is compared with are not counted;
  12. the eight examples_torch twins on the card at their own sizes, one
      line each (their checks raise; they stay below the kernel's gates).
-gibbs_select must launch on the slice, serve, device plan, batched,
-select, manifolds, parallel (chain- and set-sharded) and examples paths.
+gibbs_chain must launch on the slice, serve, device plan, batched,
+select, manifolds, parallel (chain- and set-sharded) and examples paths,
+gibbs_select on phase 8's gumbel, K1 on the slice, functionals, parallel
+and shared-card paths, K4 on the slice, device plan, batched,
+functionals, manifolds and parallel paths.
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
@@ -180,6 +195,19 @@ SHARED_CHAINS = 1024     # phase 11b kernel-sharded replay chains
 WORKER_TIMEOUT = 300     # seconds: phase 11b workers, collectives
 SCALING = dict(total_chains=4096, n_comp=1000, n_iter=5)   # kde_tpu's run()
 FP64_FLOPS = 34e12       # H100 SXM, FP64 outside the tensor cores
+FP64_LANES_PER_CLK = 64  # FP64 lanes per SM, compute capability 9.0
+K4_TOL = 1e-2            # the LOOCV search's tolerance (kde's default)
+K4_F64_RTOL = 1e-10      # float64 K4 vs its twin: the same trajectory
+K4_PROBE_RTOL = 2e-5     # float32 K4's probe values vs the twin's entropy
+# phase 3f, the searches of the main path: name -> (rows, points, dtype,
+# data: "fit" N(0, 1) rows, "refit" N(0.25, 1/2) rows, a product's samples)
+K4_CASES = {"slice fit": (2, N_SLICE, "float32", "fit"),
+            "* refit": (2, N_SLICE, "float32", "refit"),
+            "batched refit": (2 * BATCH_SETS, N_SLICE, "float32", "refit"),
+            "dense 2x4096": (2, 4096, "float32", "fit"),
+            "dense 2x16384": (2, 16384, "float32", "fit"),
+            "unscented fit": (1, N_UNSCENTED, "float32", "fit"),
+            "ksize f64": (2, N_SLICE, "float64", "fit")}
 SMALL_RTOL = 1e-9        # small-route selections (tests/test_host_small.py)
 SMALL_ATOL = 1e-10       # small-route log p
 SMALL_TOL = 1e-2         # the LOOCV search's tolerance (kde's default)
@@ -1209,6 +1237,212 @@ def phase_gibbs_chain(dev):
     return rows
 
 
+def k4_inputs(r, n, dtype, data, dev, seed=SEED):
+    """The arguments of loo_search for ``r`` rows of ``n`` points as
+    ksize_rows forms them (uniform weights, the sort bracket), and the
+    twin's route."""
+    import torch
+    from kde_tpu_torch.ops import loocv
+    rng = np.random.default_rng(seed + 70 + r + n)
+    x = rng.normal(size=(r, n))
+    if data == "refit":
+        x = 0.25 + np.sqrt(0.5) * x
+    dt = getattr(torch, dtype)
+    rows = torch.as_tensor(x, dtype=dt, device=dev)
+    w = torch.full((n,), 1.0 / n, dtype=dt, device=dev)
+    lo, hi = loocv._slices_on(n, dev)
+    base, ax, bx, cx = loocv.bracket_rows(rows, lo, hi)
+    return ((rows, w, (base ** 2).contiguous(), ax, bx, cx),
+            loocv.select_loo_impl(n, dt), (lo, hi))
+
+
+@contextlib.contextmanager
+def _k4_on_twin():
+    """ksize_rows with its search on K4's plain twin (the parent's Python
+    loop over K1 or the dense probes); a reference, not counted."""
+    from kde_tpu_torch.ops import loo_search, loocv
+    saved = loocv.loo_search
+    loocv.loo_search = loo_search.loo_search_ref
+    try:
+        with _uncounted():
+            yield
+    finally:
+        loocv.loo_search = saved
+
+
+def k4_fp64_per_pair(so):
+    """FP64 pipe instructions (DADD, DMUL, DFMA, DSETP, DMNMX) of one probe
+    term that every pair runs, from the SASS of the never-launched kernel
+    loo_pair_probe, which holds the inner loop's pair_term once:
+    those before its first EXIT and outside a block that a conditional
+    branch skips (the exp's out-of-range handling), and the count with
+    those blocks.  Returns (count, count with the skipped blocks, the
+    listing's lines)."""
+    import re
+    from pathlib import Path
+    from kde_tpu_torch.ops import tiled_eval
+    tool = Path(tiled_eval._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                         text=True, timeout=600, check=True)
+    code, inside = [], False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = "loo_pair_probe" in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inside and m:
+            code.append((int(m.group(1), 16), m.group(2).strip()))
+    skipped = set()
+    for at, ins in code:
+        m = re.match(r"@!?U?P[T0-9]+\s+BRA\s+(?:`\()?0x([0-9a-f]+)", ins)
+        if m:
+            skipped.update(a for a, _ in code
+                           if at < a < int(m.group(1), 16))
+    every = every_max = 0
+    for at, ins in code:
+        op = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0]
+        if op == "EXIT":
+            break
+        if op.split(".")[0] in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"):
+            every_max += 1
+            every += at not in skipped
+    if every == 0:
+        raise AssertionError("no FP64 instruction found in loo_pair_probe")
+    return every, every_max, [ins for _, ins in code]
+
+
+def k4_bound_ms(args, probes, sms, clock_hz, fp64_per_pair):
+    """The least time an H100 could take for the searches of loo_search,
+    counting the pairs this run's data needs: every live pair (i != j, both
+    weights positive) once for the nearest-neighbour shifts and once per
+    probe of its row (``probes [R]``, from K4's trace).  float32: one ex2 a
+    probe pair on the SFU (16 a clock per SM) or 4 FP32 instructions a
+    probe pair and 3 a shift pair (difference, square, min) at 128 a clock
+    per SM, whichever is longer; float64: ``fp64_per_pair`` FP64
+    instructions a probe pair (from the SASS) and 3 a shift pair at 64 a
+    clock per SM.  Bytes: rows, weights and brackets read once, the result
+    written once, at 3.35 TB/s."""
+    import torch
+    rows, w = args[0], args[1]
+    r, n = rows.shape
+    live = int((w > 0).sum())
+    pairs = live * (live - 1)
+    probe_pairs = pairs * int(sum(probes))
+    shift_pairs = pairs * r
+    rate = sms * clock_hz
+    if rows.dtype == torch.float32:
+        ops = max(probe_pairs / (SFU_EX2_PER_CLK * rate),
+                  (4 * probe_pairs + 3 * shift_pairs)
+                  / (FP32_LANES_PER_CLK * rate))
+    else:
+        ops = ((fp64_per_pair * probe_pairs + 3 * shift_pairs)
+               / (FP64_LANES_PER_CLK * rate))
+    nbytes = rows.element_size() * (r * n + n + 5 * r)
+    times = {"operations": ops, "bytes": nbytes / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def k4_compare(args, impl, got, trace, what):
+    """K4's picks ``got`` and ``trace`` against the twin on the same
+    inputs: float64 at rtol K4_F64_RTOL; float32 every reported probe value
+    within K4_PROBE_RTOL of the twin's entropy at the same x (non-finite
+    values equal) and the pick within the final bracket, 2 K4_TOL
+    relative (where two entropies lie within the float32 sums' noise the
+    twin may compare them the other way).  Returns the row's numbers."""
+    import torch
+    from kde_tpu_torch.ops import loo_search
+    with _uncounted():
+        want = loo_search.loo_search_ref(*args, tol=K4_TOL, impl=impl)
+        nloo = loo_search.make_nloo(args[0], args[2], args[1], impl, 1024)
+        x, f = trace[:, :, 0], trace[:, :, 1]
+        probe_rel = 0.0
+        for k in range(x.shape[1]):
+            live = ~torch.isnan(x[:, k])
+            if not bool(live.any()):
+                break
+            fw = nloo(torch.where(live, x[:, k], torch.ones_like(x[:, k])))
+            fin = live & torch.isfinite(fw)
+            torch.testing.assert_close(f[live & ~fin, k], fw[live & ~fin],
+                                       rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{what}: non-finite probes")
+            if bool(fin.any()):
+                probe_rel = max(probe_rel, float(
+                    ((f[fin, k].double() - fw[fin].double()).abs()
+                     / fw[fin].double().abs()).max()))
+    rel = float(((got.double() - want.double()).abs()
+                 / want.double().abs()).max())
+    limit = K4_F64_RTOL if got.dtype == torch.float64 else 2 * K4_TOL
+    if not rel <= limit or probe_rel > K4_PROBE_RTOL:
+        raise AssertionError(f"{what}: picks {rel:.3g} apart (limit "
+                             f"{limit}), probes {probe_rel:.3g}")
+    probes = (~torch.isnan(trace[:, :, 0])).sum(dim=1)
+    return dict(max_rel=rel, probe_max_rel=probe_rel,
+                max_abs_err=float((got.double() - want.double()).abs().max()),
+                probes=probes.tolist(), iterations=int(probes.max()) - 2,
+                xmin=got.tolist()[:4], twin_xmin=want.tolist()[:4])
+
+
+def phase_loo_search(dev, cases=None):
+    """Phase 3f: K4 (loo_search, csrc/loo_search.cu) against its plain twin
+    on the card at the main path's searches (K4_CASES): one launch a call,
+    bitwise the same over repeated calls, k4_compare's limits; timed (one
+    call, the wrapper's host work included) beside the bound (k4_bound_ms),
+    the twin alone and ksize_rows on the twin (the parent's route: the
+    Python golden loop over K1 or the dense probes), and ksize_rows on K4.
+    No single PyTorch call runs a LOO golden search: library_ms is null.
+    Returns the rows printed."""
+    import torch
+    from kde_tpu_torch.ops import loo_search, loocv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    per_pair, per_pair_max, sass = k4_fp64_per_pair(loo_search.build())
+    print(f"loo_search: {per_pair} FP64 instructions every float64 probe "
+          f"pair runs, {per_pair_max} with the exp's out-of-range path "
+          f"(SASS of loo_pair_probe: {json.dumps(sass[:90])})",
+          flush=True)
+    rows = {}
+    for name, (r, n, dtype, data) in (cases or K4_CASES).items():
+        args, impl, (lo, hi) = k4_inputs(r, n, dtype, data, dev)
+        trace = loo_search.new_trace(args[0], K4_TOL)
+        before = loo_search.LAUNCHES
+        got = loo_search.loo_search(*args, tol=K4_TOL, impl=impl,
+                                    trace=trace)
+        again = [loo_search.loo_search(*args, tol=K4_TOL, impl=impl)
+                 for _ in range(2)]
+        _sync()
+        launched = loo_search.LAUNCHES - before
+        if launched != (3 if dev.type == "cuda" else 0):
+            raise AssertionError(f"loo_search ({name}): {launched} launches "
+                                 "for 3 calls")
+        if not all(torch.equal(a, got) for a in again):
+            raise AssertionError(f"loo_search ({name}): repeated calls "
+                                 "differ")
+        row = dict(rows=r, n=n, dtype=dtype, twin_route=impl,
+                   **k4_compare(args, impl, got, trace, name))
+        search = functools.partial(loo_search.loo_search, *args, tol=K4_TOL,
+                                   impl=impl)
+        fit = functools.partial(loocv.ksize_rows, args[0], args[1], lo, hi,
+                                tol=K4_TOL, impl=impl)
+        with _uncounted():
+            row["ms"] = _cuda_ms(search)
+            row["ksize_rows_ms"] = _cuda_ms(fit)
+            row["plain_ms"] = _cuda_ms(functools.partial(
+                loo_search.loo_search_ref, *args, tol=K4_TOL, impl=impl),
+                reps=2)
+        with _k4_on_twin():
+            row["parent_ms"] = _cuda_ms(fit, reps=2)
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(
+            args, row["probes"], sms, clock, per_pair)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["library_ms"] = None
+        row["launches_per_call"] = launched / 3
+        rows[name] = row
+        print(f"loo_search ({name}): {json.dumps(row)}", flush=True)
+        del args, got, again, trace
+    return rows
+
+
 def _cfg1_flow(x, grid, s, device=None):
     """README cfg 1 (bench.py:229-236) with the package's defaults:
     fit, evaluate, resample with a LOOCV refit, the LOO evaluation."""
@@ -1281,17 +1515,21 @@ def phase_cfg1(dev, seed=SEED):
 
 
 def _timed(name, fn, sync, stages, launches):
-    """``fn`` wrapped to add its seconds and kernel launches to
-    ``stages[name]`` and ``launches[name]``."""
-    from kde_tpu_torch.ops import tiled_eval
+    """``fn`` wrapped to add its seconds to ``stages[name]``, its K1
+    launches to ``launches[name]`` and its K4 launches to
+    ``launches[name + "_k4"]``."""
+    from kde_tpu_torch.ops import loo_search, tiled_eval
 
     def wrapper(*args, **kw):
         sync()
-        t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
+        t0, l0, k0 = (time.perf_counter(), tiled_eval.LAUNCHES,
+                      loo_search.LAUNCHES)
         out = fn(*args, **kw)
         sync()
         stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
         launches[name] = launches.get(name, 0) + tiled_eval.LAUNCHES - l0
+        launches[name + "_k4"] = (launches.get(name + "_k4", 0)
+                                  + loo_search.LAUNCHES - k0)
         return out
     return wrapper
 
@@ -1300,13 +1538,14 @@ def _timed_product(run, sync, stages, launches, prefix="", where=None):
     """``run()`` a `*` product, which draws the Gibbs chains and then refits
     the samples with ``kde`` of module ``where`` (default ``ops.gibbs``):
     that call is wrapped to split the two stages' times and launches."""
-    from kde_tpu_torch.ops import gibbs, tiled_eval
+    from kde_tpu_torch.ops import gibbs, loo_search, tiled_eval
     where = where or gibbs
     refit = where.kde
     where.kde = _timed(prefix + "refit", refit, sync, stages, launches)
     try:
         sync()
-        t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
+        t0, l0, k0 = (time.perf_counter(), tiled_eval.LAUNCHES,
+                      loo_search.LAUNCHES)
         out = run()
     finally:
         where.kde = refit
@@ -1314,6 +1553,8 @@ def _timed_product(run, sync, stages, launches, prefix="", where=None):
                                 - stages[prefix + "refit"])
     launches[prefix + "gibbs"] = (tiled_eval.LAUNCHES - l0
                                   - launches[prefix + "refit"])
+    launches[prefix + "gibbs_k4"] = (loo_search.LAUNCHES - k0
+                                     - launches[prefix + "refit_k4"])
     return out
 
 
@@ -1382,12 +1623,8 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     sync = _sync if dev.type == "cuda" else (lambda: None)
     stages, launches = {}, {}
 
-    sync()
-    t0, l0 = time.perf_counter(), tiled_eval.LAUNCHES
-    p, q = kt.kde(a), kt.kde(b)
-    sync()
-    stages["fit"], launches["fit"] = (time.perf_counter() - t0,
-                                      tiled_eval.LAUNCHES - l0)
+    p, q = _timed("fit", lambda: (kt.kde(a), kt.kde(b)), sync, stages,
+                  launches)()
 
     # the host ball trees the product's level plan is built from (cached
     # on the densities, so `p * q` below reuses them): built natively
@@ -1429,10 +1666,10 @@ def phase_slice(dev, n=N_SLICE, seed=SEED):
     stages["evaluate"], launches["evaluate"] = (time.perf_counter() - t0,
                                                 tiled_eval.LAUNCHES - l0)
 
-    # checks, by the repo's own means
-    for stage in ("fit", "refit", "evaluate"):
-        if launches[stage] < 1 and dev.type == "cuda":
-            raise AssertionError(f"stage {stage} never launched the kernel")
+    # checks, by the repo's own means: the fits and the refit are K4
+    # launches, the evaluation a K1 launch
+    _launched(launches, ("fit", "refit"), dev, k4=True)
+    _launched(launches, ("evaluate",), dev)
     if pq.npts != n or lp.shape != (n,) or not bool(torch.isfinite(lp).all()):
         raise AssertionError("product/evaluation: wrong size or non-finite")
     for k in (p, q, pq):
@@ -1536,9 +1773,7 @@ def phase_device_plan(dev, p, q, seed=SEED):
     pqq = _timed_product(lambda: pq * q2, sync, stages, launches, "chained_")
     if any(k._tree is not None for k in (p2, q2, pq)):
         raise AssertionError("the device-plan path built a host tree")
-    for stage in ("refit", "chained_refit"):
-        if launches[stage] < 1 and dev.type == "cuda":
-            raise AssertionError(f"stage {stage} never launched the kernel")
+    _launched(launches, ("refit", "chained_refit"), dev, k4=True)
     # N(0, I) x N(0.5, I) = N(0.25, I/2); N(0.25, I/2) x N(0.5, I) has mean
     # (2 * 0.25 + 0.5) / 3 = 1/3
     return dict(seconds=stages, launches=launches, **same,
@@ -1592,8 +1827,7 @@ def phase_batched(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     twin_same = [_same_share(k.points, t.points) for k, t in zip(outs, twin)]
     stage_same = [_same_share(k.points, t.points)
                   for k, t in zip(outs, stage)]
-    if launches["refit"] < 1 and dev.type == "cuda":
-        raise AssertionError("the batched refit never launched the kernel")
+    _launched(launches, ("refit",), dev, k4=True)
     if len(outs) != b or any(k.npts != n or k.device != sets[0][0].device
                              for k in outs):
         raise AssertionError("product_batched: wrong count, size or device")
@@ -1693,10 +1927,12 @@ def _on_twin():
         kernels.tiled_log_eval = saved
 
 
-def _launched(launches, names, dev):
+def _launched(launches, names, dev, k4=False):
+    """Each stage of ``names`` launched K1 (with ``k4``: K4) on the card."""
     for name in names:
-        if launches[name] < 1 and dev.type == "cuda":
-            raise AssertionError(f"stage {name} never launched the kernel")
+        if launches[name + ("_k4" if k4 else "")] < 1 and dev.type == "cuda":
+            raise AssertionError(f"stage {name} never launched "
+                                 f"{'K4' if k4 else 'K1'}")
 
 
 def _on_device(k, dev, dtype, what):
@@ -1812,8 +2048,9 @@ def phase_functionals(dev, p, q, seed=SEED):
     if not (torch.equal(loaded.bw, p.bw)
             and torch.equal(loaded.weights, p.weights)):
         raise AssertionError("load_kde did not restore p's bandwidths")
-    _launched(launches, ("entropy", "eval_avg_logl", "kld", "minkld",
-                         "kld_unscented", "resample_lcv"), dev)
+    _launched(launches, ("entropy", "eval_avg_logl", "kld", "minkld"), dev)
+    _launched(launches, ("kld_unscented", "resample_lcv", "ksize"), dev,
+              k4=True)
     return dict(seconds=stages, launches=launches, values=vals,
                 twin_err=errs, ksize_rel=rel)
 
@@ -1948,7 +2185,7 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
         _check_near_pi(pts[i, 0] - 0.05 * i, f"hooked batched set {i}")
     out.update(select=select, set0_label_mismatches=mismatches,
                set0_max_abs_dx=diff)
-    _launched(launches, ("refit", "se2_refit"), dev)
+    _launched(launches, ("refit", "se2_refit"), dev, k4=True)
     return dict(seconds=stages, launches=launches, **out)
 
 
@@ -1995,13 +2232,15 @@ def _uncounted():
     """Kernel launches inside the block belong to a reference that the
     path is compared with, not to the path: the counts are put back after
     it."""
-    from kde_tpu_torch.ops import gibbs_chain, gibbs_select, tiled_eval
+    from kde_tpu_torch.ops import (gibbs_chain, gibbs_select, loo_search,
+                                   tiled_eval)
     n, k, c = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
+    s = loo_search.LAUNCHES
     try:
         yield
     finally:
         tiled_eval.LAUNCHES, gibbs_select.LAUNCHES = n, k
-        gibbs_chain.LAUNCHES = c
+        gibbs_chain.LAUNCHES, loo_search.LAUNCHES = c, s
 
 
 def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
@@ -2045,7 +2284,7 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
             idx[name] = call(name, calls[name])[1]
         out["chain_agree"] = _agree(idx["chain_sharded"], idx["chain_plain"],
                                     "chain-sharded")
-        # sharded `*`: the refit launches K1, the result stays on the card
+        # sharded `*`: the refit launches K4, the result stays on the card
         pq = _timed_product(
             lambda: par.product_sharded(mesh, [p, q], key=seed), _sync,
             stages, launches, "sharded_", where=par_product)
@@ -2113,9 +2352,16 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         pts = pq.points[:N_KSIZE].contiguous()
         bws = stage("ksize_sharded", par.ksize_bandwidths_sharded, mesh2,
                     pts)
+        # against the single-device search on the same eager probes (K4's
+        # twin); K4 itself picks within its final bracket of them
+        with _k4_on_twin():
+            ksize_twin = loocv.ksize_bandwidths_device(pts)
         with _uncounted():
             ksize_dev = loocv.ksize_bandwidths_device(pts)
-        out["ksize_rel"] = float(((bws - ksize_dev).abs() / ksize_dev).max())
+        out["ksize_rel"] = float(((bws - ksize_twin).abs()
+                                  / ksize_twin).max())
+        out["ksize_k4_rel"] = float(((bws - ksize_dev).abs()
+                                     / ksize_dev).max())
         if out["loo_rel"] > RTOL or out["ksize_rel"] > KSIZE_RTOL:
             raise AssertionError(f"sharded LOOCV: entropy {out['loo_rel']}, "
                                  f"bandwidths {out['ksize_rel']} apart")
@@ -2142,8 +2388,9 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         with _uncounted():
             out["sizing"] = _sizing(dev, [(serve.densities, SERVE_CHAINS),
                                           ([p, q], n)], seed)
-        _launched(launches, ("sharded_refit", "batched_sharded",
-                             "sharded_log_eval", "sharded_log_eval_numpy"),
+        _launched(launches, ("sharded_refit", "batched_sharded"), dev,
+                  k4=True)
+        _launched(launches, ("sharded_log_eval", "sharded_log_eval_numpy"),
                   dev)
         _launched(k3, ("chain_sharded", "batched_sharded"), dev)
         out["gibbs_chain_launches"] = k3
@@ -2810,7 +3057,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from kde_tpu_torch import native
     from kde_tpu_torch.ops import gibbs_chain, gibbs_select, host_small
-    from kde_tpu_torch.ops import tiled_eval
+    from kde_tpu_torch.ops import loo_search, tiled_eval
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2822,18 +3069,18 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build: the five libraries at once, each timed from the start
+    # 2. build: the six libraries at once, each timed from the start
     t0 = time.perf_counter()
 
     def timed_build(build):
         so = build()
         return so, time.perf_counter() - t0
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = [pool.submit(timed_build, b) for b in
                 (tiled_eval.build, host_small.build, gibbs_select.build,
-                 gibbs_chain.build, native.build)]
+                 gibbs_chain.build, loo_search.build, native.build)]
         ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s), (k3_so, k3_s),
-         (tree_so, tree_s)) = [j.result() for j in jobs]
+         (k4_so, k4_s), (tree_so, tree_s)) = [j.result() for j in jobs]
     ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {k1_s:.2f} s -> {os.path.relpath(k1_so)}; ptxas: "
@@ -2847,28 +3094,33 @@ def main():
     print(f"build gibbs_chain: {k3_s:.2f} s -> {os.path.relpath(k3_so)}; "
           f"ptxas per kernel: "
           f"{json.dumps(ptxas_table(gibbs_chain.BUILD_LOG))}", flush=True)
+    print(f"build loo_search: {k4_s:.2f} s -> {os.path.relpath(k4_so)}; "
+          f"ptxas per kernel: "
+          f"{json.dumps(ptxas_table(loo_search.BUILD_LOG))}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
     # 3. kernel vs plain twin; 3b. the small-route kernels; 3d. the Gibbs
-    # selection kernel; 3e. the Gibbs chain kernel
+    # selection kernel; 3e. the Gibbs chain kernel; 3f. the LOOCV search
     rows, worst = phase_kernel(dev)
     small_rows, small_worst = phase_small(dev)
     k2_rows = phase_gibbs_select(dev)
     k3_rows = phase_gibbs_chain(dev)
+    k4_rows = phase_loo_search(dev)
 
     # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds, small, k2, k3 = {}, {}, {}, {}, {}
+    runs, builds, small, k2, k3, k4 = {}, {}, {}, {}, {}, {}
 
     def run(name, fn, *args):
         tiled_eval.LAUNCHES = native.BUILDS = gibbs_select.LAUNCHES = 0
-        gibbs_chain.LAUNCHES = 0
+        gibbs_chain.LAUNCHES = loo_search.LAUNCHES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
         small[name] = dict(host_small.LAUNCHES)
         k2[name], k3[name] = gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
+        k4[name] = loo_search.LAUNCHES
         return out
 
     c1 = run("cfg1", phase_cfg1, dev)
@@ -2905,10 +3157,13 @@ def main():
     print(f"parallel 11b, two gloo ranks sharing the card, on {card}: "
           f"{json.dumps(sc)}", flush=True)
     run("examples", phase_examples, dev)
-    for name in ("slice", "device_plan", "batched", "functionals",
-                 "manifolds", "parallel", "shared_card"):
+    for name in ("slice", "functionals", "parallel", "shared_card"):
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
+    for name in ("slice", "device_plan", "batched", "functionals",
+                 "manifolds", "parallel"):
+        if k4[name] < 1:
+            raise AssertionError(f"path {name} never launched loo_search")
     for name in ("slice", "serve", "device_plan", "batched", "select",
                  "manifolds", "parallel", "examples"):
         if k3[name] < 1:
@@ -2924,10 +3179,12 @@ def main():
     print(f"native tree builds per path: {json.dumps(builds)}", flush=True)
     print(f"gibbs_select launches per path: {json.dumps(k2)}", flush=True)
     print(f"gibbs_chain launches per path: {json.dumps(k3)}", flush=True)
+    print(f"loo_search launches per path: {json.dumps(k4)}", flush=True)
     golden, ev = small_rows["loo_golden cfg1"], small_rows[
         "small_log_eval cfg1"]
     leaf = k2_rows["leaf sweep cdf"]
     chain, chain_serve = k3_rows["keyed f32 slice"], k3_rows["keyed f32 serve"]
+    refit = k4_rows["* refit"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -3005,7 +3262,24 @@ def main():
         chain_serve["plain_ms"], "bound_ms_serve": chain_serve["bound_ms"],
         "bound_share_serve": chain_serve["bound_share"],
         **{f"{k}_{name}": k3_rows[name][k] for name in K3_TIMED
-           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}]}))
+           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}, {
+        "name": "loo_search", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/loo_search.cu",
+        "replaces": "kde_tpu/ops/loocv.py:273 (_ksize_search; its Pallas "
+                    "probe kde_tpu/ops/kernels.py:269)",
+        "launches": sum(k4.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k4_rows.values()),
+        "f64_max_rel": max(r["max_rel"] for r in k4_rows.values()
+                           if r["dtype"] == "float64"),
+        "probe_max_rel": max(r["probe_max_rel"] for r in k4_rows.values()),
+        "ms": refit["ms"], "plain_ms": refit["plain_ms"],
+        "bound_ms": refit["bound_ms"], "bound_by": refit["bound_by"],
+        "bound_share": refit["bound_share"], "library_ms": None,
+        "parent_ms": refit["parent_ms"],
+        "ksize_rows_ms": refit["ksize_rows_ms"],
+        **{f"{k}_{name}": k4_rows[name][k] for name in k4_rows
+           for k in ("ms", "plain_ms", "parent_ms", "bound_ms",
+                     "bound_share")}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import loocv
-from .loocv import _C, _R, _internal_slices
+from .loocv import _C, _R
 from .tiled_eval import _sm_count, nvcc_build
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -142,15 +142,10 @@ def golden_plan(r: int, n: int, sms: int) -> int:
     return c
 
 
-@functools.lru_cache(maxsize=256)
-def node_table(n: int, device: torch.device
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The internal ball-tree nodes' leaf slices ``(lo, hi)`` of an
-    ``n``-point row (``ops/loocv.py::_internal_slices``, root first), as
-    int64 tensors on ``device``: uploaded once per ``(n, device)``, so a
-    call of :func:`ksize_small` copies nothing to the card."""
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in _internal_slices(n))
+# The internal ball-tree nodes' leaf slices ``(lo, hi)`` of an ``n``-point
+# row, as int64 tensors on a device, uploaded once per ``(n, device)``: a
+# call of :func:`ksize_small` copies nothing to the card.
+node_table = loocv._slices_on
 
 
 @functools.lru_cache(maxsize=1024)

@@ -7,64 +7,21 @@ search minimizing the LOO entropy (reference src/CrossValidation.jl:15-120).
 Here the golden searches of all ``d`` dimensions run at once as one masked
 batch, and the bracket comes from a sort (the 1-D tree's internal-node
 extents are sorted-slice extents, see :func:`_internal_slices`), so the fit
-of a device tensor never leaves the device.
+of a device tensor never leaves the device: on the card the whole search
+is one launch of ``ops/loo_search.py``'s kernel (K4).
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .. import config
-from .kernels import (batched_loo_entropy, entropy_kernel,
-                      loo_entropy_given_d2, loo_pairwise_d2, use_tiled_eval)
-
-_C = (3.0 - math.sqrt(5.0)) / 2.0   # golden-section constants
-_R = 1.0 - _C                       # (reference src/CrossValidation.jl:51-52)
-
-
-def _golden_core(f, ax, bx, cx, tol):
-    """Golden-section minimization of a batch of independent 1-D problems.
-
-    ``f`` maps a probe vector ``x -> f(x)`` elementwise; ``ax < bx < cx``
-    bracket each minimum.  Each element follows exactly the trajectory of
-    the reference's scalar ``golden`` (src/CrossValidation.jl:44-98):
-    converged elements freeze under masked updates.  The float type is the
-    brackets' own.  At float32 the tolerance is clamped to sqrt(eps) so the
-    stop rule stays reachable, and ``max_iters`` bounds the loop."""
-    ft = ax.dtype
-    if ft == torch.float32:
-        tol = max(tol, float(np.sqrt(np.finfo(np.float32).eps)))
-    max_iters = int(np.ceil(np.log(max(tol, 1e-18)) / np.log(_R))) + 60
-    x0, x3 = ax, cx
-    wide_right = (cx - bx).abs() > (bx - ax).abs()
-    x1 = torch.where(wide_right, bx, bx - _C * (bx - ax))
-    x2 = torch.where(wide_right, bx + _C * (cx - bx), bx)
-    f1 = f(x1).to(ft)
-    f2 = f(x2).to(ft)
-    for _ in range(max_iters):
-        active = (x3 - x0).abs() > tol * (x1.abs() + x2.abs())
-        if not bool(active.any()):
-            break
-        take2 = (f2 < f1) & active
-        take1 = (~take2) & active
-        # branch A (f2 < f1): slide the bracket right
-        nx0 = torch.where(take2, x1, x0)
-        nx1 = torch.where(take2, x2, x1)
-        nx2 = torch.where(take2, _R * x2 + _C * x3, x2)
-        # branch B: slide it left
-        nx3 = torch.where(take1, x2, x3)
-        nx2 = torch.where(take1, x1, nx2)
-        nx1 = torch.where(take1, _R * x1 + _C * x0, nx1)
-        fp = f(torch.where(take2, nx2, nx1)).to(ft)   # one probe per element
-        nf1 = torch.where(take2, f2, torch.where(take1, fp, f1))
-        nf2 = torch.where(take2, fp, torch.where(take1, f1, f2))
-        x0, x1, x2, x3, f1, f2 = nx0, nx1, nx2, nx3, nf1, nf2
-    return torch.where(f1 < f2, x1, x2), torch.minimum(f1, f2)
+from .kernels import entropy_kernel, use_tiled_eval
+from .loo_search import _C, _R, _golden_core, loo_search  # noqa: F401
 
 
 def golden_batched(f, ax, bx, cx, tol):
@@ -104,10 +61,13 @@ def _internal_slices(n: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.asarray(los, dtype=np.int64), np.asarray(his, dtype=np.int64)
 
 
-def _slices_on(n: int, device):
-    lo, hi = _internal_slices(n)
-    return (torch.as_tensor(lo, device=device),
-            torch.as_tensor(hi, device=device))
+@functools.lru_cache(maxsize=256)
+def _slices_on(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_internal_slices` as int64 tensors on ``device``, uploaded once
+    per ``(n, device)``: a search of CUDA rows copies nothing to the card
+    (an upload from pageable memory would wait for the host)."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _internal_slices(n))
 
 
 def select_loo_impl(n: int, dtype) -> str:
@@ -140,27 +100,16 @@ def bracket_rows(rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
     return base, ax, bx, cx
 
 
-def _make_nloo(rows, base_var, w, impl, chunk):
-    """The golden search's probe: the LOO entropies of ``rows`` with
-    variance ``base_var * x^2`` (``alpha = x^2`` in std units, reference
-    src/CrossValidation.jl:15-24).  The dense route computes the pairwise
-    distances once; the chunked and tiled routes recompute them per
-    probe."""
-    if impl == "dense":
-        d2 = loo_pairwise_d2(rows)
-        return lambda x: loo_entropy_given_d2(d2, (x ** 2) * base_var, w)
-    return lambda x: batched_loo_entropy(rows, x ** 2, base_var, w,
-                                         impl=impl, chunk=chunk)
-
-
 def ksize_rows(rows: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
                hi: torch.Tensor, *, tol: float = 1e-2, impl: str = "dense",
                chunk: int = 1024) -> torch.Tensor:
     """LOOCV std-dev bandwidths ``[R]`` of ``R`` independent 1-D problems
-    ``rows [R, N]`` sharing weights ``w [N]``."""
+    ``rows [R, N]`` sharing weights ``w [N]``: the sort bracket, then
+    :func:`loo_search` (on CUDA rows one kernel launch and no host read;
+    ``impl`` and ``chunk`` pick the twin's probe route on the CPU)."""
     base, ax, bx, cx = bracket_rows(rows, lo, hi)
-    nloo = _make_nloo(rows, base ** 2, w, impl, chunk)
-    xmin, _ = _golden_core(nloo, ax, bx, cx, float(tol))
+    xmin = loo_search(rows, w, base ** 2, ax, bx, cx, tol=float(tol),
+                      impl=impl, chunk=chunk)
     return xmin * base
 
 

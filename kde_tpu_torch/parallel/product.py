@@ -130,7 +130,7 @@ def product_sharded(mesh: DeviceMesh, densities: Sequence[KDE],
                     n_iter: int = 5, key=None) -> KDE:
     """Sharded ``*``: the chain-sharded Gibbs product sized at the mean
     component count, then the LOOCV refit of the gathered samples on this
-    rank's device (K1 above N = 16,384 in float32).  The result stays on
+    rank's device (one launch of the LOOCV search kernel K4).  The result stays on
     the device and carries the densities' manifold hooks, as ``product()``
     does (the JAX package's ``product_sharded`` drops them,
     ``kde_tpu/parallel/product.py:106``)."""

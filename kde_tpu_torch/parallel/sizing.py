@@ -22,7 +22,8 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops import gibbs as _g
-from ..ops.device_plan import build_bytes
+from ..ops.balltree import n_levels
+from ..ops.device_plan import _packed, build_bytes
 
 # Share of a CUDA device's memory a product may take: the rest is left to
 # the densities themselves, other resident tensors and allocator slack.
@@ -34,31 +35,44 @@ def estimate_product_memory(densities: Sequence, n_out: int,
                             select: str = "auto") -> dict:
     """Bytes of the keyed product ``prod_appx_ms_gibbs`` runs for
     ``densities`` at ``n_out`` chains: ``args`` (the level plan's tensors,
-    built or taken from the plan cache, the mask and, for a plan built on
-    the device, its topology cache and build workspace,
-    ``device_plan.build_bytes``), ``temp`` (the
+    the mask and, for a plan built on the device, its topology cache and
+    build workspace, ``device_plan.build_bytes``), ``temp`` (the
     uniform and normal streams, no uniforms for ``gumbel``, and the
     ``[block, widest level]`` temporaries one chain block keeps alive on
     the selection's route, ``ops/gibbs.py::_live_temps``), ``out`` (points
     and labels) and their ``total``, with the ``select`` mode the call
-    resolves to."""
+    resolves to.  The plan is sized from the shapes alone: nothing is
+    built, cached or allocated on the densities' device."""
     densities = list(densities)
     device = densities[0].device
+    dims = {p.ndim for p in densities}
+    if len(dims) != 1:
+        raise ValueError("kdes must have same dimension "
+                         "(reference src/MSGibbs01.jl:721)")
+    dn, d = len(densities), dims.pop()
+    npts = tuple(p.npts for p in densities)
     impl = _g._resolve_plan_impl(densities, "auto", replay=False)
-    plan = _g._get_plan(densities, n_out, dtype, device, impl)
-    dn, d = plan.ndens, plan.ndim
-    width = plan.offsets[-1][1]
+    # host and device plans pack the same data-independent levels
+    n_lv = n_levels(n_out, npts)
+    offsets = _packed(npts, n_lv)[0]
+    width = offsets[-1][1]
     sel = _g.resolve_select(select, n_out, width)
     item = torch.empty((), dtype=dtype).element_size()
-    args = sum(getattr(plan, f).nbytes for f in _g._PLAN_TENSORS) + dn * d
+    nodes = dn * sum(w for _, w in offsets)
+    # t_mean, t_bw [dn, 2N, d]; lvl_mean, lvl_bw [dn, T, d]; lvl_logw
+    # [dn, T]; lvl_perm [dn, T] int64 (ops/gibbs.py::_PLAN_TENSORS)
+    args = (2 * dn * 2 * max(npts) * d * item + nodes * (2 * d + 1) * item
+            + nodes * 8 + dn * d)
     if impl == "device":
-        args += build_bytes([p.npts for p in densities], d)
-    bu, bn = _g._stream_sizes(dn, d, plan.n_levels, n_iter)
+        args += build_bytes(list(npts), d)
+    bu, bn = _g._stream_sizes(dn, d, n_lv, n_iter)
     streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
     hooks = _g.normalize_hooks(*_g._density_hooks(densities), d)
     live = _g._live_temps(_g._route(sel, hooks, device, dn, d), sel, dn)
-    block = _g._chain_block(n_out, plan, item, live)
-    temp = streams + live * max(w for _, w in plan.offsets) * item * block
+    widest = max(w for _, w in offsets)
+    temp = (streams
+            + live * widest * item * _g._chains_per_block(n_out, widest, item,
+                                                          live))
     out = n_out * (d * item + dn * 8)
     return {"args": int(args), "temp": int(temp), "out": int(out),
             "total": int(args + temp + out), "select": sel}

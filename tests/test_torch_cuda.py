@@ -148,12 +148,13 @@ def test_kernel_rejects_float64(cuda):
 
 
 def test_small_slice_on_card(cuda, monkeypatch):
-    """fit -> product -> refit -> evaluate on the card with the gates low,
-    so every stage reaches the kernel; the evaluation agrees with the same
-    density evaluated on the CPU in float64."""
+    """fit -> product -> refit -> evaluate on the card with the gates low:
+    each fit and the refit is one launch of the LOOCV search kernel (K4),
+    the evaluation one of the evaluation kernel (K1), and it agrees with
+    the same density evaluated on the CPU in float64."""
     import kde_tpu_torch as kt
     from kde_tpu_torch import config
-    from kde_tpu_torch.ops import kernels, tiled_eval
+    from kde_tpu_torch.ops import kernels, loo_search, tiled_eval
     monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
     monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
     rng = np.random.default_rng(0)
@@ -161,15 +162,16 @@ def test_small_slice_on_card(cuda, monkeypatch):
                         device=cuda)
     b = torch.as_tensor(rng.normal(size=(2, 300)) + 0.5,
                         dtype=torch.float32, device=cuda)
-    n0 = tiled_eval.LAUNCHES
+    n0, k0 = tiled_eval.LAUNCHES, loo_search.LAUNCHES
     p, q = kt.kde(a), kt.kde(b)
-    n1 = tiled_eval.LAUNCHES
+    n1, k1 = tiled_eval.LAUNCHES, loo_search.LAUNCHES
     pq = kt.product([p, q], key=0)
-    n2 = tiled_eval.LAUNCHES
+    n2, k2 = tiled_eval.LAUNCHES, loo_search.LAUNCHES
     queries = rng.normal(size=(2, 500))
     lp = pq.log_eval(queries)
     n3 = tiled_eval.LAUNCHES
-    assert n1 > n0 and n2 > n1 and n3 == n2 + 1
+    assert k1 == k0 + 2 and k2 == k1 + 1 and loo_search.LAUNCHES == k2
+    assert n1 == n0 and n2 == n1 and n3 == n2 + 1
     assert pq.points.is_cuda and torch.all(pq.bw > 0)
     ref = kernels.log_eval(torch.as_tensor(queries.T), pq.points.cpu().double(),
                            pq.bw.cpu().double(), pq.weights.cpu().double())
@@ -221,18 +223,18 @@ def test_device_plan_build_is_deterministic(cuda):
 
 def test_small_product_batched_launches_kernel(cuda, monkeypatch):
     """product_batched on the card with the LOOCV gate at 1: the refit of
-    the B x d sample rows launches the kernel, and the products stay on
-    the card."""
+    the B x d sample rows is one launch of the LOOCV search kernel (K4,
+    which takes every size), and the products stay on the card."""
     import kde_tpu_torch as kt
     from kde_tpu_torch import config
-    from kde_tpu_torch.ops import tiled_eval
+    from kde_tpu_torch.ops import loo_search
     monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
     rng = np.random.default_rng(3)
     sets = _cuda_sets(cuda, rng, 2, 300)
-    before = tiled_eval.LAUNCHES
+    before = loo_search.LAUNCHES
     outs = kt.product_batched(sets, key=0)
     torch.cuda.synchronize()
-    assert tiled_eval.LAUNCHES > before
+    assert loo_search.LAUNCHES == before + 1
     for i, k in enumerate(outs):
         assert k.points.is_cuda and k._tree is None and torch.all(k.bw > 0)
         mean = k.points.double().mean(dim=0).cpu().numpy()
@@ -240,13 +242,14 @@ def test_small_product_batched_launches_kernel(cuda, monkeypatch):
 
 
 def test_small_hooked_product_on_card(cuda, monkeypatch):
-    """A circular `*` on the card with both gates at 1: the refit launches
-    the kernel, the hooked evaluation does not (the kernel computes a
-    Euclidean difference) and matches float64 on the CPU."""
+    """A circular `*` on the card with both gates at 1: the refit is one
+    launch of the LOOCV search kernel (K4), the hooked evaluation launches
+    the evaluation kernel (K1) zero times (it computes a Euclidean
+    difference) and matches float64 on the CPU."""
     import math
     import kde_tpu_torch as kt
     from kde_tpu_torch import config, manifolds as m
-    from kde_tpu_torch.ops import kernels, tiled_eval
+    from kde_tpu_torch.ops import kernels, loo_search, tiled_eval
     monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
     monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
     circ = dict(addop=(m.circular_add,), diffop=(m.circular_diff,),
@@ -257,13 +260,14 @@ def test_small_hooked_product_on_card(cuda, monkeypatch):
                                    dtype=torch.float32, device=cuda),
                    [0.1], **circ)
             for s in (math.pi - 0.2, -math.pi + 0.2)]
-    n0 = tiled_eval.LAUNCHES
+    n0, k0 = tiled_eval.LAUNCHES, loo_search.LAUNCHES
     pq = kt.product(dens, key=0)
     n1 = tiled_eval.LAUNCHES
+    assert loo_search.LAUNCHES == k0 + 1
     q = wrap(math.pi + 0.3 * rng.normal(size=(1, 300)))
     lp = pq.log_eval(q)
     torch.cuda.synchronize()
-    assert n1 > n0 and tiled_eval.LAUNCHES == n1
+    assert n1 == n0 and tiled_eval.LAUNCHES == n1
     assert pq.points.is_cuda and pq.get_mu[0] is m.circular_mu
     x = pq.points[:, 0].cpu().numpy()
     assert np.median(np.abs(wrap(x - np.pi))) < 0.5
@@ -337,22 +341,23 @@ def gloo_world(cuda):
 
 def test_single_rank_nccl_sharded(nccl_world, cuda, monkeypatch):
     """product_sharded and sharded_log_eval through NCCL with both gates at
-    1: the refit and the evaluation launch the kernel, the product stays
-    on the card and equals `*` of the same key, and the evaluation agrees
-    with float64 on the CPU."""
+    1: the refit launches the LOOCV search kernel (K4) and the evaluation
+    the evaluation kernel (K1), the product stays on the card and equals
+    `*` of the same key, and the evaluation agrees with float64 on the
+    CPU."""
     import kde_tpu_torch as kt
     from kde_tpu_torch import config, parallel as par
-    from kde_tpu_torch.ops import kernels, tiled_eval
+    from kde_tpu_torch.ops import kernels, loo_search, tiled_eval
     monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
     monkeypatch.setattr(config, "LOOCV_PAIR_LIMIT", 1)
     rng = np.random.default_rng(6)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
     dens = [kt.kde(f32(rng.normal(size=(2, 300)) + s)) for s in (0.0, 0.5)]
     mesh = par.make_mesh()
-    n0 = tiled_eval.LAUNCHES
+    k0 = loo_search.LAUNCHES
     pq = par.product_sharded(mesh, dens, key=0)
-    n1 = tiled_eval.LAUNCHES
-    assert n1 > n0 and pq.points.is_cuda and pq._tree is None
+    assert loo_search.LAUNCHES > k0
+    assert pq.points.is_cuda and pq._tree is None
     want = kt.product(dens, key=0)
     torch.testing.assert_close(pq.points, want.points, rtol=0, atol=1e-6)
     q = f32(rng.normal(size=(500, 2)))
@@ -369,9 +374,11 @@ def test_single_rank_nccl_sharded(nccl_world, cuda, monkeypatch):
 def test_gloo_sharded_eval_stays_on_card(gloo_world, cuda, monkeypatch):
     """A gloo mesh over CUDA inputs keeps the sharded evaluation and LOOCV
     on the card: sharded_log_eval launches the kernel, and all three
-    return CUDA tensors that agree with the single-device calls."""
+    return CUDA tensors that agree with the single-device calls (the
+    bandwidths with the single-device search on the same eager probes,
+    K4's twin)."""
     from kde_tpu_torch import config, parallel as par
-    from kde_tpu_torch.ops import kernels, loocv, tiled_eval
+    from kde_tpu_torch.ops import kernels, loo_search, loocv, tiled_eval
     monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
     rng = np.random.default_rng(7)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
@@ -392,6 +399,7 @@ def test_gloo_sharded_eval_stays_on_card(gloo_world, cuda, monkeypatch):
                                        w.cpu().double()))
     torch.testing.assert_close(h, kernels.entropy_kernel(pts, var, w),
                                rtol=2e-4, atol=0)
+    monkeypatch.setattr(loocv, "loo_search", loo_search.loo_search_ref)
     torch.testing.assert_close(bws, loocv.ksize_bandwidths_device(pts),
                                rtol=1e-5, atol=0)
 
@@ -983,3 +991,139 @@ def test_gibbs_chain_refuses_bad_inputs_and_a_failed_build(cuda):
     finally:
         gibbs_chain._lib, gibbs_chain.NVCC_FLAGS = saved_lib, saved_flags
     assert gibbs_chain.LAUNCHES == before
+
+
+# ---- the LOOCV golden search in one launch (ops/loo_search.py, K4) --------
+
+K4_TOL = 1e-2          # the search's tolerance (kde's default)
+
+
+def _k4_case(cuda, r, n, dtype, zero=0, seed=0):
+    """Rows [r, n] of N(0, s^2) data, s per row, weights uniform but for a
+    zero-weight tail of ``zero`` points; the bracket of ksize_rows."""
+    from kde_tpu_torch.ops import loocv
+    rng = np.random.default_rng(seed + r * 7 + n)
+    rows = torch.as_tensor(rng.normal(size=(r, n))
+                           * rng.uniform(0.5, 2.0, size=(r, 1)),
+                           dtype=dtype, device=cuda)
+    w = np.ones(n)
+    w[n - zero:] = 0.0
+    w = torch.as_tensor(w / w.sum(), dtype=dtype, device=cuda)
+    base, ax, bx, cx = loocv.bracket_rows(rows, *loocv._slices_on(n, cuda))
+    return rows, w, (base ** 2).contiguous(), ax, bx, cx
+
+
+K4_CASES = {"2x20000": (2, 20000, 0), "2x4096": (2, 4096, 0),
+            "6x3": (6, 3, 0), "3x2": (3, 2, 0), "2x1": (2, 1, 0),
+            "zero_tail_3x500": (3, 500, 120), "8x1500": (8, 1500, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_loo_search_matches_twin_on_card(cuda, name, dtype):
+    """K4 against its twin on the card (the route ksize_rows would give
+    the twin).  float64 follows the twin's trajectory: rtol 1e-10.
+    float32: every probe K4 reports is within 2e-5 relative of the twin's
+    entropy at the same x (non-finite values equal), and the pick within
+    the final bracket, tol (|x1| + |x2|) = 2 tol relative: a comparison
+    of two entropies within the float32 sums' noise may go the other way
+    in the twin."""
+    from kde_tpu_torch.ops import loo_search, loocv
+    dt = getattr(torch, dtype)
+    r, n, zero = K4_CASES[name]
+    args = _k4_case(cuda, r, n, dt, zero)
+    impl = loocv.select_loo_impl(n, dt)
+    trace = loo_search.new_trace(args[0], K4_TOL)
+    before = loo_search.LAUNCHES
+    got = loo_search.loo_search(*args, tol=K4_TOL, impl=impl, trace=trace)
+    torch.cuda.synchronize()
+    assert loo_search.LAUNCHES == before + 1 and got.is_cuda
+    want = loo_search.loo_search_ref(*args, tol=K4_TOL, impl=impl)
+    if dt == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=0,
+                                   equal_nan=True)
+        return
+    torch.testing.assert_close(got, want, rtol=2 * K4_TOL, atol=0,
+                               equal_nan=True)
+    nloo = loo_search.make_nloo(args[0], args[2], args[1], impl, 1024)
+    x, f = trace[:, :, 0], trace[:, :, 1]
+    for k in range(x.shape[1]):
+        live = ~torch.isnan(x[:, k])
+        if not bool(live.any()):
+            break
+        fw = nloo(torch.where(live, x[:, k], torch.ones_like(x[:, k])))
+        fin = live & torch.isfinite(fw)
+        torch.testing.assert_close(f[fin, k], fw[fin], rtol=2e-5, atol=0)
+        torch.testing.assert_close(f[live & ~fin, k], fw[live & ~fin],
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ksize_rows_is_one_launch_without_a_host_sync(cuda, dtype):
+    """ksize_rows and the fit device_fit_arrays of CUDA tensors: one K4
+    launch each and no host sync (the node table is uploaded once per n,
+    before the checked region)."""
+    from kde_tpu_torch.ops import loo_search, loocv
+    dt = getattr(torch, dtype)
+    rows = _k4_case(cuda, 2, 20000, dt)[0]
+    lo, hi = loocv._slices_on(20000, rows.device)
+    w = torch.full((20000,), 1.0 / 20000, dtype=dt, device=cuda)
+    torch.cuda.synchronize()
+    before = loo_search.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bw = loocv.ksize_rows(rows, w, lo, hi)
+        pts, var, wf = loocv.device_fit_arrays(rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert loo_search.LAUNCHES == before + 2
+    assert bool((bw > 0).all()) and torch.equal(var[0], bw ** 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_loo_search_repeats_bit_for_bit(cuda, dtype):
+    from kde_tpu_torch.ops import loo_search
+    args = _k4_case(cuda, 8, 3000, getattr(torch, dtype), zero=100)
+    first = loo_search.loo_search(*args)
+    for _ in range(9):
+        assert torch.equal(loo_search.loo_search(*args), first)
+
+
+def test_loo_search_refuses_bad_inputs_and_a_failed_build(cuda):
+    """A CPU/CUDA mix raises ValueError, float16 TypeError and a failed
+    build RuntimeError; nothing runs the twin instead and nothing is
+    counted."""
+    from kde_tpu_torch.ops import loo_search
+    rows, w, bv, ax, bx, cx = _k4_case(cuda, 2, 500, torch.float32)
+    before = loo_search.LAUNCHES
+    with pytest.raises(ValueError, match="one CUDA device"):
+        loo_search.loo_search(rows.cpu(), w, bv, ax, bx, cx)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        loo_search.loo_search(rows.half(), w.half(), bv.half(), ax.half(),
+                              bx.half(), cx.half())
+    saved_lib, saved_flags = loo_search._lib, loo_search.NVCC_FLAGS
+    loo_search._lib = None
+    loo_search.NVCC_FLAGS = [*saved_flags, "--no-such-flag"]
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            loo_search.loo_search(rows, w, bv, ax, bx, cx)
+    finally:
+        loo_search._lib, loo_search.NVCC_FLAGS = saved_lib, saved_flags
+    assert loo_search.LAUNCHES == before
+
+
+def test_loo_search_takes_a_launch_a_max_rows(cuda):
+    """More than MAX_ROWS rows take a launch for each MAX_ROWS of them, and
+    each row's pick is the one it gets in a launch of its own rows."""
+    from kde_tpu_torch.ops import loo_search
+    rows, w, bv, ax, bx, cx = _k4_case(cuda, 3, 200, torch.float32)
+    many = loo_search.MAX_ROWS + 2
+    big = [t.repeat(-(-many // 3), *([1] * (t.dim() - 1)))[:many]
+           .contiguous() for t in (rows, bv, ax, bx, cx)]
+    before = loo_search.LAUNCHES
+    got = loo_search.loo_search(big[0], w, *big[1:])
+    torch.cuda.synchronize()
+    assert loo_search.LAUNCHES == before + 2 and got.shape == (many,)
+    alone = loo_search.loo_search(rows, w, bv, ax, bx, cx)
+    assert torch.equal(got, alone.repeat(-(-many // 3))[:many])
