@@ -110,9 +110,10 @@ Phases, one line of findings each:
      single-device calls (the bandwidths against the search on K4's
      twin, the same eager probes), the same three and ksize_bandwidths_device on
      NumPy inputs (on the card, equal to the tensor calls),
-     estimate_product_memory against the allocator's peak (ratio in
-     [0.5, 2]), then scaling_bench.run at S = 1 (4,096 chains,
-     2 x 1,000 components, Niter 5) and its comm_table.  (b) Two copies of this script
+     estimate_product_memory against the allocator's peak (estimate /
+     peak in [1, 2]: the estimate is never below the peak), then
+     scaling_bench.run at S = 1 (4,096 chains, 2 x 1,000 components,
+     Niter 5) and its comm_table.  (b) Two copies of this script
      (``--shared-card-worker``) share the card in a gloo world: the
      kernel-sharded product at S = 2 and the chain-sharded product over
      both ranks against the plain engine, and sharded_log_eval with the
@@ -121,11 +122,20 @@ Phases, one line of findings each:
      that a sharded call is compared with are not counted;
  12. the eight examples_torch twins on the card at their own sizes, one
      line each (their checks raise; they stay below the kernel's gates).
+ 13. the accelerator tools of tools_torch/: validate_cuda's quick rows
+     (QUICK: the reference grid's (D 2, M 2) and (D 3, M 6, mcmc 10) on
+     host and device plans, 1,000 chains over 2 x 100k on K3's block
+     layout, 4,100 chains over 2 x 100k on its staged layout, the bench
+     headline B = 6 x [2 x 1,000] on its warp layout, circular M = 2 and
+     its hook-free control, which must fail the brackets); the envelope's
+     mem stage at N = 50k and 400k for cdf (estimate / peak in [1, 2]) and
+     its time stage at 400k, cdf against gumbel, one round; one line each
+     with its seconds.
 gibbs_chain must launch on the slice, serve, device plan, batched,
-select, manifolds, parallel (chain- and set-sharded) and examples paths,
-gibbs_select on phase 8's gumbel, K1 on the slice, functionals, parallel
-and shared-card paths, K4 on the slice, device plan, batched,
-functionals, manifolds and parallel paths.
+select, manifolds, parallel (chain- and set-sharded), examples and tools
+paths, gibbs_select on phase 8's and phase 13's gumbel, K1 on the slice,
+functionals, parallel and shared-card paths, K4 on the slice, device
+plan, batched, functionals, manifolds and parallel paths.
 Then one JSON line on the kernels, and last the device JSON line.  Any
 failed check raises, so the script exits nonzero and prints no result.  It
 refuses to run without a card.
@@ -193,6 +203,8 @@ KSIZE_RTOL = 1e-5        # sharded vs single-device bandwidths, float32
                          # (first set at 1e-3; the H100 read 0.0)
 SHARED_CHAINS = 1024     # phase 11b kernel-sharded replay chains
 WORKER_TIMEOUT = 300     # seconds: phase 11b workers, collectives
+SIZING_BAND = (1.0, 2.0)  # phase 11a and 13: estimate / allocator peak
+ENVELOPE_NS = (50_000, 400_000)   # phase 13: the envelope's mem rows
 SCALING = dict(total_chains=4096, n_comp=1000, n_iter=5)   # kde_tpu's run()
 FP64_FLOPS = 34e12       # H100 SXM, FP64 outside the tensor cores
 FP64_LANES_PER_CLK = 64  # FP64 lanes per SM, compute capability 9.0
@@ -2439,16 +2451,61 @@ def phase_examples(dev):
     return rows
 
 
+def phase_tools(dev):
+    """Phase 13: the quick rows of tools_torch/validate_cuda.py (all must
+    pass, the control must fail the brackets, and the rows must cover
+    K3's warp, block and staged layouts), the envelope's mem stage at
+    ENVELOPE_NS for cdf (estimate / peak within SIZING_BAND) and its time
+    stage at 400k, cdf against gumbel, one round; one line each."""
+    from tools_torch import scale_envelope, validate_cuda
+    out = {}
+    t0 = time.perf_counter()
+    val = validate_cuda.run(dev, validate_cuda.QUICK,
+                            log=lambda *a, **k: None)
+    out["validate"] = dict(seconds=time.perf_counter() - t0, rows=[
+        {k: r[k] for k in ("name", "layout", "wins", "of", "need", "passed",
+                           "seconds", "k3_launches")} for r in val["rows"]])
+    print(f"tools validate_cuda quick rows: {json.dumps(out['validate'])}",
+          flush=True)
+    failed = [r["name"] for r in val["rows"] if not r["passed"]]
+    layouts = {r["layout"] for r in val["rows"]}
+    if failed or not {"warp", "block", "staged"} <= layouts:
+        raise AssertionError(f"validate_cuda: rows {failed} failed; "
+                             f"layouts {sorted(layouts)}")
+    t0 = time.perf_counter()
+    mem = scale_envelope.mem_stage(ENVELOPE_NS, ("cdf",), device=dev)
+    out["mem"] = dict(seconds=time.perf_counter() - t0, rows=mem["rows"])
+    print(f"tools scale_envelope mem: {json.dumps(out['mem'])}", flush=True)
+    bad = [r for r in mem["rows"] if "ratio" not in r
+           or not SIZING_BAND[0] <= r["ratio"] <= SIZING_BAND[1]]
+    if bad:
+        raise AssertionError(f"scale_envelope mem: estimate / peak outside "
+                             f"{SIZING_BAND}: {bad}")
+    t0 = time.perf_counter()
+    tm = scale_envelope.time_stage((ENVELOPE_NS[-1],), ("cdf", "gumbel"),
+                                   rounds=1, device=dev)
+    out["time"] = dict(seconds=time.perf_counter() - t0, rows=tm["rows"],
+                       overtakes_cdf=tm["overtakes_cdf"])
+    print(f"tools scale_envelope time: {json.dumps(out['time'])}",
+          flush=True)
+    if any("samples_per_s" not in r for r in tm["rows"]):
+        raise AssertionError(f"scale_envelope time: {tm['rows']}")
+    return out
+
+
 def _sizing(dev, cases, seed):
     """estimate_product_memory against the allocator's peak over the keyed
-    product of device-resident copies (a fresh plan, built in the
-    window)."""
+    product of device-resident copies (a fresh plan, built in the window
+    with the topology cache emptied, as a process's first product of that
+    size builds it)."""
     import torch
     import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import device_plan
     from kde_tpu_torch.parallel import estimate_product_memory
     rows = {}
     for dens, n_out in cases:
         copies = [kt.KDE(k.points, k.bw, k.weights) for k in dens]
+        device_plan._topology_on.cache_clear()
         _sync()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2460,7 +2517,7 @@ def _sizing(dev, cases, seed):
         ratio = est["total"] / peak
         rows[f"2x{dens[0].npts}/{n_out}"] = dict(estimate=est, peak=peak,
                                                  ratio=ratio)
-        if not 0.5 <= ratio <= 2.0:
+        if not SIZING_BAND[0] <= ratio <= SIZING_BAND[1]:
             raise AssertionError(f"sizing 2x{dens[0].npts}, {n_out} chains: "
                                  f"estimate/peak {ratio}")
     return rows
@@ -3157,6 +3214,9 @@ def main():
     print(f"parallel 11b, two gloo ranks sharing the card, on {card}: "
           f"{json.dumps(sc)}", flush=True)
     run("examples", phase_examples, dev)
+    tl = run("tools", phase_tools, dev)
+    print(f"tools_torch phase 13 on {card}: "
+          f"{sum(v['seconds'] for v in tl.values()):.1f} s", flush=True)
     for name in ("slice", "functionals", "parallel", "shared_card"):
         if runs[name] < 1:
             raise AssertionError(f"path {name} never launched the kernel")
@@ -3165,11 +3225,13 @@ def main():
         if k4[name] < 1:
             raise AssertionError(f"path {name} never launched loo_search")
     for name in ("slice", "serve", "device_plan", "batched", "select",
-                 "manifolds", "parallel", "examples"):
+                 "manifolds", "parallel", "examples", "tools"):
         if k3[name] < 1:
             raise AssertionError(f"path {name} never launched gibbs_chain")
-    if k2["select"] < 1:
-        raise AssertionError("phase 8's gumbel never launched gibbs_select")
+    for name in ("select", "tools"):
+        if k2[name] < 1:
+            raise AssertionError(f"path {name}'s gumbel never launched "
+                                 "gibbs_select")
     main_launches = sum(runs.values())
     small_launches = {k: sum(r[k] for r in small.values())
                       for k in host_small.LAUNCHES}

@@ -97,19 +97,76 @@ def _topology_on(n: int, device: str):
     return per_depth, merges
 
 
-def build_bytes(npts, d: int) -> int:
+def _pieces(n: int, levels: int):
+    """The slice sizes of an ``n``-point tree at levels 0..``levels``, each
+    a ``{size: count}`` dict: a slice of ``s >= 2`` points splits into
+    ``ceil(s/2)`` and ``floor(s/2)`` (``balltree.topology``'s ``split =
+    (lo + hi) // 2``), a leaf persists (``levelDown!``).  A level has at
+    most two sizes besides 1, so this is O(levels) at any ``n``."""
+    out = [{n: 1}]
+    for _ in range(levels):
+        nxt: dict = {}
+        for s, c in out[-1].items():
+            for t in ((s + 1) // 2, s // 2) if s >= 2 else (1,):
+                nxt[t] = nxt.get(t, 0) + c
+        out.append(nxt)
+    return out
+
+
+def level_widths(n: int, n_lv: int):
+    """Nodes at levels 1..``n_lv`` of an ``n``-point tree (the lengths of
+    :func:`_level_nodes`), counted from the slice sizes alone."""
+    return [sum(p.values()) for p in _pieces(n, n_lv)[1:]]
+
+
+def topology_bytes(n: int):
+    """``(bytes, pad)`` of an ``n``-point tree's topology, counted from
+    the slice sizes alone: the bytes of the index tensors
+    :func:`_topology_on` uploads, and the largest padded slice gather (S
+    slices x their widest, over the depths) of :func:`device_tree_stats`.
+    Equal to the arrays of :func:`_topology`, which need not be built."""
+    if n == 1:
+        return 25, 1        # the lone root's merge; it never splits
+    total = pad = 0
+    for p in _pieces(n, n.bit_length()):
+        split = {s: c for s, c in p.items() if s >= 2}
+        if not split:
+            continue
+        s_k, l_max = sum(split.values()), max(split)
+        # idx int64 and valid bool [S, Lmax], count float64 [S], seg and
+        # sid int64 [n]; the merges' g, li, ri int64 and same bool [S]
+        total += s_k * l_max * 9 + s_k * 8 + 16 * n + 25 * s_k
+        pad = max(pad, s_k * l_max)
+    return total, pad
+
+
+def build_bytes(npts, d: int, itemsize: int, nodes: int) -> int:
     """Device memory a plan built here for densities of ``npts`` points in
-    ``d`` dims holds beyond its own tensors: the topology index tensors
-    cached on the device once per N (:func:`_topology_on`) and the float64
-    slice gather and deviations of the split search at its widest depth."""
-    total = 0
+    ``d`` dims (``itemsize``-byte floats, ``nodes`` level slots over all
+    densities) takes beyond its own tensors: the topology index tensors
+    cached on the device once per N (:func:`_topology_on`), the workspace
+    of the widest density's :func:`device_tree_stats` and the temporaries
+    of :func:`batched_device_plans`' assembly.  Both workspaces are
+    counted whole, though the first is freed before the second is made.
+    Counted from the shapes alone, at any N."""
+    topo = stats = 0
     for n in set(npts):
-        topo = _topology(n)
-        total += sum(v.nbytes for pd in topo["per_depth"] if pd is not None
-                     for v in pd.values())
-        total += sum(a.nbytes for m in topo["merges"] for a in m)
-        total += 2 * n * d * 8
-    return total
+        t, pad = topology_bytes(n)
+        topo += t
+        # the stacked inputs (points, bw, weights) before and after their
+        # cast, the order and the sort keys, values and indices
+        vectors = n * ((2 * d + 1) * (8 + itemsize) + 8 * 8)
+        # the split search: the float64 points and their padded slice
+        # gather, masked copy, deviations and squares at the widest depth
+        search = n * d * (itemsize + 8) + 4 * pad * d * 8
+        # the statistics returned, and the previous density's still bound
+        out = 2 * (2 * n * ((2 * d + 1) * itemsize + 8))
+        stats = max(stats, vectors + search + out)
+    # log weights of every slot; the slot indices, the padding row (float32
+    # and cast), the gathered log weights and the uniform-level flags
+    assembly = (len(npts) * 2 * max(npts) * itemsize
+                + nodes * (8 + 4 + 2 * itemsize + d))
+    return topo + stats + assembly
 
 
 @functools.lru_cache(maxsize=128)

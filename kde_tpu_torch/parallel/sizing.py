@@ -23,7 +23,7 @@ import torch
 
 from ..ops import gibbs as _g
 from ..ops.balltree import n_levels
-from ..ops.device_plan import _packed, build_bytes
+from ..ops.device_plan import build_bytes, level_widths
 
 # Share of a CUDA device's memory a product may take: the rest is left to
 # the densities themselves, other resident tensors and allocator slack.
@@ -34,46 +34,68 @@ def estimate_product_memory(densities: Sequence, n_out: int,
                             n_iter: int = 5, dtype=torch.float32,
                             select: str = "auto") -> dict:
     """Bytes of the keyed product ``prod_appx_ms_gibbs`` runs for
-    ``densities`` at ``n_out`` chains: ``args`` (the level plan's tensors,
-    the mask and, for a plan built on the device, its topology cache and
-    build workspace, ``device_plan.build_bytes``), ``temp`` (the
-    uniform and normal streams, no uniforms for ``gumbel``, and the
-    ``[block, widest level]`` temporaries one chain block keeps alive on
-    the selection's route, ``ops/gibbs.py::_live_temps``), ``out`` (points
-    and labels) and their ``total``, with the ``select`` mode the call
-    resolves to.  The plan is sized from the shapes alone: nothing is
-    built, cached or allocated on the densities' device."""
+    ``densities`` at ``n_out`` chains (:func:`product_bytes` of their
+    shapes, the plan builder ``plan="auto"`` picks, their device and
+    hooks).  The plan is sized from the shapes alone: nothing is built,
+    cached or allocated on the densities' device."""
     densities = list(densities)
-    device = densities[0].device
     dims = {p.ndim for p in densities}
     if len(dims) != 1:
         raise ValueError("kdes must have same dimension "
                          "(reference src/MSGibbs01.jl:721)")
-    dn, d = len(densities), dims.pop()
-    npts = tuple(p.npts for p in densities)
-    impl = _g._resolve_plan_impl(densities, "auto", replay=False)
+    d = dims.pop()
+    return product_bytes(tuple(p.npts for p in densities), d, n_out,
+                         n_iter, dtype, select,
+                         _g._resolve_plan_impl(densities, "auto",
+                                               replay=False),
+                         densities[0].device,
+                         _g.normalize_hooks(*_g._density_hooks(densities),
+                                            d))
+
+
+def product_bytes(npts: Sequence[int], d: int, n_out: int, n_iter: int = 5,
+                  dtype=torch.float32, select: str = "auto",
+                  plan: str = "host", device="cuda", hooks=None) -> dict:
+    """Bytes of a keyed product of densities of ``npts`` points in ``d``
+    dims at ``n_out`` chains, its level plan built by ``plan`` (host or
+    device) on ``device``, with the normalized ``hooks`` (None:
+    Euclidean): ``args`` (the level plan's tensors with its uniform-level
+    flags, the mask and, for a plan built on the device, its topology
+    cache and build workspace, ``device_plan.build_bytes``), ``temp`` (the
+    uniform and normal streams, no uniforms for ``gumbel``, twice: each
+    set's draw and their stacked copy, ``ops/gibbs.py::_gibbs_keyed``; the
+    ``[block, widest level]`` temporaries one chain block keeps alive on
+    the selection's route, ``ops/gibbs.py::_live_temps``; off the chain
+    route, two more copies of the outputs: the per-level label clones and
+    the concatenation of the blocks), ``out`` (points and per-level
+    labels, of which the returned labels are a view on the chain route)
+    and their ``total``, with the ``select`` mode the call resolves to.
+    Counted from the shapes alone, at any N."""
+    npts = tuple(int(n) for n in npts)
+    dn = len(npts)
     # host and device plans pack the same data-independent levels
     n_lv = n_levels(n_out, npts)
-    offsets = _packed(npts, n_lv)[0]
-    width = offsets[-1][1]
-    sel = _g.resolve_select(select, n_out, width)
+    widths = [max(ws) for ws in zip(*(level_widths(n, n_lv) for n in npts))]
+    sel = _g.resolve_select(select, n_out, widths[-1])
     item = torch.empty((), dtype=dtype).element_size()
-    nodes = dn * sum(w for _, w in offsets)
+    nodes = dn * sum(widths)
     # t_mean, t_bw [dn, 2N, d]; lvl_mean, lvl_bw [dn, T, d]; lvl_logw
-    # [dn, T]; lvl_perm [dn, T] int64 (ops/gibbs.py::_PLAN_TENSORS)
+    # [dn, T]; lvl_perm [dn, T] int64 (ops/gibbs.py::_PLAN_TENSORS);
+    # lvl_uniform [dn, L, d] uint8; the mask [dn, d] bool
     args = (2 * dn * 2 * max(npts) * d * item + nodes * (2 * d + 1) * item
-            + nodes * 8 + dn * d)
-    if impl == "device":
-        args += build_bytes(list(npts), d)
+            + nodes * 8 + dn * n_lv * d + dn * d)
+    if plan == "device":
+        args += build_bytes(npts, d, item, nodes)
     bu, bn = _g._stream_sizes(dn, d, n_lv, n_iter)
     streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
-    hooks = _g.normalize_hooks(*_g._density_hooks(densities), d)
-    live = _g._live_temps(_g._route(sel, hooks, device, dn, d), sel, dn)
-    widest = max(w for _, w in offsets)
-    temp = (streams
+    route = _g._route(sel, hooks, device, dn, d)
+    live = _g._live_temps(route, sel, dn)
+    widest = max(widths)
+    out = n_out * (d * item + n_lv * dn * 8)
+    temp = (2 * streams
             + live * widest * item * _g._chains_per_block(n_out, widest, item,
-                                                          live))
-    out = n_out * (d * item + dn * 8)
+                                                          live)
+            + (0 if route == "chain" else 2 * out))
     return {"args": int(args), "temp": int(temp), "out": int(out),
             "total": int(args + temp + out), "select": sel}
 

@@ -452,7 +452,8 @@ def test_chain_route_is_one_call_for_every_chain(monkeypatch):
 
 def test_sizing_on_the_chain_route(monkeypatch):
     """The sizing estimate follows the route: on the chain route the
-    temporaries are the streams alone, all chains one block."""
+    temporaries are the streams alone (each set's draw and their stacked
+    copy), all chains one block."""
     rng = np.random.default_rng(3)
     dens = [_port(kde_tpu.kde(rng.normal(size=(2, 300)), [0.3]))
             for _ in range(2)]
@@ -462,7 +463,7 @@ def test_sizing_on_the_chain_route(monkeypatch):
                                          select="cdf")
     plan = tgibbs._get_plan(dens, n_out, F64, CPU)
     bu, bn = tgibbs._stream_sizes(2, 2, plan.n_levels, 5)
-    assert est["temp"] == n_out * (bu + bn) * 8
+    assert est["temp"] == 2 * n_out * (bu + bn) * 8
     monkeypatch.setattr(tgibbs, "_route", lambda *a: "twin")
     twin = sizing.estimate_product_memory(dens, n_out, dtype=F64,
                                           select="cdf")
@@ -475,7 +476,9 @@ def test_sizing_on_the_chain_route(monkeypatch):
     plan = tgibbs._get_plan(copies, n_out, F64, CPU, "device")
     assert dev["args"] == (sum(getattr(plan, f).nbytes
                                for f in tgibbs._PLAN_TENSORS) + 4
-                           + device_plan.build_bytes([300, 300], 2))
+                           + plan.lvl_uniform.nbytes
+                           + device_plan.build_bytes(
+                               (300, 300), 2, 8, plan.lvl_logw.numel()))
 
 
 def test_plans_carry_the_uniform_flags():

@@ -69,6 +69,25 @@ def test_native_scaling_and_examples_import_leaves_jax_out_and_builds_nothing():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_tools_import_leaves_jax_out_and_builds_nothing():
+    """The accelerator tools of ``tools_torch/`` import torch, numpy and
+    the port only, and importing them runs, builds and launches
+    nothing."""
+    code = ("import os, sys\n"
+            "d = 'kde_tpu_torch/_build'\n"
+            "before = sorted(os.listdir(d)) if os.path.isdir(d) else []\n"
+            "import tools_torch.validate_cuda, tools_torch.scale_envelope\n"
+            "from kde_tpu_torch.ops import gibbs_chain\n"
+            "after = sorted(os.listdir(d)) if os.path.isdir(d) else []\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kde_tpu') or "
+            "m.startswith(('jax.', 'kde_tpu.'))]\n"
+            "print(bad, gibbs_chain._lib, gibbs_chain.LAUNCHES)\n"
+            "sys.exit(1 if bad or before != after or gibbs_chain._lib\n"
+            "         or gibbs_chain.LAUNCHES else 0)\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_parallel_exports_equal_jax():
     import kde_tpu.parallel
     import kde_tpu_torch.parallel
