@@ -41,7 +41,9 @@ Phases, one line of findings each:
  3d. the Gibbs selection kernel gibbs_select (csrc/gibbs_select.cu)
      against its plain twin: the slice's leaf stages (20,000 chains x
      20,000 candidates, d = 2, sweep with cov and conditioning without,
-     cdf and gumbel, float32), float64 replay streams, circular and SE(2)
+     cdf and gumbel, float32; gumbel's counter noise drawn in the kernel
+     for chains from GUMBEL_CHAIN0, selections from GUMBEL_SEL0), float64
+     replay streams, circular and SE(2)
      stages, padding with forced-dead rows and a mixed active dim, d =
      1..8 at a small width, and widths at the warp/block and shared-memory
      switch points; gumbel labels equal on every row, cdf labels but for
@@ -49,7 +51,10 @@ Phases, one line of findings each:
      the leaf stages timed (one call, 20 back-to-back) beside the twin, the
      bound (k2_bound_ms) and torch.multinomial, for scale only;
  3e. the Gibbs chain kernel gibbs_chain (csrc/gibbs_chain.cu) against
-     its plain twin (phase_gibbs_chain);
+     its plain twin (phase_gibbs_chain): cdf, then gumbel (K3_GUMBEL) on
+     the warp, block and staged layouts, float32 and float64, circular,
+     SE(2), ragged (padded) levels and dead rows, equal on every chain,
+     timed at the slice, serve, the headline and the batched shape;
  3f. the LOOCV search kernel loo_search (K4, csrc/loo_search.cu) against
      its plain twin at the main path's searches (K4_CASES: the slice's
      fit and refit, the batched refit, the dense range, the unscented
@@ -84,7 +89,8 @@ Phases, one line of findings each:
   8. label selection: samples/s of cdf, blocked and gumbel at the bench
      headline (B = 6 x [2 x 1000], 1000 chains, Niter 5), at B = 8, at
      phase 5's 2 x 50,000 with 256 chains and at phase 4's Gibbs stage
-     (2 x 20,000, 20,000 chains);
+     (2 x 20,000, 20,000 chains), with each mode's launches a call (cdf
+     and gumbel: one gibbs_chain launch, no gibbs_select launch);
   9. functionals, sampling, LOOCV refits and serialization on phase 4's
      densities: entropy, eval_avg_logl, kld and minkld against the same
      calls on the kernel's plain twin, kld against its analytic value, the
@@ -98,7 +104,9 @@ Phases, one line of findings each:
      launch the kernel and matches float64 on the CPU), SE(2) 3-D beliefs
      of 2 x 20,000, and a hooked BatchedProductSampler over B = 4 circular
      sets, set 0 against its standalone draw; each product and the batch
-     again on the twin;
+     again on the twin; the circular pair with a lone circular diffop
+     (explicit hooks), cdf and gumbel, on gibbs_select's stage route
+     against its twin;
  11. the distributed layer (kde_tpu_torch.parallel).  (a) In a one-rank
      NCCL world: the chain-sharded product of phase 4's densities
      (20,000 chains) and the kernel-sharded replay product of phase 5's
@@ -127,13 +135,15 @@ Phases, one line of findings each:
      host and device plans, 1,000 chains over 2 x 100k on K3's block
      layout, 4,100 chains over 2 x 100k on its staged layout, the bench
      headline B = 6 x [2 x 1,000] on its warp layout, circular M = 2 and
-     its hook-free control, which must fail the brackets); the envelope's
-     mem stage at N = 50k and 400k for cdf (estimate / peak in [1, 2]) and
-     its time stage at 400k, cdf against gumbel, one round; one line each
-     with its seconds.
+     its hook-free control, which must fail the brackets, and the same
+     with gumbel but the headline); the envelope's mem stage at N = 50k
+     and 400k for cdf and gumbel (estimate / peak in [1, 2]) and its time
+     stage at 400k, cdf against gumbel, one round, each a gibbs_chain
+     launch and no gibbs_select launch; one line each with its seconds.
 gibbs_chain must launch on the slice, serve, device plan, batched,
 select, manifolds, parallel (chain- and set-sharded), examples and tools
-paths, gibbs_select on phase 8's and phase 13's gumbel, K1 on the slice,
+paths, gibbs_select on phase 10's lone circular diffop and never on
+phase 8's and phase 13's (gumbel is on gibbs_chain), K1 on the slice,
 functionals, parallel and shared-card paths, K4 on the slice, device
 plan, batched, functionals, manifolds and parallel paths.
 Then one JSON line on the kernels, and last the device JSON line.  Any
@@ -156,8 +166,8 @@ request without it (see k2_diag).
 
     python3 chip_smoke.py --k3-diag
 
-times the chain kernel's layouts with ablations built from its source, and
-the switch between them (see k3_diag).
+times the chain kernel's layouts with ablations built from its source, cdf
+and gumbel, and the switch between them (see k3_diag).
 
     python3 chip_smoke.py --k3-parent DIR
 
@@ -191,6 +201,14 @@ N_OFFSET = 4096          # kernel case (f): data at 10^3
 OFFSET_ATOL, OFFSET_RTOL = 1e-4, 1e-5   # (f) against float64, see phase 3
 SFU_EX2_PER_CLK = 16     # per SM, compute capability 9.0
 FP32_LANES_PER_CLK = 128 # FP32 lanes per SM, compute capability 9.0
+INT32_LANES_PER_CLK = 64 # INT32 lanes per SM, compute capability 9.0
+# integer operations of the counter generator (csrc/counter_rng.cuh): a
+# Threefry-2x32 block (2 counter words, 2 key adds, 20 rounds of add,
+# rotate and xor, 5 key injections of 2 adds) and the map of a word to
+# float32 (shift, or); a block gives two float32 candidates or one float64
+THREEFRY_INT_OPS = 74
+WORD_INT_OPS = 2
+GUMBEL_CHAIN0, GUMBEL_SEL0 = 1000, 7     # phase 3d's gumbel offsets
 K2_TIE = 1e-12           # gibbs_select cdf labels may differ from the
                          # twin's only where its float64 CDF is this near u
 K2_MAX_TIES = 100        # ...on at most this many rows of a case
@@ -731,9 +749,10 @@ def k2_inputs(seed, dev, b, c, dn, w, d, js, dtype, cov, codes, mode,
     dims), ``cov`` at the same scale or None; ``pad`` padded candidates in
     the last set, ``dead`` chains of set 0 at 10^3 on the Euclidean dims,
     ``mixed``: density 1's first dim inactive in set 0.  The uniforms
-    (``cdf``) or the clamped Gumbel uniforms (``gumbel``, laid out as
-    ``ops/gibbs.py::_gumbel_noise`` lays them) come from a generator on the
-    card seeded with ``seed``.  Returns ``(args, codes, kwargs)``."""
+    (``cdf``) or the sets' counter seeds (``gumbel``, chains from
+    GUMBEL_CHAIN0 and selections from GUMBEL_SEL0) come from a generator
+    on the card seeded with ``seed``.  Returns ``(args, codes,
+    kwargs)``."""
     import torch
     rng = np.random.default_rng(seed)
     circ = np.asarray(codes, dtype=bool)
@@ -757,15 +776,14 @@ def k2_inputs(seed, dev, b, c, dn, w, d, js, dtype, cov, codes, mode,
     covv = t(h2 * rng.uniform(0.5, 1.5, size=(b, c, d))) if cov else None
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    kw = dict(u=None, noise=None)
+    kw = dict(u=None)
     if mode == "cdf":
         kw["u"] = torch.rand((b, c, len(js)), generator=gen, dtype=dtype,
                              device=dev)
     else:
-        fi = torch.finfo(dtype)
-        kw["noise"] = torch.rand((b, len(js), c, w), generator=gen,
-                                 dtype=dtype, device=dev).clamp_(
-            fi.tiny, 1.0 - fi.eps).permute(0, 2, 1, 3)
+        kw.update(seeds=torch.randint(0, 1 << 32, (b, 2), generator=gen,
+                                      dtype=torch.int64, device=dev),
+                  chain0=GUMBEL_CHAIN0, sel0=GUMBEL_SEL0)
     args = (t(mean), t(bw), t(logw), torch.as_tensor(perm, device=dev),
             tuple(js), t(mu), covv, torch.as_tensor(active, device=dev))
     return args, tuple(codes), kw
@@ -839,22 +857,28 @@ def k2_bound_ms(args, codes, kw, labels, sms, clock_hz, scan=True):
     counting what these inputs need.  Per (row, candidate) pair with k
     active dims: k logs, k divisions (one reciprocal each) and the dead
     test's exp on the SFU, 5k + 5 FP32 operations (difference, square,
-    scale, log add, accumulate; weight, max, shift, sum); gumbel adds two
-    logs and 4 operations a pair, cdf an exp, a float64 reciprocal and 4
-    operations for each candidate the scan needs (up to the label); with
-    ``scan`` False, not (the count chain_bound_ms takes: the scan reuses
-    the exps the sum needs).  SFU at 16 a clock an SM, FP32 on 128 lanes
-    an SM; bytes (the level,
-    mu, cov, u or noise read once, the outputs written once) at
-    3.35 TB/s."""
+    scale, log add, accumulate; weight, max, shift, sum); gumbel takes two
+    logs and no exp but on the rows below log(1e-99) (the dead test's
+    sum), 4 more FP32 operations and the counter generator's integer work
+    (THREEFRY_INT_OPS a block, a block for two float32 candidates or one
+    float64, WORD_INT_OPS a float32 word) on 64 INT32 lanes an SM; cdf an
+    exp, a float64 reciprocal and 4 operations for each candidate the scan
+    needs (up to the label); with ``scan`` False, not (the count
+    chain_bound_ms takes: the scan reuses the exps the sum needs).  SFU at
+    16 a clock an SM, FP32 on 128 lanes an SM; bytes (the level, mu, cov
+    and u read once, the outputs written once) at 3.35 TB/s."""
     import torch
     lm, lb, lw, lp, js, mu, cov, act = args
     b, dn, w, d = lm.shape
     c, n_js, item = mu.shape[1], len(js), lm.element_size()
     k = int(act[:, list(js)].sum()) / (b * n_js)       # active dims a row
     pairs = b * c * n_js * w
+    int32 = 0.0
     if kw["u"] is None:
-        sfu, fp32 = pairs * (2 * k + 3), pairs * (5 * k + 9)
+        dead = float(_k2_dead_rows(args, codes)) * w   # pairs of dead rows
+        sfu, fp32 = pairs * (2 * k + 2) + dead, pairs * (5 * k + 9)
+        int32 = pairs * (THREEFRY_INT_OPS / 2 + WORD_INT_OPS if item == 4
+                         else THREEFRY_INT_OPS + 4)
     else:
         inv = torch.argsort(lp[:, list(js)], dim=-1)       # label -> index
         idx = torch.gather(inv, 2, labels.permute(0, 2, 1)).double()
@@ -863,13 +887,27 @@ def k2_bound_ms(args, codes, kw, labels, sms, clock_hz, scan=True):
         fp32 = pairs * (5 * k + 5) + 4 * scanned
     nbytes = (n_js * b * w * (2 * d + 2) * item + b * c * d * item
               * (2 if cov is not None else 1) + b * c * n_js * (2 * d * item + 8)
-              + (b * c * n_js * item if kw["u"] is not None
-                 else pairs * item))
+              + (b * c * n_js * item if kw["u"] is not None else b * 16))
     times = {"operations": max(sfu / (SFU_EX2_PER_CLK * sms * clock_hz),
-                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz)),
+                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz),
+                               int32 / (INT32_LANES_PER_CLK * sms * clock_hz)),
              "bytes": nbytes / HBM_BYTES}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
+
+
+def _k2_dead_rows(args, codes):
+    """Rows of a ``gibbs_select`` stage whose max logit lies below
+    log(1e-99), where the gumbel draw takes the dead test's sum (by the
+    twin's logits, one density at a time)."""
+    import torch
+    from kde_tpu_torch.ops import gibbs, gibbs_select
+    lm, lb, lw, lp, js, mu, cov, act = args
+    stage = gibbs._Stage(tuple(js), mu, cov, None, act, act.cpu().numpy(),
+                         gibbs_select.diffop_of(codes))
+    thr = torch.tensor(gibbs_select.LOG_DEAD, dtype=mu.dtype)
+    return sum(int((stage.logits(j, (lm, lb, lw, lp)).max(dim=-1).values
+                    < thr.to(mu.device)).sum()) for j in js)
 
 
 def phase_gibbs_select(dev):
@@ -957,14 +995,19 @@ def phase_gibbs_select(dev):
 
 
 def chain_inputs(seed, dev, dtype, n, d=2, b=1, dn=2, n_out=None,
-                 n_iter=5, kinds=None, mask=None, far=False):
+                 n_iter=5, kinds=None, mask=None, far=False, select="cdf",
+                 ragged=False):
     """``gibbs_chain``'s arguments for ``b`` sets of ``dn`` densities of
-    ``n`` points in ``d`` dims, N(0.5 j + 0.1 i, I) (``far``: 100 j apart,
+    ``n`` points (``ragged``: density j of n - j n // 3, so the narrower
+    densities' levels are padded) in ``d`` dims, N(0.5 j + 0.1 i, I)
+    (``far``: 100 j apart,
     so every selection after the roots is dead) with Silverman's bandwidth,
     circular dims (``kinds`` "c") on either side of pi; the host plan;
     ``n_out`` (default ``n``) chains whose uniform and normal streams come
     from a generator on the card seeded with ``seed``; ``mask [dn][d]``
-    for every set or all dims."""
+    for every set or all dims.  ``select="gumbel"``: no uniforms, and the
+    sets' counter seeds (``gibbs_chain``'s last two arguments) drawn after
+    the normals."""
     import torch
     import kde_tpu_torch as kt
     from kde_tpu_torch.ops import gibbs
@@ -977,9 +1020,11 @@ def chain_inputs(seed, dev, dtype, n, d=2, b=1, dn=2, n_out=None,
     for i in range(b):
         dens = []
         for j in range(dn):
-            x = rng.normal(size=(d, n)) + (100.0 if far else 0.5) * j + 0.1 * i
+            nj = n - j * (n // 3) if ragged else n
+            x = (rng.normal(size=(d, nj)) + (100.0 if far else 0.5) * j
+                 + 0.1 * i)
             x[circ] = _wrap(np.pi - 0.2 + 0.4 * j + 0.1 * i
-                            + 0.1 * rng.normal(size=(int(circ.sum()), n)))
+                            + 0.1 * rng.normal(size=(int(circ.sum()), nj)))
             dens.append(kt.kde(x.astype(np_dt), [h] * d, device=dev,
                                dtype=dtype))
         sets.append(dens)
@@ -989,25 +1034,35 @@ def chain_inputs(seed, dev, dtype, n, d=2, b=1, dn=2, n_out=None,
     bu, bn = gibbs._stream_sizes(dn, d, plans.n_levels, n_iter)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    u = torch.rand((b, n_out, bu), generator=gen, dtype=dtype, device=dev)
+    u = None
+    if select == "cdf":
+        u = torch.rand((b, n_out, bu), generator=gen, dtype=dtype,
+                       device=dev)
     nrm = torch.randn((b, n_out, bn), generator=gen, dtype=dtype, device=dev)
     m = torch.ones((b, dn, d), dtype=torch.bool, device=dev)
     if mask is not None:
         m = torch.as_tensor(np.asarray(mask, dtype=bool), device=dev
                             )[None].expand(b, dn, d).contiguous()
-    return (u, nrm, plans, m, n_iter, True,
+    args = (u, nrm, plans, m, n_iter, True,
             tuple(int(k == "c") for k in kinds))
+    if select == "cdf":
+        return args
+    seeds = torch.randint(0, 1 << 32, (b, 2), generator=gen,
+                          dtype=torch.int64, device=dev)
+    return args + ("gumbel", seeds)
 
 
 def _set_of(args, i):
     """Set ``i`` of ``gibbs_chain``'s arguments, alone."""
     from kde_tpu_torch.ops import gibbs
-    u, nrm, plans, m, n_iter, ent, codes = args
+    u, nrm, plans, m, n_iter, ent, codes = args[:7]
     one = gibbs._SetPlans(*(getattr(plans, f)[i:i + 1]
                             for f in gibbs._PLAN_TENSORS),
                           plans.offsets, plans.n_levels,
                           plans.lvl_uniform[i:i + 1])
-    return (u[i:i + 1], nrm[i:i + 1], one, m[i:i + 1], n_iter, ent, codes)
+    rest = args[7:8] + tuple(x[i:i + 1] for x in args[8:])
+    return (None if u is None else u[i:i + 1], nrm[i:i + 1], one,
+            m[i:i + 1], n_iter, ent, codes) + rest
 
 
 def _chain_tie_gap(args, bi, ci, level):
@@ -1046,22 +1101,26 @@ def _chain_tie_gap(args, bi, ci, level):
     return min(gaps)
 
 
-def chain_compare(args, what, kernel=None):
+def chain_compare(args, what, kernel=None, want=None):
     """``gibbs_chain`` (or the module ``kernel``'s, e.g. a parent
-    checkout's) against ``gibbs_chain_ref`` on the same inputs: the
-    share of chains whose per-level labels and points are equal; a chain
-    that differs is listed with its first differing level and that
-    level's float64 tie gap (_chain_tie_gap), which must be within
-    K2_TIE of u (a CDF tie), and at most K2_MAX_TIES chains a case may
-    differ.  Returns the row of findings and the kernel's outputs."""
+    checkout's) against ``gibbs_chain_ref`` on the same inputs (or
+    ``want``, the twin's outputs already drawn): the share of chains whose
+    per-level labels and points are equal.  Gumbel (``args[7]``) must be
+    equal on every chain; for cdf a chain that differs is listed with its
+    first differing level and that level's float64 tie gap
+    (_chain_tie_gap), which must be within K2_TIE of u (a CDF tie), and at
+    most K2_MAX_TIES chains a case may differ.  Returns the row of
+    findings and the kernel's outputs."""
     from kde_tpu_torch.ops import gibbs_chain
     got = (kernel or gibbs_chain).gibbs_chain(*args)
     _sync()
-    want = gibbs_chain.gibbs_chain_ref(*args)
+    if want is None:
+        want = gibbs_chain.gibbs_chain_ref(*args)
     labels_same = (got[2] == want[2]).all(dim=-1).all(dim=-1)
     same = labels_same & (got[0] == want[0]).all(dim=-1)
     bad = (~same).nonzero().tolist()
-    if len(bad) > K2_MAX_TIES:
+    gumbel = args[7:8] == ("gumbel",)
+    if len(bad) > (0 if gumbel else K2_MAX_TIES):
         raise AssertionError(f"gibbs_chain ({what}): {len(bad)} chains off "
                              "the twin's")
     listed = []
@@ -1083,33 +1142,46 @@ def chain_bound_ms(args, sms, clock_hz):
     """The least time an H100 could take for one ``gibbs_chain`` call,
     counting what these inputs need: per selection of density j at level
     l (1 + n_iter a chain) and per candidate, k IEEE divisions (a
-    reciprocal each on the SFU), an exp, k logs or, where the level's
-    bandwidth is uniform in a dim, one log a selection, and 5k + 5 FP32
-    operations (difference, square, scale, log add, accumulate; weight,
-    max, shift, sum), k the active dims; the scan to the label reuses the
-    exps the sum needs.  SFU at 16 a clock an SM, FP32 on 128 lanes an SM;
-    bytes (the plan and the streams read once, points and labels written
-    once) at 3.35 TB/s."""
-    u, nrm, plans, m, n_iter, ent, codes = args
+    reciprocal each on the SFU), k logs or, where the level's bandwidth is
+    uniform in a dim, one log a selection, and 5k + 5 FP32 operations
+    (difference, square, scale, log add, accumulate; weight, max, shift,
+    sum), k the active dims; cdf adds an exp (the scan to the label reuses
+    the exps the sum needs); gumbel (``args[7]``) instead two logs, one
+    FP32 operation more, and the counter generator's integer work
+    (THREEFRY_INT_OPS a block, a block for two float32 candidates or one
+    float64, WORD_INT_OPS a float32 word) on 64 INT32 lanes an SM; the
+    dead test's sum on rows below log(1e-99) is left out (no keyed row of
+    these cells comes near it), which keeps the bound a lower one.  SFU at
+    16 a clock an SM, FP32 on 128 lanes an SM; bytes (the plan and the
+    streams read once, points and labels written once) at 3.35 TB/s."""
+    u, nrm, plans, m, n_iter, ent, codes = args[:7]
+    gumbel = args[7:8] == ("gumbel",)
     b, c = nrm.shape[:2]
     dn, d = m.shape[1:]
     mi = m.int()
     act = (m & (mi.sum(dim=1, keepdim=True) - mi > 0)).cpu().numpy()
     uni = plans.lvl_uniform.bool().cpu().numpy()
-    sfu = fp32 = 0.0
+    sfu = fp32 = int32 = 0.0
     sel = (1 + n_iter) * c
+    item = nrm.element_size()
+    per_int = (THREEFRY_INT_OPS / 2 + WORD_INT_OPS if item == 4
+               else THREEFRY_INT_OPS + 4)
     for l, (o, w) in enumerate(plans.offsets):
         for j in range(dn):
             k = act[:, j].sum(axis=-1).astype(float)               # [B]
             ku = (act[:, j] & uni[:, j, l]).sum(axis=-1).astype(float)
-            sfu += float((sel * w * (2 * k + 1 - ku) + sel * ku).sum())
-            fp32 += float((sel * w * (5 * k + 5)).sum())
+            sfu += float((sel * w * (2 * k + (2 if gumbel else 1) - ku)
+                          + sel * ku).sum())
+            fp32 += float((sel * w * (5 * k + (6 if gumbel else 5))).sum())
+            int32 += b * sel * w * per_int if gumbel else 0.0
     nbytes = sum(getattr(plans, f).nbytes for f in
                  ("lvl_mean", "lvl_bw", "lvl_logw", "lvl_perm")) \
-        + u.nbytes + nrm.nbytes + b * c * (d * u.element_size()
-                                           + 8 * dn * (plans.n_levels + 1))
+        + (b * 16 if u is None else u.nbytes) + nrm.nbytes \
+        + b * c * (d * item + 8 * dn * (plans.n_levels + 1))
     times = {"operations": max(sfu / (SFU_EX2_PER_CLK * sms * clock_hz),
-                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz)),
+                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz),
+                               int32 / (INT32_LANES_PER_CLK * sms
+                                        * clock_hz)),
              "bytes": nbytes / HBM_BYTES}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
@@ -1176,6 +1248,98 @@ K3_TIMED = {"headline": (None, 1000, dict(b=6)),
             "batched": (None, N_SLICE, dict(b=BATCH_SETS)),
             "switch": (None, 10_000, dict(n_out=1024))}
 
+# phase 3e's gumbel cases: name: (dtype, n, kwargs of chain_inputs), each
+# run on every layout that takes it (the warp and block layouts and, for
+# float32 at d <= 3, the staged one) against one draw of the twin; the
+# K3_GUMBEL_TIMED ones also timed on the plan's layout
+K3_GUMBEL = {
+    "gumbel slice": ("f32", N_SLICE, {}),
+    "gumbel serve": ("f32", N_SERVE, dict(n_out=SERVE_CHAINS)),
+    "gumbel headline": ("f32", 1000, dict(b=6)),
+    "gumbel batched": ("f32", N_SLICE, dict(b=BATCH_SETS)),
+    "gumbel f64": ("f64", 2000, dict(n_out=400, n_iter=3)),
+    "gumbel f64 wide": ("f64", 8000, dict(n_out=300, n_iter=2)),
+    "gumbel circular": ("f32", 5000, dict(d=1, kinds="c")),
+    "gumbel se2": ("f32", 5000, dict(d=3, kinds="eec")),
+    "gumbel ragged dn 3": ("f32", 3000, dict(dn=3, ragged=True, n_iter=2,
+                                             mask=[[1, 0], [1, 1], [0, 1]])),
+    "gumbel dead rows": ("f32", 500, dict(far=True)),
+    "gumbel d=5": ("f32", 1000, dict(d=5, n_out=512, n_iter=2)),
+}
+K3_GUMBEL_TIMED = ("gumbel slice", "gumbel serve", "gumbel headline",
+                   "gumbel batched")
+
+
+@contextlib.contextmanager
+def _forced_layout(layout):
+    """gibbs_chain launched on ``layout`` whatever its launch plan says."""
+    from kde_tpu_torch.ops import gibbs_chain
+    saved = gibbs_chain.launch_plan
+    gibbs_chain.launch_plan = lambda *a, **k: layout
+    try:
+        yield
+    finally:
+        gibbs_chain.launch_plan = saved
+
+
+def _twin_by_set(args):
+    """``gibbs_chain_ref`` of each set alone, stacked (a set's draw does
+    not depend on the batch: its seed, chain indices and selection ids are
+    its own), and the seconds it took; less memory than the batch at
+    once."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_chain
+    _sync()
+    t0 = time.perf_counter()
+    outs = [gibbs_chain.gibbs_chain_ref(*_set_of(args, i))
+            for i in range(args[1].shape[0])]
+    _sync()
+    return (tuple(torch.cat(parts) for parts in zip(*outs)),
+            time.perf_counter() - t0)
+
+
+def phase_gibbs_chain_gumbel(dev, sms, clock):
+    """Phase 3e's gumbel cases (K3_GUMBEL): every layout that takes a case
+    against the twin, which must be equal on every chain (labels at every
+    level and points); the K3_GUMBEL_TIMED shapes timed (one call) on the
+    plan's layout beside the twin (set by set, one call) and the bound.
+    Returns the rows printed."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_chain
+    rows = {}
+    for i, (name, (dt, n, kw)) in enumerate(K3_GUMBEL.items()):
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        args = chain_inputs(SEED + 90 + i, dev, dtype, n, select="gumbel",
+                            **kw)
+        d = args[3].shape[2]
+        w = max(w for _, w in args[2].offsets)
+        want, plain_s = _twin_by_set(args)
+        row = dict(dtype=str(dtype), n=n, chains=args[1].shape[1],
+                   sets=args[1].shape[0], levels=args[2].n_levels,
+                   layout=gibbs_chain.launch_plan(args[1].shape[1], w, dtype,
+                                                  d), layouts={})
+        lays = ["warp", "block"] + (["staged"] if dt == "f32" and d <= 3
+                                    else [])
+        for lay in lays:
+            with _forced_layout(lay):
+                found, _ = chain_compare(args, f"{name} {lay}", want=want)
+            row["layouts"][lay] = found["same_share"]
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0),
+                                     found["max_abs_err"])
+        row["same_share"] = min(row["layouts"].values())
+        row["differing"] = []
+        if name in K3_GUMBEL_TIMED:
+            row["ms"] = _cuda_ms(functools.partial(gibbs_chain.gibbs_chain,
+                                                   *args))
+            row["plain_ms"] = 1e3 * plain_s
+            row["bound_ms"], row["bound_by"] = chain_bound_ms(args, sms,
+                                                              clock)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        print(f"gibbs_chain ({name}): {json.dumps(row)}", flush=True)
+        del args, want
+    return rows
+
 
 def phase_gibbs_chain(dev):
     """Phase 3e: the chain kernel against its plain twin on the card:
@@ -1186,8 +1350,9 @@ def phase_gibbs_chain(dev):
     d = 1..8, a float64 case on the block layout, the headline's, the
     batched product's and the fewest chains the plan stages (K3_TIMED);
     the share of chains equal to the twin's, the differing ones listed
-    with their tie gaps.  The slice, serve and K3_TIMED calls are timed (one call) beside
-    the twin and the bound (chain_bound_ms).  Returns the rows printed."""
+    with their tie gaps.  The slice, serve and K3_TIMED calls are timed
+    (one call) beside the twin and the bound (chain_bound_ms).  Then the
+    gumbel cases (phase_gibbs_chain_gumbel).  Returns the rows printed."""
     import torch
     from kde_tpu_torch.ops import gibbs_chain
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1246,6 +1411,7 @@ def phase_gibbs_chain(dev):
         rows[name] = row
         print(f"gibbs_chain ({name}): {json.dumps(row)}", flush=True)
         del args, got
+    rows.update(phase_gibbs_chain_gumbel(dev, sms, clock))
     return rows
 
 
@@ -1884,10 +2050,12 @@ def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
     (B = 6 sets of [2 x n_comp], bw 0.1, n_out chains, Niter 5), at B = 8,
     on phase 5's sampler, and on the Gibbs stage of phase 4's `*` (its two
     densities, as many chains as components); the median of SELECT_REPS
-    calls after a warm-up, the modes taken in turns."""
+    calls after a warm-up, the modes taken in turns.  Each mode's
+    gibbs_chain and gibbs_select launches a call: cdf and gumbel must be
+    one gibbs_chain launch and no gibbs_select launch (on the card)."""
     import torch
     import kde_tpu_torch as kt
-    from kde_tpu_torch.ops import gibbs
+    from kde_tpu_torch.ops import gibbs, gibbs_chain, gibbs_select
     rng = np.random.default_rng(seed + 4)
     sync = _sync if dev.type == "cuda" else (lambda: None)
     dens = [kt.kde((rng.normal(size=(2, n_comp)) + s).astype(np.float32),
@@ -1904,8 +2072,17 @@ def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
     rows = {}
     for cell, (sampler, b, chains) in cells.items():
         width = sampler.plans.offsets[-1][1]
+        launches = {}
         for mode in SELECT_MODES:
+            k3, k2 = gibbs_chain.LAUNCHES, gibbs_select.LAUNCHES
             sampler.sample(seed, select=mode)
+            launches[mode] = dict(gibbs_chain=gibbs_chain.LAUNCHES - k3,
+                                  gibbs_select=gibbs_select.LAUNCHES - k2)
+            if (dev.type == "cuda" and mode in ("cdf", "gumbel")
+                    and launches[mode] != dict(gibbs_chain=1,
+                                               gibbs_select=0)):
+                raise AssertionError(f"{cell} {mode}: launches "
+                                     f"{launches[mode]}, not one gibbs_chain")
         sync()
         times = {m: [] for m in SELECT_MODES}
         for r in range(SELECT_REPS):
@@ -1919,7 +2096,8 @@ def phase_select(dev, serve, slice_dens, n_comp=1000, n_out=1000,
                     raise AssertionError(f"{cell} {mode}: non-finite sample")
         rate = {m: b * chains / float(np.median(t)) for m, t in times.items()}
         rows[cell] = dict(samples_per_s=rate, width=width, chains=chains,
-                          sets=b, winner=max(rate, key=rate.get),
+                          sets=b, launches_per_call=launches,
+                          winner=max(rate, key=rate.get),
                           auto=gibbs.resolve_select("auto", chains, width,
                                                     batch=b))
         print(f"select {cell}: {json.dumps(rows[cell])}", flush=True)
@@ -2095,11 +2273,15 @@ def _check_near_pi(x, what):
 
 
 def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
-    """Phase 10: circular and SE(2) products at full width, and a hooked
-    batched product."""
+    """Phase 10: circular and SE(2) products at full width, a hooked
+    batched product, and the circular pair multiplied with a lone circular
+    diffop (explicit hooks: no circular quadruple, so the stage route, a
+    gibbs_select launch a selection step) with cdf and gumbel, each
+    against the same call on gibbs_select's twin."""
     import torch
     import kde_tpu_torch as kt
-    from kde_tpu_torch.ops import gibbs, kernels
+    from kde_tpu_torch import manifolds
+    from kde_tpu_torch.ops import gibbs, gibbs_select, kernels
     from kde_tpu_torch.utils.random import split
     rng = np.random.default_rng(seed + 5)
     sync = _sync if dev.type == "cuda" else (lambda: None)
@@ -2197,6 +2379,28 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
         _check_near_pi(pts[i, 0] - 0.05 * i, f"hooked batched set {i}")
     out.update(select=select, set0_label_mismatches=mismatches,
                set0_max_abs_dx=diff)
+    lone = {}
+    for mode in ("cdf", "gumbel"):
+        call = functools.partial(kt.prod_appx_ms_gibbs, n, [pa, pb],
+                                 n_iter=5, key=seed, select=mode,
+                                 diffop=(manifolds.circular_diff,))
+        k2 = gibbs_select.LAUNCHES
+        got = _timed(f"lone_diffop_{mode}", call, sync, stages, launches)()
+        k2 = gibbs_select.LAUNCHES - k2
+        with _on_gibbs_twin():
+            twin = _timed(f"twin_lone_diffop_{mode}", call, sync, stages,
+                          launches)()
+        same = float((got[1] == twin[1]).all(dim=0).double().mean())
+        lone[mode] = dict(gibbs_select_launches=k2, twin_same_labels=same,
+                          finite=bool(torch.isfinite(got[0]).all()))
+        # gumbel's labels equal the twin's on every chain; cdf's may part
+        # at float64 CDF ties
+        need = 1.0 if mode == "gumbel" else AGREE_MIN
+        if dev.type == "cuda" and (k2 < 1 or not lone[mode]["finite"]
+                                   or same < need):
+            raise AssertionError(f"lone circular diffop, {mode}: "
+                                 f"{lone[mode]}")
+    out["lone_diffop"] = lone
     _launched(launches, ("refit", "se2_refit"), dev, k4=True)
     return dict(seconds=stages, launches=launches, **out)
 
@@ -2398,8 +2602,10 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
                     f"{float((got.cpu() - ref.cpu()).abs().max())}")
         out["numpy_inputs_on_card"] = True
         with _uncounted():
-            out["sizing"] = _sizing(dev, [(serve.densities, SERVE_CHAINS),
-                                          ([p, q], n)], seed)
+            out["sizing"] = _sizing(dev, [
+                (serve.densities, SERVE_CHAINS, "cdf"), ([p, q], n, "cdf"),
+                (serve.densities, SERVE_CHAINS, "gumbel"),
+                ([p, q], n, "gumbel")], seed)
         _launched(launches, ("sharded_refit", "batched_sharded"), dev,
                   k4=True)
         _launched(launches, ("sharded_log_eval", "sharded_log_eval_numpy"),
@@ -2453,27 +2659,33 @@ def phase_examples(dev):
 
 def phase_tools(dev):
     """Phase 13: the quick rows of tools_torch/validate_cuda.py (all must
-    pass, the control must fail the brackets, and the rows must cover
-    K3's warp, block and staged layouts), the envelope's mem stage at
-    ENVELOPE_NS for cdf (estimate / peak within SIZING_BAND) and its time
-    stage at 400k, cdf against gumbel, one round; one line each."""
+    pass, the controls must fail the brackets, and the rows must cover
+    K3's warp, block and staged layouts with cdf and with gumbel), the
+    envelope's mem stage at ENVELOPE_NS for cdf and gumbel (estimate /
+    peak within SIZING_BAND) and its time stage at 400k, cdf against
+    gumbel, one round, each one gibbs_chain launch and no gibbs_select
+    launch a call; one line each."""
     from tools_torch import scale_envelope, validate_cuda
     out = {}
     t0 = time.perf_counter()
     val = validate_cuda.run(dev, validate_cuda.QUICK,
                             log=lambda *a, **k: None)
     out["validate"] = dict(seconds=time.perf_counter() - t0, rows=[
-        {k: r[k] for k in ("name", "layout", "wins", "of", "need", "passed",
-                           "seconds", "k3_launches")} for r in val["rows"]])
+        {k: r[k] for k in ("name", "select", "layout", "wins", "of", "need",
+                           "passed", "seconds", "k3_launches")}
+        for r in val["rows"]])
     print(f"tools validate_cuda quick rows: {json.dumps(out['validate'])}",
           flush=True)
     failed = [r["name"] for r in val["rows"] if not r["passed"]]
-    layouts = {r["layout"] for r in val["rows"]}
-    if failed or not {"warp", "block", "staged"} <= layouts:
-        raise AssertionError(f"validate_cuda: rows {failed} failed; "
-                             f"layouts {sorted(layouts)}")
+    for select in ("cdf", "gumbel"):
+        layouts = {r["layout"] for r in val["rows"]
+                   if r["select"] == select}
+        if failed or not {"warp", "block", "staged"} <= layouts:
+            raise AssertionError(f"validate_cuda: rows {failed} failed; "
+                                 f"{select} layouts {sorted(layouts)}")
     t0 = time.perf_counter()
-    mem = scale_envelope.mem_stage(ENVELOPE_NS, ("cdf",), device=dev)
+    mem = scale_envelope.mem_stage(ENVELOPE_NS, ("cdf", "gumbel"),
+                                   device=dev)
     out["mem"] = dict(seconds=time.perf_counter() - t0, rows=mem["rows"])
     print(f"tools scale_envelope mem: {json.dumps(out['mem'])}", flush=True)
     bad = [r for r in mem["rows"] if "ratio" not in r
@@ -2488,7 +2700,9 @@ def phase_tools(dev):
                        overtakes_cdf=tm["overtakes_cdf"])
     print(f"tools scale_envelope time: {json.dumps(out['time'])}",
           flush=True)
-    if any("samples_per_s" not in r for r in tm["rows"]):
+    if any("samples_per_s" not in r or (dev.type == "cuda" and (
+            r["k3_launches"], r["k2_launches"]) != (1, 0))
+           for r in tm["rows"]):
         raise AssertionError(f"scale_envelope time: {tm['rows']}")
     return out
 
@@ -2497,29 +2711,31 @@ def _sizing(dev, cases, seed):
     """estimate_product_memory against the allocator's peak over the keyed
     product of device-resident copies (a fresh plan, built in the window
     with the topology cache emptied, as a process's first product of that
-    size builds it)."""
+    size builds it), for each ``(densities, chains, select)`` of
+    ``cases``."""
     import torch
     import kde_tpu_torch as kt
     from kde_tpu_torch.ops import device_plan
     from kde_tpu_torch.parallel import estimate_product_memory
     rows = {}
-    for dens, n_out in cases:
+    for dens, n_out, select in cases:
         copies = [kt.KDE(k.points, k.bw, k.weights) for k in dens]
         device_plan._topology_on.cache_clear()
         _sync()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        kt.prod_appx_ms_gibbs(n_out, copies, n_iter=5, key=seed)
+        kt.prod_appx_ms_gibbs(n_out, copies, n_iter=5, key=seed,
+                              select=select)
         _sync()
         peak = torch.cuda.max_memory_allocated(dev) - base
         est = estimate_product_memory(copies, n_out, n_iter=5,
-                                      dtype=torch.float32)
+                                      dtype=torch.float32, select=select)
         ratio = est["total"] / peak
-        rows[f"2x{dens[0].npts}/{n_out}"] = dict(estimate=est, peak=peak,
-                                                 ratio=ratio)
+        rows[f"2x{dens[0].npts}/{n_out} {select}"] = dict(
+            estimate=est, peak=peak, ratio=ratio)
         if not SIZING_BAND[0] <= ratio <= SIZING_BAND[1]:
-            raise AssertionError(f"sizing 2x{dens[0].npts}, {n_out} chains: "
-                                 f"estimate/peak {ratio}")
+            raise AssertionError(f"sizing 2x{dens[0].npts}, {n_out} chains, "
+                                 f"{select}: estimate/peak {ratio}")
     return rows
 
 
@@ -2802,22 +3018,22 @@ def _k2_raw(args, codes, kw, group, cache):
     lm, lb, lw, lp, js, mu, cov, act = args
     b, dn, w, d = lm.shape
     c, dev = mu.shape[1], mu.device
-    noise, u = kw["noise"], kw["u"]
+    seeds, u = kw.get("seeds"), kw["u"]
     om = torch.empty((b, c, len(js), d), dtype=mu.dtype, device=dev)
     ov = torch.empty_like(om)
     ol = torch.empty((b, c, len(js)), dtype=torch.int64, device=dev)
-    ns = (0, 0, 0) if noise is None else noise.stride()[:3]
     two_pi, inv = gs._two_pi(mu.dtype)
     codes_t = gs._codes_on(tuple(codes), dev)
     ptr = lambda t: None if t is None else t.data_ptr()
 
     def call():
         rc = gs._load().kde_gibbs_select(
-            lm.element_size(), int(noise is not None), group, cache,
+            lm.element_size(), int(seeds is not None), group, cache,
             lm.data_ptr(), lb.data_ptr(), lw.data_ptr(), lp.data_ptr(),
             lm.stride(0), lm.stride(1), lw.stride(0), lw.stride(1),
             mu.data_ptr(), ptr(cov), act.data_ptr(), codes_t.data_ptr(),
-            ptr(u), ptr(noise), *ns, om.data_ptr(), ov.data_ptr(),
+            ptr(u), ptr(seeds), kw.get("chain0", 0), kw.get("sel0", 0),
+            om.data_ptr(), ov.data_ptr(),
             ol.data_ptr(), b, c, len(js), js[0], dn, w, d, two_pi, inv,
             gs.LOG_DEAD, torch._C._cuda_getCurrentRawStream(dev.index or 0))
         if rc != 0:
@@ -2882,7 +3098,7 @@ def k2_diag(seed=SEED):
     real, outs = gs.gibbs_select, {}
 
     def precomputed(lm, lb, lw, lp, js, mu, cov, act, codes, u=None,
-                    noise=None):
+                    seeds=None, chain0=0, sel0=0):
         key = (tuple(mu.shape), len(js))
         if key not in outs:
             b, c, d = mu.shape
@@ -2911,7 +3127,8 @@ def k2_diag(seed=SEED):
 K3_ABLATIONS = {"base": (), "a_pass2_only": ("-DK3_DIAG_PASS2_ONLY",),
                 "b_no_loads": ("-DK3_DIAG_NO_LOADS",),
                 "c_no_log": ("-DK3_DIAG_NO_LOG",),
-                "d_div_mul": ("-DK3_DIAG_DIV_MUL",)}
+                "d_div_mul": ("-DK3_DIAG_DIV_MUL",),
+                "e_no_rng": ("-DK3_DIAG_NO_RNG",)}
 
 
 def k3_diag_libs():
@@ -2978,11 +3195,13 @@ def k3_diag(seed=SEED):
     2 x 20,000, d = 2, float32, Niter 5) and at serve (256 chains over
     2 x 50,000), the warp and block layouts and the staged layout, each
     timed one call between CUDA events (_cuda_ms) with every ablation of
-    K3_ABLATIONS (the base build checked equal to the package's call);
+    K3_ABLATIONS (the base build checked equal to the package's call; cdf
+    with every ablation but e_no_rng, gumbel with the base and e_no_rng,
+    its counter generator replaced by a few integer operations);
     then the switch between the layouts: chains (K3_SWEEP_CHAINS) over 2
-    densities of K3_SWEEP_WIDTHS components, the warp or block layout
-    against the staged layout in turns (plan, staged, staged, plan), each
-    checked equal to the other; last each build's ptxas registers, spills
+    densities of K3_SWEEP_WIDTHS components, cdf and gumbel, the warp or
+    block layout against the staged layout in turns (plan, staged, staged,
+    plan), each checked equal to the other; last each build's ptxas registers, spills
     and shared memory, and the SASS of one logit at d = 2
     (k3_logit_probe) by cuobjdump."""
     import torch
@@ -2998,42 +3217,53 @@ def k3_diag(seed=SEED):
 
     def same(got, want):
         return all(torch.equal(g, x) for g, x in zip(got, want))
-    for shape, (n, kw) in shapes.items():
-        args = chain_inputs(seed + 60, dev, f32, n, **kw)
+    for (shape, (n, kw)), select in ((sh, sel) for sh in shapes.items()
+                                     for sel in ("cdf", "gumbel")):
+        args = chain_inputs(seed + 60, dev, f32, n, select=select, **kw)
         want = gibbs_chain.gibbs_chain(*args)
         w = max(w for _, w in args[2].offsets)
-        print(f"k3 diag {shape}: plan "
+        print(f"k3 diag {shape} {select}: plan "
               f"{gibbs_chain.launch_plan(args[1].shape[1], w, f32, 2)}",
               flush=True)
+        # _launch takes gumbel's seeds in place of cdf's stream
+        launch_args = args[:7] + args[8:] if select == "gumbel" else args
         for lay in layouts[shape]:
             row = {}
             for name, (lib, _, _) in libs.items():
+                if (name == "e_no_rng") != (select == "gumbel") and \
+                        name != "base":
+                    continue
                 call = functools.partial(gibbs_chain._launch, lib, lay,
-                                         *args)
+                                         *launch_args)
                 if name == "base" and not same(call(), want):
-                    raise AssertionError(f"k3 diag {shape}: {lay} off the "
-                                         "package's draw")
+                    raise AssertionError(f"k3 diag {shape} {select}: {lay} "
+                                         "off the package's draw")
                 row[name] = _cuda_ms(call)
-            print(f"k3 diag {shape} {lay}, ms by ablation: "
+            print(f"k3 diag {shape} {select} {lay}, ms by ablation: "
                   f"{json.dumps(row)}", flush=True)
         del args, want
-    for n in K3_SWEEP_WIDTHS:
-        for chains in K3_SWEEP_CHAINS:
-            args = chain_inputs(seed + 61, dev, f32, n, n_out=chains)
-            w = max(w for _, w in args[2].offsets)
-            old = gibbs_chain.launch_plan(chains, w, torch.float64, 2)
-            calls = {lay: functools.partial(gibbs_chain._launch, base, lay,
-                                            *args)
-                     for lay in (old, "staged")}
-            if not same(calls["staged"](), calls[old]()):
-                raise AssertionError(f"k3 diag switch 2 x {n}, {chains}: "
-                                     "staged off the warp / block draw")
-            row = {"plan": gibbs_chain.launch_plan(chains, w, f32, 2)}
-            for lay in (old, "staged", "staged", old):
-                row.setdefault(f"{lay}_ms", []).append(_cuda_ms(calls[lay]))
-            print(f"k3 diag switch, 2 x {n} components, {chains} chains: "
-                  f"{json.dumps(row)}", flush=True)
-            del args, calls
+    for n, chains, select in ((n, c, s) for n in K3_SWEEP_WIDTHS
+                              for c in K3_SWEEP_CHAINS
+                              for s in ("cdf", "gumbel")):
+        args = chain_inputs(seed + 61, dev, f32, n, n_out=chains,
+                            select=select)
+        if select == "gumbel":
+            args = args[:7] + args[8:]        # _launch takes the seeds last
+        w = max(w for _, w in args[2].offsets)
+        old = gibbs_chain.launch_plan(chains, w, torch.float64, 2)
+        calls = {lay: functools.partial(gibbs_chain._launch, base, lay,
+                                        *args)
+                 for lay in (old, "staged")}
+        if not same(calls["staged"](), calls[old]()):
+            raise AssertionError(f"k3 diag switch 2 x {n}, {chains}, "
+                                 f"{select}: staged off the warp / block "
+                                 "draw")
+        row = {"plan": gibbs_chain.launch_plan(chains, w, f32, 2)}
+        for lay in (old, "staged", "staged", old):
+            row.setdefault(f"{lay}_ms", []).append(_cuda_ms(calls[lay]))
+        print(f"k3 diag switch, 2 x {n} components, {chains} chains, "
+              f"{select}: {json.dumps(row)}", flush=True)
+        del args, calls
     for name, (_, log, so) in libs.items():
         print(f"k3 diag ptxas ({name}): {json.dumps(ptxas_table(log))}",
               flush=True)
@@ -3228,10 +3458,14 @@ def main():
                  "manifolds", "parallel", "examples", "tools"):
         if k3[name] < 1:
             raise AssertionError(f"path {name} never launched gibbs_chain")
+    if k2["manifolds"] < 1:
+        raise AssertionError("the lone circular diffop never launched "
+                             "gibbs_select")
     for name in ("select", "tools"):
-        if k2[name] < 1:
-            raise AssertionError(f"path {name}'s gumbel never launched "
-                                 "gibbs_select")
+        if k2[name] != 0:
+            raise AssertionError(f"path {name} launched gibbs_select "
+                                 f"{k2[name]} times: gumbel belongs to "
+                                 "gibbs_chain")
     main_launches = sum(runs.values())
     small_launches = {k: sum(r[k] for r in small.values())
                       for k in host_small.LAUNCHES}
@@ -3246,6 +3480,7 @@ def main():
         "small_log_eval cfg1"]
     leaf = k2_rows["leaf sweep cdf"]
     chain, chain_serve = k3_rows["keyed f32 slice"], k3_rows["keyed f32 serve"]
+    gumbel_rows = {name.split()[-1]: k3_rows[name] for name in K3_GUMBEL_TIMED}
     refit = k4_rows["* refit"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
@@ -3324,6 +3559,8 @@ def main():
         chain_serve["plain_ms"], "bound_ms_serve": chain_serve["bound_ms"],
         "bound_share_serve": chain_serve["bound_share"],
         **{f"{k}_{name}": k3_rows[name][k] for name in K3_TIMED
+           for k in ("ms", "plain_ms", "bound_ms", "bound_share")},
+        **{f"{k}_gumbel_{name}": row[k] for name, row in gumbel_rows.items()
            for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}, {
         "name": "loo_search", "route": "cuda",
         "source": "kde_tpu_torch/csrc/loo_search.cu",

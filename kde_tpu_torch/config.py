@@ -53,7 +53,10 @@ GIBBS_SELECT: str = "size"
 # chains 39,165 / 1,134 / 3,159; the 2 x 20,000 `*` Gibbs stage (20,000
 # chains) 108,133 / 9,269 / 61,839.  cdf won every cell, so no problem
 # routes to blocked or gumbel.  Four cells leave the crossovers unmeasured
-# (ROADMAP keeps the full M10 grid open).
+# (ROADMAP keeps the full M10 grid open).  gumbel has run on gibbs_chain
+# since, and there beats cdf in the same four cells (PERF.md §5); the
+# thresholds wait for the full grid, since a default route change would
+# change every keyed user's draws.
 SELECT_BLOCKED_WIDTH: int = 1 << 30   # blocked: leaf width...
 SELECT_BLOCKED_MAX_CHAINS: int = 0    # ...and chains
 SELECT_GUMBEL_WIDTH: int = 1 << 30   # gumbel: leaf width...

@@ -4,8 +4,9 @@
 //
 // It replaces kde_tpu/ops/gibbs.py::_run_chain (:498-651), which the TPU runs
 // as one XLA-fused program (the chain has no Pallas kernel), for the flat
-// inverse-CDF draw ("cdf").  A group of threads owns one chain (set b,
-// chain c) and walks it from the roots to the final draw:
+// inverse-CDF draw ("cdf") and the Gumbel-max draw ("gumbel").  A group of
+// threads owns one chain (set b, chain c) and walks it from the roots to
+// the final draw:
 //
 //   for each level l:
 //     x = the product of the current selections, + sqrt(cov) n (or addop)
@@ -22,9 +23,22 @@
 //
 // (a NaN dim gives 0, a NaN logit -inf), takes the degenerate test
 // max + log sum exp(l - max) < log(1e-99) with its fallback (1 for real
-// candidates, 0 for padding), and draws the first index whose running sum of
-// e_i = exp(l_i - max) (the chain's type, widened to float64) is not below
-// u * sum e.  The twin (ops/gibbs_chain.py::gibbs_chain_ref) takes the
+// candidates, 0 for padding), and draws
+//
+//   cdf:    the first index whose running sum of e_i = exp(l_i - max) (the
+//           chain's type, widened to float64) is not below u * sum e;
+//   gumbel: argmax_i l_i - log(-log g_i) (dead: -log(-log g_i) over the
+//           real candidates), the first index winning ties, g the counter
+//           draw of csrc/counter_rng.cuh for the set's seed, the chain,
+//           the selection id (the column cdf reads in u) and candidate i.
+//
+// Gumbel is one pass over a level's candidates: the logit, the noise, the
+// max and both argmaxes; the sum of exps for the dead test is taken only
+// where the max is below log(1e-99) (the sum holds exp(0) = 1 and no
+// negative term, so a row whose max reaches the threshold is live in any
+// rounding), from L2, in a fixed order.  Its argmaxes merge exactly, so
+// its labels do not depend on the layout.  For cdf the twin
+// (ops/gibbs_chain.py::gibbs_chain_ref) takes the
 // count of entries of cumsum(e / sum e) below u: the two differ only where
 // the float64 sums, taken in another order, put a CDF entry within an ulp
 // of u.  Every other step is the twin's operation in the twin's order:
@@ -36,8 +50,10 @@
 //
 // What bounds it: per (chain, candidate) pair d IEEE divisions, d logs
 // (none where the level's bandwidth is uniform in that dim: log c is then
-// taken once a selection, bitwise the same value) and an exp, in two passes
-// (pass 1 finds the max, pass 2 the sums).  chip_smoke.py --k3-diag's
+// taken once a selection, bitwise the same value) and, for cdf, an exp in
+// two passes (pass 1 finds the max, pass 2 the sums); for gumbel, in one
+// pass, two logs and half a Threefry block (about 37 integer operations) a
+// float candidate instead of the exp.  chip_smoke.py --k3-diag's
 // ablations on the H100 bind the kernel by the instruction throughput of
 // that arithmetic, not by its loads: at the slice pass 1 is 42 % of the
 // time, the accurate logf 28 %, the division 14 %, and making the
@@ -87,6 +103,8 @@
 
 #include <type_traits>
 
+#include "counter_rng.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -116,6 +134,8 @@ __device__ __forceinline__ T neg_inf() { return -(T)INFINITY; }
 //   K3_DIAG_NO_LOADS    candidates made from their index, no loads
 //   K3_DIAG_NO_LOG      c instead of log c off the uniform dims
 //   K3_DIAG_DIV_MUL     d^2 * c instead of d^2 / c
+//   K3_DIAG_NO_RNG      gumbel's uniforms from a few integer operations
+//                       instead of the counter generator
 #ifdef K3_DIAG_NO_LOADS
 #define K3_CAND(load, alt) (alt)
 #else
@@ -131,6 +151,20 @@ __device__ __forceinline__ T neg_inf() { return -(T)INFINITY; }
 #else
 #define K3_QUAD(a, b) ((a) / (b))
 #endif
+
+// gumbel's uniforms of generator block q (csrc/counter_rng.cuh)
+template <typename T, int P>
+__device__ __forceinline__ void draw_uniforms(kde_rng::Key k, int q,
+                                              T (&g)[P]) {
+#ifdef K3_DIAG_NO_RNG
+#pragma unroll
+  for (int v = 0; v < P; ++v)
+    g[v] = (T)(((k.k0 ^ (unsigned)(q * P + v)) & 0xffffu) + 1u)
+           * (T)(1.0 / 65538.0);
+#else
+  kde_rng::Uniform<T>::draw(k, q, g);
+#endif
+}
 
 template <typename T>
 __device__ __forceinline__ T circ_wrap(T x, T two_pi, T inv_two_pi) {
@@ -217,8 +251,9 @@ struct Params {
   const unsigned char* uniform;  // [B, dn, L, d]: bandwidth uniform
   const unsigned char* mask;     // [B, dn, d] bool
   const unsigned char* codes;    // [d]: 0 Euclidean, 1 circular hooks
-  const void* u;             // [B, C, bu] uniforms, last axis contiguous
+  const void* u;             // [B, C, bu] uniforms, last axis contiguous (cdf)
   long long us_b, us_c;
+  const long long* seeds;    // [B, 2] counter seeds (gumbel)
   const void* nrm;           // [B, C, bn] normals
   long long ns_b, ns_c;
   void* out_x;               // [B, C, d]
@@ -370,6 +405,57 @@ __device__ double group_scan(double v, double* scratch, double& total) {
   }
 }
 
+// (value, index) argmax over the group: the larger value, on a tie the
+// smaller index; index -1 holds nothing.  Exact, so any merge order gives
+// the same pick.
+template <typename T>
+struct Best {
+  T v;
+  int i;
+};
+
+template <typename T>
+__device__ __forceinline__ Best<T> better(Best<T> a, Best<T> b) {
+  if (a.i < 0) return b;
+  if (b.i < 0) return a;
+  if (a.v > b.v) return a;
+  if (b.v > a.v) return b;
+  return a.i < b.i ? a : b;
+}
+
+template <int G, typename T>
+__device__ Best<T> group_best(Best<T> b, T* sv, int* si) {
+  for (int o = 16; o > 0; o >>= 1) {
+    Best<T> y{__shfl_xor_sync(kFull, b.v, o), __shfl_xor_sync(kFull, b.i, o)};
+    b = better(b, y);
+  }
+  if constexpr (G == 32) {
+    return b;
+  } else {
+    const int warp = threadIdx.x / 32;
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) { sv[warp] = b.v; si[warp] = b.i; }
+    __syncthreads();
+    Best<T> r{sv[0], si[0]};
+    for (int i = 1; i < G / 32; ++i) r = better(r, Best<T>{sv[i], si[i]});
+    return r;
+  }
+}
+
+// One candidate of the Gumbel pass: logit l, uniform g, real or padding;
+// folds it into the max and the live and dead argmaxes.
+template <typename T>
+__device__ __forceinline__ void gumbel_take(T l, T g, bool real, int i,
+                                            T& mx, Best<T>& live,
+                                            Best<T>& dead) {
+  if (l > mx) mx = l;
+  const T gn = lg(-lg(g));
+  const T lv = l - gn;
+  if (live.i < 0 || lv > live.v) live = Best<T>{lv, i};
+  const T dv = real ? (T)0 - gn : neg_inf<T>();
+  if (dead.i < 0 || dv > dead.v) dead = Best<T>{dv, i};
+}
+
 struct MaxOp {
   template <typename V>
   __device__ V operator()(V a, V b) const { return b > a ? b : a; }
@@ -403,10 +489,10 @@ __host__ __device__ inline size_t group_bytes(int warps, int dn, int d,
 
 // D > 0: the launch's d, known at compile time (the query's per-dim
 // parameters then sit in registers); D = 0: any d, read from shared memory.
-// At most 64 registers a thread: 4 blocks (32 warps) an SM on the warp
-// layout, 2 on the block layout; more registers and fewer warps measured
-// slower on the card.
-template <typename T, int G, int D>
+// kGumbel: the Gumbel-max draw, else cdf.  At most 64 registers a thread:
+// 4 blocks (32 warps) an SM on the warp layout, 2 on the block layout;
+// more registers and fewer warps measured slower on the card.
+template <typename T, int G, int D, bool kGumbel>
 __global__ void __launch_bounds__(G == 32 ? 32 * kWarpChains : G,
                                   G == 32 ? 4 : 2)
 gibbs_chain_kernel(const Params p) {
@@ -416,6 +502,7 @@ gibbs_chain_kernel(const Params p) {
   __shared__ double s_d[kMaxWarps];
   __shared__ T s_t[kMaxWarps];
   __shared__ int s_i[kMaxWarps];
+  __shared__ T s_v[kMaxWarps];
 
   const int g = threadIdx.x / G;                     // the block's chain
   const int t = threadIdx.x % G;                     // thread of the chain
@@ -461,7 +548,8 @@ gibbs_chain_kernel(const Params p) {
   for (int j = t; j < dn; j += G) perms[j] = 0;
   group_sync<G>();
 
-  const T* U = static_cast<const T*>(p.u) + b * p.us_b + c * p.us_c;
+  const T* U = kGumbel ? nullptr
+                       : static_cast<const T*>(p.u) + b * p.us_b + c * p.us_c;
   const T* NR = static_cast<const T*>(p.nrm) + b * p.ns_b + c * p.ns_c;
 
   bool hooked = false;
@@ -475,9 +563,10 @@ gibbs_chain_kernel(const Params p) {
     for (int k = t; k < d; k += G) out[k] = prod.point(k, normals, jitter);
   };
 
-  // one selection of density j at level l against N(xq, bw (+ cq)); returns
-  // the candidate index, the same on every thread of the group
-  auto select = [&](int j, int l, int o, int w, bool has_cov, T uval) -> int {
+  // one selection of density j at level l against N(xq, bw (+ cq)), the
+  // col-th of the chain (cdf reads u[col]); returns the candidate index,
+  // the same on every thread of the group
+  auto select = [&](int j, int l, int o, int w, bool has_cov, int col) -> int {
     const long long sb = b * p.ms_b + j * p.ms_j + (long long)o * d;
     const T* mean = static_cast<const T*>(p.mean) + sb;
     const T* bw = static_cast<const T*>(p.bw) + sb;
@@ -514,6 +603,38 @@ gibbs_chain_kernel(const Params p) {
     auto real = [&](int i) -> bool {
       return K3_CAND(logw[i], -(T)(i & 15)) != neg_inf<T>();
     };
+
+    if constexpr (kGumbel) {
+      // one pass: the logits, the noise, the max and both argmaxes, a
+      // thread the candidates of one generator block at a time
+      using Un = kde_rng::Uniform<T>;
+      const kde_rng::Key key = kde_rng::selection_key(
+          p.seeds + 2 * b, (unsigned)c, (unsigned)col);
+      T mx = neg_inf<T>();
+      Best<T> lbest{neg_inf<T>(), -1}, dbest{neg_inf<T>(), -1};
+      for (int q = t; q * Un::kPer < w; q += G) {
+        T gq[Un::kPer];
+        draw_uniforms<T>(key, q, gq);
+#pragma unroll
+        for (int v = 0; v < Un::kPer; ++v) {
+          const int i = q * Un::kPer + v;
+          if (i < w) gumbel_take<T>(logit(i), gq[v], real(i), i, mx, lbest,
+                                    dbest);
+        }
+      }
+      mx = group_all<G>(mx, MaxOp(), s_t);
+      // the dead test, only where the max is below log(1e-99)
+      bool is_dead = false;
+      if (!(mx >= (T)p.log_dead)) {
+        const T ms = mx == neg_inf<T>() ? zero : mx;
+        T sum_t = zero;
+        for (int i = t; i < w; i += G) sum_t = sum_t + ex(logit(i) - ms);
+        sum_t = group_all<G>(sum_t, SumOp(), s_t);
+        is_dead = ms + lg(sum_t) < (T)p.log_dead;
+      }
+      return group_best<G>(is_dead ? dbest : lbest, s_v, s_i).i;
+    }
+    const T uval = U[col];
 
     // pass 1: the max, two candidates a step for the loads in flight
     T mx = neg_inf<T>();
@@ -638,18 +759,18 @@ gibbs_chain_kernel(const Params p) {
   long long* labels = p.out_labels + row * L * dn;
   for (int l = 0; l < L; ++l) {
     const int o = p.offsets[2 * l], w = p.offsets[2 * l + 1];
-    const T* ul = U + dn + (long long)l * per_level;
+    const int cl = dn + l * per_level;     // the level's first selection
     // (1) x from the product of the current selections
     sample_point(NR + (long long)l * d, true, xq);
     group_sync<G>();
     // (2) every density re-selects conditioned on x
-    for (int j = 0; j < dn; ++j) pick(j, o, select(j, l, o, w, false, ul[j]));
+    for (int j = 0; j < dn; ++j) pick(j, o, select(j, l, o, w, false, cl + j));
     // (3) n_iter sweeps of leave-one-out Gibbs over the densities
     for (int it = 0; it < p.n_iter; ++it) {
       for (int j = 0; j < dn; ++j) {
         for (int k = t; k < d; k += G) product_dim(k, j, xq[k], cq[k]);
         group_sync<G>();
-        pick(j, o, select(j, l, o, w, true, ul[dn + it * dn + j]));
+        pick(j, o, select(j, l, o, w, true, cl + dn + it * dn + j));
       }
     }
     for (int j = t; j < dn; j += G) labels[l * dn + j] = perms[j];
@@ -660,9 +781,9 @@ gibbs_chain_kernel(const Params p) {
                static_cast<T*>(p.out_x) + row * d);
 }
 
-template <typename T, int G, int D>
+template <typename T, int G, int D, bool kGumbel>
 int launch(const Params& p, cudaStream_t st) {
-  auto kern = gibbs_chain_kernel<T, G, D>;
+  auto kern = gibbs_chain_kernel<T, G, D, kGumbel>;
   constexpr int R = G == 32 ? kWarpChains : 1;
   const size_t smem = (size_t)R * group_bytes(G / 32, p.dn, p.d, sizeof(T));
   cudaError_t e = cudaSuccess;
@@ -754,7 +875,8 @@ __device__ __forceinline__ float warp_fmax(float v) {
 
 // A block holds up to kBlockChains chains of one set, a warp a chain, all
 // in lockstep.  gridDim.x = B * groups, groups = ceil(C / kBlockChains).
-template <int D>
+// kGumbel: the Gumbel-max draw (one pass over the stage), else cdf.
+template <int D, bool kGumbel>
 __global__ void __launch_bounds__(32 * kBlockChains, kStagedMinBlocks)
 gibbs_chain_staged(const Params p, int groups) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -813,7 +935,9 @@ gibbs_chain_staged(const Params p, int groups) {
   for (int k = 0; k < D; ++k) hooked = hooked || p.codes[k] != 0;
   const Products<float> prod{mk, mu_sel, var_sel, p.codes, dn, D,
                              hooked || D == 1, two_pi, inv_two_pi};
-  const float* U = static_cast<const float*>(p.u) + b * p.us_b + c * p.us_c;
+  const float* U = kGumbel ? nullptr
+                           : static_cast<const float*>(p.u) + b * p.us_b
+                                 + c * p.us_c;
   const float* NR = static_cast<const float*>(p.nrm) + b * p.ns_b + c * p.ns_c;
 
   // level l's tile partition (K3's: at most kMaxTiles tiles of a multiple
@@ -835,10 +959,11 @@ gibbs_chain_staged(const Params p, int groups) {
   };
   bool resident = false;
 
-  // one selection of density j at level l against N(xq, bw (+ cq)); returns
-  // the candidate index, the same on every lane
+  // one selection of density j at level l against N(xq, bw (+ cq)), the
+  // col-th of the chain (cdf reads u[col]); returns the candidate index,
+  // the same on every lane
   auto select = [&](int j, int l, int o, int w, bool has_cov,
-                    float uval) -> int {
+                    int col) -> int {
     const long long sb = b * p.ms_b + j * p.ms_j + (long long)o * D;
     const float* gmean = static_cast<const float*>(p.mean) + sb;
     const float* gbw = static_cast<const float*>(p.bw) + sb;
@@ -955,7 +1080,7 @@ gibbs_chain_staged(const Params p, int groups) {
 #ifdef K3_DIAG_PASS2_ONLY
     const int njobs = resident ? 0 : nst;
 #else
-    const int njobs = resident ? 0 : 2 * nst;
+    const int njobs = resident ? 0 : (kGumbel ? 1 : 2) * nst;
 #endif
     // ring job q stages tile q mod nst of the level into slot q mod kStages
     auto copy_job = [&](int q) {
@@ -1026,6 +1151,66 @@ gibbs_chain_staged(const Params p, int groups) {
               min(kStageCands, w - i0));
       }
     };
+    if constexpr (kGumbel) {
+      // one pass: the logits, the noise, the max and both argmaxes, a lane
+      // the two candidates of one generator block at a time (a slot starts
+      // at a multiple of kStageCands, so a block's pair shares a slot)
+      const kde_rng::Key key = kde_rng::selection_key(
+          p.seeds + 2 * b, (unsigned)c, (unsigned)col);
+      Best<float> lbest{ninf, -1}, dbest{ninf, -1};
+      auto gpass = [&](auto nb, const float* tm, const float* tlw,
+                       const float* ts, int i0, int cnt_) {
+        constexpr bool NB = decltype(nb)::value;
+        for (int ii = 2 * lane; ii < cnt_; ii += 64) {
+          float gq[2];
+          draw_uniforms<float>(key, (i0 + ii) >> 1, gq);
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int iv = ii + v;
+            if (iv < cnt_) {
+              float m[D], bwv[D];
+              load_cand<D>(tm + iv * D, m);
+              if constexpr (NB) load_cand<D>(ts + iv * D, bwv);
+              const float lv = logit_at<float, D>(sel, has_cov, m, bwv,
+                                                  tlw + iv, i0 + iv, two_pi,
+                                                  inv_two_pi);
+              gumbel_take<float>(lv, gq[v],
+                                 K3_CAND(tlw[iv], -(float)((i0 + iv) & 15))
+                                     != ninf,
+                                 i0 + iv, mx, lbest, dbest);
+            }
+          }
+        }
+      };
+      auto gumbel_pass = [&](auto nb) {
+        if (resident) {
+          gpass(nb, rm, rlw, rs, 0, w);
+          return;
+        }
+        for (int q = 0; q < nst; ++q) {
+          const float* sl = arrive(q);
+          const int i0 = q * kStageCands;
+          gpass(nb, sl, sl + kStageCands * D, sl + kStageCands * (D + 1), i0,
+                min(kStageCands, w - i0));
+        }
+      };
+      if (need_bw) gumbel_pass(std::true_type{});
+      else gumbel_pass(std::false_type{});
+      mx = warp_fmax(mx);
+      // the dead test, only where the max is below log(1e-99): the row
+      // alone, from L2, in the warp layout's order
+      bool is_dead = false;
+      if (!(mx >= (float)p.log_dead)) {
+        const float m0 = mx == ninf ? 0.0f : mx;
+        float st = 0.0f;
+        for (int i = lane; i < w; i += 32) st = st + ex(glogit(i) - m0);
+        st = group_all<32>(st, SumOp(), (float*)nullptr);
+        is_dead = m0 + lg(st) < (float)p.log_dead;
+      }
+      return group_best<32>(is_dead ? dbest : lbest, (float*)nullptr,
+                            (int*)nullptr).i;
+    }
+    const float uval = U[col];
     if (need_bw) max_pass(std::true_type{}); else max_pass(std::false_type{});
     mx = warp_fmax(mx);
     ms = mx == ninf ? 0.0f : mx;
@@ -1140,19 +1325,19 @@ gibbs_chain_staged(const Params p, int groups) {
       cp_async_wait<0>();
       __syncthreads();
     }
-    const float* ul = U + dn + (long long)l * per_level;
+    const int cl = dn + l * per_level;     // the level's first selection
     // (1) x from the product of the current selections
     for (int k = lane; k < D; k += 32)
       xq[k] = prod.point(k, NR + (long long)l * D, true);
     __syncwarp();
     // (2) every density re-selects conditioned on x
-    for (int j = 0; j < dn; ++j) pick(j, o, select(j, l, o, w, false, ul[j]));
+    for (int j = 0; j < dn; ++j) pick(j, o, select(j, l, o, w, false, cl + j));
     // (3) n_iter sweeps of leave-one-out Gibbs over the densities
     for (int it = 0; it < p.n_iter; ++it) {
       for (int j = 0; j < dn; ++j) {
         for (int k = lane; k < D; k += 32) prod.dim(k, j, xq[k], cq[k]);
         __syncwarp();
-        pick(j, o, select(j, l, o, w, true, ul[dn + it * dn + j]));
+        pick(j, o, select(j, l, o, w, true, cl + dn + it * dn + j));
       }
     }
     if (live)
@@ -1167,9 +1352,9 @@ gibbs_chain_staged(const Params p, int groups) {
   }
 }
 
-template <int D>
+template <int D, bool kGumbel>
 int launch_staged(const Params& p, cudaStream_t st) {
-  auto kern = gibbs_chain_staged<D>;
+  auto kern = gibbs_chain_staged<D, kGumbel>;
   const size_t smem = kStagedHead + align16((size_t)stage_floats(D) * 4);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1182,6 +1367,37 @@ int launch_staged(const Params& p, cudaStream_t st) {
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, 32 * kBlockChains, smem, st>>>(p, (int)groups);
   return (int)cudaGetLastError();
+}
+
+template <bool kGumbel>
+int dispatch(const Params& p, int layout, int itemsize, cudaStream_t st) {
+  const int d = p.d;
+  if (layout == 2) {
+    switch (d) {
+      case 1: return launch_staged<1, kGumbel>(p, st);
+      case 2: return launch_staged<2, kGumbel>(p, st);
+      default: return launch_staged<3, kGumbel>(p, st);
+    }
+  }
+  const int group = layout == 0 ? 32 : kCtaThreads;
+  if (itemsize == 8)
+    return group == 32 ? launch<double, 32, 0, kGumbel>(p, st)
+                       : launch<double, kCtaThreads, 0, kGumbel>(p, st);
+  // float chains (the keyed paths) at d = 1, 2, 3 take a kernel of that d
+  if (group == 32) {
+    switch (d) {
+      case 1: return launch<float, 32, 1, kGumbel>(p, st);
+      case 2: return launch<float, 32, 2, kGumbel>(p, st);
+      case 3: return launch<float, 32, 3, kGumbel>(p, st);
+      default: return launch<float, 32, 0, kGumbel>(p, st);
+    }
+  }
+  switch (d) {
+    case 1: return launch<float, kCtaThreads, 1, kGumbel>(p, st);
+    case 2: return launch<float, kCtaThreads, 2, kGumbel>(p, st);
+    case 3: return launch<float, kCtaThreads, 3, kGumbel>(p, st);
+    default: return launch<float, kCtaThreads, 0, kGumbel>(p, st);
+  }
 }
 
 }  // namespace
@@ -1214,17 +1430,18 @@ template __global__ void k3_logit_probe<2>(const float*, const float*,
 
 // Every chain of B sets x C chains (see the header).  itemsize 4 or 8 picks
 // float or double; layout 0 is a warp a chain, 1 a block a chain, 2 the
-// staged layout (float, d <= 3).  Strides are in elements.  Returns the
-// CUDA error of the launch (an argument the kernel does not take:
-// cudaErrorInvalidValue).
+// staged layout (float, d <= 3); gumbel 1 draws from `seeds` (chain c of
+// the launch is global chain c), 0 reads `u`.  Strides are in elements.
+// Returns the CUDA error of the launch (an argument the kernel does not
+// take: cudaErrorInvalidValue).
 extern "C" int kde_gibbs_chain(
-    int itemsize, int layout,
+    int itemsize, int layout, int gumbel,
     const void* t_mean, const void* t_bw, long long ts_b, long long ts_j,
     const void* mean, const void* bw, const void* logw, const long long* perm,
     long long ms_b, long long ms_j, long long ls_b, long long ls_j,
     const int* offsets, const unsigned char* uniform,
     const unsigned char* mask, const unsigned char* codes,
-    const void* u, long long us_b, long long us_c,
+    const void* u, long long us_b, long long us_c, const long long* seeds,
     const void* nrm, long long ns_b, long long ns_c,
     void* out_x, long long* out_labels,
     int B, int C, int dn, int d, int L, int n_iter, int add_entropy,
@@ -1232,38 +1449,15 @@ extern "C" int kde_gibbs_chain(
   if ((itemsize != 4 && itemsize != 8) || layout < 0 || layout > 2
       || (layout == 2 && (itemsize != 4 || d > 3))
       || B < 0 || C < 0 || dn < 1 || dn > kMaxDens || d < 1 || d > kMaxDim
-      || L < 1 || n_iter < 0 || u == nullptr || nrm == nullptr)
+      || L < 1 || n_iter < 0 || nrm == nullptr
+      || (gumbel ? seeds == nullptr : u == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{t_mean, t_bw, ts_b, ts_j, mean, bw, logw, perm, ms_b, ms_j, ls_b,
-           ls_j, offsets, uniform, mask, codes, u, us_b, us_c, nrm, ns_b, ns_c,
-           out_x, out_labels, (long long)B * C, C, dn, d, L, n_iter,
-           add_entropy, two_pi, inv_two_pi, log_dead};
+           ls_j, offsets, uniform, mask, codes, u, us_b, us_c, seeds, nrm,
+           ns_b, ns_c, out_x, out_labels, (long long)B * C, C, dn, d, L,
+           n_iter, add_entropy, two_pi, inv_two_pi, log_dead};
   if (p.rows == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (layout == 2) {
-    switch (d) {
-      case 1: return launch_staged<1>(p, st);
-      case 2: return launch_staged<2>(p, st);
-      default: return launch_staged<3>(p, st);
-    }
-  }
-  const int group = layout == 0 ? 32 : kCtaThreads;
-  if (itemsize == 8)
-    return group == 32 ? launch<double, 32, 0>(p, st)
-                       : launch<double, kCtaThreads, 0>(p, st);
-  // float chains (the keyed paths) at d = 1, 2, 3 take a kernel of that d
-  if (group == 32) {
-    switch (d) {
-      case 1: return launch<float, 32, 1>(p, st);
-      case 2: return launch<float, 32, 2>(p, st);
-      case 3: return launch<float, 32, 3>(p, st);
-      default: return launch<float, 32, 0>(p, st);
-    }
-  }
-  switch (d) {
-    case 1: return launch<float, kCtaThreads, 1>(p, st);
-    case 2: return launch<float, kCtaThreads, 2>(p, st);
-    case 3: return launch<float, kCtaThreads, 3>(p, st);
-    default: return launch<float, kCtaThreads, 0>(p, st);
-  }
+  return gumbel ? dispatch<true>(p, layout, itemsize, st)
+                : dispatch<false>(p, layout, itemsize, st);
 }

@@ -18,8 +18,11 @@
 //   cdf:    the count of i with cdf_i < u, clamped to [0, w - 1], where
 //           cdf is the float64 running sum of exp(l_i - max) / s, the exps in
 //           the chain's type widened to float64 and s their float64 sum;
-//   gumbel: argmax_i l_i - log(-log g_i), g the noise the caller drew,
-//           the first index winning ties;
+//   gumbel: argmax_i l_i - log(-log g_i), the first index winning ties, g
+//           the counter draw of csrc/counter_rng.cuh for the set's seed,
+//           the row's global chain index and selection id and candidate i
+//           (a pure function of the four, so the draw depends on no block
+//           or launch; ops/gibbs.py::_gumbel_noise is its twin);
 //
 // and writes the winner's mean, variance and permutation label.  Every
 // step is the twin's operation in the twin's order (built with
@@ -29,17 +32,22 @@
 // only the sums are taken in another order.
 //
 // What bounds it: per candidate d logs and d divisions and, for cdf, one
-// exp and a float64 division on the part of the row the scan reaches; the
-// FP32 pipe and the SFU, not bytes (a row's candidates are read from L2).
-// The design, simple first:
+// exp and a float64 division on the part of the row the scan reaches, for
+// gumbel two logs and the generator's integer work (a Threefry block gives
+// two float candidates); the FP32 and INT32 pipes and the SFU, not bytes
+// (a row's candidates are read from L2).  The design, simple first:
 //   * a row on one warp (8 rows a 256-thread block) for narrow levels, on
 //     one 512-thread block for wide ones (the wrapper's launch_plan picks);
 //   * pass 1 computes the logits, their max and (gumbel) both argmaxes, the
-//     live one and the dead-fallback one, so the noise is read once; the
-//     logits go to dynamic shared memory when the wrapper says they fit
-//     (cache), and are recomputed in the later passes otherwise;
+//     live one and the dead-fallback one, drawing the noise as it goes, a
+//     thread the candidates of one generator block at a time; the logits
+//     go to dynamic shared memory when the wrapper says they fit (cache),
+//     and are recomputed in the later passes otherwise;
 //   * pass 2 sums the exps for the degenerate test (in the chain's type, as
-//     the twin) and, for cdf, in float64 for the normaliser;
+//     the twin) and, for cdf, in float64 for the normaliser.  Gumbel takes
+//     it only on rows whose max is below log(1e-99): the sum holds
+//     exp(0) = 1 and no negative term, so its log is >= 0 and a row whose
+//     max reaches the threshold is live in any rounding;
 //   * pass 3 (cdf) scans tiles of G x kPer candidates in index order, a
 //     thread's kPer consecutive ones in registers, the threads' sums by a
 //     shuffle scan; it stops at the tile where the CDF reaches u.
@@ -48,6 +56,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "counter_rng.cuh"
 
 namespace {
 
@@ -82,8 +92,8 @@ struct Params {
   const unsigned char* active;   // [B, dn, d] bool
   const unsigned char* codes;    // [d]: 0 Euclidean, 1 circular
   const void* u;             // [B, C, J] (cdf)
-  const void* noise;         // rows of w, strides below (gumbel)
-  long long ns_b, ns_c, ns_j;
+  const long long* seeds;    // [B, 2] counter seeds (gumbel)
+  long long chain0, sel0;    // global index of chain 0, id of selection j0
   void* out_mean;            // [B, C, J, d]
   void* out_var;
   long long* out_label;      // [B, C, J]
@@ -272,40 +282,55 @@ gibbs_select_kernel(const Params p) {
   T mx = neg_inf<T>();
   int nreal = 0;
   Best<T> live{neg_inf<T>(), -1}, dead_best{neg_inf<T>(), -1};
-  const T* gn_row = nullptr;
-  if constexpr (kGumbel)
-    gn_row = static_cast<const T*>(p.noise) + b * p.ns_b + c * p.ns_c
-             + jj * p.ns_j;
-  for (int i = t; i < w; i += G) {
-    const T l = logit(i);
-    if (p.cache) cache[i] = l;
-    if (l > mx) mx = l;
-    const bool pad = logw[i] == neg_inf<T>();
-    nreal += pad ? 0 : 1;
-    if constexpr (kGumbel) {
-      const T l1 = lg(gn_row[i]);
-      const T gn = lg(-l1);
-      const T v = l - gn;
-      if (live.i < 0 || v > live.v) live = Best<T>{v, i};
-      const T vd = pad ? neg_inf<T>() : (T)0 - gn;
-      if (dead_best.i < 0 || vd > dead_best.v) dead_best = Best<T>{vd, i};
+  if constexpr (kGumbel) {
+    using U = kde_rng::Uniform<T>;
+    const kde_rng::Key key = kde_rng::selection_key(
+        p.seeds + 2 * b, (unsigned)(p.chain0 + c), (unsigned)(p.sel0 + jj));
+    for (int q = t; q * U::kPer < w; q += G) {
+      T g[U::kPer];
+      U::draw(key, q, g);
+#pragma unroll
+      for (int v = 0; v < U::kPer; ++v) {
+        const int i = q * U::kPer + v;
+        if (i < w) {
+          const T l = logit(i);
+          if (p.cache) cache[i] = l;
+          if (l > mx) mx = l;
+          const T gn = lg(-lg(g[v]));
+          const T lv = l - gn;
+          if (live.i < 0 || lv > live.v) live = Best<T>{lv, i};
+          const T vd = logw[i] == neg_inf<T>() ? neg_inf<T>() : (T)0 - gn;
+          if (dead_best.i < 0 || vd > dead_best.v) dead_best = Best<T>{vd, i};
+        }
+      }
+    }
+  } else {
+    for (int i = t; i < w; i += G) {
+      const T l = logit(i);
+      if (p.cache) cache[i] = l;
+      if (l > mx) mx = l;
+      nreal += logw[i] == neg_inf<T>() ? 0 : 1;
     }
   }
   mx = group_all<G>(mx, MaxOp(), s_t);
   const T ms = mx == neg_inf<T>() ? (T)0 : mx;
   auto lval = [&](int i) -> T { return p.cache ? cache[i] : logit(i); };
 
-  // pass 2: the degenerate test; cdf also takes the float64 normaliser
-  T sum_t = (T)0;
+  // pass 2: the degenerate test; cdf also takes the float64 normaliser.
+  // Gumbel skips it where the max reaches log(1e-99) (see the header).
+  bool dead = false;
   double sum_d = 0.0;
-  for (int i = t; i < w; i += G) {
-    const T e = ex(lval(i) - ms);
-    sum_t = sum_t + e;
-    if constexpr (!kGumbel) sum_d += (double)e;
+  if (!kGumbel || !(mx >= (T)p.log_dead)) {
+    if constexpr (kGumbel) group_sync<G>();   // pass 1 cached others' i
+    T sum_t = (T)0;
+    for (int i = t; i < w; i += G) {
+      const T e = ex(lval(i) - ms);
+      sum_t = sum_t + e;
+      if constexpr (!kGumbel) sum_d += (double)e;
+    }
+    sum_t = group_all<G>(sum_t, SumOp(), s_t);
+    dead = ms + lg(sum_t) < (T)p.log_dead;
   }
-  sum_t = group_all<G>(sum_t, SumOp(), s_t);
-  const T lse = ms + lg(sum_t);
-  const bool dead = lse < (T)p.log_dead;
 
   int z;
   if constexpr (kGumbel) {
@@ -400,28 +425,29 @@ int dispatch(const Params& p, int gumbel, int group, size_t smem,
 }  // namespace
 
 // One selection step of B * C * J rows (see the header).  itemsize 4 or 8
-// picks float or double; gumbel 1 reads `noise`, 0 reads `u`; group is 32
-// (a warp a row) or 512 (a block a row), cache 1 keeps the row's logits in
-// shared memory.  Strides are in elements.  Returns the CUDA error of the
+// picks float or double; gumbel 1 draws from `seeds` (chain c of the launch
+// is global chain chain0 + c, density j0 + jj selection sel0 + jj), 0 reads
+// `u`; group is 32 (a warp a row) or 512 (a block a row), cache 1 keeps the
+// row's logits in shared memory.  Strides are in elements.  Returns the CUDA error of the
 // launch (an argument the kernel does not take: cudaErrorInvalidValue).
 extern "C" int kde_gibbs_select(
     int itemsize, int gumbel, int group, int cache,
     const void* mean, const void* bw, const void* logw, const long long* perm,
     long long ms_b, long long ms_j, long long ls_b, long long ls_j,
     const void* mu, const void* cov, const unsigned char* active,
-    const unsigned char* codes, const void* u, const void* noise,
-    long long ns_b, long long ns_c, long long ns_j,
-    void* out_mean, void* out_var, long long* out_label,
+    const unsigned char* codes, const void* u, const long long* seeds,
+    long long chain0, long long sel0, void* out_mean, void* out_var,
+    long long* out_label,
     int B, int C, int J, int j0, int dn, int w, int d,
     double two_pi, double inv_two_pi, double log_dead, void* stream) {
   if ((itemsize != 4 && itemsize != 8) || (group != 32 && group != kCtaThreads)
       || B < 0 || C < 0 || J < 1 || j0 < 0 || j0 + J > dn || w < 1 || d < 1
-      || (gumbel ? noise == nullptr : u == nullptr))
+      || (gumbel ? seeds == nullptr : u == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(group, cache, w, d, (size_t)itemsize);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   Params p{mean, bw, logw, perm, ms_b, ms_j, ls_b, ls_j, mu, cov, active,
-           codes, u, noise, ns_b, ns_c, ns_j, out_mean, out_var, out_label,
+           codes, u, seeds, chain0, sel0, out_mean, out_var, out_label,
            (long long)B * C * J, C, J, j0, dn, w, d, cache,
            two_pi, inv_two_pi, log_dead};
   if (p.rows == 0) return 0;

@@ -22,7 +22,12 @@ uniforms and ``bn = d*(L+1)`` normals, in the reference's consumption order
 streams therefore replay a serial trace exactly ("replay mode").  Keyed
 draws come from an explicit ``torch.Generator`` per set, and pick labels by
 the flat inverse CDF, block by block, or by Gumbel-max
-(:func:`resolve_select`).
+(:func:`resolve_select`).  Gumbel-max takes the normals and then a seed of
+two 32-bit words from the set's generator, and no uniforms: its noise is a
+counter draw (Threefry-2x32, utils/random.py), a pure function of the
+seed, the chain's global index, the selection id and the candidate, as
+the JAX package folds a stage id into each chain's key.  So a chain's
+gumbel draw does not depend on the chain blocks, the layout or the launch.
 
 Numerical guards kept from the reference: per-dimension NaN suppression
 (:302-304), the degenerate fallback to a uniform draw when the candidate
@@ -43,7 +48,8 @@ import torch
 
 from .. import config, manifolds
 from ..density import KDE, kde
-from ..utils.random import make_generator, split
+from ..utils.random import (counter_seed, counter_uniform, make_generator,
+                            split)
 from . import gibbs_chain as _gc
 from . import gibbs_select as _gs
 from .balltree import n_levels as _n_levels
@@ -57,8 +63,7 @@ from .loocv import _slices_on, ksize_rows, select_loo_impl
 CHAIN_BLOCK_BYTES: int = 2 << 30
 
 # about this many [chains, width] temporaries are alive at once on the eager
-# twin route; the kernel route keeps none but a gumbel stage's noise
-# (:func:`_live_temps`)
+# twin route; the kernel routes keep none (:func:`_live_temps`)
 _LIVE_TEMPS = 8
 
 # log(1e-99): the reference's degenerate-likelihood threshold
@@ -447,36 +452,30 @@ def _select_label_blocked(u, logits, block: int):
     return (b * block + zin.clamp(0, block - 1)).clamp(0, w - 1)
 
 
-def _select_label_gumbel(gens, logits):
+def _select_label_gumbel(seeds, logits, chain0: int = 0, sel: int = 0):
     """Gumbel-max draw for the keyed path: ``argmax(logits + G)`` with
-    ``G = -log(-log U)``, the uniforms of set ``b`` drawn from generator
-    ``gens[b]`` (``logits [B, C, w]``).  It samples softmax(logits), the
+    ``G = -log(-log U)`` (``logits [B, C, w]``), ``U`` the counter draw of
+    set ``b``'s seed ``seeds[b]``, chains ``chain0 ..`` and selection
+    ``sel`` (:func:`_gumbel_noise`).  It samples softmax(logits), the
     distribution of the inverse-CDF draw.  ``U`` is clamped away from 0 and
     1 so ``G`` stays finite; dead rows (0 for real candidates, -inf for
     padding) then give a uniform draw that never lands on padding."""
     _, c, w = logits.shape
-    noise = _gumbel_noise(gens, c, 1, w, logits.dtype, logits.device)
-    return _gumbel_argmax(logits, noise[:, :, 0])
+    chains = torch.arange(chain0, chain0 + c, device=logits.device)
+    u = _gumbel_noise(seeds, chains, (sel,), w, logits.dtype)[:, :, 0]
+    # the first index wins ties
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def _gumbel_noise(gens, c: int, n_js: int, w: int, dtype, device):
-    """The uniforms of one gumbel stage of ``n_js`` densities: ``[B, C,
-    n_js, w]`` (a view of a ``[B, n_js, C, w]`` buffer), drawn density by
-    density and, within a density, set by set, each ``[C, w]`` from the
-    set's generator as one ``torch.rand`` call, then clamped to ``[tiny,
-    1 - eps]``."""
-    buf = torch.empty((len(gens), n_js, c, w), dtype=dtype, device=device)
-    for jj in range(n_js):
-        for b, g in enumerate(gens):
-            torch.rand((c, w), generator=g, out=buf[b, jj])
-    fi = torch.finfo(dtype)
-    return buf.clamp_(fi.tiny, 1.0 - fi.eps).permute(0, 2, 1, 3)
-
-
-def _gumbel_argmax(logits, noise):
-    """``argmax(logits - log(-log noise))`` over the last axis, the first
-    index winning ties."""
-    return torch.argmax(logits - torch.log(-torch.log(noise)), dim=-1)
+def _gumbel_noise(seeds, chains, sels: Sequence[int], w: int, dtype):
+    """The uniforms of one gumbel stage: ``[B, C, |sels|, w]`` for the
+    global chain indices ``chains [C]`` and the selection ids ``sels`` of
+    ``B`` sets seeded by ``seeds [B, 2]``: ``utils/random.py::
+    counter_uniform``, the draw the kernels make in registers (a pure
+    function of seed, chain, selection and candidate, so it does not
+    depend on the chain blocks or the launch)."""
+    return counter_uniform(seeds, chains, torch.as_tensor(
+        sels, dtype=torch.int64, device=seeds.device), w, dtype)
 
 
 def _sample_point(mu_sel, var_sel, mask, normals, jitter: bool,
@@ -501,8 +500,10 @@ class _Stage(NamedTuple):
     step, one in a sweep), the Gaussian each candidate is scored against
     (mean ``mu [B, C, d]``, added covariance ``cov [B, C, d]`` or None),
     the uniforms ``u [B, C, |js|]`` (None for gumbel), the active dims
-    ``active [B, dn, d]`` with their host copy, and the per-dim ``diffop``
-    (None: Euclidean)."""
+    ``active [B, dn, d]`` with their host copy, the per-dim ``diffop``
+    (None: Euclidean) and the selection id of ``js[0]``, ``sel`` (density
+    ``js[jj]``'s is ``sel + jj``): the column of the uniform stream that
+    cdf reads for it, which keys gumbel's counter noise."""
     js: Tuple[int, ...]
     mu: torch.Tensor
     cov: Optional[torch.Tensor]
@@ -510,6 +511,7 @@ class _Stage(NamedTuple):
     active: torch.Tensor
     active_host: np.ndarray
     diffop: Optional[tuple]
+    sel: int = 0
 
     def logits(self, j: int, lvl):
         """Density ``j``'s raw candidate logits ``[B, C, w]`` at the level
@@ -539,45 +541,46 @@ def _select_eager(stage: _Stage, lvl, draw):
     return tuple(torch.stack(parts, dim=2) for parts in zip(*outs))
 
 
-def _local_choose(select: str = "cdf", gens=None):
-    """The single-device selection step of :func:`_run_chain`:
+def _local_choose(select: str = "cdf", seeds=None, chain0: int = 0):
+    """The single-device selection step of :func:`_run_chain` for chains
+    ``chain0 ..`` of the sets seeded by ``seeds [B, 2]`` (gumbel):
     ``choose(stage, lvl)`` gives each density of ``stage.js`` its winner's
     ``(mean [B, C, d], var [B, C, d], label [B, C])``.  ``cdf`` and
     ``gumbel`` go through :func:`gibbs_select.gibbs_select` (the kernel on
-    the card), ``gumbel`` with a stage of noise from :func:`_gumbel_noise`;
-    ``blocked`` and a user's own ``diffop``, which no kernel runs, take the
-    eager twin by design (counted in ``gibbs_select.TWIN_STAGES``)."""
+    the card, which draws gumbel's counter noise itself); ``blocked`` and
+    a user's own ``diffop``, which no kernel runs, take the eager twin by
+    design (counted in ``gibbs_select.TWIN_STAGES``), gumbel with the
+    noise of :func:`_gumbel_noise`."""
     def choose(stage: _Stage, lvl):
-        _, c, d = stage.mu.shape
-        codes = _gs.diff_codes(stage.diffop, d)
-        noise = None
-        if select == "gumbel":
-            noise = _gumbel_noise(gens, c, len(stage.js), lvl[2].shape[-1],
-                                  stage.mu.dtype, stage.mu.device)
+        codes = _gs.diff_codes(stage.diffop, stage.mu.shape[2])
         if select == "blocked" or codes is None:
             _gs.TWIN_STAGES += 1
 
             def draw(jj, logits):
                 w = logits.shape[-1]
-                if noise is not None:
-                    return _gumbel_argmax(logits, noise[:, :, jj])
+                if select == "gumbel":
+                    return _select_label_gumbel(seeds, logits, chain0,
+                                                stage.sel + jj)
                 if select == "blocked" and w > 128:   # narrow: the scan
                     return _select_label_blocked(stage.u[:, :, jj], logits,
                                                  _blocked_block_size(w))
                 return _select_label(stage.u[:, :, jj], logits)
             mean, var, label = _select_eager(stage, lvl, draw)
         else:
+            gumbel = select == "gumbel"
             mean, var, label = _gs.gibbs_select(
                 *lvl, stage.js, stage.mu, stage.cov, stage.active, codes,
-                u=stage.u if noise is None else None, noise=noise)
+                u=None if gumbel else stage.u,
+                seeds=seeds if gumbel else None, chain0=chain0,
+                sel0=stage.sel)
         return [(mean[:, :, i], var[:, :, i], label[:, :, i])
                 for i in range(len(stage.js))]
     return choose
 
 
 def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
-               add_entropy: bool, select: str = "cdf", gens=None,
-               hooks=_NO_HOOKS, choose=None):
+               add_entropy: bool, select: str = "cdf", seeds=None,
+               hooks=_NO_HOOKS, choose=None, chain0: int = 0):
     """A block of chains of ``B`` density sets.  ``u [B, C, bu]`` and
     ``nrm [B, C, bn]`` are their streams in the reference's consumption
     order:
@@ -586,9 +589,11 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
       normals:  [(L+1) * d]
 
     ``mask [B, dn, d]``.  ``select``: ``cdf``, ``blocked`` (on levels wider
-    than 128) or ``gumbel``, which draws fresh noise from the sets'
-    generators ``gens`` for every (level, sweep, density) stage and takes
-    ``u = None``.  ``hooks``: the normalized manifold quadruple
+    than 128) or ``gumbel``, which takes ``u = None`` and draws its noise
+    by counter from the sets' seeds ``seeds [B, 2]``, the chain's global
+    index (the block's first chain is ``chain0``) and the selection id
+    (the column cdf reads in ``u``).  ``hooks``: the normalized manifold
+    quadruple
     (:func:`normalize_hooks`).  ``choose(stage, lvl)`` replaces the
     selection (default :func:`_local_choose`): it gives each density of
     ``stage.js`` its winner's ``(mean [B, C, d], var [B, C, d], label [B,
@@ -602,7 +607,7 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     b, c = nrm.shape[:2]
     dn, d, L = mask.shape[1], mask.shape[2], plans.n_levels
     _, diffop, get_mu, get_lambda = hooks
-    choose = choose or _local_choose(select, gens)
+    choose = choose or _local_choose(select, seeds, chain0)
     zero = torch.zeros((), dtype=nrm.dtype, device=nrm.device)
     # dims carried by at least one OTHER density (the LOO dimmask,
     # reference src/MSGibbs01.jl:270-275)
@@ -611,8 +616,9 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
         for j in range(dn)], dim=1)
     act_all = mask & union_other                              # [B, dn, d]
     act_host = act_all.cpu().numpy()
-    stage = lambda js, mu, cov, us: _Stage(tuple(js), mu, cov, us, act_all,
-                                           act_host, diffop)
+    stage = lambda js, mu, cov, us, sel: _Stage(tuple(js), mu, cov, us,
+                                                act_all, act_host, diffop,
+                                                sel)
     if u is not None:
         per_level = u[:, :, dn:].reshape(b, c, L, (1 + n_iter) * dn)
         u_cond = per_level[..., :dn]
@@ -635,12 +641,14 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
 
     for l in range(1, L + 1):
         lvl = plans.level(l)
+        sel = dn + (l - 1) * (1 + n_iter) * dn      # u's column of the stage
         # (1) draw X from the product of the current selections (:594)
         x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True,
                           hooks)
         # (2) re-select every density's label conditioned on X (:600)
         sels = choose(stage(range(dn), x, None,
-                            None if u is None else u_cond[:, :, l - 1]), lvl)
+                            None if u is None else u_cond[:, :, l - 1], sel),
+                      lvl)
         for j in range(dn):
             pick(j, sels[j])
         # (3) n_iter sweeps of sequential LOO Gibbs over densities (:604-608)
@@ -649,7 +657,8 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
                 mu, cov = _gauss_product(mu_sel, var_sel, mask, j, get_mu,
                                          get_lambda)
                 us = None if u is None else u_gibbs[:, :, l - 1, t, j:j + 1]
-                pick(j, choose(stage([j], mu, cov, us), lvl)[0])
+                pick(j, choose(stage([j], mu, cov, us,
+                                     sel + (1 + t) * dn + j), lvl)[0])
         labels.append(perms.clone())
 
     # final draw (:612-625)
@@ -662,15 +671,16 @@ def _route(select: str, hooks, device, dn: int, d: int) -> str:
     """Where the local engine's chains run, fixed before any launch, from
     the selection, the normalized hook quadruple (None: Euclidean), the
     device and the densities and dims: ``chain`` on the card for ``cdf``
-    with Euclidean or circular hooks (one ``gibbs_chain`` launch for every
-    chain); ``kernel`` on the card for ``gumbel``, and for ``cdf`` with
-    Euclidean or circular differences that the chain kernel does not take
-    (one ``gibbs_select`` launch a selection step); ``twin`` (eager torch
-    ops) otherwise."""
+    and ``gumbel`` with Euclidean or circular hooks (one ``gibbs_chain``
+    launch for every chain); ``kernel`` on the card for Euclidean or
+    circular differences that the chain kernel does not take (a lone
+    circular ``diffop``, more than ``MAX_DENS`` densities or ``MAX_DIM``
+    dims: one ``gibbs_select`` launch a selection step); ``twin`` (eager
+    torch ops) otherwise."""
     hooks = hooks or _NO_HOOKS
     if torch.device(device).type != "cuda" or select not in ("cdf", "gumbel"):
         return "twin"
-    if (select == "cdf" and dn <= _gc.MAX_DENS and d <= _gc.MAX_DIM
+    if (dn <= _gc.MAX_DENS and d <= _gc.MAX_DIM
             and _gc.hook_codes(hooks, d) is not None):
         return "chain"
     if _gs.diff_codes(hooks[1], d) is not None:
@@ -678,22 +688,20 @@ def _route(select: str, hooks, device, dn: int, d: int) -> str:
     return "twin"
 
 
-def _live_temps(route: str, select: str, dn: int) -> int:
+def _live_temps(route: str) -> int:
     """The ``[chains, level width]`` temporaries a chain block keeps alive
-    on ``route``: about ``_LIVE_TEMPS`` on the eager twin; on the kernels
-    none, but a gumbel stage's noise, one per density of the conditioning
-    step."""
-    if route == "twin":
-        return _LIVE_TEMPS
-    return dn if select == "gumbel" else 0
+    on ``route``: about ``_LIVE_TEMPS`` on the eager twin, none on the
+    kernels (gumbel's noise is drawn inside them)."""
+    return _LIVE_TEMPS if route == "twin" else 0
 
 
 def _chain_block(n_out: int, plan, itemsize: int,
                  live: int = _LIVE_TEMPS) -> int:
     """Chains per block and per set, so one set's ``live`` temporaries stay
     within ``CHAIN_BLOCK_BYTES``.  A batch of ``B`` sets runs ``B`` such
-    blocks at once: the split depends on the set's shape alone, so a set's
-    gumbel noise is drawn in the same order as in a standalone product."""
+    blocks at once.  Blocking is layout only: chains are numbered globally,
+    and gumbel's noise is a function of the chain's index, not its
+    block."""
     return _chains_per_block(n_out, max(w for _, w in plan.offsets),
                              itemsize, live)
 
@@ -709,10 +717,11 @@ def _chains_per_block(n_out: int, width: int, itemsize: int,
 
 
 def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
-                      add_entropy: bool, select: str = "cdf", gens=None,
+                      add_entropy: bool, select: str = "cdf", seeds=None,
                       hooks=_NO_HOOKS, choose=None):
-    """All chains of ``B`` sets (``nrm [B, n_out, bn]``): on the ``chain``
-    route one ``gibbs_chain`` launch; otherwise in blocks of
+    """All chains of ``B`` sets (``nrm [B, n_out, bn]``; gumbel: ``u`` None
+    and the sets' counter seeds ``seeds [B, 2]``): on the ``chain`` route
+    one ``gibbs_chain`` launch; otherwise in blocks of
     :func:`_chain_block` chains per set, sized for the selection's route
     (the block count depends only on the plan's widths, ``n_out`` and the
     route, which every rank of a mesh shares)."""
@@ -722,12 +731,12 @@ def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
                                                      nrm.device, dn, d)
     if route == "chain":
         return _gc.gibbs_chain(u, nrm, plans, mask, n_iter, add_entropy,
-                               _gc.hook_codes(hooks, d))
+                               _gc.hook_codes(hooks, d), select, seeds)
     block = _chain_block(n_out, plans, nrm.element_size(),
-                         _live_temps(route, select, mask.shape[1]))
+                         _live_temps(route))
     outs = [_run_chain(None if u is None else u[:, s:s + block],
                        nrm[:, s:s + block], plans, mask, n_iter, add_entropy,
-                       select, gens, hooks, choose)
+                       select, seeds, hooks, choose, chain0=s)
             for s in range(0, n_out, block)]
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
@@ -773,13 +782,16 @@ def _stream_sizes(dn: int, d: int, n_levels: int, n_iter: int):
 
 def _keyed_streams(gen, n_out: int, bu: int, bn: int, dtype, device,
                    select: str):
-    """Uniform ``[n_out, bu]`` (none for ``gumbel``, which draws its noise
-    per stage) and normal ``[n_out, bn]`` streams from ``gen``; chain ``i``
-    consumes row ``i`` of each."""
-    u = (None if select == "gumbel" else
+    """Uniform ``[n_out, bu]`` and normal ``[n_out, bn]`` streams from
+    ``gen`` (chain ``i`` consumes row ``i`` of each), and the seed of the
+    counter draws (``utils/random.py::counter_seed``), drawn right after
+    the normals: ``gumbel`` takes the normals and the seed, no uniforms;
+    the other selections the two streams and no seed."""
+    gumbel = select == "gumbel"
+    u = (None if gumbel else
          torch.rand((n_out, bu), generator=gen, dtype=dtype, device=device))
     nrm = torch.randn((n_out, bn), generator=gen, dtype=dtype, device=device)
-    return u, nrm
+    return u, nrm, counter_seed(gen) if gumbel else None
 
 
 def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
@@ -792,11 +804,12 @@ def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
     device = mask.device
     streams = [_keyed_streams(g, n_out, bu, bn, dtype, device, select)
                for g in gens]
-    u = (None if select == "gumbel"
-         else torch.stack([s[0] for s in streams]))
+    gumbel = select == "gumbel"
+    u = None if gumbel else torch.stack([s[0] for s in streams])
     nrm = torch.stack([s[1] for s in streams])
+    seeds = torch.stack([s[2] for s in streams]) if gumbel else None
     pts, idx, labels = _gibbs_all_chains(u, nrm, plans, mask, n_iter,
-                                         add_entropy, select, gens, hooks)
+                                         add_entropy, select, seeds, hooks)
     return pts.transpose(1, 2), idx.transpose(1, 2), labels.transpose(2, 3)
 
 
@@ -853,8 +866,8 @@ def prod_appx_ms_gibbs(npd0,
       select: the keyed path's label selection: ``auto`` (reads
         ``config.GIBBS_SELECT``, see :func:`resolve_select`), ``cdf`` (the
         flat inverse CDF), ``blocked`` (the same draw block by block) or
-        ``gumbel`` (argmax of logits plus Gumbel noise).  Replay mode
-        always draws with ``cdf``.
+        ``gumbel`` (argmax of logits plus Gumbel noise, drawn by counter
+        from a seed the key gives).  Replay mode always draws with ``cdf``.
 
     Returns ``(points [d, Np], indices [ndens, Np])`` with 0-based labels,
     plus ``labels [Np, ndens, n_levels]`` if ``record_labels``.

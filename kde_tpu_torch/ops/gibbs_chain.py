@@ -3,9 +3,12 @@ step K2 of ``ops/gibbs_select.py`` as its inner step; on the TPU the chain
 is the XLA-fused ``kde_tpu/ops/gibbs.py::_run_chain``, :498-651).
 
 :func:`gibbs_chain` runs every chain of ``B`` density sets from the roots to
-the final draw for ``select = "cdf"``: per level the point draw, the
-conditioning selection of every density and ``n_iter`` leave-one-out
-sweeps, with no host step between stages.  CUDA tensors launch the
+the final draw for ``select = "cdf"`` (from the uniform stream) and
+``select = "gumbel"`` (from counter noise drawn in the kernel, a pure
+function of the set's seed, the chain, the selection id and the candidate;
+csrc/counter_rng.cuh): per level the point draw, the conditioning
+selection of every density and ``n_iter`` leave-one-out sweeps, with no
+host step between stages.  CUDA tensors launch the
 hand-written kernel ``csrc/gibbs_chain.cu`` once; CPU tensors take the
 plain twin :func:`gibbs_chain_ref`, the eager ``ops/gibbs.py::_run_chain``
 with ``gibbs_select_ref`` as its selection.  The library is built with nvcc
@@ -98,8 +101,9 @@ def bind(path) -> ctypes.CDLL:
     vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_double)
     lib.kde_gibbs_chain.argtypes = (
-        [i] * 2 + [vp] * 2 + [ll] * 2 + [vp] * 4 + [ll] * 4 + [vp] * 5
-        + [ll] * 2 + [vp] + [ll] * 2 + [vp] * 2 + [i] * 7 + [f] * 3 + [vp])
+        [i] * 3 + [vp] * 2 + [ll] * 2 + [vp] * 4 + [ll] * 4 + [vp] * 5
+        + [ll] * 2 + [vp] * 2 + [ll] * 2 + [vp] * 2 + [i] * 7 + [f] * 3
+        + [vp])
     lib.kde_gibbs_chain.restype = i
     return lib
 
@@ -172,21 +176,29 @@ def _offsets_on(offsets: Tuple[Tuple[int, int], ...],
     return torch.as_tensor(offsets, dtype=torch.int32, device=device)
 
 
-def _check(u, nrm, plans, mask, n_iter, codes):
+def _check(u, nrm, plans, mask, n_iter, codes, select, seeds):
     """Shapes, dtypes and the one device of the inputs; returns the
     device.  Raises on anything else."""
     b, dn, t_len, d = plans.lvl_mean.shape
     c = nrm.shape[1] if nrm.dim() == 3 else -1
     L = plans.n_levels
     bu, bn = dn * (1 + L * (1 + n_iter)), d * (L + 1)
-    want = {"u": (u, (b, c, bu)), "nrm": (nrm, (b, c, bn)),
-            "mask": (mask, (b, dn, d)),
+    want = {"nrm": (nrm, (b, c, bn)), "mask": (mask, (b, dn, d)),
             "lvl_bw": (plans.lvl_bw, (b, dn, t_len, d)),
             "lvl_logw": (plans.lvl_logw, (b, dn, t_len)),
             "lvl_perm": (plans.lvl_perm, (b, dn, t_len))}
-    if u is None:
-        raise ValueError("gibbs_chain draws with cdf: it needs the uniform "
-                         "stream u")
+    if select == "cdf":
+        if u is None or seeds is not None:
+            raise ValueError("gibbs_chain draws cdf from the uniform stream "
+                             "u and takes no seeds")
+        want["u"] = (u, (b, c, bu))
+    elif select == "gumbel":
+        if u is not None or seeds is None:
+            raise ValueError("gibbs_chain draws gumbel from the counter "
+                             "seeds [B, 2] and takes no u")
+        want["seeds"] = (seeds, (b, 2))
+    else:
+        raise ValueError(f"gibbs_chain draws cdf or gumbel, not {select!r}")
     bad = [f"{k} {tuple(x.shape)} (want {s})" for k, (x, s) in want.items()
            if tuple(x.shape) != s]
     bad += [f"{k} {tuple(x.shape)}" for k, x in (("t_mean", plans.t_mean),
@@ -204,9 +216,10 @@ def _check(u, nrm, plans, mask, n_iter, codes):
     if codes is None or len(codes) != d or any(k not in (0, 1) for k in codes):
         raise ValueError(f"gibbs_chain: codes must be d = {d} of 0/1, got "
                          f"{codes}")
-    floats = [u, nrm, plans.t_mean, plans.t_bw, plans.lvl_mean, plans.lvl_bw,
-              plans.lvl_logw]
-    tensors = floats + [mask, plans.lvl_perm]
+    floats = [x for x in (u, nrm, plans.t_mean, plans.t_bw, plans.lvl_mean,
+                          plans.lvl_bw, plans.lvl_logw) if x is not None]
+    tensors = floats + [x for x in (mask, plans.lvl_perm, seeds)
+                        if x is not None]
     devs = {x.device for x in tensors}
     if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
         raise ValueError("gibbs_chain: inputs must all lie on the CPU or on "
@@ -214,17 +227,22 @@ def _check(u, nrm, plans, mask, n_iter, codes):
     dts = {x.dtype for x in floats}
     if (len(dts) != 1 or dts.pop() not in (torch.float32, torch.float64)
             or plans.lvl_perm.dtype != torch.int64
-            or mask.dtype != torch.bool):
+            or mask.dtype != torch.bool
+            or (seeds is not None and seeds.dtype != torch.int64)):
         raise TypeError("gibbs_chain: float32 or float64 streams and plan of "
-                        "one dtype, int64 lvl_perm and bool mask; got "
-                        f"{[x.dtype for x in floats]}, {plans.lvl_perm.dtype}"
-                        f", {mask.dtype}")
+                        "one dtype, int64 lvl_perm and seeds and bool mask; "
+                        f"got {[x.dtype for x in floats]}, "
+                        f"{plans.lvl_perm.dtype}, {mask.dtype}")
     return next(iter(devs))
 
 
-def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
-                n_iter: int, add_entropy: bool, codes: Sequence[int]):
-    """Every chain of ``B`` density sets, drawn with ``cdf``.
+def gibbs_chain(u: Optional[torch.Tensor], nrm: torch.Tensor, plans,
+                mask: torch.Tensor, n_iter: int, add_entropy: bool,
+                codes: Sequence[int], select: str = "cdf",
+                seeds: Optional[torch.Tensor] = None):
+    """Every chain of ``B`` density sets, drawn with ``select``: ``cdf``
+    from ``u``, or ``gumbel`` from the sets' counter seeds ``seeds [B, 2]``
+    (int64; ``u`` None), chain ``c`` of a set being its global chain ``c``.
 
     ``u [B, C, bu]`` and ``nrm [B, C, bn]``: the streams in the reference's
     consumption order (``ops/gibbs.py::_run_chain``); ``plans``: a
@@ -237,9 +255,10 @@ def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
     :func:`launch_plan`'s: staged for float32 at d <= 3 with many chains
     over wide levels, the warp or block layout for the other shapes."""
     global LAUNCHES
-    dev = _check(u, nrm, plans, mask, n_iter, codes)
+    dev = _check(u, nrm, plans, mask, n_iter, codes, select, seeds)
     if dev == _CPU:
-        return gibbs_chain_ref(u, nrm, plans, mask, n_iter, add_entropy, codes)
+        return gibbs_chain_ref(u, nrm, plans, mask, n_iter, add_entropy, codes,
+                               select, seeds)
     b, dn, _, d = plans.lvl_mean.shape
     c, L = nrm.shape[1], plans.n_levels
     lm, lb, lw, lp = plans.lvl_mean, plans.lvl_bw, plans.lvl_logw, \
@@ -248,7 +267,7 @@ def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
     if (lm.stride()[2:] != (d, 1) or lb.stride() != lm.stride()
             or lw.stride(2) != 1 or lp.stride() != lw.stride()
             or tm.stride(3) != 1 or tb.stride() != tm.stride()
-            or u.stride(2) != 1 or nrm.stride(2) != 1):
+            or (u is not None and u.stride(2) != 1) or nrm.stride(2) != 1):
         raise ValueError("gibbs_chain: each (set, density) slab of the plan "
                          "must be contiguous, lvl_bw laid out as lvl_mean, "
                          "lvl_perm as lvl_logw, t_bw as t_mean, and the "
@@ -259,16 +278,17 @@ def gibbs_chain(u: torch.Tensor, nrm: torch.Tensor, plans, mask: torch.Tensor,
                          f"{uni.device}, want {(b, dn, L, d)} on {dev}")
     width = max(w for _, w in plans.offsets)
     out = _launch(_load(), launch_plan(c, width, lm.dtype, d), u, nrm, plans,
-                  mask, n_iter, add_entropy, codes)
+                  mask, n_iter, add_entropy, codes, seeds)
     if b * c:
         LAUNCHES += 1
     return out
 
 
 def _launch(lib, layout: str, u, nrm, plans, mask, n_iter, add_entropy,
-            codes):
+            codes, seeds=None):
     """One ``kde_gibbs_chain`` call of ``lib`` with ``layout`` on
-    inputs :func:`gibbs_chain` has checked; raises on a refused launch."""
+    inputs :func:`gibbs_chain` has checked (gumbel where ``seeds`` is
+    given, cdf from ``u`` otherwise); raises on a refused launch."""
     b, dn, _, d = plans.lvl_mean.shape
     c, L = nrm.shape[1], plans.n_levels
     lm, lb, lw, lp = plans.lvl_mean, plans.lvl_bw, plans.lvl_logw, \
@@ -281,17 +301,20 @@ def _launch(lib, layout: str, u, nrm, plans, mask, n_iter, add_entropy,
     out_lv = torch.empty((b, c, L, dn), dtype=torch.int64, device=dev)
     two_pi, inv_two_pi = _gs._two_pi(lm.dtype)
     offs = _offsets_on(tuple((int(o), int(w)) for o, w in plans.offsets), dev)
+    seeds = None if seeds is None else seeds.contiguous()
+    us = (0, 0) if u is None else u.stride()[:2]
     with torch.cuda.device(dev):
         rc = lib.kde_gibbs_chain(
-            lm.element_size(), LAYOUTS[layout], tm.data_ptr(),
-            tb.data_ptr(), tm.stride(0), tm.stride(1), lm.data_ptr(),
-            lb.data_ptr(), lw.data_ptr(), lp.data_ptr(), lm.stride(0),
-            lm.stride(1), lw.stride(0),
-            lw.stride(1), offs.data_ptr(), uni.data_ptr(), mask.data_ptr(),
-            _gs._codes_on(tuple(codes), dev).data_ptr(), u.data_ptr(),
-            u.stride(0), u.stride(1), nrm.data_ptr(), nrm.stride(0),
-            nrm.stride(1), out_x.data_ptr(), out_lv.data_ptr(), b, c, dn, d,
-            L, n_iter, int(bool(add_entropy)), two_pi, inv_two_pi,
+            lm.element_size(), LAYOUTS[layout], int(seeds is not None),
+            tm.data_ptr(), tb.data_ptr(), tm.stride(0), tm.stride(1),
+            lm.data_ptr(), lb.data_ptr(), lw.data_ptr(), lp.data_ptr(),
+            lm.stride(0), lm.stride(1), lw.stride(0), lw.stride(1),
+            offs.data_ptr(), uni.data_ptr(), mask.data_ptr(),
+            _gs._codes_on(tuple(codes), dev).data_ptr(),
+            None if u is None else u.data_ptr(), *us,
+            None if seeds is None else seeds.data_ptr(), nrm.data_ptr(),
+            nrm.stride(0), nrm.stride(1), out_x.data_ptr(), out_lv.data_ptr(),
+            b, c, dn, d, L, n_iter, int(bool(add_entropy)), two_pi, inv_two_pi,
             _gs.LOG_DEAD, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"kde_gibbs_chain launch failed: CUDA error {rc} "
@@ -299,19 +322,21 @@ def _launch(lib, layout: str, u, nrm, plans, mask, n_iter, add_entropy,
     return out_x, out_lv[:, :, L - 1], out_lv
 
 
-def gibbs_chain_ref(u: torch.Tensor, nrm: torch.Tensor, plans,
+def gibbs_chain_ref(u: Optional[torch.Tensor], nrm: torch.Tensor, plans,
                     mask: torch.Tensor, n_iter: int, add_entropy: bool,
-                    codes: Sequence[int]):
+                    codes: Sequence[int], select: str = "cdf",
+                    seeds: Optional[torch.Tensor] = None):
     """Plain twin of :func:`gibbs_chain`, on any device: the eager
-    ``ops/gibbs.py::_run_chain`` with ``cdf`` draws, every selection
-    through ``gibbs_select_ref``."""
+    ``ops/gibbs.py::_run_chain`` with ``select``'s draws, every selection
+    through ``gibbs_select_ref`` (gumbel's noise from the twin's counter
+    draw, ``ops/gibbs.py::_gumbel_noise``)."""
     from . import gibbs as _g       # ops/gibbs.py imports this module
 
     def choose(stage, lvl):
         mean, var, label = _gs.gibbs_select_ref(
             *lvl, stage.js, stage.mu, stage.cov, stage.active, codes,
-            u=stage.u)
+            u=stage.u, seeds=seeds, sel0=stage.sel)
         return [(mean[:, :, i], var[:, :, i], label[:, :, i])
                 for i in range(len(stage.js))]
-    return _g._run_chain(u, nrm, plans, mask, n_iter, add_entropy, "cdf",
-                         hooks=hooks_of(codes), choose=choose)
+    return _g._run_chain(u, nrm, plans, mask, n_iter, add_entropy, select,
+                         seeds, hooks=hooks_of(codes), choose=choose)

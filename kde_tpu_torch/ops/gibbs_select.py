@@ -8,9 +8,10 @@ For every row (set b, chain c, density j of ``js``) of a level,
 :func:`gibbs_select` scores the level's candidates against the Gaussian of
 mean ``mu[b, c]`` and covariance ``bw + cov[b, c]``, applies the degenerate
 fallback, draws the label (``cdf`` from the stage's uniforms ``u``, or
-``gumbel`` from the noise the caller drew) and gathers the winner's mean,
-variance and label.  CUDA tensors launch the hand-written kernel
-``csrc/gibbs_select.cu``; CPU tensors take the plain twin
+``gumbel`` from counter noise drawn inside the kernel from the sets' seeds,
+the global chain index and the selection id, csrc/counter_rng.cuh) and
+gathers the winner's mean, variance and label.  CUDA tensors launch the
+hand-written kernel ``csrc/gibbs_select.cu``; CPU tensors take the plain twin
 :func:`gibbs_select_ref`, the eager ops of ``ops/gibbs.py``.  The library
 is built with nvcc (``--fmad=false``) into ``_build/`` at the first launch;
 a failed build, a refused launch or an input the kernel does not take
@@ -82,7 +83,7 @@ def _load():
         vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_double)
         lib.kde_gibbs_select.argtypes = ([i] * 4 + [vp] * 4 + [ll] * 4
-                                         + [vp] * 6 + [ll] * 3 + [vp] * 3
+                                         + [vp] * 6 + [ll] * 2 + [vp] * 3
                                          + [i] * 7 + [f] * 3 + [vp])
         lib.kde_gibbs_select.restype = i
         _lib = lib
@@ -131,7 +132,7 @@ def launch_plan(w: int, d: int, itemsize: int) -> Tuple[int, bool, int]:
 
 
 def _check(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu, cov, active, codes,
-           u, noise):
+           u, seeds, chain0, sel0):
     """Shapes and the one device of the inputs; returns ``js`` as a tuple
     and the device.  Raises on anything else."""
     js = tuple(int(j) for j in js)
@@ -144,20 +145,22 @@ def _check(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu, cov, active, codes,
             "mu": (mu, (b, c, d)), "active": (active, (b, dn, d))}
     if cov is not None:
         want["cov"] = (cov, (b, c, d))
-    if (u is None) == (noise is None):
+    if (u is None) == (seeds is None):
         raise ValueError("gibbs_select takes exactly one of u (cdf) and "
-                         "noise (gumbel)")
+                         "seeds (gumbel)")
     if u is not None:
         want["u"] = (u, (b, c, n_js))
     else:
-        want["noise"] = (noise, (b, c, n_js, w))
+        want["seeds"] = (seeds, (b, 2))
     bad = [f"{k} {tuple(t.shape)} (want {s})" for k, (t, s) in want.items()
            if tuple(t.shape) != s]
     if (bad or c < 0 or w < 1 or d < 1 or not js
             or js != tuple(range(js[0], js[0] + n_js))
-            or js[0] < 0 or js[-1] >= dn):
+            or js[0] < 0 or js[-1] >= dn or not 0 <= chain0
+            or chain0 + c > 1 << 32 or not 0 <= sel0 <= (1 << 32) - n_js):
         raise ValueError(f"gibbs_select: level [B, dn, w, d] = "
-                         f"{tuple(lvl_mean.shape)}, js {js}; {bad}")
+                         f"{tuple(lvl_mean.shape)}, js {js}, chains from "
+                         f"{chain0}, selections from {sel0}; {bad}")
     if codes is None or len(codes) != d or any(k not in (0, 1) for k in codes):
         raise ValueError(f"gibbs_select: codes must be d = {d} of 0/1, got "
                          f"{codes}")
@@ -166,14 +169,15 @@ def _check(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu, cov, active, codes,
     if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
         raise ValueError("gibbs_select: inputs must all lie on the CPU or on "
                          f"one CUDA device, got {sorted(map(str, devs))}")
-    floats = [lvl_mean, lvl_bw, lvl_logw, mu] + [t for t in (cov, u, noise)
+    floats = [lvl_mean, lvl_bw, lvl_logw, mu] + [t for t in (cov, u)
                                                  if t is not None]
     dts = {t.dtype for t in floats}
     if (len(dts) != 1 or dts.pop() not in _FLOATS
-            or lvl_perm.dtype != torch.int64 or active.dtype != torch.bool):
-        raise TypeError("gibbs_select: float32 or float64 level, mu, cov, u "
-                        "and noise of one dtype, int64 lvl_perm and bool "
-                        f"active; got {[t.dtype for t in floats]}, "
+            or lvl_perm.dtype != torch.int64 or active.dtype != torch.bool
+            or (seeds is not None and seeds.dtype != torch.int64)):
+        raise TypeError("gibbs_select: float32 or float64 level, mu, cov "
+                        "and u of one dtype, int64 lvl_perm and seeds and "
+                        f"bool active; got {[t.dtype for t in floats]}, "
                         f"{lvl_perm.dtype}, {active.dtype}")
     return js, next(iter(devs))
 
@@ -183,7 +187,8 @@ def gibbs_select(lvl_mean: torch.Tensor, lvl_bw: torch.Tensor,
                  js: Sequence[int], mu: torch.Tensor,
                  cov: Optional[torch.Tensor], active: torch.Tensor,
                  codes: Sequence[int], u: Optional[torch.Tensor] = None,
-                 noise: Optional[torch.Tensor] = None):
+                 seeds: Optional[torch.Tensor] = None, chain0: int = 0,
+                 sel0: int = 0):
     """One selection step of the densities ``js`` (a contiguous range) at
     one level.
 
@@ -191,27 +196,31 @@ def gibbs_select(lvl_mean: torch.Tensor, lvl_bw: torch.Tensor,
     ``[B, dn, w]`` (``plans.level(l)``; a ``[w, d]`` slab contiguous per set
     and density); ``mu`` and ``cov`` (or None) ``[B, C, d]``; ``active
     [B, dn, d]`` bool; ``codes`` per dim (:func:`diff_codes`); either the
-    uniforms ``u [B, C, |js|]`` (the inverse-CDF draw) or the Gumbel
-    uniforms ``noise [B, C, |js|, w]`` (clamped, as ``ops/gibbs.py::
-    _gumbel_noise`` draws them).  Returns the winners' ``(mean, var [B, C,
-    |js|, d], label [B, C, |js|])``, the labels taken from ``lvl_perm``."""
+    uniforms ``u [B, C, |js|]`` (the inverse-CDF draw) or, for the
+    Gumbel-max draw, the sets' counter seeds ``seeds [B, 2]`` (int64), the
+    global index ``chain0`` of chain 0 and the selection id ``sel0`` of
+    ``js[0]`` (``js[jj]``'s is ``sel0 + jj``): the kernel draws the noise
+    of ``ops/gibbs.py::_gumbel_noise`` itself.  Returns the winners'
+    ``(mean, var [B, C, |js|, d], label [B, C, |js|])``, the labels taken
+    from ``lvl_perm``."""
     global LAUNCHES
     js, dev = _check(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu, cov,
-                     active, codes, u, noise)
+                     active, codes, u, seeds, chain0, sel0)
     if dev == _CPU:
         return gibbs_select_ref(lvl_mean, lvl_bw, lvl_logw, lvl_perm, js, mu,
-                                cov, active, codes, u, noise)
+                                cov, active, codes, u, seeds, chain0, sel0)
     b, dn, w, d = lvl_mean.shape
     c, n_js = mu.shape[1], len(js)
     if (lvl_mean.stride()[2:] != (d, 1) or lvl_bw.stride() != lvl_mean.stride()
-            or lvl_logw.stride(2) != 1 or lvl_perm.stride() != lvl_logw.stride()
-            or (noise is not None and noise.stride(3) != 1)):
+            or lvl_logw.stride(2) != 1
+            or lvl_perm.stride() != lvl_logw.stride()):
         raise ValueError("gibbs_select: each (set, density) slab of the level "
                          "must be contiguous, lvl_bw laid out as lvl_mean and "
-                         "lvl_perm as lvl_logw, noise rows contiguous")
+                         "lvl_perm as lvl_logw")
     mu, active = mu.contiguous(), active.contiguous()
     cov = None if cov is None else cov.contiguous()
     u = None if u is None else u.contiguous()
+    seeds = None if seeds is None else seeds.contiguous()
     item = lvl_mean.element_size()
     group, cache, _ = launch_plan(w, d, item)
     out_mean = torch.empty((b, c, n_js, d), dtype=mu.dtype, device=dev)
@@ -219,15 +228,15 @@ def gibbs_select(lvl_mean: torch.Tensor, lvl_bw: torch.Tensor,
     out_label = torch.empty((b, c, n_js), dtype=torch.int64, device=dev)
     two_pi, inv_two_pi = _two_pi(mu.dtype)
     ptr = lambda t: None if t is None else t.data_ptr()
-    ns = (0, 0, 0) if noise is None else noise.stride()[:3]
     with torch.cuda.device(dev):
         rc = _load().kde_gibbs_select(
-            item, int(noise is not None), group, int(cache),
+            item, int(seeds is not None), group, int(cache),
             lvl_mean.data_ptr(), lvl_bw.data_ptr(), lvl_logw.data_ptr(),
             lvl_perm.data_ptr(), lvl_mean.stride(0), lvl_mean.stride(1),
             lvl_logw.stride(0), lvl_logw.stride(1), mu.data_ptr(), ptr(cov),
             active.data_ptr(), _codes_on(tuple(codes), dev).data_ptr(),
-            ptr(u), ptr(noise), *ns, out_mean.data_ptr(), out_var.data_ptr(),
+            ptr(u), ptr(seeds), chain0, sel0, out_mean.data_ptr(),
+            out_var.data_ptr(),
             out_label.data_ptr(), b, c, n_js, js[0], dn, w, d, two_pi,
             inv_two_pi, LOG_DEAD,
             torch._C._cuda_getCurrentRawStream(dev.index))
@@ -260,18 +269,21 @@ def gibbs_select_ref(lvl_mean: torch.Tensor, lvl_bw: torch.Tensor,
                      js: Sequence[int], mu: torch.Tensor,
                      cov: Optional[torch.Tensor], active: torch.Tensor,
                      codes: Sequence[int], u: Optional[torch.Tensor] = None,
-                     noise: Optional[torch.Tensor] = None):
+                     seeds: Optional[torch.Tensor] = None, chain0: int = 0,
+                     sel0: int = 0):
     """Plain twin of :func:`gibbs_select`, on any device: the eager ops of
     ``ops/gibbs.py`` (``_kernel_logits_raw``, ``_dead_predicate``,
     ``_apply_dead_fallback``, then ``_select_label`` on ``u`` or
-    ``_gumbel_argmax`` on ``noise``, and the gather) density by density."""
+    ``_select_label_gumbel`` on the counter noise, and the gather) density
+    by density."""
     from . import gibbs as _g       # ops/gibbs.py imports this module
-    stage = _g._Stage(tuple(int(j) for j in js), mu, cov, u, active,
-                      active.cpu().numpy(), diffop_of(codes))
+    js = tuple(int(j) for j in js)
+    stage = _g._Stage(js, mu, cov, u, active, active.cpu().numpy(),
+                      diffop_of(codes))
 
     def draw(jj, logits):
-        if noise is not None:
-            return _g._gumbel_argmax(logits, noise[:, :, jj])
+        if seeds is not None:           # one density's noise at a time
+            return _g._select_label_gumbel(seeds, logits, chain0, sel0 + jj)
         return _g._select_label(u[:, :, jj], logits)
     return _g._select_eager(stage, (lvl_mean, lvl_bw, lvl_logw, lvl_perm),
                             draw)

@@ -23,6 +23,7 @@ import functools
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -121,13 +122,33 @@ def _nvcc() -> str:
                        "with the CUDA toolkit's nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_bytes(source: Path) -> bytes:
+    """``source``'s bytes followed by those of every local header it
+    includes (``#include "..."``, resolved beside the including file), in
+    the order they are first included."""
+    seen, out, todo = set(), [], [Path(source)]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        out.append(data)
+        todo += [path.parent / m.decode()
+                 for m in _LOCAL_INCLUDE.findall(data)]
+    return b"".join(out)
+
+
 def nvcc_build(source: Path, flags, stem: str) -> Tuple[Path, str]:
     """Compile ``source`` with ``flags`` into
-    ``_build/lib<stem>_<hash of source and flags>.so``, once: each process
-    compiles to its own temporary file and renames it into place.  Returns
-    the library's path and nvcc's output ("" when it was built already);
-    a failed build raises with that output."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
+    ``_build/lib<stem>_<hash of source, its local headers and flags>.so``,
+    once: each process compiles to its own temporary file and renames it
+    into place.  Returns the library's path and nvcc's output ("" when it
+    was built already); a failed build raises with that output."""
+    tag = hashlib.sha256(source_bytes(source) + " ".join(flags).encode()
                          ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{stem}_{tag}.so"
     if out.exists():

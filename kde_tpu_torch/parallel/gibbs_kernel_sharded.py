@@ -255,7 +255,8 @@ def prod_appx_ms_gibbs_kernel_sharded(mesh: DeviceMesh,
     bu, bn = _g._stream_sizes(dn, d, plan.n_levels, n_iter)
     if rand_u is None:
         gen = make_generator(shared_seed(key, device), device)
-        u, nrm = _g._keyed_streams(gen, n_out, bu, bn, dtype, device, "cdf")
+        u, nrm, _ = _g._keyed_streams(gen, n_out, bu, bn, dtype, device,
+                                      "cdf")
     else:
         stream = lambda r, k: torch.as_tensor(
             np.asarray(r, dtype=np.float64).ravel()[:n_out * k]

@@ -104,7 +104,7 @@ def prod_appx_ms_gibbs_sharded(mesh: DeviceMesh,
     mask = _g._mask_tensor(partial_dim_mask, dn, d, device)[None]
     bu, bn = _g._stream_sizes(dn, d, plan.n_levels, n_iter)
     gen = make_generator(shared_seed(key, device), device)
-    u, nrm = _g._keyed_streams(gen, n_out, bu, bn, dtype, device, "cdf")
+    u, nrm, _ = _g._keyed_streams(gen, n_out, bu, bn, dtype, device, "cdf")
     n_pad = pad_to_multiple(n_out, axis_size(mesh, CHAINS))
     u = torch.nn.functional.pad(u, (0, 0, 0, n_pad - n_out), value=0.5)
     nrm = torch.nn.functional.pad(nrm, (0, 0, 0, n_pad - n_out))

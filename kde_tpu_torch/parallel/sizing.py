@@ -62,10 +62,11 @@ def product_bytes(npts: Sequence[int], d: int, n_out: int, n_iter: int = 5,
     Euclidean): ``args`` (the level plan's tensors with its uniform-level
     flags, the mask and, for a plan built on the device, its topology
     cache and build workspace, ``device_plan.build_bytes``), ``temp`` (the
-    uniform and normal streams, no uniforms for ``gumbel``, twice: each
-    set's draw and their stacked copy, ``ops/gibbs.py::_gibbs_keyed``; the
-    ``[block, widest level]`` temporaries one chain block keeps alive on
-    the selection's route, ``ops/gibbs.py::_live_temps``; off the chain
+    uniform and normal streams, no uniforms but the counter seed for
+    ``gumbel``, twice: each set's draw and their stacked copy,
+    ``ops/gibbs.py::_gibbs_keyed``; the ``[block, widest level]``
+    temporaries one chain block keeps alive on the selection's route,
+    ``ops/gibbs.py::_live_temps``, none on the kernels; off the chain
     route, two more copies of the outputs: the per-level label clones and
     the concatenation of the blocks), ``out`` (points and per-level
     labels, of which the returned labels are a view on the chain route)
@@ -87,9 +88,10 @@ def product_bytes(npts: Sequence[int], d: int, n_out: int, n_iter: int = 5,
     if plan == "device":
         args += build_bytes(npts, d, item, nodes)
     bu, bn = _g._stream_sizes(dn, d, n_lv, n_iter)
-    streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
+    streams = (n_out * bn * item + 16 if sel == "gumbel"
+               else n_out * (bu + bn) * item)
     route = _g._route(sel, hooks, device, dn, d)
-    live = _g._live_temps(route, sel, dn)
+    live = _g._live_temps(route)
     widest = max(widths)
     out = n_out * (d * item + n_lv * dn * 8)
     temp = (2 * streams

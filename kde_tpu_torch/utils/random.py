@@ -66,3 +66,75 @@ def split(key, n: int, device="cpu") -> List[int]:
     g = make_generator(key, device)
     return torch.randint(0, 1 << 62, (n,), generator=g,
                          device=g.device).tolist()
+
+
+# ---------------------------------------------------------------------------
+# counter-based uniforms: the twin of csrc/counter_rng.cuh
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_CHUNK = 1 << 25          # Threefry blocks of counter_uniform at a time
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds, the block function of JAX's
+    ``threefry_2x32`` (``jax._src.prng``): the block of counter ``(x0,
+    x1)`` under key ``(k0, k1)``.  Words are 32-bit values held in Python
+    ints or int64 tensors (broadcast together), so integer adds, rotates
+    and xors masked to 32 bits give the kernels' bits on any device."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def fold_in(k0, k1, x):
+    """The key ``(k0, k1)`` with the word ``x`` folded in, as
+    ``jax.random.fold_in`` folds it: the block of counter ``(0, x)``."""
+    return threefry2x32(k0, k1, x * 0, x)
+
+
+def counter_seed(gen: torch.Generator) -> torch.Tensor:
+    """A set's seed for the counter draws: two 32-bit words from ``gen``,
+    as an int64 ``[2]`` tensor on the generator's device."""
+    return torch.randint(0, 1 << 32, (2,), generator=gen, dtype=torch.int64,
+                         device=gen.device)
+
+
+def counter_uniform(seeds: torch.Tensor, chains: torch.Tensor,
+                    sels: torch.Tensor, w: int, dtype) -> torch.Tensor:
+    """The Gumbel draws' uniforms ``[B, C, S, w]`` of candidates ``0..w-1``
+    for chains ``chains [C]`` (global indices) and selection ids ``sels
+    [S]`` of ``B`` sets with seeds ``seeds [B, 2]`` (int64 tensors on one
+    device), in ``dtype``; csrc/counter_rng.cuh step for step: the key
+    ``fold_in(fold_in(seed, chain), sel)``, the block at counter ``(2q,
+    2q + 1)`` giving float32 candidates ``2q, 2q + 1`` a word each or
+    float64 candidate ``q`` both, the word-to-float map under the exponent
+    of 1, then the clamp to ``[tiny, 1 - eps]``."""
+    k0, k1 = fold_in(seeds[:, 0, None, None], seeds[:, 1, None, None],
+                     chains[None, :, None])
+    k0, k1 = fold_in(k0, k1, sels[None, None, :])                 # [B, C, S]
+    one = dtype == torch.float32
+    q = torch.arange((w + 1) // 2 if one else w, device=seeds.device)
+    out = torch.empty(k0.shape + (w,), dtype=dtype, device=seeds.device)
+    # chains in chunks of about _CHUNK blocks: the int64 words of a block
+    # take 16 bytes and their arithmetic a few times that
+    step = max(1, _CHUNK // max(1, k0.shape[0] * k0.shape[2] * q.numel()))
+    for c0 in range(0, k0.shape[1], step):
+        y0, y1 = threefry2x32(k0[:, c0:c0 + step, :, None],
+                              k1[:, c0:c0 + step, :, None], 2 * q, 2 * q + 1)
+        if one:
+            words = torch.stack((y0, y1), dim=-1).flatten(-2)[..., :w]
+            u = ((words >> 9) | 0x3F800000).to(torch.int32).view(dtype)
+        else:
+            u = ((y0 << 20) | (y1 >> 12) | 0x3FF0000000000000).view(dtype)
+        out[:, c0:c0 + step] = u - 1.0
+    fi = torch.finfo(dtype)
+    return out.clamp_(fi.tiny, 1.0 - fi.eps)

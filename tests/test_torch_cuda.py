@@ -787,16 +787,19 @@ def test_gibbs_select_refuses_mixed_devices_and_dtypes(cuda):
 
 
 def test_blocked_and_user_diffop_take_the_twin_on_card(cuda):
-    """On the card gumbel launches gibbs_select and cdf the chain kernel;
-    blocked and a user's diffop run the eager twin by design and are
-    counted as such."""
+    """On the card cdf and gumbel launch the chain kernel, a lone circular
+    diffop gibbs_select; blocked and a user's diffop run the eager twin by
+    design and are counted as such."""
     import kde_tpu_torch as kt
+    from kde_tpu_torch import manifolds
     from kde_tpu_torch.ops import gibbs_chain, gibbs_select
     rng = np.random.default_rng(22)
     dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 300)),
                                    dtype=torch.float32, device=cuda), [0.2])
             for _ in range(2)]
-    for select, kw, route in (("cdf", {}, "chain"), ("gumbel", {}, "kernel"),
+    lone = {"diffop": (manifolds.euclid_diff, manifolds.circular_diff)}
+    for select, kw, route in (("cdf", {}, "chain"), ("gumbel", {}, "chain"),
+                              ("gumbel", lone, "kernel"),
                               ("blocked", {}, "twin"),
                               ("cdf", {"diffop": (lambda a, b: a - b,)},
                                "twin")):
@@ -965,6 +968,116 @@ def test_product_is_one_chain_launch(cuda, monkeypatch):
         assert bool(torch.isfinite(pts).all())
         assert gibbs_chain.LAUNCHES == c0 + 1
         assert gibbs_select.LAUNCHES == k0
+
+
+@pytest.mark.parametrize("name,layout", [(n, lay) for n in sorted(K3_CASES)
+                                         for lay in _k3_layouts(n)])
+def test_gibbs_chain_gumbel_matches_twin(cuda, monkeypatch, name, layout):
+    """Gumbel on the chain kernel against its twin on each layout: every
+    chain's per-level labels and point equal (the counter noise is the
+    twin's, the argmaxes exact); one launch counted."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_chain
+    _force_layout(monkeypatch, layout)
+    dt, n, kw = K3_CASES[name]
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    args = cs.chain_inputs(50 + sorted(K3_CASES).index(name), cuda, dtype, n,
+                           select="gumbel", **kw)
+    before = gibbs_chain.LAUNCHES
+    row, _ = cs.chain_compare(args, f"gumbel {name}")
+    assert gibbs_chain.LAUNCHES == before + 1
+    assert row["same_share"] == 1.0 and row["max_abs_err"] == 0.0
+
+
+def test_gumbel_dead_shortcut_on_card(cuda):
+    """Rows whose max logit lies a few ulps either side of log(1e-99),
+    with 0 to 400 other candidates just under it: gibbs_select's gumbel
+    labels (the sum of exps taken only below the threshold) equal the
+    twin's (_dead_predicate on every row) on every row, in float32 and
+    float64, on the warp and block layouts."""
+    from kde_tpu_torch.ops import gibbs_select
+    for dtype in (torch.float32, torch.float64):
+        for w in (500, 1500):
+            thr = torch.tensor(gibbs_select.LOG_DEAD, dtype=torch.float64)
+            rows, c = [], 0
+            for steps in range(-4, 5):
+                for others in (0, 3, 400):
+                    rows.append((float(thr) + steps * 2e-6 * (1 + c % 3),
+                                 others))
+                    c += 1
+            c = len(rows)
+            # d = 1, bandwidth 1, query 0: logit_i = logw_i - (m_i^2 + 0) / 2
+            logw = torch.full((1, 1, w), -np.inf, dtype=torch.float64)
+            logw[..., :410] = np.log(1.0 / 410)
+            mean = torch.zeros((1, 1, w, 1), dtype=torch.float64)
+            # one slab a chain: each chain selects from its own level copy
+            mu = torch.zeros((1, c, 1), dtype=torch.float64)
+            labels = []
+            for ci, (top, others) in enumerate(rows):
+                m = mean.clone()
+                m[0, 0, 0, 0] = np.sqrt(2 * (np.log(1.0 / 410) - top))
+                m[0, 0, 1:1 + others, 0] = np.sqrt(
+                    2 * (np.log(1.0 / 410) - top + 1e-3))
+                m[0, 0, 1 + others:410, 0] = 100.0
+                args = [x.to(cuda, dtype) for x in (
+                    m, torch.ones_like(m), logw, mu[:, ci:ci + 1])]
+                perm = torch.arange(w, device=cuda)[None, None]
+                act = torch.ones((1, 1, 1), dtype=torch.bool, device=cuda)
+                seeds = torch.tensor([[ci, 77]], device=cuda)
+                call = (args[0], args[1], args[2], perm, (0,), args[3], None,
+                        act, (0,))
+                got = gibbs_select.gibbs_select(*call, seeds=seeds,
+                                                chain0=ci, sel0=3)[2]
+                want = gibbs_select.gibbs_select_ref(*call, seeds=seeds,
+                                                     chain0=ci, sel0=3)[2]
+                assert torch.equal(got, want), (dtype, w, top, others)
+                labels.append(int(got))
+            assert len(set(labels)) > 1
+
+
+def test_gumbel_product_is_one_chain_launch(cuda, monkeypatch):
+    """A keyed gumbel ``*``, ProductSampler, BatchedProductSampler,
+    product_batched, a device-built plan and an SE(2) product each launch
+    the chain kernel once (the `*` and product_batched with
+    config.GIBBS_SELECT = "gumbel") and gibbs_select never."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import config, manifolds as m
+    from kde_tpu_torch.ops import gibbs, gibbs_chain, gibbs_select
+
+    def stage_route(*a, **k):
+        raise AssertionError("the stage route ran")
+    rng = np.random.default_rng(24)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    dens = [kt.kde(f32(rng.normal(size=(2, 800)) + s), [0.2])
+            for s in (0.0, 0.5)]
+    se2 = dict(addop=(m.euclid_add, m.euclid_add, m.circular_add),
+               diffop=(m.euclid_diff, m.euclid_diff, m.circular_diff),
+               get_mu=(m.euclid_mu, m.euclid_mu, m.circular_mu),
+               get_lambda=(m.euclid_lambda, m.euclid_lambda,
+                           m.circular_lambda))
+    poses = [kt.kde(f32(np.vstack([rng.normal(size=(2, 500)),
+                                   np.pi - 0.1 * rng.random((1, 500))])),
+                    [0.2], **se2) for _ in range(2)]
+    calls = {
+        "keyed *": lambda: (dens[0] * dens[1]).points,
+        "ProductSampler": lambda: kt.ProductSampler(
+            dens, n_out=600, n_iter=3).sample(1, select="gumbel")[0],
+        "BatchedProductSampler": lambda: kt.BatchedProductSampler(
+            [dens] * 3, n_out=600, n_iter=3).sample(2, select="gumbel")[0],
+        "product_batched": lambda: kt.product_batched([dens] * 2)[0].points,
+        "device plan": lambda: kt.prod_appx_ms_gibbs(
+            600, dens, n_iter=3, key=3, plan="device", select="gumbel")[0],
+        "se2": lambda: kt.prod_appx_ms_gibbs(600, poses, n_iter=3, key=4,
+                                             select="gumbel", **se2)[0]}
+    monkeypatch.setattr(config, "GIBBS_SELECT", "gumbel")
+    monkeypatch.setattr(gibbs, "_run_chain", stage_route)
+    for name, call in calls.items():
+        c0, k0 = gibbs_chain.LAUNCHES, gibbs_select.LAUNCHES
+        pts = call()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(pts).all()), name
+        assert gibbs_chain.LAUNCHES == c0 + 1, name
+        assert gibbs_select.LAUNCHES == k0, name
 
 
 def test_gibbs_chain_refuses_bad_inputs_and_a_failed_build(cuda):

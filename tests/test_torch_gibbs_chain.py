@@ -31,6 +31,7 @@ from kde_tpu_torch.ops import gibbs_chain as gc  # noqa: E402
 from kde_tpu_torch.ops import gibbs_select as gs  # noqa: E402
 from kde_tpu_torch.ops import device_plan  # noqa: E402
 from kde_tpu_torch.parallel import sizing  # noqa: E402
+from kde_tpu_torch.utils.random import counter_uniform  # noqa: E402
 
 F64 = torch.float64
 CPU = torch.device("cpu")
@@ -215,16 +216,21 @@ def _dn_sum(terms, fastest):
     return v[0]
 
 
-def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group):
+def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group,
+             mode="cdf", seeds=None):
     """The kernel's steps for every chain, in float64 NumPy: the roots, the
     stream cursors (uniforms ``dn + l (1 + n_iter) dn + ...``, normals
     ``l d + k``), the level offsets, the product over densities in the
     card's summation order with the circular anchor at the first max, the log of ``c`` once
-    where the level's bandwidth is uniform, the tile sums of a layout of
-    ``group`` threads, the tile scan against ``u * sum`` and the scan in
-    the tile.  Returns points, per-level labels and the hoisted share of
+    where the level's bandwidth is uniform, and the draw: for cdf the tile
+    sums of a layout of ``group`` threads, the tile scan against ``u *
+    sum`` and the scan in the tile; for gumbel one pass of argmaxes on the
+    counter noise of (seed, chain, selection id = the uniform cursor), the
+    sum of exps for the dead test taken only where the max is below
+    log(1e-99).  Returns points, per-level labels and the hoisted share of
     (selection, dim) pairs."""
-    u, nrm = u.numpy(), nrm.numpy()
+    u = None if u is None else u.numpy()
+    nrm = nrm.numpy()
     tmn, tbw = plans.t_mean.numpy(), plans.t_bw.numpy()
     lm, lb = plans.lvl_mean.numpy(), plans.lvl_bw.numpy()
     lw, lp = plans.lvl_logw.numpy(), plans.lvl_perm.numpy()
@@ -247,7 +253,7 @@ def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group):
             mu_sel = np.where(mk, tmn[b, :, 0], 0.0)
             var_sel = np.where(mk, tbw[b, :, 0], 0.0)
             perms = np.zeros(dn, dtype=np.int64)
-            U, N = u[b, c], nrm[b, c]
+            U, N = None if u is None else u[b, c], nrm[b, c]
 
             def product(skip):
                 m, cv = np.zeros(d), np.zeros(d)
@@ -276,7 +282,7 @@ def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group):
                 return np.array([cadd(m[k], step[k]) if codes[k]
                                  else m[k] + step[k] for k in range(d)])
 
-            def select(j, l, q, cq, uval):
+            def select(j, l, q, cq, col):
                 o, w = plans.offsets[l]
                 mean, bw = lm[b, j, o:o + w], lb[b, j, o:o + w]
                 logw = lw[b, j, o:o + w]
@@ -299,6 +305,19 @@ def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group):
                 lv = logw - 0.5 * acc
                 lv = np.where(np.isnan(lv), -np.inf, lv)
                 ms = 0.0 if lv.max() == -np.inf else lv.max()
+                if mode == "gumbel":
+                    g = counter_uniform(seeds[b:b + 1], torch.tensor([c]),
+                                        torch.tensor([col]), w,
+                                        F64)[0, 0, 0].numpy()
+                    gn = np.log(-np.log(g))
+                    dead = (not lv.max() >= gs.LOG_DEAD
+                            and ms + np.log(np.exp(lv - ms).sum())
+                            < gs.LOG_DEAD)
+                    if dead:
+                        return int(np.argmax(np.where(logw != -np.inf, -gn,
+                                                      -np.inf)))
+                    return int(np.argmax(lv - gn))
+                uval = U[col]
                 e = np.exp(lv - ms)
                 if ms + np.log(e.sum()) < gs.LOG_DEAD:
                     e = (logw != -np.inf).astype(np.float64)
@@ -325,12 +344,12 @@ def _emulate(u, nrm, plans, mask, n_iter, add_entropy, codes, group):
             for l in range(L):
                 x = sample(N[l * d:(l + 1) * d], True)
                 for j in range(dn):
-                    pick(j, l, select(j, l, x, None, U[dn + l * per + j]))
+                    pick(j, l, select(j, l, x, None, dn + l * per + j))
                 for it in range(n_iter):
                     for j in range(dn):
                         mu, cov = product(j)
                         pick(j, l, select(j, l, mu, cov,
-                                          U[dn + l * per + dn + it * dn + j]))
+                                          dn + l * per + dn + it * dn + j))
                 labels[b, c, l] = perms
             xs[b, c] = sample(N[L * d:(L + 1) * d], add_entropy)
     return xs, labels, hoisted[0] / max(hoisted[1], 1)
@@ -351,6 +370,25 @@ def test_kernel_emulation_draws_the_twins_labels(name, group):
     x, lab, _ = _emulate(*args, group)
     np.testing.assert_array_equal(lab, labels.numpy())
     np.testing.assert_allclose(x, pts.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["d2 dn 3", "dn 3 partial mask",
+                                  "dead rows", "B = 2", "circular B = 2",
+                                  "se2", "n_iter 0", "no entropy"])
+def test_kernel_emulation_draws_the_twins_gumbel_labels(name):
+    """Gumbel: the kernel's one-pass draw (argmaxes on the counter noise of
+    seed, chain and selection id, the dead test only below log(1e-99)),
+    emulated in NumPy, against the twin (the eager chain with the twin's
+    counter noise): labels equal at every level, points to 1e-12."""
+    _, args, _, _ = _case(name)
+    u, nrm, plans, m, n_iter, entropy, codes = args
+    seeds = torch.tensor([[11, 0x12345678 + i] for i in range(nrm.shape[0])])
+    gargs = (None, nrm, plans, m, n_iter, entropy, codes, "gumbel", seeds)
+    pts, _, labels = gc.gibbs_chain(*gargs)
+    x, lab, _ = _emulate(*gargs[:7], 32, "gumbel", seeds)
+    np.testing.assert_array_equal(lab, labels.numpy())
+    np.testing.assert_allclose(x, pts.numpy(), rtol=1e-12, atol=1e-12)
+    assert not torch.equal(labels, gc.gibbs_chain(*gargs[:8], seeds + 1)[2])
 
 
 @pytest.mark.parametrize("group", [32, gc.CTA_THREADS])
@@ -399,14 +437,15 @@ def test_hook_codes_and_their_inverse():
 @pytest.mark.parametrize("select,kinds,device,want", [
     ("cdf", "ee", "cuda", "chain"), ("cdf", "eec", "cuda", "chain"),
     ("cdf", "c", "cuda", "chain"), ("cdf", "lone", "cuda", "kernel"),
-    ("cdf", "user", "cuda", "twin"), ("gumbel", "ee", "cuda", "kernel"),
-    ("gumbel", "c", "cuda", "kernel"), ("blocked", "ee", "cuda", "twin"),
-    ("cdf", "ee", "cpu", "twin"), ("gumbel", "c", "cpu", "twin")])
+    ("cdf", "user", "cuda", "twin"), ("gumbel", "ee", "cuda", "chain"),
+    ("gumbel", "c", "cuda", "chain"), ("gumbel", "lone", "cuda", "kernel"),
+    ("blocked", "ee", "cuda", "twin"), ("cdf", "ee", "cpu", "twin"),
+    ("gumbel", "c", "cpu", "twin")])
 def test_route_per_select_hooks_and_device(select, kinds, device, want):
     """``_route`` reads only the device's type, the selection and the
-    hooks: the chain kernel for cdf with Euclidean or circular
-    quadruples on the card, gibbs_select for gumbel and a circular diffop
-    alone, the eager twin for blocked, a user's callable and the CPU."""
+    hooks: the chain kernel for cdf and gumbel with Euclidean or circular
+    quadruples on the card, gibbs_select for a circular diffop alone, the
+    eager twin for blocked, a user's callable and the CPU."""
     if kinds == "lone":
         hooks = tgibbs.normalize_hooks(None, (tm.circular_diff,), None, None,
                                        2)
@@ -422,11 +461,14 @@ def test_route_per_select_hooks_and_device(select, kinds, device, want):
 
 def test_route_leaves_the_chain_kernel_beyond_its_limits():
     """More densities or dims than the chain kernel's state holds take the
-    selection kernel instead."""
-    assert tgibbs._route("cdf", None, "cuda", gc.MAX_DENS, gc.MAX_DIM) == \
-        "chain"
-    assert tgibbs._route("cdf", None, "cuda", gc.MAX_DENS + 1, 2) == "kernel"
-    assert tgibbs._route("cdf", None, "cuda", 2, gc.MAX_DIM + 1) == "kernel"
+    selection kernel instead, cdf and gumbel alike."""
+    for select in ("cdf", "gumbel"):
+        assert tgibbs._route(select, None, "cuda", gc.MAX_DENS,
+                             gc.MAX_DIM) == "chain"
+        assert tgibbs._route(select, None, "cuda", gc.MAX_DENS + 1,
+                             2) == "kernel"
+        assert tgibbs._route(select, None, "cuda", 2,
+                             gc.MAX_DIM + 1) == "kernel"
 
 
 def test_chain_route_is_one_call_for_every_chain(monkeypatch):
@@ -525,9 +567,10 @@ def _small():
 
 
 def test_wrapper_refuses_bad_inputs():
-    """Wrong stream shapes, a missing u, codes of the wrong length or
-    None, a float16 stream, a non-bool mask and mixed devices raise; the
-    CPU call counts no launch."""
+    """Wrong stream shapes, a missing u (cdf) or seeds (gumbel), u with
+    gumbel, seeds of the wrong shape or type, another selection, codes of
+    the wrong length or None, a float16 stream, a non-bool mask and mixed
+    devices raise; the CPU call counts no launch."""
     u, nrm, plans, mask, n_iter, entropy, codes = _small()
     before = gc.LAUNCHES
     gc.gibbs_chain(u, nrm, plans, mask, n_iter, entropy, codes)
@@ -536,8 +579,21 @@ def test_wrapper_refuses_bad_inputs():
         gc.gibbs_chain(u[:, :, 1:], nrm, plans, mask, n_iter, entropy, codes)
     with pytest.raises(ValueError, match="level"):
         gc.gibbs_chain(u, nrm, plans, mask, n_iter + 1, entropy, codes)
-    with pytest.raises(ValueError, match="needs the uniform"):
+    with pytest.raises(ValueError, match="from the uniform"):
         gc.gibbs_chain(None, nrm, plans, mask, n_iter, entropy, codes)
+    seeds = torch.zeros((nrm.shape[0], 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="takes no u"):
+        gc.gibbs_chain(u, nrm, plans, mask, n_iter, entropy, codes,
+                       "gumbel", seeds)
+    with pytest.raises(ValueError, match="seeds"):
+        gc.gibbs_chain(None, nrm, plans, mask, n_iter, entropy, codes,
+                       "gumbel", seeds[:, :1])
+    with pytest.raises(TypeError, match="int64 lvl_perm and seeds"):
+        gc.gibbs_chain(None, nrm, plans, mask, n_iter, entropy, codes,
+                       "gumbel", seeds.int())
+    with pytest.raises(ValueError, match="cdf or gumbel"):
+        gc.gibbs_chain(u, nrm, plans, mask, n_iter, entropy, codes,
+                       "blocked")
     for bad in (None, (0,), (0, 2)):
         with pytest.raises(ValueError, match="codes"):
             gc.gibbs_chain(u, nrm, plans, mask, n_iter, entropy, bad)

@@ -8,8 +8,10 @@ inputs: in float64 labels and gathered statistics equal and logits within
 1e-12; labels equal except where ``u`` lies on the JAX CDF at the
 boundary, within 1e-12 in float64 (``u = 1`` against a total that XLA's
 cumsum rounds to 1 and torch's just under it) and 1e-6 in float32 (the
-port accumulates the CDF in float64, JAX in float32).  The Gumbel draw with injected uniforms is held to
-``argmax(_kernel_logits - log(-log u))``.  The wrapper's routing, checks
+port accumulates the CDF in float64, JAX in float32).  The Gumbel draw is
+held to ``argmax(_kernel_logits - log(-log u))`` with ``u`` the twin's
+counter noise (``ops/gibbs.py::_gumbel_noise``), itself held to
+``threefry2x32`` block by block.  The wrapper's routing, checks
 and launch plan, and the chain blocks of each route, are checked here too;
 the kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 import math
@@ -31,6 +33,7 @@ from kde_tpu_torch import kde as tkde, manifolds  # noqa: E402
 from kde_tpu_torch import prod_appx_ms_gibbs  # noqa: E402
 from kde_tpu_torch.ops import gibbs as tgibbs  # noqa: E402
 from kde_tpu_torch.ops import gibbs_select as gs  # noqa: E402
+from kde_tpu_torch.utils import random as rnd  # noqa: E402
 
 F64, F32 = torch.float64, torch.float32
 
@@ -155,18 +158,18 @@ def test_ref_matches_jax_cdf(d, with_cov, dtype, circular):
 @pytest.mark.parametrize("d,circular", [(1, False), (2, False), (1, True),
                                         (3, True)])
 def test_ref_matches_jax_gumbel(d, circular, with_cov):
-    """The Gumbel draw on injected uniforms: labels equal kde_tpu's
-    ``argmax(_kernel_logits - log(-log u))`` (float64), dead rows
-    included."""
+    """The Gumbel draw on the counter noise of chains 40.. and selections
+    9, 10: labels equal kde_tpu's ``argmax(_kernel_logits - log(-log u))``
+    on the same noise (float64), dead rows included."""
     a, codes = _inputs(7 + d, d, with_cov, circular, F64)
-    rng = np.random.default_rng(8 + d)
     b, c = a["mu"].shape[:2]
     w = a["logw"].shape[-1]
-    fi = np.finfo(np.float64)
-    noise = np.clip(rng.uniform(size=(b, c, 2, w)), fi.tiny, 1 - fi.eps)
+    seeds = torch.tensor([[7 + d, 0xFFFFFFFF], [123456789, 3]])
+    noise = tgibbs._gumbel_noise(seeds, torch.arange(40, 40 + c), (9, 10), w,
+                                 F64).numpy()
     args, _ = _torch_args(a, u=False)
-    mean, var, label = gs.gibbs_select_ref(*args, codes,
-                                           noise=torch.as_tensor(noise))
+    mean, var, label = gs.gibbs_select_ref(*args, codes, seeds=seeds,
+                                           chain0=40, sel0=9)
     for bi in range(b):
         for j in range(2):
             lg = np.asarray(_jax_logits(a, codes, bi, j))
@@ -263,25 +266,47 @@ def test_launch_plan():
                 assert gs.launch_plan(w, d, item)[2] <= 226 * 1024
 
 
+def _counter_word(seed, chain, sel, i):
+    """Word ``i`` of the counter stream of (seed, chain, selection), one
+    Threefry block at a time in Python ints: the key fold_in(fold_in(seed,
+    chain), sel), the block at counter (2q, 2q + 1)."""
+    k = rnd.fold_in(*rnd.fold_in(seed[0], seed[1], chain), sel)
+    return rnd.threefry2x32(*k, i & ~1, i | 1)[i & 1]
+
+
 def test_gumbel_noise_is_the_twins_draw():
-    """The stage noise is the uniforms the eager draw takes: per density,
-    per set, one ``torch.rand([C, w])`` from the set's generator, clamped
-    to [tiny, 1 - eps]; so keyed gumbel draws do not change."""
-    gens = lambda: [torch.Generator().manual_seed(s) for s in (3, 4)]
-    noise = tgibbs._gumbel_noise(gens(), 5, 2, 7, F32, torch.device("cpu"))
-    assert noise.shape == (2, 5, 2, 7)
-    fi = torch.finfo(F32)
-    gs_ = gens()
-    for jj in range(2):
-        for bi, g in enumerate(gs_):
-            want = torch.rand((5, 7), generator=g, dtype=F32).clamp(
-                fi.tiny, 1.0 - fi.eps)
-            assert torch.equal(noise[bi, :, jj], want)
-    lg = torch.randn((2, 5, 7), dtype=F32)
-    old = torch.stack([torch.rand((5, 7), generator=g, dtype=F32)
-                       for g in gens()]).clamp(fi.tiny, 1.0 - fi.eps)
-    want = torch.argmax(lg - torch.log(-torch.log(old)), dim=-1)
-    assert torch.equal(tgibbs._select_label_gumbel(gens(), lg), want)
+    """The stage noise is the counter draw, element by element: float32
+    candidate i takes word i & 1 of the block at counter (i & ~1, i | 1)
+    under fold_in(fold_in(seed, chain), selection), as (w >> 9) | 0x3f800000
+    read as a float minus 1; float64 candidate i both words of the block at
+    (2i, 2i + 1), its top 52 bits; then the clamp to [tiny, 1 - eps].
+    _select_label_gumbel takes the argmax on that noise."""
+    seeds = torch.tensor([[3, 0x9E3779B9], [0xFFFFFFFF, 0]])
+    chains, sels = torch.tensor([0, 5, 1 << 31]), (2, 0xFFFFFFF0)
+    for dtype, w in ((F32, 7), (F64, 4)):
+        noise = tgibbs._gumbel_noise(seeds, chains, sels, w, dtype)
+        assert noise.shape == (2, 3, 2, w) and noise.dtype == dtype
+        fi = np.finfo(np.float32 if dtype == F32 else np.float64)
+        for bi in range(2):
+            sd = [int(v) for v in seeds[bi]]
+            for ci, ch in enumerate(chains.tolist()):
+                for si, sel in enumerate(sels):
+                    for i in range(w):
+                        if dtype == F32:
+                            word = _counter_word(sd, ch, sel, i)
+                            u = (np.uint32((word >> 9) | 0x3F800000)
+                                 .view(np.float32) - np.float32(1))
+                        else:
+                            hi = _counter_word(sd, ch, sel, 2 * i)
+                            lo = _counter_word(sd, ch, sel, 2 * i + 1)
+                            m = ((hi << 20) | (lo >> 12)) | 0x3FF0000000000000
+                            u = np.uint64(m).view(np.float64) - 1.0
+                        u = min(max(u, fi.tiny), 1 - fi.eps)
+                        assert float(noise[bi, ci, si, i]) == float(u)
+    lg = torch.randn((2, 3, 7), dtype=F32)
+    noise = tgibbs._gumbel_noise(seeds, torch.arange(11, 14), (6,), 7, F32)
+    want = torch.argmax(lg - torch.log(-torch.log(noise[:, :, 0])), dim=-1)
+    assert torch.equal(tgibbs._select_label_gumbel(seeds, lg, 11, 6), want)
 
 
 def test_twin_stages_count_the_routes_no_kernel_runs():
@@ -320,13 +345,14 @@ def test_custom_diffop_twin_equals_kernel_route():
 
 def test_chain_block_per_route():
     """The twin route keeps ~_LIVE_TEMPS [chains, width] temporaries, the
-    kernels none (cdf) or a stage's noise (gumbel, one per density): at the
-    2 x 20,000 slice (width 20,000, float32) the twin runs 20,000 chains
-    in 6 blocks, the kernels' cdf in one, gibbs_select's gumbel in 2.  cdf
-    on the card with Euclidean hooks takes the chain kernel, gumbel and a
-    circular diffop alone (no circular quadruple) gibbs_select."""
+    kernels none (gumbel draws its noise inside them): at the 2 x 20,000
+    slice (width 20,000, float32) the twin runs 20,000 chains in 6 blocks,
+    the kernels in one.  cdf and gumbel on the card with Euclidean hooks
+    take the chain kernel, a circular diffop alone (no circular quadruple)
+    gibbs_select."""
     diff = lambda ops: (None, ops, None, None)
     assert tgibbs._route("cdf", None, "cuda", 2, 1) == "chain"
+    assert tgibbs._route("gumbel", None, "cuda", 2, 1) == "chain"
     assert tgibbs._route("gumbel", diff((manifolds.circular_diff,)),
                          "cuda", 2, 1) == "kernel"
     assert tgibbs._route("cdf", diff((manifolds.circular_diff,)),
@@ -335,15 +361,11 @@ def test_chain_block_per_route():
     assert tgibbs._route("cdf", diff((lambda x, y: x - y,)), "cuda", 2,
                          1) == "twin"
     assert tgibbs._route("cdf", None, "cpu", 2, 1) == "twin"
-    live = {(r, s): tgibbs._live_temps(r, s, 2)
-            for r in ("twin", "kernel", "chain") for s in ("cdf", "gumbel")}
-    assert live == {("twin", "cdf"): tgibbs._LIVE_TEMPS,
-                    ("twin", "gumbel"): tgibbs._LIVE_TEMPS,
-                    ("kernel", "cdf"): 0, ("kernel", "gumbel"): 2,
-                    ("chain", "cdf"): 0, ("chain", "gumbel"): 2}
+    live = {r: tgibbs._live_temps(r) for r in ("twin", "kernel", "chain")}
+    assert live == {"twin": tgibbs._LIVE_TEMPS, "kernel": 0, "chain": 0}
     blocks = lambda live: -(-20_000 // tgibbs._chains_per_block(
         20_000, 20_000, 4, live))
-    assert (blocks(8), blocks(0), blocks(2)) == (6, 1, 2)
+    assert (blocks(8), blocks(0)) == (6, 1)
 
 
 @pytest.mark.parametrize("route", ["twin", "kernel"])
@@ -361,7 +383,7 @@ def test_chain_blocking_is_layout_only_on_each_route(route, monkeypatch):
     monkeypatch.setattr(tgibbs, "_route", lambda *a: route)
     monkeypatch.setattr(tgibbs, "CHAIN_BLOCK_BYTES", 1)
     plan = tgibbs._get_plan(dens, n_out, F64, torch.device("cpu"))
-    live = tgibbs._live_temps(route, "cdf", 2)
+    live = tgibbs._live_temps(route)
     assert tgibbs._chain_block(n_out, plan, 8, live) == \
         (1 if route == "twin" else n_out)
     blocked = prod_appx_ms_gibbs(n_out, dens, n_iter=n_iter, rand_u=ru,
@@ -375,3 +397,66 @@ def test_two_pi_as_torch_rounds_the_scalar():
     assert tp == float(np.float32(2 * math.pi))
     assert inv == float(np.float32(1.0) / np.float32(2 * math.pi))
     assert gs._two_pi(F64) == (2 * math.pi, 1.0 / (2 * math.pi))
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+def test_dead_shortcut_gives_the_twins_dead_predicate(dtype):
+    """The kernels' gumbel draw takes the sum of exps only where a row's
+    max lies below log(1e-99) (in the chain's type): the sum holds exp(0)
+    = 1, so a row whose max reaches the threshold is live.  On rows
+    engineered around the threshold (the max a few ulps either side of it,
+    with 0 to 4000 other candidates just under the max, so that the log of
+    the sum carries rows below the threshold over it), the shortcut gives
+    ``_dead_predicate`` row for row, and both kinds of row below the
+    threshold occur."""
+    thr = torch.tensor(gs.LOG_DEAD, dtype=dtype)
+    rows = []
+    for steps in range(-6, 7):
+        mx = thr.clone()
+        for _ in range(abs(steps)):
+            mx = torch.nextafter(mx, torch.tensor(
+                math.inf if steps > 0 else -math.inf, dtype=dtype))
+        for others in (0, 1, 3, 100, 4000):
+            for gap in (0.0, 1e-6, 1e-3, 1.0, 50.0):
+                row = torch.full((4001,), -math.inf, dtype=dtype)
+                row[0] = mx
+                row[1:1 + others] = mx - gap
+                rows.append(row)
+    lg = torch.stack(rows)[None]
+    full = tgibbs._dead_predicate(lg)
+    short = ~(lg.max(dim=-1).values >= thr) & full
+    assert torch.equal(short, full)
+    below = ~(lg.max(dim=-1).values >= thr)
+    assert bool(full[below].any()) and bool((~full[below]).any())
+    assert not bool(full[~below].any())
+
+
+@pytest.mark.parametrize("route", ["twin", "kernel"])
+def test_gumbel_draw_does_not_depend_on_chain_blocks(route, monkeypatch):
+    """A keyed gumbel product on the chain route (one call for every
+    chain) is the same on the twin route with CHAIN_BLOCK_BYTES at 1 byte
+    (one chain a block) and on the stage route in blocks of 7 chains (the
+    kernels keep no [chains, width] temporary, so the budget alone never
+    splits them): the noise is a function of the chain's global index, not
+    of its block or launch.  The same key draws the same product; another
+    key another one."""
+    rng = np.random.default_rng(17)
+    dens = [tkde(rng.normal(size=(2, n)) + s, [0.4], dtype=F64)
+            for n, s in ((40, 0.0), (30, 0.5))]
+    draw = lambda key=3: prod_appx_ms_gibbs(50, dens, n_iter=2, key=key,
+                                            select="gumbel",
+                                            record_labels=True)
+    monkeypatch.setattr(tgibbs, "_route", lambda *a: "chain")
+    one = draw()
+    for x, y in zip(one, draw()):
+        assert torch.equal(x, y)
+    assert not torch.equal(one[1], draw(4)[1])
+    monkeypatch.setattr(tgibbs, "_route", lambda *a: route)
+    monkeypatch.setattr(tgibbs, "CHAIN_BLOCK_BYTES", 1)
+    plan = tgibbs._get_plan(dens, 50, F64, torch.device("cpu"))
+    assert tgibbs._chain_block(50, plan, 8, tgibbs._live_temps(route)) == \
+        (1 if route == "twin" else 50)
+    if route == "kernel":
+        monkeypatch.setattr(tgibbs, "_chain_block", lambda *a: 7)
+    for x, y in zip(one, draw()):
+        assert torch.equal(x, y)

@@ -8,7 +8,7 @@ a sample mean within one product std-dev of 0 and per-dim std-devs within
 17 and 23 through ``utils.random.split``, so the run is deterministic.  The
 sharded keyed products are held bitwise to this keyed path
 (tests/test_torch_sharding.py), and this grid holds the path to the
-analytic product."""
+analytic product, with cdf (the default) and with gumbel."""
 import numpy as np
 import pytest
 
@@ -21,13 +21,14 @@ from kde_tpu_torch import kde, prod_appx_ms_gibbs  # noqa: E402
 from kde_tpu_torch.utils.random import split  # noqa: E402
 
 
-def _test_prods(seed, D=3, M=6, N=100, n=100, dev=1.0, mcmc=5):
+def _test_prods(seed, D=3, M=6, N=100, n=100, dev=1.0, mcmc=5,
+                select="auto"):
     """One trial of the reference's testProds (test/runtests.jl:167-182)."""
     data_seed, key = split(seed, 2)
     rng = np.random.default_rng(data_seed)
     dens = [kde(dev * rng.normal(size=(D, N)), dtype=torch.float64)
             for _ in range(M)]
-    pts, _ = prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key)
+    pts, _ = prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key, select=select)
     pts = pts.numpy()
     assert np.abs(pts).sum() > 1e-14
     prod_dev = np.sqrt(dev ** (2 * M) / (M * dev ** 2))
@@ -56,3 +57,12 @@ def test_range_prods(cfg):
 def test_range_prods_4d():
     # reference config D=4, M=6, n=200, MCMC=10 (test/runtests.jl:195)
     assert _range_test(seed=23, D=4, M=6, n=200, mcmc=10)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(D=2, M=2), dict(D=2, M=6), dict(D=3, M=5, N=300),
+])
+def test_range_prods_gumbel(cfg):
+    """The grid's brackets (kde_tpu's tests/test_gibbs.py:15-50) on keyed
+    gumbel products, whose labels come from the counter noise."""
+    assert _range_test(seed=29, select="gumbel", **cfg)

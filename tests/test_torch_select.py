@@ -4,10 +4,11 @@
 ``blocked`` is the flat inverse-CDF draw restructured, so its labels equal
 both ``kde_tpu``'s blocked draw and the port's flat draw for the same
 uniforms in float64 (the ulp-wide tie window does not fire on these
-inputs).  ``gumbel`` draws torch noise, so it is held to the softmax
-frequencies within 4 binomial standard errors and to the reference's
-moment brackets (test/runtests.jl:167-187, as tests/test_device_plan.py
-checks them: at least 5 of 10 trials)."""
+inputs).  ``gumbel`` draws counter noise (utils/random.py), so it is held
+to the softmax frequencies within 4 binomial standard errors and by
+chi-square, and to the reference's moment brackets (test/runtests.jl:
+167-187, as tests/test_device_plan.py checks them: at least 5 of 10
+trials)."""
 import numpy as np
 import pytest
 
@@ -62,32 +63,63 @@ def test_blocked_block_size_equals_jax():
     assert got == want
 
 
+def _chi2_ok(counts, p):
+    """Pearson's chi-square of ``counts`` against probabilities ``p`` below
+    its 0.999 quantile."""
+    from scipy import stats
+    want = counts.sum() * p
+    return float(((counts - want) ** 2 / want).sum()) < stats.chi2.ppf(
+        0.999, len(p) - 1)
+
+
 def test_gumbel_frequencies_and_dead_row():
-    """2e5 draws of one row: frequencies within 4 sigma of softmax; a dead
-    row (0 / -inf) is uniform over its real candidates only."""
+    for dtype in (F64, torch.float32):
+        _gumbel_frequencies_and_dead_row(dtype)
+
+
+def _gumbel_frequencies_and_dead_row(dtype):
+    """2e5 draws of one row (chains 0..n-1 of one seed): frequencies within
+    4 sigma of softmax and by chi-square; a dead row (0 / -inf) is uniform
+    over its real candidates only, by chi-square, and so is a row that the
+    degenerate fallback makes dead (logits near log(1e-99) - 40)."""
     n = 200_000
     p = np.array([0.5, 0.25, 0.125, 0.0625, 0.0625])
-    logits = torch.as_tensor(np.log(p)).expand(1, n, 5)
-    g = torch.Generator().manual_seed(0)
-    z = tgibbs._select_label_gumbel([g], logits)[0].numpy()
-    freq = np.bincount(z, minlength=5) / n
+    logits = torch.as_tensor(np.log(p), dtype=dtype).expand(1, n, 5)
+    seeds = torch.tensor([[0, 1]])
+    z = tgibbs._select_label_gumbel(seeds, logits)[0].numpy()
+    counts = np.bincount(z, minlength=5)
+    freq = counts / n
     assert np.all(np.abs(freq - p) < 4 * np.sqrt(p * (1 - p) / n)), freq
-    dead = torch.tensor([0.0, -np.inf, 0.0, -np.inf, 0.0], dtype=F64)
-    z = tgibbs._select_label_gumbel([g], dead.expand(1, 30_000, 5))[0]
+    assert _chi2_ok(counts, p)
+    dead = torch.tensor([0.0, -np.inf, 0.0, -np.inf, 0.0], dtype=dtype)
+    z = tgibbs._select_label_gumbel(seeds, dead.expand(1, 30_000, 5),
+                                    chain0=n, sel=3)[0]
     counts = np.bincount(z.numpy(), minlength=5)
     assert counts[1] == counts[3] == 0
     assert np.all(np.abs(counts[[0, 2, 4]] / 30_000 - 1 / 3)
                   < 4 * np.sqrt(2 / 9 / 30_000))
+    assert _chi2_ok(counts[[0, 2, 4]], np.full(3, 1 / 3))
+    # raw logits of a degenerate row: the fallback makes it uniform over
+    # the real candidates, whatever their logits
+    raw = torch.tensor([-300.0, -np.inf, -270.0, -285.0, -np.inf],
+                       dtype=dtype)
+    raw = raw.expand(1, 30_000, 5)
+    assert bool(tgibbs._dead_predicate(raw).all())
+    fb = tgibbs._apply_dead_fallback(raw, raw[:, 0], tgibbs._dead_predicate(
+        raw))
+    z = tgibbs._select_label_gumbel(seeds, fb, chain0=n, sel=4)[0]
+    counts = np.bincount(z.numpy(), minlength=5)
+    assert counts[1] == counts[4] == 0
+    assert _chi2_ok(counts[[0, 2, 3]], np.full(3, 1 / 3))
 
 
 def test_gumbel_noise_per_set_generator():
-    """Set b's noise comes from generator b alone: a set's draws are the
-    same whether it is drawn with others or alone."""
+    """Set b's noise comes from seed b alone: a set's draws are the same
+    whether it is drawn with others or alone."""
     lg = torch.zeros((3, 50, 40), dtype=F64)
-    z = tgibbs._select_label_gumbel(
-        [torch.Generator().manual_seed(s) for s in (1, 2, 3)], lg)
-    z1 = tgibbs._select_label_gumbel([torch.Generator().manual_seed(2)],
-                                     lg[1:2])
+    seeds = torch.tensor([[1, 0], [2, 0], [3, 0]])
+    z = tgibbs._select_label_gumbel(seeds, lg)
+    z1 = tgibbs._select_label_gumbel(seeds[1:2], lg[1:2])
     np.testing.assert_array_equal(z[1].numpy(), z1[0].numpy())
     assert not torch.equal(z[0], z[1])
 

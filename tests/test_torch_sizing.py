@@ -33,10 +33,12 @@ def _built_estimate(densities, n_out, n_iter, dtype, select):
         args += build_bytes([p.npts for p in densities], d, item,
                             plan.lvl_mean.shape[0] * plan.lvl_mean.shape[1])
     bu, bn = g._stream_sizes(dn, d, plan.n_levels, n_iter)
-    streams = n_out * ((0 if sel == "gumbel" else bu) + bn) * item
+    # gumbel: the normals and the counter seed (two int64 words)
+    streams = (n_out * bn * item + 16 if sel == "gumbel"
+               else n_out * (bu + bn) * item)
     hooks = g.normalize_hooks(*g._density_hooks(densities), d)
     route = g._route(sel, hooks, device, dn, d)
-    live = g._live_temps(route, sel, dn)
+    live = g._live_temps(route)
     block = g._chain_block(n_out, plan, item, live)
     out = n_out * (d * item + plan.n_levels * dn * 8)
     temp = (2 * streams + live * max(w for _, w in plan.offsets) * item * block
@@ -202,7 +204,7 @@ def test_estimate_covers_the_chain_routes_live_peak(ns, n_out, monkeypatch,
     live bytes than the estimate, and at least half."""
     from kde_tpu_torch.ops import gibbs_chain as gc
 
-    def launch(u, nrm, plans, mask, n_iter, add_entropy, codes):
+    def launch(u, nrm, plans, mask, n_iter, add_entropy, codes, *_):
         b, dn, _, d = plans.lvl_mean.shape
         c, L = nrm.shape[1], plans.n_levels
         out_x = torch.zeros((b, c, d), dtype=plans.lvl_mean.dtype)

@@ -266,3 +266,22 @@ def test_emulation_f32_matches_pallas(m, n, d, loo):
     for chunk in CHUNKS:
         got = emulate(q, mu, var, w, loo, plan, np.float32, chunk)
         _same(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_build_hash_covers_local_headers(tmp_path):
+    """nvcc_build names a library by the hash of its source and every
+    local header the source includes, transitively: editing a header
+    that two kernels share changes both names, so no stale library is
+    loaded.  The Gibbs kernels include the counter generator's header."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n#include <math.h>\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// v1\n")
+    one = tiled_eval.source_bytes(tmp_path / "a.cu")
+    assert b"// v1" in one and b"#pragma once" in one
+    (tmp_path / "g.cuh").write_text("// v2\n")
+    assert tiled_eval.source_bytes(tmp_path / "a.cu") != one
+    from kde_tpu_torch.ops import gibbs_chain, gibbs_select
+    header = (tiled_eval.Path(gibbs_chain.SOURCE).parent
+              / "counter_rng.cuh").read_bytes()
+    for mod in (gibbs_chain, gibbs_select):
+        assert header in tiled_eval.source_bytes(mod.SOURCE)

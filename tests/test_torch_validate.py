@@ -89,6 +89,22 @@ def test_negative_control_fails_the_brackets():
     assert vc.run_row(vc.BY_NAME["circular M=2"], "cpu")["wins"] >= 5
 
 
+@pytest.mark.parametrize("name", ["gumbel grid D2 M2 host",
+                                  "gumbel circular M=2", "gumbel se2 M=3"])
+def test_gumbel_rows_pass_their_vote(name):
+    """Keyed gumbel products (labels from the counter noise) hold the
+    brackets by the votes of the rows they repeat."""
+    rec = vc.run_row(vc.BY_NAME[name], "cpu")
+    assert rec["select"] == "gumbel" and rec["row"] == "H"
+    assert rec["passed"] and rec["wins"] >= 5, rec
+
+
+def test_gumbel_control_fails_the_brackets():
+    rec = vc.run_row(vc.BY_NAME["gumbel control circular M=2 no hooks"],
+                     "cpu")
+    assert rec["wins"] <= 2 and rec["passed"] and rec["need"] == "<= 2", rec
+
+
 def test_layouts_are_launch_plans_and_cover_k3():
     """Every row's layout is ``launch_plan`` of its chains and widest
     level (the host plan's, built here for the small rows); the grid, the
@@ -104,6 +120,13 @@ def test_layouts_are_launch_plans_and_cover_k3():
         kinds.setdefault(row.group, set()).add(vc.layout(row))
     assert kinds["B"] == {"block"} and kinds["C"] == {"staged"}
     assert kinds["A"] == kinds["D"] == kinds["E"] == {"warp"}
+    assert kinds["H"] == {"warp", "block", "staged"}
+    assert {r.select for r in vc.ROWS} == {"cdf", "gumbel"}
+    assert all((r.group == "H") == (r.select == "gumbel") for r in vc.ROWS)
+    quick = [vc.BY_NAME[n] for n in vc.QUICK]
+    for select in ("cdf", "gumbel"):
+        assert {vc.layout(r) for r in quick if r.select == select} == {
+            "warp", "block", "staged"}
     from kde_tpu_torch import kde
     from kde_tpu_torch.ops import gibbs
     rng = np.random.default_rng(2)

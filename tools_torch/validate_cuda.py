@@ -22,6 +22,10 @@ with rows added so that every layout of the chain kernel K3
      share the card, in child processes                     10 trials, >= 5
   G  negative control: D's circular M = 2 with the hooks
      stripped from densities and product                    10 trials, <= 2
+  H  keyed gumbel (labels from the counter noise) on each
+     layout: A's D 2 M 2 (warp), B's 2 x 100k (block), C's
+     4,100 x 2 x 100k (staged), D's circular M = 2 and SE(2)
+     M = 3, E's headline; and G's control with gumbel       as its row's
 
 The circular densities sit tightly either side of the +-pi seam with no
 sample mass across it, so an engine that ignores the hooks puts the
@@ -30,8 +34,9 @@ every bracket: G must fail, or the brackets have no teeth.  Trial seeds
 derive from the JAX tool's 17, 23, 29, 31, 37, 41 and 43 through
 ``utils.random.split``; keyed draws differ between the two packages
 (PARITY.md), so the rows match the JAX tool's in configuration, not in
-draws.  Each row records ``launch_plan``'s layout for its chain count and
-widest level, its wins, threshold, seconds and K3 launches.
+draws.  Each row records its selection, ``launch_plan``'s layout for its
+chain count and widest level, its wins, threshold, seconds and K3
+launches.
 
     python3 -m tools_torch.validate_cuda [--out VALIDATE_CUDA.json]
 
@@ -126,22 +131,24 @@ def _host(x):
 
 
 def grid_trial(rng, key, device, D=3, M=6, N=100, n=100, dev=1.0, mcmc=5,
-               plan="host"):
+               plan="host", select="cdf"):
     """The reference grid's testProds (test/runtests.jl:189-201): LOOCV
     fits of M standard-normal D-dim point sets."""
     dens = [kt.kde(dev * rng.normal(size=(D, N)), dtype=F32, device=device)
             for _ in range(M)]
-    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key, plan=plan)
+    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key, plan=plan,
+                                   select=select)
     return moment_ok(_host(pts), D, M, dev)
 
 
-def large_trial(rng, key, device, N, n, D=2, M=2, mcmc=5):
+def large_trial(rng, key, device, N, n, D=2, M=2, mcmc=5, select="cdf"):
     """M standard-normal N-component densities at the rule-of-thumb
     bandwidth 1.06 N^-0.2."""
     dens = [kt.kde(rng.normal(size=(D, N)).astype(np.float32),
                    [float(1.06 * N ** -0.2)], dtype=F32, device=device)
             for _ in range(M)]
-    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key)
+    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key,
+                                   select=select)
     return moment_ok(_host(pts), D, M)
 
 
@@ -150,16 +157,18 @@ def _circ_dens(rng, N, offset, device, hooks):
     return kt.kde(th, [BW], dtype=F32, device=device, **hooks)
 
 
-def circ_trial(rng, key, device, M, N=100, n=100, mcmc=5, hooks=CIRC):
+def circ_trial(rng, key, device, M, N=100, n=100, mcmc=5, hooks=CIRC,
+               select="cdf"):
     """M circular densities at pi + linspace(-OFF, OFF, M); ``hooks={}``
     strips the hooks (the negative control)."""
     dens = [_circ_dens(rng, N, o, device, hooks)
             for o in np.linspace(-OFF, OFF, M)]
-    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key, **hooks)
+    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key,
+                                   select=select, **hooks)
     return circ_ok(_host(pts)[0], M)
 
 
-def se2_trial(rng, key, device, M=3, N=100, n=100, mcmc=5):
+def se2_trial(rng, key, device, M=3, N=100, n=100, mcmc=5, select="cdf"):
     """SE(2)-style mixed dims: (x, y) standard normal, theta circular
     around pi."""
     dens = []
@@ -168,7 +177,8 @@ def se2_trial(rng, key, device, M=3, N=100, n=100, mcmc=5):
         th = _wrap(np.pi + o + NOISE * rng.normal(size=(1, N)))
         dens.append(kt.kde(np.vstack([xy, th]), [BW], dtype=F32,
                            device=device, **SE2))
-    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key, **SE2)
+    pts, _ = kt.prod_appx_ms_gibbs(n, dens, n_iter=mcmc, key=key,
+                                   select=select, **SE2)
     return se2_ok(_host(pts), M)
 
 
@@ -193,14 +203,15 @@ def batched_circ_trial(rng, key, device, B=4, M=2, N=100, n=100, mcmc=5):
     return all(circ_ok(pts[b, 0], M) for b in range(B))
 
 
-def headline_trial(rng, key, device, B=6, N=1000, n=1000, mcmc=5):
+def headline_trial(rng, key, device, B=6, N=1000, n=1000, mcmc=5,
+                   select="cdf"):
     """The bench headline (bench.py:37-40, 177-188): one 2-D pair at bw
     0.1, N(0, I) and N(0.5, I), B times per call; every set's residual
     about the product's centre 0.25 must be in bracket."""
     dens = [kt.kde(rng.normal(size=(2, N)) + s, [0.1], dtype=F32,
                    device=device) for s in (0.0, 0.5)]
     pts, _ = kt.BatchedProductSampler([dens] * B, n_out=n,
-                                      n_iter=mcmc).sample(key)
+                                      n_iter=mcmc).sample(key, select=select)
     pts = _host(pts) - 0.25
     return all(moment_ok(pts[b], 2, 2) for b in range(B))
 
@@ -213,7 +224,8 @@ class Row(NamedTuple):
     """One row: ``trial(rng, key, device)`` run ``trials`` times from the
     trial seeds of ``seed``; it passes with at least ``need`` wins (at most,
     for a ``control``).  ``chains``, ``npts`` and ``d`` give its shape, from
-    which :func:`layout` reads K3's layout."""
+    which :func:`layout` reads K3's layout; ``select`` its label
+    selection."""
     name: str
     group: str
     config: dict
@@ -225,10 +237,12 @@ class Row(NamedTuple):
     npts: tuple
     d: int
     control: bool = False
+    select: str = "cdf"
 
 
 def _kw(trial, **kw):
-    return lambda rng, key, device: trial(rng, key, device, **kw)
+    return lambda rng, key, device, **more: trial(rng, key, device, **kw,
+                                                   **more)
 
 
 def _rows():
@@ -283,6 +297,16 @@ def _rows():
                     dict(D=1, M=2, N=100, n=100, mcmc=5), 31, 10, 2,
                     _kw(circ_trial, M=2, hooks={}), 100, (100, 100), 1,
                     control=True))
+    # H: each row above that stands for a layout, again with gumbel
+    for name in ("grid D2 M2 host", "large 2x100000",
+                 "staged 4100 x 2x100000", "circular M=2", "se2 M=3",
+                 "headline 6x[2x1000]", "control circular M=2 no hooks"):
+        row = next(r for r in rows if r.name == name)
+        trial = row.trial
+        rows.append(row._replace(
+            name="gumbel " + name, group="H", select="gumbel",
+            trial=lambda rng, key, device, t=trial: t(rng, key, device,
+                                                      select="gumbel")))
     return rows
 
 
@@ -291,11 +315,14 @@ SHARDED = (dict(D=2, M=2, N=128, n=100, mcmc=5),
 ROWS = _rows()
 BY_NAME = {r.name: r for r in ROWS}
 # chip_smoke.py phase 13: A's two grid configs, one row of each layout and
-# D's circular row with its control
+# D's circular row with its control, each of those again with gumbel but
+# the headline (E's is the warp layout's batched row)
 QUICK = ("grid D2 M2 host", "grid D2 M2 device", "grid D3 M6 mcmc10 host",
          "grid D3 M6 mcmc10 device", "large 2x100000",
          "staged 4100 x 2x100000", "headline 6x[2x1000]", "circular M=2",
-         "control circular M=2 no hooks")
+         "control circular M=2 no hooks", "gumbel grid D2 M2 host",
+         "gumbel large 2x100000", "gumbel staged 4100 x 2x100000",
+         "gumbel circular M=2", "gumbel control circular M=2 no hooks")
 
 
 def widest_level(chains: int, npts: Sequence[int]) -> int:
@@ -337,7 +364,7 @@ def run_row(row: Row, device) -> dict:
         k3 = gibbs_chain.LAUNCHES - k0
     ok = wins <= row.need if row.control else wins >= row.need
     rec = dict(name=row.name, row=row.group, **row.config,
-               layout=layout(row), chains=row.chains,
+               select=row.select, layout=layout(row), chains=row.chains,
                widest_level=widest_level(row.chains, row.npts), wins=wins,
                of=row.trials,
                need=(f"<= {row.need}" if row.control else f">= {row.need}"),
@@ -365,7 +392,8 @@ def run(device=None, names: Optional[Sequence[str]] = None,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "dtype": "float32",
             "thresholds": {"A, D, E, F": ">= 5 of 10", "B, C": ">= 3 of 5",
-                           "G (control)": "<= 2 of 10"},
+                           "G (control)": "<= 2 of 10",
+                           "H": "as the row it repeats"},
             "rows": recs, "seconds": time.perf_counter() - t0,
             "pass": all(r["passed"] for r in recs)}
 
