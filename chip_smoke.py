@@ -8,9 +8,10 @@ Phases, one line of findings each:
      flags (both off);
   2. build, all started together: nvcc compiles kde_tpu_torch/csrc/
      tiled_eval.cu, csrc/small_ops.cu, csrc/gibbs_select.cu,
-     csrc/gibbs_chain.cu and csrc/loo_search.cu (sm_90a, all but the
-     first with --fmad=false), g++ the native ball-tree source
-     csrc/balltree.cpp; ptxas registers, shared memory and spills;
+     csrc/gibbs_chain.cu, csrc/loo_search.cu and csrc/sharded_select.cu
+     (sm_90a, all but the first with --fmad=false), g++ the native
+     ball-tree source csrc/balltree.cpp; ptxas registers, shared memory
+     and spills;
   3. the kernel against its plain torch twin on the card at five shapes,
      rtol = atol = 2e-4: (a) 20k x 20k, d = 2; (b) LOO 20k, d = 1;
      (c) 1000 x 777, d = 3; (d) LOO N = 1 (-inf); (e) LOO 100k, d = 1 (the
@@ -63,6 +64,16 @@ Phases, one line of findings each:
      final bracket, bitwise repeats, one launch a call; timed beside
      k4_bound_ms, the twin and ksize_rows on the twin (the parent's
      route);
+ 3g. the kernel-sharded selection kernel sharded_select (K6,
+     csrc/sharded_select.cu) against its plain twins (phase_sharded_select):
+     every phase's outputs and the winner's stats, the shards of S = 1
+     slices and S = 2 halves composed on one rank, float32 and float64,
+     d = 1, 2, 3, circular and SE(2), dead rows, shards holding only
+     padding, a partial mask, dn = 3, the warp/block switch; the global
+     index equal but for float64 CDF ties within 1e-12 of u (listed);
+     each phase of the leaf stages of phase 11a's replay (256 chains over
+     2 x 50,000) and of the full-width case's (2 x 1,000,000) timed beside
+     its twin, their sum beside k6_bound_ms;
  3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
      resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
      the same flow on the CPU, both small kernels launched; flows/s with
@@ -111,7 +122,12 @@ Phases, one line of findings each:
      NCCL world: the chain-sharded product of phase 4's densities
      (20,000 chains) and the kernel-sharded replay product of phase 5's
      (256 chains) against the unsharded engine (labels on >= 99.9 % of
-     chains), product_sharded (its refit must launch K4),
+     chains; every selection on K6, none on its twins; its collectives
+     counted against comm_table; timed in turns with the plain engine),
+     the full-width case (256 chains over 2 x 1,000,000 on K6 against
+     its twins, labels equal but for listed ties, one chain block
+     against four, the allocator's peak), product_sharded (its refit
+     must launch K4),
      product_batched(mesh=) over 4 x [2 x 20,000] against the unsharded
      batch, sharded_log_eval at 20,000 x 20,000 (must launch the kernel),
      sharded_loo_entropy and ksize_bandwidths_sharded against their
@@ -123,7 +139,8 @@ Phases, one line of findings each:
      scaling_bench.run at S = 1 (4,096 chains, 2 x 1,000 components,
      Niter 5) and its comm_table.  (b) Two copies of this script
      (``--shared-card-worker``) share the card in a gloo world: the
-     kernel-sharded product at S = 2 and the chain-sharded product over
+     kernel-sharded product at S = 2 (on K6 on both ranks, 1,024 chains
+     over 2 x 20,000) and the chain-sharded product over
      both ranks against the plain engine, and sharded_log_eval with the
      components split over both ranks (each rank must launch the kernel
      and keep the result on the card).  Launches made by the references
@@ -143,7 +160,9 @@ Phases, one line of findings each:
 gibbs_chain must launch on the slice, serve, device plan, batched,
 select, manifolds, parallel (chain- and set-sharded), examples and tools
 paths, gibbs_select on phase 10's lone circular diffop and never on
-phase 8's and phase 13's (gumbel is on gibbs_chain), K1 on the slice,
+phase 8's and phase 13's (gumbel is on gibbs_chain), sharded_select on
+the parallel and shared-card paths (with no twin stage) and nowhere
+else, K1 on the slice,
 functionals, parallel and shared-card paths, K4 on the slice, device
 plan, batched, functionals, manifolds and parallel paths.
 Then one JSON line on the kernels, and last the device JSON line.  Any
@@ -173,6 +192,11 @@ and gumbel, and the switch between them (see k3_diag).
 
 times the chain kernel only, against the one of the checkout in DIR (see
 k3_parent_ab).
+
+    python3 chip_smoke.py --k6-trace TAG [DIR]
+
+profiles phase 11a's kernel-sharded replay on the checkout it runs from
+and writes DIR/k6_trace_TAG.json.gz (default k6_traces/; see k6_trace).
 """
 
 import contextlib
@@ -1621,6 +1645,319 @@ def phase_loo_search(dev, cases=None):
     return rows
 
 
+def k6_inputs(seed, dev, dtype, c, w, d, js, cov, codes, n_shards, dn=2,
+              pad=0, dead=0, mixed=False):
+    """One selection of the kernel-sharded engine at one level, its
+    ``w`` candidates of ``dn`` densities in ``d`` dims split over
+    ``n_shards`` shards as ``_KShardPlan`` splits them (padded to a
+    multiple of the shards by repeating the last slot at -inf
+    log-weight): ``c`` chains at N(0, I) (angles uniform on circular
+    dims), bandwidths at Silverman's scale for ``w`` points, weights
+    uniform(0.5, 1.5), labels a permutation; ``cov`` at the same scale or
+    None; ``pad`` padded candidates at the end of the last density's
+    level (more than w / 2 leave its last half-shard only padding),
+    ``dead`` chains at 10^3 on the Euclidean dims, ``mixed``: density
+    1's first dim inactive.  Returns a dict: ``rows`` (``sharded_select.
+    Rows`` a shard), ``stats`` and ``real`` a shard, ``u [c, |js|]``,
+    ``js``, ``n_shards``."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_select, sharded_select as ss
+    rng = np.random.default_rng(seed)
+    circ = np.asarray(codes, dtype=bool)
+    mean = rng.normal(size=(dn, w, d))
+    mean[..., circ] = rng.uniform(-np.pi, np.pi, size=(dn, w, circ.sum()))
+    h2 = (1.06 * max(w, 2) ** -0.2) ** 2
+    bw = h2 * rng.uniform(0.5, 1.5, size=(dn, w, d))
+    wt = rng.uniform(0.5, 1.5, size=(dn, w))
+    logw = np.log(wt / wt.sum(axis=-1, keepdims=True))
+    if pad:
+        logw[-1, -pad:] = -np.inf
+    perm = np.argsort(rng.random((dn, w)), axis=-1).astype(np.float64)
+    mu = rng.normal(size=(c, d))
+    mu[:, circ] = rng.uniform(-np.pi, np.pi, size=(c, circ.sum()))
+    if dead:
+        mu[:dead, ~circ] = 1e3
+    active = np.ones((dn, d), dtype=bool)
+    if mixed:
+        active[1, 0] = False
+    w_loc = -(-w // n_shards)
+
+    def split(x, fill=None):
+        tail = np.repeat(x[:, -1:], n_shards * w_loc - w, axis=1)
+        if fill is not None:
+            tail[:] = fill
+        return np.concatenate([x, tail], axis=1)
+    stats = split(np.concatenate([mean, bw, perm[..., None]], axis=-1))
+    mean, bw, logw = split(mean), split(bw), split(logw, -np.inf)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    covv = t(h2 * rng.uniform(0.5, 1.5, size=(c, d))) if cov else None
+    diffop = gibbs_select.diffop_of(codes)
+    act = torch.as_tensor(active, device=dev)
+    sl = lambda s: slice(s * w_loc, (s + 1) * w_loc)
+    js = tuple(js)
+    return dict(
+        rows=[ss.Rows(t(mean[:, sl(s)]).contiguous(),
+                      t(bw[:, sl(s)]).contiguous(),
+                      t(logw[:, sl(s)]).contiguous(), js, t(mu), covv, act,
+                      diffop) for s in range(n_shards)],
+        stats=[torch.as_tensor(stats[:, sl(s)], dtype=torch.float64,
+                               device=dev).contiguous()
+               for s in range(n_shards)],
+        real=[torch.as_tensor(np.isfinite(logw[js[0]:js[-1] + 1, sl(s)])
+                              .any(axis=-1), device=dev)
+              for s in range(n_shards)],
+        u=t(rng.uniform(size=(c, len(js)))), js=js, n_shards=n_shards)
+
+
+K6_PHASES = ("local_max", "shifted_sum", "dead_max", "exp_sum",
+             "count_below", "owner_stats")
+K6_TIE = 1e-12           # K6's labels may differ from the twin's only where
+                         # the twin's float64 CDF is this near u
+K6_MAX_TIES = 100        # ...on at most this many rows of a case
+
+
+def k6_select(inp, twin=False):
+    """One kernel-sharded selection over ``inp``'s shards on one rank, the
+    collectives by hand in the engine's order (max, sum and stack over
+    the shards): K6's entries, or with ``twin`` their plain twins.
+    Returns every phase's outputs (per shard where each shard has its
+    own) and the winner's stats ``sel [|js|, C, 2d+1]``."""
+    import torch
+    from kde_tpu_torch.ops import sharded_select as ss
+    f = {n: getattr(ss, n + "_ref" if twin else n) for n in K6_PHASES}
+    rows, js, S = inp["rows"], inp["js"], inp["n_shards"]
+    m = [f["local_max"](r) for r in rows]
+    m0 = torch.stack(m).amax(dim=0)
+    ssum_s = [f["shifted_sum"](r, m0) for r in rows]
+    ssum = torch.stack(ssum_s).sum(dim=0)
+    dm = [f["dead_max"](m0, ssum, m[s], inp["real"][s]) for s in range(S)]
+    dead = dm[0][0]
+    gmax = torch.stack([x[1] for x in dm]).amax(dim=0)
+    tots = torch.stack([f["exp_sum"](r, gmax, dead) for r in rows])
+    counts = [f["count_below"](r, gmax, dead, tots, s, inp["u"])
+              for s, r in enumerate(rows)]
+    z = torch.stack(counts).sum(dim=0)
+    sel = torch.stack([f["owner_stats"](inp["stats"][s], js, z, S, s)
+                       for s in range(S)]).sum(dim=0)
+    return dict(m=m, m0=m0, ssum=ssum_s, dead=dead, mfb=[x[1] for x in dm],
+                gmax=gmax, tots=tots, counts=counts, z=z, sel=sel)
+
+
+def _k6_twin_cdf(inp, got, jj, c):
+    """The twin's float64 CDF of row ``(js[jj], c)`` over all shards
+    (its offsets and total), from the twin's own phase outputs ``got``."""
+    import torch
+    from kde_tpu_torch.ops import sharded_select as ss
+    parts = []
+    tots = got["tots"][:, jj, c]
+    total = tots.sum()
+    for s, r in enumerate(inp["rows"]):
+        one = r._replace(mu=r.mu[c:c + 1], js=(r.js[jj],),
+                         cov=None if r.cov is None else r.cov[c:c + 1])
+        e = torch.exp(ss._fallback_logits(one, got["dead"][jj:jj + 1,
+                                                           c:c + 1])
+                      - got["gmax"][jj, c]).double()[0, 0]
+        parts.append((tots[:s].sum() + torch.cumsum(e, dim=0)) / total)
+    return torch.cat(parts)
+
+
+def k6_compare(inp, what):
+    """K6 against its twins on the same inputs, phase by phase: the local
+    and global maxima, the fallback maxima and the dead rows equal; the
+    shifted sums within 2e-5 (float32) or 1e-12 (float64) relative (sums
+    in another order), the shard totals within 1e-12 relative; the global
+    index on every row but those where the twin's float64 CDF lies within
+    K6_TIE of u between the two indices (listed with |u - cdf|); the
+    winner's stats equal wherever the indices are.  Returns the row of
+    findings."""
+    import torch
+    from kde_tpu_torch.ops import sharded_select as ss
+    before = ss.LAUNCHES
+    got = k6_select(inp)
+    _sync()
+    launched = ss.LAUNCHES - before
+    on_card = inp["rows"][0].mean.is_cuda
+    if launched != (6 * inp["n_shards"] if on_card else 0):
+        raise AssertionError(f"sharded_select ({what}): {launched} launches "
+                             f"for {inp['n_shards']} shards")
+    want = k6_select(inp, twin=True)
+    rel = lambda a, b: float(((a.double() - b.double()).abs()
+                              / b.double().abs().clamp_min(1e-300)).max())
+    for k in ("m0", "dead", "gmax"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"sharded_select ({what}): {k} differs from "
+                                 "the twin's")
+    for k in ("m", "mfb"):
+        if not all(torch.equal(a, b) for a, b in zip(got[k], want[k])):
+            raise AssertionError(f"sharded_select ({what}): {k} differs from "
+                                 "the twin's")
+    f32 = inp["rows"][0].mean.dtype == torch.float32
+    ssum_rel = max(rel(a, b) for a, b in zip(got["ssum"], want["ssum"]))
+    tots_rel = rel(got["tots"], want["tots"])
+    if ssum_rel > (2e-5 if f32 else 1e-12) or tots_rel > 1e-12:
+        raise AssertionError(f"sharded_select ({what}): shifted sums "
+                             f"{ssum_rel}, shard totals {tots_rel} apart")
+    same = got["z"] == want["z"]
+    bad = (~same).nonzero().tolist()
+    if len(bad) > K6_MAX_TIES:
+        raise AssertionError(f"sharded_select ({what}): {len(bad)} indices "
+                             "off the twin's")
+    ties = []
+    for jj, c in bad:
+        cdf = _k6_twin_cdf(inp, want, jj, c)
+        zk, zt = int(got["z"][jj, c]), int(want["z"][jj, c])
+        lo, hi = min(zk, zt), min(max(zk, zt), cdf.numel())
+        gap = float((cdf[lo:hi] - float(inp["u"][c, jj])).abs().max())
+        if gap > K6_TIE:
+            raise AssertionError(f"sharded_select ({what}): row {jj, c} "
+                                 f"takes {zk}, the twin {zt}, |u - cdf| "
+                                 f"{gap}")
+        ties.append(gap)
+    keep = same[..., None].expand_as(got["sel"])
+    err = float((got["sel"] - want["sel"])[keep].abs().max()) \
+        if bool(keep.any()) else 0.0
+    if err != 0.0:
+        raise AssertionError(f"sharded_select ({what}): winner stats {err} "
+                             "off the twin's at equal indices")
+    return dict(rows=same.numel(), dead_rows=int(got["dead"].sum()),
+                launches=launched, index_mismatches=len(bad), cdf_ties=ties,
+                ssum_max_rel=ssum_rel, tots_max_rel=tots_rel,
+                max_abs_err=err)
+
+
+def k6_bound_ms(inp, sms, clock_hz):
+    """The least time an H100 could take for the local work of one
+    kernel-sharded selection over all its shards (collectives excluded),
+    counting cdf's work per (chain, candidate) pair as chain_bound_ms
+    does: k IEEE divisions (a reciprocal each on the SFU), k logs or,
+    where the level's bandwidth is uniform in a dim, one log a row, an exp
+    and 5k + 5 FP32 operations, k the active dims; the dead test's sum on
+    rows below log(1e-99) left out.  SFU at 16 a clock an SM, FP32 on 128
+    lanes an SM; bytes (the densities' level slices and stats, mu, cov and
+    u read once, the winners' stats written once) at 3.35 TB/s."""
+    rows = inp["rows"]
+    r0 = rows[0]
+    js = list(inp["js"])
+    c, d = r0.mu.shape
+    item = r0.mean.element_size()
+    w = sum(r.mean.shape[1] for r in rows)
+    act = r0.active[js].cpu().numpy()
+    bw = np.concatenate([r.bw[js].cpu().numpy() for r in rows], axis=1)
+    uni = (bw == bw[:, :1]).all(axis=1)                      # [|js|, d]
+    k = act.sum(axis=-1).astype(float)
+    ku = (act & uni).sum(axis=-1).astype(float)
+    sfu = float((c * w * (2 * k + 1 - ku) + c * ku).sum())
+    fp32 = float((c * w * (5 * k + 5)).sum())
+    nbytes = (len(js) * w * ((2 * d + 1) * item + (2 * d + 1) * 8)
+              + c * d * item * (2 if r0.cov is not None else 1)
+              + c * len(js) * (item + (2 * d + 1) * 8))
+    times = {"operations": max(sfu / (SFU_EX2_PER_CLK * sms * clock_hz),
+                               fp32 / (FP32_LANES_PER_CLK * sms * clock_hz)),
+             "bytes": nbytes / HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def k6_phase_calls(inp, twin=False):
+    """Each phase of one shard-0 selection as a call on fixed inputs (the
+    earlier phases' outputs, from K6), for timing: name -> callable."""
+    import functools as ft
+    from kde_tpu_torch.ops import sharded_select as ss
+    pre = k6_select(inp)
+    f = {n: getattr(ss, n + "_ref" if twin else n) for n in K6_PHASES}
+    r, s = inp["rows"][0], 0
+    return {"local_max": ft.partial(f["local_max"], r),
+            "shifted_sum": ft.partial(f["shifted_sum"], r, pre["m0"]),
+            "dead_max": ft.partial(f["dead_max"], pre["m0"],
+                                   sum(pre["ssum"]), pre["m"][s],
+                                   inp["real"][s]),
+            "exp_sum": ft.partial(f["exp_sum"], r, pre["gmax"], pre["dead"]),
+            "count_below": ft.partial(f["count_below"], r, pre["gmax"],
+                                      pre["dead"], pre["tots"], s, inp["u"]),
+            "owner_stats": ft.partial(f["owner_stats"], inp["stats"][s],
+                                      inp["js"], pre["z"], inp["n_shards"],
+                                      s)}
+
+
+# phase 3g: name -> (chains, w, d, js, dtype, cov, codes, shards, extras);
+# the timed cases are S = 1 slices at phase 11a's leaf (256 chains over
+# 2 x 50,000) and at the full-width case's (2 x 1,000,000)
+K6_TIMED = ("leaf cond", "leaf sweep", "1M leaf sweep")
+
+
+def k6_cases(n_leaf=N_SERVE, n_big=1_000_000, chains=SERVE_CHAINS):
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    cases = {
+        "leaf cond": (chains, n_leaf, 2, (0, 1), f32, False, (0, 0), 1, {}),
+        "leaf sweep": (chains, n_leaf, 2, (1,), f32, True, (0, 0), 1, {}),
+        "1M leaf sweep": (chains, n_big, 2, (0,), f32, True, (0, 0), 1, {}),
+        "leaf cond S=2": (chains, n_leaf, 2, (0, 1), f32, False, (0, 0), 2,
+                          {}),
+        "f64 replay S=2": (chains, 2000, 2, (0, 1), f64, False, (0, 0), 2,
+                           {}),
+        "f64 sweep S=1": (chains, 2000, 2, (1,), f64, True, (0, 0), 1, {}),
+        "circular S=2": (512, 4000, 1, (0, 1), f32, False, (1,), 2, {}),
+        "se2 S=2": (512, 4000, 3, (1,), f32, True, (0, 0, 1), 2, {}),
+        "se2 f64 S=1": (128, 1000, 3, (0, 1), f64, False, (0, 0, 1), 1, {}),
+        "dead pad S=2": (512, 1000, 2, (0, 1), f32, False, (0, 0), 2,
+                         dict(pad=700, dead=5, mixed=True)),
+        "dead pad f64 S=2": (512, 1000, 2, (1,), f64, True, (0, 0), 2,
+                             dict(pad=700, dead=5)),
+        "mixed S=1": (256, 3000, 2, (1,), f32, True, (0, 0), 1,
+                      dict(mixed=True)),
+        "dn=3 cond S=2": (256, 2000, 2, (0, 1, 2), f32, False, (0, 0), 2,
+                          dict(dn=3)),
+        "dn=3 sweep S=1": (256, 2000, 2, (2,), f64, True, (0, 0), 1,
+                           dict(dn=3)),
+    }
+    for d in (1, 2, 3):
+        for dt in (f32, f64):
+            cases[f"d={d} {str(dt)[-7:]} S=2"] = (
+                128, 300, d, (0, 1), dt, d % 2 == 0, (0,) * d, 2, {})
+    for w, S in ((1024, 1), (1025, 1), (2049, 2)):   # the warp/block switch
+        cases[f"w={w} S={S}"] = (64, w, 2, (0,), f32, True, (0, 0), S, {})
+    return cases
+
+
+def phase_sharded_select(dev, cases=None):
+    """Phase 3g: K6 (sharded_select, csrc/sharded_select.cu) against its
+    plain twins on the card, the shards composed on one rank (S = 1
+    slices, S = 2 halves): k6_compare's limits at every case; each phase
+    of the timed cases (K6_TIMED) timed (one call, the wrapper's host
+    work included) beside its twin, and their sum, one selection's local
+    work, beside k6_bound_ms.  No single PyTorch call computes a sharded
+    selection: library_ms is null.  Returns the rows printed."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    rows = {}
+    for i, (name, (c, w, d, js, dt, cov, codes, S, ex)) in \
+            enumerate((cases or k6_cases()).items()):
+        inp = k6_inputs(SEED + 60 + i, dev, dt, c, w, d, js, cov, codes, S,
+                        **ex)
+        with _uncounted():
+            row = k6_compare(inp, name)
+        row.update(C=c, w=w, d=d, js=list(js), dtype=str(dt), shards=S,
+                   codes=list(codes))
+        if name in K6_TIMED:
+            with _uncounted():
+                calls = k6_phase_calls(inp)
+                twins = k6_phase_calls(inp, twin=True)
+                row["phase_ms"] = {n: _cuda_ms(fn) for n, fn in calls.items()}
+                row["phase_plain_ms"] = {n: _cuda_ms(fn, reps=2)
+                                         for n, fn in twins.items()}
+            row["ms"] = sum(row["phase_ms"].values())
+            row["plain_ms"] = sum(row["phase_plain_ms"].values())
+            row["bound_ms"], row["bound_by"] = k6_bound_ms(inp, sms, clock)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["library_ms"] = None
+        rows[name] = row
+        print(f"sharded_select ({name}): {json.dumps(row)}", flush=True)
+        del inp
+    return rows
+
+
 def _cfg1_flow(x, grid, s, device=None):
     """README cfg 1 (bench.py:229-236) with the package's defaults:
     fit, evaluate, resample with a LOOCV refit, the LOO evaluation."""
@@ -2449,14 +2786,163 @@ def _uncounted():
     path is compared with, not to the path: the counts are put back after
     it."""
     from kde_tpu_torch.ops import (gibbs_chain, gibbs_select, loo_search,
-                                   tiled_eval)
+                                   sharded_select, tiled_eval)
     n, k, c = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
     s = loo_search.LAUNCHES
+    k6, k6_twin = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
     try:
         yield
     finally:
         tiled_eval.LAUNCHES, gibbs_select.LAUNCHES = n, k
         gibbs_chain.LAUNCHES, loo_search.LAUNCHES = c, s
+        sharded_select.LAUNCHES, sharded_select.TWIN_STAGES = k6, k6_twin
+
+
+@contextlib.contextmanager
+def _counting_collectives():
+    """Counts the kernel-sharded engine's collectives (pmax, psum,
+    all_gather of parallel/gibbs_kernel_sharded.py) in the block: yields
+    a one-item list that holds the count."""
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    saved = {k: getattr(gks, k) for k in ("pmax", "psum", "all_gather")}
+    calls = [0]
+
+    def counted(fn):
+        def wrapped(*a, **kw):
+            calls[0] += 1
+            return fn(*a, **kw)
+        return wrapped
+    for k, fn in saved.items():
+        setattr(gks, k, counted(fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(gks, k, fn)
+
+
+@contextlib.contextmanager
+def _on_k6_twin():
+    """Every selection of the kernel-sharded engine on K6's plain twins
+    (the eager phases of ops/sharded_select.py, the parent's arithmetic and
+    chain blocks) with the same collectives.  The run is a reference: its
+    counts are not the path's."""
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    saved = gks._route
+    gks._route = lambda *a: "twin"
+    try:
+        with _uncounted():
+            yield
+    finally:
+        gks._route = saved
+
+
+def _k6_shadow_ties(call):
+    """``call()`` once with every K6 selection also run on the twins on the
+    same stage inputs (k6_compare, which raises on anything but a float64
+    CDF tie within K6_TIE of u): returns the ties' |u - cdf|."""
+    from kde_tpu_torch.ops import sharded_select as ss
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    saved = gks._sharded_choose
+    ties = []
+
+    def make(mesh, d, route):
+        choose = saved(mesh, d, route)
+
+        def checked(stage, lvl):
+            mean, bw, logw, stats, real = lvl
+            js = tuple(stage.js)
+            rows = ss.Rows(mean[0], bw[0], logw[0], js, stage.mu[0],
+                           None if stage.cov is None else stage.cov[0],
+                           stage.active[0], stage.diffop)
+            inp = dict(rows=[rows], stats=[stats[0]],
+                       real=[real[js[0]:js[-1] + 1]], u=stage.u[0], js=js,
+                       n_shards=1)
+            with _uncounted():
+                ties.extend(k6_compare(inp, "full-width shadow")["cdf_ties"])
+            return choose(stage, lvl)
+        return checked
+    gks._sharded_choose = make
+    try:
+        call()
+    finally:
+        gks._sharded_choose = saved
+    return ties
+
+
+K6_BIG_N = 1_000_000     # phase 11a's full-width case: 2 x 1M, 2-D
+
+
+def _k6_full_width(mesh, dev, seed, n=K6_BIG_N, chains=SERVE_CHAINS):
+    """Phase 11a's full-width case: the kernel-sharded replay of
+    ``chains`` chains over 2 x ``n`` float32 components in 2-D at S = 1
+    on K6 against the same call on its twins (_on_k6_twin): labels at
+    every level equal (where they differ, a shadow run lists every K6
+    selection's float64 CDF ties, and the differing chains must not
+    outnumber them), each call's seconds, collectives, chain blocks
+    (collectives over 6 a selection) and allocator peak.  The plan and
+    trees are built first, outside the timings."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import balltree, gibbs, sharded_select
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng(seed + 16)
+    bw = [float(1.06 * n ** -0.2)]
+    dens = [kt.kde((rng.normal(size=(2, n)) + s).astype(np.float32), bw,
+                   device=dev, dtype=torch.float32) for s in (0.0, 0.5)]
+    ru, rn = _replay_streams(np.random.default_rng(seed + 17), chains, dens,
+                             5)
+    t0 = time.perf_counter()
+    plan = gks._get_ks_plan(dens, chains, torch.float32, 1, 0,
+                            dens[0].device)
+    res = {"n": n, "chains": chains, "plan_s": time.perf_counter() - t0}
+    L = balltree.n_levels(chains, [n, n])
+    per_block = 6 * L * (1 + 5 * 2)
+    call = lambda: par.prod_appx_ms_gibbs_kernel_sharded(
+        mesh, chains, dens, n_iter=5, rand_u=ru, rand_n=rn,
+        record_labels=True)
+
+    def timed(tag):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        k0, t0w = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
+        with _counting_collectives() as calls:
+            sync()
+            t0 = time.perf_counter()
+            out = call()
+            sync()
+        res[f"{tag}_s"] = time.perf_counter() - t0
+        res[f"{tag}_collectives"] = calls[0]
+        res[f"{tag}_chain_blocks"] = calls[0] / per_block
+        res[f"{tag}_launches"] = sharded_select.LAUNCHES - k0
+        res[f"{tag}_twin_stages"] = sharded_select.TWIN_STAGES - t0w
+        res[f"{tag}_peak_mb"] = (torch.cuda.max_memory_allocated(dev) / 1e6
+                                 if dev.type == "cuda" else None)
+        return out
+    got = timed("k6")
+    with _on_k6_twin():
+        want = timed("twin")
+    got = timed("k6")                    # in turns: K6, twin, K6
+    want_blocks = -(-chains // gibbs._chains_per_block(
+        chains, max(w for _, w in plan.offsets), 4))
+    k6_blocks = 1 if dev.type == "cuda" else want_blocks   # the twins here
+    if (res["k6_chain_blocks"] != k6_blocks
+            or res["twin_chain_blocks"] != want_blocks
+            or res["twin_launches"] or (dev.type == "cuda" and (
+                res["k6_launches"] < 1 or res["k6_twin_stages"]))):
+        raise AssertionError(f"full-width kernel-sharded: {res}")
+    diff = (got[2] != want[2]).any(dim=2).any(dim=1)
+    res["differing_chains"] = int(diff.sum())
+    res["ties"] = _k6_shadow_ties(call) if bool(diff.any()) else []
+    if res["differing_chains"] > len(res["ties"]):
+        raise AssertionError(f"full-width kernel-sharded: "
+                             f"{res['differing_chains']} chains differ from "
+                             f"the twin's, {len(res['ties'])} ties")
+    if not bool(torch.isfinite(got[0]).all()):
+        raise AssertionError("full-width kernel-sharded: non-finite points")
+    return res
 
 
 def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
@@ -2468,8 +2954,9 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
     import kde_tpu_torch as kt
     from kde_tpu_torch import parallel as par
     from kde_tpu_torch.ops import kernels, loocv
-    from kde_tpu_torch.ops import gibbs_chain
+    from kde_tpu_torch.ops import gibbs_chain, sharded_select
     from kde_tpu_torch.parallel import product as par_product
+    from kde_tpu_torch.parallel.scaling_bench import comm_table
     stages, launches, out, k3 = {}, {}, {}, {}
 
     def stage(name, fn, *args, **kw):
@@ -2509,7 +2996,8 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
                 or pq.device.type != dev.type:
             raise AssertionError("product_sharded left the device")
 
-        # kernel-sharded replay (S = 1) against the plain engine
+        # kernel-sharded replay (S = 1) on K6 against the plain engine,
+        # timed in turns (sharded, plain, plain, sharded)
         dens = serve.densities
         ru, rn = _replay_streams(np.random.default_rng(seed + 11),
                                  SERVE_CHAINS, dens, 5)
@@ -2519,12 +3007,37 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
                                               rand_u=ru, rand_n=rn)
         with _uncounted():
             want = plain()[1]
-        out["kernel_agree"] = _agree(ks()[1], want, "kernel-sharded")
-        out["kernel_sharded_ms"] = _host_ms(ks, _sync)
-        with _uncounted():
-            out["kernel_plain_ms"] = _host_ms(plain, _sync)
+        k0, t0 = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
+        with _counting_collectives() as calls:
+            got = ks()[1]
+        out["kernel_k6_launches"] = sharded_select.LAUNCHES - k0
+        out["kernel_k6_twin_stages"] = sharded_select.TWIN_STAGES - t0
+        if out["kernel_k6_launches"] < 1 or out["kernel_k6_twin_stages"]:
+            raise AssertionError(f"kernel-sharded replay: "
+                                 f"{out['kernel_k6_launches']} K6 launches, "
+                                 f"{out['kernel_k6_twin_stages']} twin "
+                                 "stages")
+        out["kernel_agree"] = _agree(got, want, "kernel-sharded")
+        comm = comm_table(SERVE_CHAINS, N_SERVE, 2, 5, shards=1, device=dev)
+        out["kernel_collectives"] = calls[0]
+        out["kernel_chain_blocks"] = comm["chain_blocks"]
+        if calls[0] != comm["collective_calls_per_product"]:
+            raise AssertionError(f"kernel-sharded replay: {calls[0]} "
+                                 f"collectives, comm_table says "
+                                 f"{comm['collective_calls_per_product']}")
+        turns = {"sharded": [], "plain": []}
+        for name in ("sharded", "plain", "plain", "sharded"):
+            with _uncounted():
+                turns[name].append(_host_ms(ks if name == "sharded"
+                                            else plain, _sync))
+        out["kernel_sharded_ms_turns"] = turns["sharded"]
+        out["kernel_plain_ms_turns"] = turns["plain"]
+        out["kernel_sharded_ms"] = float(np.mean(turns["sharded"]))
+        out["kernel_plain_ms"] = float(np.mean(turns["plain"]))
         out["kernel_s1_overhead"] = (out["kernel_sharded_ms"]
                                      / out["kernel_plain_ms"])
+        with _uncounted():
+            out["kernel_full_width"] = _k6_full_width(mesh2, dev, seed)
 
         # set-sharded batch against the unsharded batch
         rng = np.random.default_rng(seed + 3)
@@ -2758,11 +3271,19 @@ def shared_card_worker(rank, world, port):
     ru, rn = _replay_streams(np.random.default_rng(SEED + 14), SHARED_CHAINS,
                              dens, 5)
     kmesh = par.make_mesh(axis_name=par.KERNELS)
+    from kde_tpu_torch.ops import sharded_select
+    k0, s0 = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
     t0 = time.perf_counter()
     _, idx = par.prod_appx_ms_gibbs_kernel_sharded(
         kmesh, SHARED_CHAINS, dens, n_iter=5, rand_u=ru, rand_n=rn)
     _sync()
     out["kernel_sharded_s"] = time.perf_counter() - t0
+    out["k6_launches"] = sharded_select.LAUNCHES - k0
+    out["k6_twin_stages"] = sharded_select.TWIN_STAGES - s0
+    if out["k6_launches"] < 1 or out["k6_twin_stages"]:
+        raise AssertionError(f"kernel-sharded S = 2: {out['k6_launches']} "
+                             f"K6 launches, {out['k6_twin_stages']} twin "
+                             "stages")
     t0 = time.perf_counter()
     _, want = kt.prod_appx_ms_gibbs(SHARED_CHAINS, dens, n_iter=5,
                                     rand_u=ru, rand_n=rn)
@@ -3335,6 +3856,214 @@ def k3_parent_ab(parent):
     print(_card())
 
 
+def _merged_us(spans):
+    """Total microseconds covered by the ``(start, end)`` spans."""
+    total, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+K6_TRACE_CALLS = 8       # k6_trace's unprofiled calls after its warm-up
+
+
+def k6_trace(tag="tree", seed=SEED, out_dir="k6_traces", n=N_SERVE,
+             dev=None):
+    """The kernel-sharded replay of phase 11a (SERVE_CHAINS chains over
+    phase 5's 2 x N_SERVE densities, Niter 5, S = 1 in a one-rank NCCL
+    world) taken apart, on the code of this checkout:
+
+      * wall ms of one call on the host clock ending in a sync (median of
+        3), and of the profiled call;
+      * under torch.profiler (CPU and CUDA activity, one call after a
+        warm-up), the device time in NCCL kernels, in the sharded
+        selection kernel (csrc/sharded_select.cu), in every other kernel
+        (eager ops) and in copies, the busy time (the union of kernel and
+        copy spans) and the host gaps (wall less busy), the kernels by
+        name;
+      * the host ms spent inside the collectives (pmax, psum, all_gather
+        of parallel/gibbs_kernel_sharded.py, wrapped) and their count,
+        with and without the profiler;
+      * the selection stages (calls of the engine's choose), the chain
+        blocks, kernel launches and collectives a selection;
+      * one more call with a sync around each selection stage: its ms
+        inside the selections and outside them (the chain state).
+
+    The unprofiled calls come first: a warm-up (which starts the NCCL
+    communicator), then K6_TRACE_CALLS calls, each with its wall ms, its
+    host ms inside the collectives and inside K6's wrappers (where the
+    checkout has them); and the host µs of one lone pmax of a [2, 256]
+    tensor (median of 200, without and with a sync after each).  Writes
+    the trace to ``out_dir/k6_trace_<tag>.json.gz`` and prints one JSON
+    line.  ``n`` and ``dev`` (a CPU device runs a gloo world, whose trace
+    has no kernels) are for a rehearsal."""
+    import gzip
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    dev = dev or torch.device("cuda")
+    sync = _sync if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng(seed + 1)
+    bw = [float(1.06 * n ** -0.2)]
+    dens = [kt.kde((rng.normal(size=(2, n)) + s).astype(np.float32),
+                   bw, device=dev, dtype=torch.float32) for s in (0.0, 0.5)]
+    ru, rn = _replay_streams(np.random.default_rng(seed + 11), SERVE_CHAINS,
+                             dens, 5)
+    counts = {"collectives": 0, "collective_host_s": 0.0, "stages": 0,
+              "stage_s": 0.0, "k6_host_s": 0.0}
+    synced = [False]
+
+    def timed_collective(fn, key="collective_host_s", n="collectives"):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            y = fn(*a, **kw)
+            counts[key] += time.perf_counter() - t0
+            if n:
+                counts[n] += 1
+            return y
+        return wrapped
+
+    def counted_choose(make):
+        def maker(*a, **kw):
+            choose = make(*a, **kw)
+
+            def wrapped(stage, lvl):
+                if synced[0]:
+                    sync()
+                t0 = time.perf_counter()
+                sel = choose(stage, lvl)
+                if synced[0]:
+                    sync()
+                counts["stage_s"] += time.perf_counter() - t0
+                counts["stages"] += 1
+                return sel
+            return wrapped
+        return maker
+
+    saved = {k: getattr(gks, k) for k in ("pmax", "psum", "all_gather",
+                                          "_sharded_choose")}
+    for k in ("pmax", "psum", "all_gather"):
+        setattr(gks, k, timed_collective(saved[k]))
+    gks._sharded_choose = counted_choose(saved["_sharded_choose"])
+    try:                                 # the parent of K6 has no wrappers
+        from kde_tpu_torch.ops import sharded_select as ss
+        saved_k6 = {k: getattr(ss, k) for k in K6_PHASES}
+    except ImportError:
+        ss, saved_k6 = None, {}
+    for k, fn in saved_k6.items():
+        setattr(ss, k, timed_collective(fn, "k6_host_s", None))
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl" if dev.type == "cuda" else "gloo",
+                             timeout=WORKER_TIMEOUT)
+    res = {"tag": tag, "chains": SERVE_CHAINS, "n": n, "n_iter": 5}
+    try:
+        mesh = par.make_mesh_2d((1, 1))
+        call = lambda: par.prod_appx_ms_gibbs_kernel_sharded(
+            mesh, SERVE_CHAINS, dens, n_iter=5, rand_u=ru, rand_n=rn)
+        call()                           # starts the NCCL communicator
+        runs = {"wall_ms": [], "collective_host_ms": [], "k6_host_ms": []}
+        for _ in range(K6_TRACE_CALLS):
+            for k in counts:
+                counts[k] = 0
+            sync()
+            t0 = time.perf_counter()
+            call()
+            sync()
+            runs["wall_ms"].append(1e3 * (time.perf_counter() - t0))
+            runs["collective_host_ms"].append(
+                1e3 * counts["collective_host_s"])
+            runs["k6_host_ms"].append(1e3 * counts["k6_host_s"])
+        res["wall_ms"] = float(np.median(runs["wall_ms"]))
+        res["unprofiled_runs"] = runs
+        x = torch.zeros((2, SERVE_CHAINS), device=dev)
+        for synced_one in (False, True):
+            lone = []
+            for _ in range(200):
+                t0 = time.perf_counter()
+                saved["pmax"](x, mesh, par.KERNELS)
+                if synced_one:
+                    sync()
+                lone.append(1e6 * (time.perf_counter() - t0))
+            key = "one_pmax_synced_us" if synced_one else "one_pmax_us"
+            res[key] = float(np.median(lone))
+        for k in counts:
+            counts[k] = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync()
+            t0 = time.perf_counter()
+            call()
+            sync()
+            res["profiled_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        res.update(collectives=counts["collectives"],
+                   collective_host_ms=1e3 * counts["collective_host_s"],
+                   stages=counts["stages"])
+        synced[0] = True
+        counts["stage_s"] = 0.0
+        sync()
+        t0 = time.perf_counter()
+        call()
+        sync()
+        wall = 1e3 * (time.perf_counter() - t0)
+        res["synced_wall_ms"] = wall
+        res["synced_selection_ms"] = 1e3 * counts["stage_s"]
+        res["synced_chain_state_ms"] = wall - res["synced_selection_ms"]
+    finally:
+        for k, v in saved.items():
+            setattr(gks, k, v)
+        for k, v in saved_k6.items():
+            setattr(ss, k, v)
+        dist.destroy_process_group()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"k6_trace_{tag}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    with open(path, "rb") as f, gzip.open(path + ".gz", "wb") as g:
+        g.write(f.read())
+    os.remove(path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
+                                                    "gpu_memset")]
+    by_name, spans = {}, []
+    for e in kernels + copies:
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    group = lambda n: ("nccl" if "nccl" in n.lower() else
+                       "sharded_select" if "k6_" in n else "eager")
+    split = {"nccl": 0.0, "sharded_select": 0.0, "eager": 0.0}
+    for n, us in by_name.items():
+        split[group(n)] += us
+    busy = _merged_us(spans) / 1e3
+    c10d = sum(e["dur"] for e in events if e.get("cat") == "cpu_op"
+               and e["name"].startswith(("c10d::", "nccl:")))
+    res.update(
+        device_events=len(kernels),
+        nccl_kernel_ms=split["nccl"] / 1e3,
+        sharded_select_kernel_ms=split["sharded_select"] / 1e3,
+        eager_kernel_ms=split["eager"] / 1e3,
+        # a one-rank NCCL collective is a device-to-device copy, no kernel
+        copy_ms=sum(e["dur"] for e in copies) / 1e3, copies=len(copies),
+        device_busy_ms=busy,
+        host_gap_ms=res["profiled_wall_ms"] - busy,
+        c10d_host_op_ms=c10d / 1e3,
+        launches=len(kernels),
+        launches_per_selection=len(kernels) / max(1, res["stages"]),
+        collectives_per_selection=res["collectives"] / max(1, res["stages"]),
+        top_kernels_ms={n: us / 1e3 for n, us in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:15]},
+        trace=os.path.relpath(path + ".gz"))
+    card = _card() if dev.type == "cuda" else "cpu"
+    print(f"k6 trace ({tag}) on {card}: {json.dumps(res)}", flush=True)
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3344,11 +4073,12 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from kde_tpu_torch import native
     from kde_tpu_torch.ops import gibbs_chain, gibbs_select, host_small
-    from kde_tpu_torch.ops import loo_search, tiled_eval
+    from kde_tpu_torch.ops import loo_search, sharded_select, tiled_eval
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = _card()
+    t_start = time.perf_counter()
 
     # 1. device
     print(f"device: {card} | torch {torch.__version__} cuda "
@@ -3356,18 +4086,20 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build: the six libraries at once, each timed from the start
+    # 2. build: the seven libraries at once, each timed from the start
     t0 = time.perf_counter()
 
     def timed_build(build):
         so = build()
         return so, time.perf_counter() - t0
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         jobs = [pool.submit(timed_build, b) for b in
                 (tiled_eval.build, host_small.build, gibbs_select.build,
-                 gibbs_chain.build, loo_search.build, native.build)]
+                 gibbs_chain.build, loo_search.build, sharded_select.build,
+                 native.build)]
         ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s), (k3_so, k3_s),
-         (k4_so, k4_s), (tree_so, tree_s)) = [j.result() for j in jobs]
+         (k4_so, k4_s), (k6_so, k6_s), (tree_so, tree_s)) = [
+            j.result() for j in jobs]
     ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {k1_s:.2f} s -> {os.path.relpath(k1_so)}; ptxas: "
@@ -3384,30 +4116,38 @@ def main():
     print(f"build loo_search: {k4_s:.2f} s -> {os.path.relpath(k4_so)}; "
           f"ptxas per kernel: "
           f"{json.dumps(ptxas_table(loo_search.BUILD_LOG))}", flush=True)
+    print(f"build sharded_select: {k6_s:.2f} s -> {os.path.relpath(k6_so)}; "
+          f"ptxas per kernel: "
+          f"{json.dumps(ptxas_table(sharded_select.BUILD_LOG))}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
     # 3. kernel vs plain twin; 3b. the small-route kernels; 3d. the Gibbs
-    # selection kernel; 3e. the Gibbs chain kernel; 3f. the LOOCV search
+    # selection kernel; 3e. the Gibbs chain kernel; 3f. the LOOCV search;
+    # 3g. the kernel-sharded selection
     rows, worst = phase_kernel(dev)
     small_rows, small_worst = phase_small(dev)
     k2_rows = phase_gibbs_select(dev)
     k3_rows = phase_gibbs_chain(dev)
     k4_rows = phase_loo_search(dev)
+    k6_rows = phase_sharded_select(dev)
 
     # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds, small, k2, k3, k4 = {}, {}, {}, {}, {}, {}
+    runs, builds, small, k2, k3, k4, k6, k6_twin = ({} for _ in range(8))
 
     def run(name, fn, *args):
         tiled_eval.LAUNCHES = native.BUILDS = gibbs_select.LAUNCHES = 0
         gibbs_chain.LAUNCHES = loo_search.LAUNCHES = 0
+        sharded_select.LAUNCHES = sharded_select.TWIN_STAGES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
         small[name] = dict(host_small.LAUNCHES)
         k2[name], k3[name] = gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
         k4[name] = loo_search.LAUNCHES
+        k6[name] = sharded_select.LAUNCHES
+        k6_twin[name] = sharded_select.TWIN_STAGES
         return out
 
     c1 = run("cfg1", phase_cfg1, dev)
@@ -3439,8 +4179,10 @@ def main():
     print(f"parallel 11a, one NCCL rank, on {card}: {json.dumps(pl)}",
           flush=True)
     sc = phase_shared_card()
-    # counted in the two worker processes, around the sharded call only
+    # counted in the two worker processes, around the sharded calls only
     runs["shared_card"] = sum(r["log_eval_launches"] for r in sc)
+    k6["shared_card"] = sum(r["k6_launches"] for r in sc)
+    k6_twin["shared_card"] = sum(r["k6_twin_stages"] for r in sc)
     print(f"parallel 11b, two gloo ranks sharing the card, on {card}: "
           f"{json.dumps(sc)}", flush=True)
     run("examples", phase_examples, dev)
@@ -3461,6 +4203,15 @@ def main():
     if k2["manifolds"] < 1:
         raise AssertionError("the lone circular diffop never launched "
                              "gibbs_select")
+    for name in ("parallel", "shared_card"):
+        if k6[name] < 1 or k6_twin[name] != 0:
+            raise AssertionError(f"path {name}: {k6[name]} sharded_select "
+                                 f"launches, {k6_twin[name]} selection "
+                                 "stages on its twins")
+    if any(k6[name] for name in k6 if name not in ("parallel",
+                                                   "shared_card")):
+        raise AssertionError(f"sharded_select launched off the sharded "
+                             f"paths: {k6}")
     for name in ("select", "tools"):
         if k2[name] != 0:
             raise AssertionError(f"path {name} launched gibbs_select "
@@ -3476,12 +4227,17 @@ def main():
     print(f"gibbs_select launches per path: {json.dumps(k2)}", flush=True)
     print(f"gibbs_chain launches per path: {json.dumps(k3)}", flush=True)
     print(f"loo_search launches per path: {json.dumps(k4)}", flush=True)
+    print(f"sharded_select launches per path: {json.dumps(k6)}; twin "
+          f"stages: {json.dumps(k6_twin)}", flush=True)
+    print(f"whole script on {card}: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     golden, ev = small_rows["loo_golden cfg1"], small_rows[
         "small_log_eval cfg1"]
     leaf = k2_rows["leaf sweep cdf"]
     chain, chain_serve = k3_rows["keyed f32 slice"], k3_rows["keyed f32 serve"]
     gumbel_rows = {name.split()[-1]: k3_rows[name] for name in K3_GUMBEL_TIMED}
     refit = k4_rows["* refit"]
+    sweep = k6_rows["leaf sweep"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -3578,7 +4334,23 @@ def main():
         "ksize_rows_ms": refit["ksize_rows_ms"],
         **{f"{k}_{name}": k4_rows[name][k] for name in k4_rows
            for k in ("ms", "plain_ms", "parent_ms", "bound_ms",
-                     "bound_share")}}]}))
+                     "bound_share")}}, {
+        "name": "sharded_select", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/sharded_select.cu",
+        "replaces": "kde_tpu/parallel/gibbs_kernel_sharded.py:158 "
+                    "(_select_sharded) and the local work of :190-283 "
+                    "(_run_chain_ks); XLA-fused in the shard_map program",
+        "launches": sum(k6.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k6_rows.values()),
+        "index_mismatches": sum(r["index_mismatches"]
+                                for r in k6_rows.values()),
+        "max_cdf_tie": max([t for r in k6_rows.values()
+                            for t in r["cdf_ties"]] or [0.0]),
+        "ms": sweep["ms"], "plain_ms": sweep["plain_ms"],
+        "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
+        "bound_share": sweep["bound_share"], "library_ms": None,
+        **{f"{k}_{name}": k6_rows[name][k] for name in K6_TIMED
+           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3604,5 +4376,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k3-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_diag()
+    elif sys.argv[1:2] == ["--k6-trace"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k6_trace(*sys.argv[2:3], **({"out_dir": sys.argv[3]}
+                                    if len(sys.argv) > 3 else {}))
     else:
         main()

@@ -52,16 +52,28 @@
 //     thread's kPer consecutive ones in registers, the threads' sums by a
 //     shuffle scan; it stops at the tile where the CDF reaches u.
 // All reductions run in a fixed order, so a row's label does not depend on
-// the launch it is part of.
+// the launch it is part of.  The candidate logit and the row reductions
+// live in gibbs_logit.cuh, shared with csrc/sharded_select.cu (K6).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "counter_rng.cuh"
+#include "gibbs_logit.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using kde_gibbs::ex;
+using kde_gibbs::group_all;
+using kde_gibbs::group_scan;
+using kde_gibbs::group_sync;
+using kde_gibbs::kFull;
+using kde_gibbs::lg;
+using kde_gibbs::MaxOp;
+using kde_gibbs::MinOp;
+using kde_gibbs::neg_inf;
+using kde_gibbs::SumOp;
+
 constexpr int kWarpRows = 8;          // rows of a 256-thread block, warp route
 constexpr int kCtaThreads = 512;      // threads of a block, block route
 constexpr int kMaxWarps = kCtaThreads / 32;
@@ -69,16 +81,6 @@ constexpr int kPer = 4;               // consecutive candidates a thread scans
 // dynamic shared memory a block may opt in to, under the card's 227 KB
 // less the static reduction scratch
 constexpr int kMaxSmem = 226 * 1024;
-
-__device__ __forceinline__ float lg(float x) { return logf(x); }
-__device__ __forceinline__ double lg(double x) { return log(x); }
-__device__ __forceinline__ float ex(float x) { return expf(x); }
-__device__ __forceinline__ double ex(double x) { return exp(x); }
-__device__ __forceinline__ float rnd(float x) { return rintf(x); }
-__device__ __forceinline__ double rnd(double x) { return rint(x); }
-
-template <typename T>
-__device__ __forceinline__ T neg_inf() { return -(T)INFINITY; }
 
 struct Params {
   const void* mean;          // [B, dn, w, d] level slices, strides below
@@ -102,30 +104,7 @@ struct Params {
   double two_pi, inv_two_pi, log_dead;
 };
 
-// ---- reductions over a row's group of G threads -----------------------
-
-template <int G>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (G == 32) __syncwarp(); else __syncthreads();
-}
-
-// v combined over the group by op; every thread gets the same value (a
-// butterfly, then the warps' values in warp order).
-template <int G, typename V, typename Op>
-__device__ V group_all(V v, Op op, V* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
-  if constexpr (G == 32) {
-    return v;
-  } else {
-    const int warp = threadIdx.x / 32;
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) scratch[warp] = v;
-    __syncthreads();
-    V r = scratch[0];
-    for (int i = 1; i < G / 32; ++i) r = op(r, scratch[i]);
-    return r;
-  }
-}
+// ---- the argmax over a row's group of G threads (gumbel) -----------
 
 // (value, index) argmax over the group: the larger value, on a tie the
 // smaller index; index -1 holds nothing.
@@ -162,49 +141,6 @@ __device__ Best<T> group_best(Best<T> b, T* sv, int* si) {
     return r;
   }
 }
-
-// Exclusive prefix of v over the group's threads in thread order, and the
-// group's total.
-template <int G>
-__device__ double group_scan(double v, double* scratch, double& total) {
-  const int lane = threadIdx.x & 31;
-  double inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const double y = __shfl_up_sync(kFull, inc, o);
-    if (lane >= o) inc += y;
-  }
-  double excl = __shfl_up_sync(kFull, inc, 1);
-  if (lane == 0) excl = 0.0;
-  if constexpr (G == 32) {
-    total = __shfl_sync(kFull, inc, 31);
-    return excl;
-  } else {
-    const int warp = threadIdx.x / 32;
-    __syncthreads();
-    if (lane == 31) scratch[warp] = inc;
-    __syncthreads();
-    double before = 0.0, all = 0.0;
-    for (int i = 0; i < G / 32; ++i) {
-      if (i == warp) before = all;
-      all += scratch[i];
-    }
-    total = all;
-    return before + excl;
-  }
-}
-
-struct MaxOp {
-  template <typename V>
-  __device__ V operator()(V a, V b) const { return b > a ? b : a; }
-};
-struct SumOp {
-  template <typename V>
-  __device__ V operator()(V a, V b) const { return a + b; }
-};
-struct MinOp {
-  template <typename V>
-  __device__ V operator()(V a, V b) const { return b < a ? b : a; }
-};
 
 // ---- the kernel ---------------------------------------------------------
 
@@ -250,32 +186,11 @@ gibbs_select_kernel(const Params p) {
   group_sync<G>();
 
   const T two_pi = (T)p.two_pi, inv_two_pi = (T)p.inv_two_pi;
-  // _kernel_logits_raw of candidate i, step for step
+  // _kernel_logits_raw of candidate i, step for step (gibbs_logit.cuh)
   auto logit = [&](int i) -> T {
-    const T* m = mean + (long long)i * d;
-    const T* s = bw + (long long)i * d;
-    T acc = (T)0;
-    for (int k = 0; k < d; ++k) {
-      const unsigned char f = flags[k];
-      if (!(f & 1)) continue;
-      T cc = s[k];
-      if (has_cov) cc = cc + qcov[k];
-      T dl = m[k] - qmu[k];
-      if (f & 2) {
-        const T q = dl * inv_two_pi;
-        const T r = two_pi * rnd(q);
-        dl = dl - r;
-      }
-      const T sq = dl * dl;
-      const T quad = sq / cc;
-      T pd = quad + lg(cc);
-      if (isnan(pd)) pd = (T)0;
-      acc = acc + pd;
-    }
-    const T half = (T)0.5 * acc;
-    T l = logw[i] - half;
-    if (isnan(l)) l = neg_inf<T>();
-    return l;
+    return kde_gibbs::candidate_logit<T>(
+        mean + (long long)i * d, bw + (long long)i * d, logw[i], qmu, qcov,
+        has_cov, flags, d, two_pi, inv_two_pi);
   };
 
   // pass 1: logits, their max; gumbel: the live and dead argmaxes

@@ -691,7 +691,8 @@ def _route(select: str, hooks, device, dn: int, d: int) -> str:
 def _live_temps(route: str) -> int:
     """The ``[chains, level width]`` temporaries a chain block keeps alive
     on ``route``: about ``_LIVE_TEMPS`` on the eager twin, none on the
-    kernels (gumbel's noise is drawn inside them)."""
+    kernels (gumbel's noise is drawn inside them; the kernel-sharded
+    engine's ``sharded`` route recomputes its logits in each phase)."""
     return _LIVE_TEMPS if route == "twin" else 0
 
 
@@ -718,17 +719,20 @@ def _chains_per_block(n_out: int, width: int, itemsize: int,
 
 def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
                       add_entropy: bool, select: str = "cdf", seeds=None,
-                      hooks=_NO_HOOKS, choose=None):
+                      hooks=_NO_HOOKS, choose=None, route=None):
     """All chains of ``B`` sets (``nrm [B, n_out, bn]``; gumbel: ``u`` None
     and the sets' counter seeds ``seeds [B, 2]``): on the ``chain`` route
     one ``gibbs_chain`` launch; otherwise in blocks of
     :func:`_chain_block` chains per set, sized for the selection's route
     (the block count depends only on the plan's widths, ``n_out`` and the
-    route, which every rank of a mesh shares)."""
+    route, which every rank of a mesh shares).  A caller's ``choose``
+    comes with its ``route`` (default ``twin``)."""
     n_out = nrm.shape[1]
     dn, d = mask.shape[1:]
-    route = "twin" if choose is not None else _route(select, hooks,
-                                                     nrm.device, dn, d)
+    if choose is None:
+        route = _route(select, hooks, nrm.device, dn, d)
+    else:
+        route = route or "twin"
     if route == "chain":
         return _gc.gibbs_chain(u, nrm, plans, mask, n_iter, add_entropy,
                                _gc.hook_codes(hooks, d), select, seeds)

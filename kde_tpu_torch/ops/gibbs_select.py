@@ -11,7 +11,9 @@ fallback, draws the label (``cdf`` from the stage's uniforms ``u``, or
 ``gumbel`` from counter noise drawn inside the kernel from the sets' seeds,
 the global chain index and the selection id, csrc/counter_rng.cuh) and
 gathers the winner's mean, variance and label.  CUDA tensors launch the
-hand-written kernel ``csrc/gibbs_select.cu``; CPU tensors take the plain twin
+hand-written kernel ``csrc/gibbs_select.cu`` (its candidate logit is
+``csrc/gibbs_logit.cuh``, shared with the kernel-sharded selection,
+``ops/sharded_select.py``); CPU tensors take the plain twin
 :func:`gibbs_select_ref`, the eager ops of ``ops/gibbs.py``.  The library
 is built with nvcc (``--fmad=false``) into ``_build/`` at the first launch;
 a failed build, a refused launch or an input the kernel does not take

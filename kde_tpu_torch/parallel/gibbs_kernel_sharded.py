@@ -23,6 +23,11 @@ Every step is the single-device engine's arithmetic except the CDF, which
 is (offset of the earlier shards + local cumsum) / total, the JAX package's
 association, accumulated in float64; so labels can differ from the plain
 engine only where a uniform draw lands within an ulp of a CDF boundary.
+The local work between the collectives is ``ops/sharded_select.py``'s
+phases (the port's K6): on the card with Euclidean or circular
+differences its hand kernels, which keep no ``[chains, width]`` tensor, so
+every chain runs in one block; on the CPU or with a user's ``diffop`` its
+plain twins, counted in ``sharded_select.TWIN_STAGES`` (:func:`_route`).
 Manifold hooks enter only the local arithmetic.  Chains may also be split
 over a ``chains`` axis; the two axes compose.
 """
@@ -38,6 +43,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..density import KDE
 from ..ops import gibbs as _g
+from ..ops import sharded_select as _ss
 from ..ops.balltree import n_levels as _n_levels
 from ..utils.random import make_generator
 from .collectives import all_gather, gather_rows, pmax, psum, shared_seed
@@ -52,8 +58,10 @@ class _KShardPlan:
     ``lvl_logw`` ``[1, dn, T_loc]`` and ``lvl_stats`` ``[1, dn, T_loc,
     2d+1]`` (mean, variance and original label in float64, the payload of
     the winner's ``psum``).  Level ``l`` is the local slice
-    ``offsets[l-1]``, at the same offset on every rank.  The roots'
-    ``t_mean``/``t_bw`` ``[1, dn, 1, d]`` are replicated."""
+    ``offsets[l-1]``, at the same offset on every rank; ``lvl_real [L,
+    dn]`` says whether the shard holds a real (not padded) candidate of
+    each density at each level.  The roots' ``t_mean``/``t_bw`` ``[1, dn,
+    1, d]`` are replicated."""
 
     def __init__(self, densities: Sequence[KDE], n_out: int, dtype,
                  n_shards: int, shard: int, device):
@@ -78,6 +86,7 @@ class _KShardPlan:
         bw = np.ones((dn, t_loc, d))
         logw = np.full((dn, t_loc), -np.inf)
         perm = np.zeros((dn, t_loc))
+        real = np.zeros((self.n_levels, dn), dtype=bool)
         for l in range(1, self.n_levels + 1):
             o, w_loc = self.offsets[l - 1]
             lo = shard * w_loc
@@ -93,6 +102,7 @@ class _KShardPlan:
                 lw = np.full(S * w_loc, -np.inf)
                 lw[:nv] = np.log(np.maximum(t.weights[lst], 1e-300))
                 logw[j, o:o + w_loc] = lw[lo:lo + w_loc]
+                real[l - 1, j] = lo < nv
                 perm[j, o:o + w_loc] = t.permutation[nodes]
         dev = lambda x: torch.as_tensor(x, dtype=dtype, device=device)[None]
         self.lvl_mean = dev(mean)
@@ -102,16 +112,18 @@ class _KShardPlan:
             [self.lvl_mean.double(), self.lvl_bw.double(),
              torch.as_tensor(perm, dtype=torch.float64,
                              device=device)[None, ..., None]], dim=-1)
+        self.lvl_real = torch.as_tensor(real, device=device)
         # the trees' roots, [1, dn, 1, d]: ``_run_chain`` reads slot 0
         self.t_mean = dev(np.stack([t.means[:1] for t in trees]))
         self.t_bw = dev(np.stack([t.bandwidth[:1] for t in trees]))
 
     def level(self, l: int):
         """Level ``l`` (1-based): this shard's mean/bw ``[1, dn, w, d]``,
-        logw ``[1, dn, w]`` and stats ``[1, dn, w, 2d+1]``."""
+        logw ``[1, dn, w]``, stats ``[1, dn, w, 2d+1]`` and real ``[dn]``."""
         o, w = self.offsets[l - 1]
         return (self.lvl_mean[:, :, o:o + w], self.lvl_bw[:, :, o:o + w],
-                self.lvl_logw[:, :, o:o + w], self.lvl_stats[:, :, o:o + w])
+                self.lvl_logw[:, :, o:o + w], self.lvl_stats[:, :, o:o + w],
+                self.lvl_real[l - 1])
 
 
 # Shard plans keyed by the densities' identity, the level count, dtype, the
@@ -139,68 +151,69 @@ def _get_ks_plan(densities: Sequence[KDE], n_out: int, dtype, n_shards: int,
 
 
 # ---------------------------------------------------------------------------
-# sharded selection; B = densities selected at once, C = chains
+# sharded selection
 # ---------------------------------------------------------------------------
 
-def _select_sharded(u, logits, lvl_logw, mesh: DeviceMesh):
-    """Sharded inverse-CDF draw with the degenerate fallback
-    (``kde_tpu/parallel/gibbs_kernel_sharded.py:158-187``, step for step).
-    ``u [B, C]``, this shard's ``logits [B, C, w]`` and ``lvl_logw [B, w]``.
-    Returns the winner's local index ``[B, C]`` (clamped into the shard)
-    and whether this shard owns it."""
-    w = logits.shape[-1]
+def _route(hooks, device, d: int) -> str:
+    """Where the selections' local work runs: ``sharded`` (K6's kernels)
+    on the card when every dim's difference is Euclidean or circular,
+    ``twin`` (their plain twins) on the CPU or with a user's ``diffop``."""
+    if (torch.device(device).type == "cuda"
+            and _ss.diff_codes((hooks or _g._NO_HOOKS)[1], d) is not None):
+        return "sharded"
+    return "twin"
+
+
+# the phases of a selection, in the order the collectives separate them
+_PHASES = ("local_max", "shifted_sum", "dead_max", "exp_sum", "count_below",
+           "owner_stats")
+
+
+def _sharded_choose(mesh: DeviceMesh, d: int, route: str):
+    """The selection step of ``ops/gibbs.py::_run_chain`` with the
+    candidates sharded over ``kernels``
+    (``kde_tpu/parallel/gibbs_kernel_sharded.py:158-187`` and the one-hot
+    stats of ``:190-283``, step for step): the densities of ``js`` are
+    selected in one batch of six collectives (all ``dn`` of them in the
+    conditioning step) around the local phases of
+    ``ops/sharded_select.py``, on ``route`` (:func:`_route`):
+
+      (1) the degenerate predicate sum(exp(logits)) < 1e-99 as a ``pmax``
+          of the local maxima and a ``psum`` of the shifted exp-sums;
+      (2) the uniform fallback over real candidates, and (3) the global
+          max, a ``pmax``;
+      (4) the shard totals, an ``all_gather``;
+      (5) the global index, an integer ``psum`` of the counts of CDF
+          entries (offset + local cumsum) / total below u;
+      (6) the winner's mean, variance and label, a ``psum`` of the owner's
+          float64 stats (zeros on the other shards), exact."""
     s = axis_size(mesh, KERNELS)
     sid = axis_index(mesh, KERNELS)
-    # (1) the global degenerate predicate sum(exp(logits)) < 1e-99:
-    # _dead_predicate as pmax of the maxima + psum of shifted exp-sums
-    m0 = pmax(logits.max(dim=-1).values, mesh, KERNELS)
-    ms0 = torch.where(torch.isneginf(m0), torch.zeros_like(m0), m0)
-    ssum = psum(torch.exp(logits - ms0[..., None]).sum(dim=-1), mesh,
-                KERNELS)
-    dead = ms0 + torch.log(ssum) < _g._LOG_DEAD
-    # (2) the uniform fallback over real candidates
-    logits = _g._apply_dead_fallback(logits, lvl_logw, dead)
-    # (3) the global max, (4) the shard totals
-    gmax = pmax(logits.max(dim=-1).values, mesh, KERNELS)
-    e = torch.exp(logits - gmax[..., None]).to(torch.float64)
-    tots = all_gather(e.sum(dim=-1), mesh, KERNELS)          # [S, B, C]
-    total = tots.sum(dim=0)
-    offset = tots[:sid].sum(dim=0)
-    # (5) offset + local cumsum, then divide (the JAX association)
-    cdf = (offset[..., None] + torch.cumsum(e, dim=-1)) / total[..., None]
-    # (6) the global index: integer psum of the strictly-below counts
-    z = psum((cdf < u[..., None].to(torch.float64)).sum(dim=-1), mesh,
-             KERNELS)
-    z_loc = z.clamp(0, s * w - 1) - sid * w
-    owner = (z_loc >= 0) & (z_loc < w)
-    return z_loc.clamp(0, w - 1), owner
+    f = [getattr(_ss, name if route == "sharded" else name + "_ref")
+         for name in _PHASES]
+    local_max, shifted_sum, dead_max, exp_sum, count_below, owner_stats = f
 
-
-def _winner_stats(stats, z_loc, owner, mesh: DeviceMesh):
-    """``psum`` of the owner's ``stats [B, w, 2d+1]`` row at ``z_loc``
-    (zeros on the other shards): ``[B, C, 2d+1]``, exact."""
-    b = torch.arange(stats.shape[0], device=stats.device)[:, None]
-    picked = stats[b, z_loc]
-    return psum(torch.where(owner[..., None], picked, 0.0), mesh, KERNELS)
-
-
-def _sharded_choose(mesh: DeviceMesh, d: int):
-    """The selection step of ``ops/gibbs.py::_run_chain`` with the
-    candidates sharded over ``kernels``: the densities of ``js`` are
-    selected in one batch of collectives (all ``dn`` of them in the
-    conditioning step), their ``[C]`` uniforms and ``[1, C, w]`` logits
-    (computed eagerly, ``_Stage.logits``) stacked on the density axis; the
-    winners' mean, variance and label come from :func:`_winner_stats`."""
     def choose(stage, lvl):
-        js = list(stage.js)
-        _, _, lvl_logw, lvl_stats = lvl
-        z, own = _select_sharded(stage.u[0].T,
-                                 torch.cat([stage.logits(j, lvl) for j in js]),
-                                 lvl_logw[0, js], mesh)
-        sel = _winner_stats(lvl_stats[0, js], z, own, mesh)  # [|js|, C, *]
-        dt = lvl_logw.dtype
-        return [(s[..., :d].to(dt), s[..., d:2 * d].to(dt),
-                 s[..., 2 * d].to(torch.int64)) for s in sel.split(1)]
+        if route != "sharded":
+            _ss.TWIN_STAGES += 1
+        js = tuple(stage.js)
+        mean, bw, logw, stats, real = lvl
+        rows = _ss.Rows(mean[0], bw[0], logw[0], js, stage.mu[0],
+                        None if stage.cov is None else stage.cov[0],
+                        stage.active[0], stage.diffop)
+        m = local_max(rows)
+        m0 = pmax(m, mesh, KERNELS)
+        ssum = psum(shifted_sum(rows, m0), mesh, KERNELS)
+        dead, mfb = dead_max(m0, ssum, m, real[js[0]:js[-1] + 1])
+        gmax = pmax(mfb, mesh, KERNELS)
+        tots = all_gather(exp_sum(rows, gmax, dead), mesh, KERNELS)
+        z = psum(count_below(rows, gmax, dead, tots, sid, stage.u[0]), mesh,
+                 KERNELS)
+        sel = psum(owner_stats(stats[0], js, z, s, sid), mesh, KERNELS)
+        dt = logw.dtype
+        mv, label = sel[..., :2 * d].to(dt), sel[..., 2 * d].to(torch.int64)
+        return [(mv[jj:jj + 1, :, :d], mv[jj:jj + 1, :, d:],
+                 label[jj:jj + 1]) for jj in range(len(js))]
     return choose
 
 
@@ -266,12 +279,13 @@ def prod_appx_ms_gibbs_kernel_sharded(mesh: DeviceMesh,
     u = torch.nn.functional.pad(u, (0, 0, 0, n_pad - n_out), value=0.5)
     nrm = torch.nn.functional.pad(nrm, (0, 0, 0, n_pad - n_out))
     rows = chains_rows(mesh, n_out)
-    # chain blocks sized from the local width and the local chain count,
-    # which are the same on every rank: every rank runs the same
-    # collectives
+    # chain blocks sized from the local width, the local chain count and
+    # the route, which are the same on every rank: every rank runs the
+    # same collectives
+    route = _route(hooks, device, d)
     pts, idx, labels = (t[0] for t in _g._gibbs_all_chains(
         u[None, rows], nrm[None, rows], plan, mask, n_iter, add_entropy,
-        hooks=hooks, choose=_sharded_choose(mesh, d)))
+        hooks=hooks, choose=_sharded_choose(mesh, d, route), route=route))
     out = (gather_rows(pts, mesh, CHAINS, n_out).T,
            gather_rows(idx, mesh, CHAINS, n_out).T)
     if record_labels:

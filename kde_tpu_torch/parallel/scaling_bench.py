@@ -40,6 +40,7 @@ import torch
 from .. import config
 from ..ops import gibbs as _g
 from ..ops.balltree import level_lists, n_levels, topology
+from .gibbs_kernel_sharded import _route as _ks_route
 from .mesh import pad_to_multiple
 
 SIZES = (1, 2, 4, 8, 16, 32, 64)
@@ -48,22 +49,27 @@ _ROOT = Path(__file__).resolve().parents[2]
 
 
 def comm_table(n_out: int, n_comp: int, ndens: int, n_iter: int,
-               shards: int, d: int = 2, dtype=torch.float32) -> dict:
+               shards: int, d: int = 2, dtype=torch.float32,
+               device=None) -> dict:
     """The collectives of one kernel-sharded product of ``ndens``
-    ``n_comp``-component ``d``-dim densities with ``n_out`` chains over
-    ``shards`` ranks of ``kernels`` (``gibbs_kernel_sharded.py``), and the
-    bytes each rank receives from them.
+    ``n_comp``-component ``d``-dim Euclidean densities with ``n_out``
+    chains over ``shards`` ranks of ``kernels`` (``gibbs_kernel_sharded.
+    py``) whose densities lie on ``device`` (default ``config.DEVICE``),
+    and the bytes each rank receives from them.
 
     One label selection issues six: ``pmax``, ``psum`` (the degenerate
     test), ``pmax`` (the global max), an ``all_gather`` of the ``[S]``
-    float64 shard totals, an integer ``psum`` of the index
-    (``_select_sharded``) and a float64 ``psum`` of the winner's ``[2d+1]``
-    stats (``_winner_stats``).  A chain selects ``ndens * L * (1 + n_iter)``
+    float64 shard totals, an integer ``psum`` of the index and a float64
+    ``psum`` of the winner's ``[2d+1]`` stats
+    (``gibbs_kernel_sharded._sharded_choose``).  A chain selects ``ndens * L * (1 + n_iter)``
     times: the initial selection is every tree's root, which needs none,
     where ``kde_tpu``'s table counts ``ndens * (1 + L * (1 + n_iter))``.
     The conditioning step selects all densities in one batch of six calls,
-    and the chains run in blocks (``ops/gibbs.py::_chain_block``), so a
-    product makes ``6 * blocks * L * (1 + n_iter * ndens)`` calls."""
+    and the chains run in blocks (``ops/gibbs.py::_chain_block``) sized
+    for the selection's route: one block on the card's kernels (K6 keeps
+    no ``[chains, width]`` temporary), blocks of ``_LIVE_TEMPS`` such
+    temporaries on the twins; so a product makes ``6 * blocks * L * (1 +
+    n_iter * ndens)`` calls."""
     L = n_levels(n_out, [n_comp] * ndens)
     topo = topology(n_comp)
     widths = [len(lv) for lv in
@@ -71,7 +77,9 @@ def comm_table(n_out: int, n_comp: int, ndens: int, n_iter: int,
     w_loc = max(pad_to_multiple(max(w, 1), shards) // shards
                 for w in widths)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    block = _g._chains_per_block(n_out, w_loc, itemsize)
+    route = _ks_route(None, config.default_device(device), d)
+    block = _g._chains_per_block(n_out, w_loc, itemsize,
+                                 _g._live_temps(route))
     blocks = -(-n_out // block)
     per_selection = [
         ("pmax", "degenerate test: the largest logit", itemsize),
@@ -88,6 +96,7 @@ def comm_table(n_out: int, n_comp: int, ndens: int, n_iter: int,
             {"op": op, "what": what, "bytes_per_chain": b}
             for op, what, b in per_selection],
         "selections_per_chain": sel_per_chain,
+        "route": route,
         "bytes_per_selection_per_device": bytes_per_sel,
         "chain_blocks": blocks,
         "collective_calls_per_product":
@@ -224,7 +233,8 @@ def run(sizes: Optional[Sequence[int]] = None, total_chains: int = 4096,
         "strong_scaling": strong,
         "weak_scaling": weak,
         "kernel_sharded_comm": comm_table(int(total_chains), int(n_comp), 2,
-                                          int(n_iter), shards=sizes[-1]),
+                                          int(n_iter), shards=sizes[-1],
+                                          device=kind),
         "procedure": ("python -m kde_tpu_torch.parallel.scaling_bench "
                       "[--sizes 1,2,4] [--out FILE]: one world of child "
                       "processes per size, one card per rank"),

@@ -1106,6 +1106,114 @@ def test_gibbs_chain_refuses_bad_inputs_and_a_failed_build(cuda):
     assert gibbs_chain.LAUNCHES == before
 
 
+# ---- the kernel-sharded selection (ops/sharded_select.py, K6) ------------
+
+K6_CASES = {
+    # name: (chains, w, d, js, dtype, cov, codes, shards, extras)
+    "cond S=1": (256, 5000, 2, (0, 1), "f32", False, (0, 0), 1, {}),
+    "sweep S=2": (256, 5000, 2, (1,), "f32", True, (0, 0), 2, {}),
+    "f64 cond S=2": (128, 2000, 2, (0, 1), "f64", False, (0, 0), 2, {}),
+    "d=1 S=2": (128, 700, 1, (0, 1), "f32", True, (0,), 2, {}),
+    "d=3 f64 S=1": (128, 700, 3, (1,), "f64", True, (0, 0, 0), 1, {}),
+    "circular S=2": (256, 3000, 1, (0, 1), "f32", False, (1,), 2, {}),
+    "se2 S=2": (256, 3000, 3, (1,), "f32", True, (0, 0, 1), 2, {}),
+    "dead pad S=2": (300, 900, 2, (0, 1), "f32", False, (0, 0), 2,
+                     dict(pad=600, dead=4, mixed=True)),
+    "dead pad f64 S=2": (300, 900, 2, (1,), "f64", True, (0, 0), 2,
+                         dict(pad=600, dead=4)),
+    "dn=3 S=2": (128, 1500, 2, (0, 1, 2), "f32", False, (0, 0), 2,
+                 dict(dn=3)),
+    "w 1024 S=1": (64, 1024, 2, (0,), "f32", True, (0, 0), 1, {}),
+    "w 1025 S=1": (64, 1025, 2, (0,), "f64", True, (0, 0), 1, {}),
+    "w 2049 S=2": (64, 2049, 2, (1,), "f32", True, (0, 0), 2, {}),
+}
+
+
+def _k6_case(name, cuda):
+    import chip_smoke as cs
+    c, w, d, js, dt, cov, codes, shards, ex = K6_CASES[name]
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    return cs.k6_inputs(sorted(K6_CASES).index(name), cuda, dtype, c, w, d,
+                        js, cov, codes, shards, **ex)
+
+
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_sharded_select_matches_twin(cuda, name):
+    """K6's six phases against their twins, the shards composed on one
+    rank (chip_smoke.py phase 3g's check): maxima, dead rows and fallback
+    maxima equal, sums within their order's rounding, the global index on
+    every row but float64 CDF ties within 1e-12 of u, each listed; the
+    winner's stats equal at equal indices; six launches a shard."""
+    import chip_smoke as cs
+    inp = _k6_case(name, cuda)
+    row = cs.k6_compare(inp, name)
+    assert row["launches"] == 6 * inp["n_shards"]
+    assert row["max_abs_err"] == 0.0
+    assert all(t <= 1e-12 for t in row["cdf_ties"])
+    if K6_CASES[name][-1].get("dead"):
+        assert row["dead_rows"] > 0
+
+
+def test_kernel_sharded_replay_on_k6(nccl_world, cuda, monkeypatch):
+    """A float64 replay product through the kernel-sharded engine at S = 1
+    runs every selection on K6 (six launches a selection, no twin stage)
+    and equals the same call on the twins (the same collectives; K6's
+    route is one chain block) and, but for CDF ties, the plain engine."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import balltree, gibbs, sharded_select
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    rng = np.random.default_rng(23)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    dens = [kt.kde(torch.as_tensor(rng.normal(size=(2, 500)) + s, **f64),
+                   [0.2]) for s in (0.0, 0.5)]
+    n_out, n_iter = 300, 3
+    L = balltree.n_levels(n_out, [500, 500])
+    bu, bn = gibbs._stream_sizes(2, 2, L, n_iter)
+    ru, rn = rng.uniform(size=n_out * bu), rng.normal(size=n_out * bn)
+    mesh = par.make_mesh_2d((1, 1))
+    call = lambda: par.prod_appx_ms_gibbs_kernel_sharded(
+        mesh, n_out, dens, n_iter=n_iter, rand_u=ru, rand_n=rn,
+        record_labels=True)
+    k0, t0 = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
+    got = call()
+    torch.cuda.synchronize()
+    assert sharded_select.LAUNCHES - k0 == 6 * L * (1 + n_iter * 2)
+    assert sharded_select.TWIN_STAGES == t0
+    monkeypatch.setattr(gks, "_route", lambda *a: "twin")
+    want = call()
+    assert sharded_select.TWIN_STAGES - t0 == L * (1 + n_iter * 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, plain = kt.prod_appx_ms_gibbs(n_out, dens, n_iter=n_iter, rand_u=ru,
+                                     rand_n=rn)
+    assert float((got[1] == plain).all(dim=0).double().mean()) >= 0.99
+
+
+def test_sharded_select_refuses_bad_inputs_and_a_failed_build(cuda):
+    """A CPU/CUDA mix raises ValueError, a user's diffop raises on the card
+    (it belongs to the twins), and a failed build raises RuntimeError;
+    nothing runs the twin instead and nothing is counted."""
+    from kde_tpu_torch.ops import sharded_select as ss
+    rows = _k6_case("w 1024 S=1", cuda)["rows"][0]
+    before = ss.LAUNCHES
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ss.local_max(rows._replace(mu=rows.mu.cpu()))
+    with pytest.raises(ValueError, match="twins"):
+        ss.local_max(rows._replace(diffop=(lambda a, b: a - b,) * 2))
+    with pytest.raises(TypeError):
+        ss.local_max(rows._replace(mu=rows.mu.double()))
+    saved_lib, saved_flags = ss._lib, ss.NVCC_FLAGS
+    ss._lib = None
+    ss.NVCC_FLAGS = [*saved_flags, "--no-such-flag"]
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ss.local_max(rows)
+    finally:
+        ss._lib, ss.NVCC_FLAGS = saved_lib, saved_flags
+    assert ss.LAUNCHES == before
+
+
 # ---- the LOOCV golden search in one launch (ops/loo_search.py, K4) --------
 
 K4_TOL = 1e-2          # the search's tolerance (kde's default)

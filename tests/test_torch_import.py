@@ -88,6 +88,52 @@ def test_tools_import_leaves_jax_out_and_builds_nothing():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_sharded_select_imports_and_runs_its_twins_without_nvcc():
+    """The kernel-sharded selection (K6) imports torch only, and on CPU
+    tensors a kernel-sharded product runs its twins without a toolkit:
+    nothing built, nothing launched, every stage counted as a twin's."""
+    env = dict(os.environ, PATH="", CUDA_HOME="/nonexistent")
+    code = ("import os, sys, tempfile\n"
+            "import numpy as np, torch\n"
+            "import kde_tpu_torch as kt\n"
+            "from kde_tpu_torch import parallel as par\n"
+            "from kde_tpu_torch.ops import sharded_select as ss\n"
+            "kt.config.DEVICE = 'cpu'\n"
+            "store = os.path.join(tempfile.mkdtemp(), 'store')\n"
+            "par.initialize_multihost('file://' + store, 1, 0, "
+            "backend='gloo', timeout=60)\n"
+            "rng = np.random.default_rng(0)\n"
+            "dens = [kt.kde(rng.normal(size=(2, 40)), [0.3]) "
+            "for _ in range(2)]\n"
+            "pts, idx = par.prod_appx_ms_gibbs_kernel_sharded(\n"
+            "    par.make_mesh_2d((1, 1)), 6, dens, n_iter=1, key=0)\n"
+            "torch.distributed.destroy_process_group()\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kde_tpu') or "
+            "m.startswith(('jax.', 'kde_tpu.'))]\n"
+            "print(bad, ss._lib, ss.LAUNCHES, ss.TWIN_STAGES)\n"
+            "sys.exit(1 if bad or ss._lib is not None or ss.LAUNCHES\n"
+            "         or ss.TWIN_STAGES < 1 or idx.shape != (2, 6) else 0)\n")
+    res = _run(code, env=env)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sharded_select_source_and_shared_header():
+    """K6's source, its entries and flags; it and K2 include the one
+    header that holds the candidate logit, which the build hash covers."""
+    from kde_tpu_torch.ops import gibbs_select, sharded_select, tiled_eval
+    text = sharded_select.SOURCE.read_text()
+    assert sharded_select.SOURCE.parent == tiled_eval.SOURCE.parent
+    for entry in ("kde_k6_rows", "kde_k6_dead_max", "kde_k6_owner_stats"):
+        assert f'extern "C" int {entry}' in text
+    assert "--fmad=false" in sharded_select.NVCC_FLAGS
+    assert "compute_90a" in " ".join(sharded_select.NVCC_FLAGS)
+    header = sharded_select.SOURCE.parent / "gibbs_logit.cuh"
+    for src in (sharded_select.SOURCE, gibbs_select.SOURCE):
+        assert '#include "gibbs_logit.cuh"' in src.read_text()
+        assert header.read_bytes() in tiled_eval.source_bytes(src)
+    assert "candidate_logit" in header.read_text()
+
+
 def test_parallel_exports_equal_jax():
     import kde_tpu.parallel
     import kde_tpu_torch.parallel

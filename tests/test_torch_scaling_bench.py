@@ -102,6 +102,39 @@ def test_comm_table_counts_the_collectives(world, case, monkeypatch):
     assert np.all(np.isfinite(res[f"{case}/pts"]))
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_comm_table_blocks_follow_the_route(case, monkeypatch):
+    """On the card K6 keeps no [chains, width] temporary, so the table
+    reads one chain block where the twins (the CPU) take several; a
+    product's calls scale with the blocks.  Shapes only: no card needed."""
+    import torch
+    from kde_tpu_torch.ops import gibbs
+    from kde_tpu_torch.parallel.scaling_bench import comm_table
+    n_out, n_comp, n_iter, dtype, block = CASES[case]
+    if block:
+        monkeypatch.setattr(gibbs, "CHAIN_BLOCK_BYTES", block)
+    kw = dict(shards=2, d=2, dtype=getattr(torch, dtype))
+    card = comm_table(n_out, n_comp, 2, n_iter, device="cuda", **kw)
+    twin = comm_table(n_out, n_comp, 2, n_iter, device="cpu", **kw)
+    assert (card["route"], twin["route"]) == ("sharded", "twin")
+    assert card["chain_blocks"] == 1
+    assert (twin["chain_blocks"] > 1) == bool(block)
+    assert (card["collective_calls_per_product"] * twin["chain_blocks"]
+            == twin["collective_calls_per_product"])
+    assert card["total_bytes_per_product"] == twin["total_bytes_per_product"]
+
+
+def test_comm_table_full_width_case():
+    """chip_smoke.py's phase 11a full-width case, 256 chains over 2 x
+    1,000,000 at S = 1: one block on K6, 4 blocks of 64 chains on the
+    twins (8 float32 temporaries of 1M candidates a chain)."""
+    from kde_tpu_torch.parallel.scaling_bench import comm_table
+    big = {dev: comm_table(256, 1_000_000, 2, 5, shards=1, device=dev)
+           for dev in ("cuda", "cpu")}
+    assert big["cuda"]["chain_blocks"] == 1
+    assert big["cpu"]["chain_blocks"] == 4
+
+
 def _well_formed(res, sizes):
     for key in ("date", "backend", "devices_available", "virtual_cpu_mesh",
                 "config", "strong_scaling", "weak_scaling",

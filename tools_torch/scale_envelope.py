@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 import kde_tpu_torch as kt
-from kde_tpu_torch.ops import device_plan, gibbs, gibbs_chain, gibbs_select
+from kde_tpu_torch.ops import (device_plan, gibbs, gibbs_chain, gibbs_select,
+                               sharded_select)
 from kde_tpu_torch.parallel import sizing
 
 from . import card_line, free_port, resolve_device, sync
@@ -176,7 +177,8 @@ def crossover(rows) -> dict:
 def sharded_stage(ns: Sequence[int] = (50_000,), rounds: int = ROUNDS,
                   device=None) -> dict:
     """The kernel-sharded engine at S = 1 (NCCL on the card, gloo on the
-    CPU) against the plain engine, keyed, in turns."""
+    CPU) against the plain engine, keyed, in turns; with the selections'
+    K6 launches and twin stages of the sharded arm's timed calls."""
     import torch.distributed as dist
     from kde_tpu_torch import parallel as par
     device = resolve_device(device)
@@ -196,6 +198,7 @@ def sharded_stage(ns: Sequence[int] = (50_000,), rounds: int = ROUNDS,
             for a, f in arms.items():
                 f(0)
                 best[a] = float("inf")
+            k6, twin = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
             for r in range(rounds):
                 order = list(arms) if r % 2 == 0 else list(arms)[::-1]
                 for i, a in enumerate(order):
@@ -206,7 +209,10 @@ def sharded_stage(ns: Sequence[int] = (50_000,), rounds: int = ROUNDS,
                     best[a] = min(best[a], time.perf_counter() - t0)
             rows.append(dict(N=n, plain_ms=1e3 * best["plain"],
                              sharded_ms=1e3 * best["sharded"],
-                             ratio=best["sharded"] / best["plain"]))
+                             ratio=best["sharded"] / best["plain"],
+                             k6_launches=sharded_select.LAUNCHES - k6,
+                             k6_twin_stages=(sharded_select.TWIN_STAGES
+                                             - twin)))
     finally:
         dist.destroy_process_group()
     return {"stage": "sharded", "card": card_line(device), "chains": N_OUT,

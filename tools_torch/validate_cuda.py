@@ -19,7 +19,9 @@ with rows added so that every layout of the chain kernel K3
      (every set in bracket); the bench headline
      B = 6 x [2 x 1,000], 1,000 chains                      10 trials, >= 5
   F  the kernel-sharded engine over two gloo ranks that
-     share the card, in child processes                     10 trials, >= 5
+     share the card, in child processes; on the card every
+     selection on K6 (ops/sharded_select.py), none on its
+     twins                                                  10 trials, >= 5
   G  negative control: D's circular M = 2 with the hooks
      stripped from densities and product                    10 trials, <= 2
   H  keyed gumbel (labels from the counter noise) on each
@@ -60,7 +62,7 @@ import torch
 
 import kde_tpu_torch as kt
 from kde_tpu_torch import manifolds as m
-from kde_tpu_torch.ops import gibbs_chain
+from kde_tpu_torch.ops import gibbs_chain, sharded_select
 from kde_tpu_torch.ops.balltree import n_levels
 from kde_tpu_torch.ops.device_plan import level_widths
 from kde_tpu_torch.utils.random import split
@@ -352,9 +354,11 @@ def run_row(row: Row, device) -> dict:
     runs in two child processes (:func:`run_sharded`)."""
     device = resolve_device(device)
     t0 = time.perf_counter()
+    k6 = {"k6_launches": 0, "k6_twin_stages": 0}
     if row.group == "F":
         ranks = run_sharded(row, device)
         wins, k3 = ranks[0]["wins"], sum(r["k3_launches"] for r in ranks)
+        k6 = {k: sum(r[k] for r in ranks) for k in k6}
     else:
         k0, wins = gibbs_chain.LAUNCHES, 0
         for data_seed, key in trial_seeds(row):
@@ -363,13 +367,16 @@ def run_row(row: Row, device) -> dict:
         sync(device)
         k3 = gibbs_chain.LAUNCHES - k0
     ok = wins <= row.need if row.control else wins >= row.need
+    if row.group == "F" and device.type == "cuda":
+        # the engine's selections belong on K6 on the card
+        ok = ok and k6["k6_launches"] > 0 and k6["k6_twin_stages"] == 0
     rec = dict(name=row.name, row=row.group, **row.config,
                select=row.select, layout=layout(row), chains=row.chains,
                widest_level=widest_level(row.chains, row.npts), wins=wins,
                of=row.trials,
                need=(f"<= {row.need}" if row.control else f">= {row.need}"),
                passed=bool(ok), seconds=time.perf_counter() - t0,
-               k3_launches=k3)
+               k3_launches=k3, **k6)
     return rec
 
 
@@ -386,7 +393,9 @@ def run(device=None, names: Optional[Sequence[str]] = None,
         recs.append(rec)
         log(f"{row.group} {row.name}: {rec['wins']}/{rec['of']} (need "
             f"{rec['need']}), layout {rec['layout']}, "
-            f"{rec['seconds']:.2f} s, K3 {rec['k3_launches']}", flush=True)
+            f"{rec['seconds']:.2f} s, K3 {rec['k3_launches']}, K6 "
+            f"{rec['k6_launches']} (twin stages {rec['k6_twin_stages']})",
+            flush=True)
     return {"date": datetime.date.today().isoformat(),
             "card": card_line(device), "device": str(device),
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -465,12 +474,16 @@ def sharded_worker(rank: int, world: int, port: str, device: str,
     par.initialize_multihost(f"127.0.0.1:{port}", world, rank,
                              backend="gloo", timeout=WORKER_TIMEOUT)
     try:
-        k0 = gibbs_chain.LAUNCHES
+        k0, s0 = gibbs_chain.LAUNCHES, sharded_select.LAUNCHES
+        t0 = sharded_select.TWIN_STAGES
         wins = sharded_wins(BY_NAME[name], device)
         k3 = gibbs_chain.LAUNCHES - k0
+        k6 = sharded_select.LAUNCHES - s0
+        twin = sharded_select.TWIN_STAGES - t0
     finally:
         torch.distributed.destroy_process_group()
-    print(json.dumps({"rank": rank, "wins": wins, "k3_launches": k3}),
+    print(json.dumps({"rank": rank, "wins": wins, "k3_launches": k3,
+                      "k6_launches": k6, "k6_twin_stages": twin}),
           flush=True)
 
 
