@@ -8,8 +8,9 @@ Phases, one line of findings each:
      flags (both off);
   2. build, all started together: nvcc compiles kde_tpu_torch/csrc/
      tiled_eval.cu, csrc/small_ops.cu, csrc/gibbs_select.cu,
-     csrc/gibbs_chain.cu, csrc/loo_search.cu and csrc/sharded_select.cu
-     (sm_90a, all but the first with --fmad=false), g++ the native
+     csrc/gibbs_chain.cu, csrc/loo_search.cu, csrc/sharded_select.cu and
+     csrc/sharded_loo.cu (sm_90a, all but the first with --fmad=false),
+     g++ the native
      ball-tree source csrc/balltree.cpp; ptxas registers, shared memory
      and spills;
   3. the kernel against its plain torch twin on the card at five shapes,
@@ -74,6 +75,15 @@ Phases, one line of findings each:
      each phase of the leaf stages of phase 11a's replay (256 chains over
      2 x 50,000) and of the full-width case's (2 x 1,000,000) timed beside
      its twin, their sum beside k6_bound_ms;
+ 3h. the sharded LOOCV search's kernels sharded_loo (K7,
+     csrc/sharded_loo.cu) against their plain twins (phase_sharded_loo)
+     at phase 11a's search (N_KSIZE points in 2-D) and the full-width one
+     (K7_BIG_N), float32 and float64, S = 1 on one NCCL rank: every phase
+     of sweeps 0 and 1 (staging, shifts and the golden step bitwise, sums
+     and entropies within 1e-12 / 2e-5), repeated searches bitwise equal,
+     at 11a's shape the twin search's picks (float64 within 1e-10,
+     float32 within KSIZE_RTOL); each phase timed beside its twin, the
+     search beside k7_bound_ms and the twin search;
  3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
      resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
      the same flow on the CPU, both small kernels launched; flows/s with
@@ -131,8 +141,15 @@ Phases, one line of findings each:
      product_batched(mesh=) over 4 x [2 x 20,000] against the unsharded
      batch, sharded_log_eval at 20,000 x 20,000 (must launch the kernel),
      sharded_loo_entropy and ksize_bandwidths_sharded against their
-     single-device calls (the bandwidths against the search on K4's
-     twin, the same eager probes), the same three and ksize_bandwidths_device on
+     single-device calls (the bandwidths on K7 only, no twin phase, K4 or
+     K1 launch, within KSIZE_RTOL of K4's twin search and K4's final
+     bracket of K4's picks, its probe values within K4_PROBE_RTOL of the
+     eager entropy at the same x; its sweeps, the all-reduces it issued
+     (1 + 2 x sweeps), host waits, each on a sweep before the one just
+     issued, the allocator's peak and the
+     device's idle share under torch.profiler; the full-width search of
+     K7_BIG_N points against K4), the same three and
+     ksize_bandwidths_device on
      NumPy inputs (on the card, equal to the tensor calls),
      estimate_product_memory against the allocator's peak (estimate /
      peak in [1, 2]: the estimate is never below the peak), then
@@ -141,7 +158,10 @@ Phases, one line of findings each:
      (``--shared-card-worker``) share the card in a gloo world: the
      kernel-sharded product at S = 2 (on K6 on both ranks, 1,024 chains
      over 2 x 20,000) and the chain-sharded product over
-     both ranks against the plain engine, and sharded_log_eval with the
+     both ranks against the plain engine, ksize_bandwidths_sharded with
+     the components split over both ranks (on K7 on each, the same picks
+     on both, within K4's final bracket of rank 0's single-card search),
+     and sharded_log_eval with the
      components split over both ranks (each rank must launch the kernel
      and keep the result on the card).  Launches made by the references
      that a sharded call is compared with are not counted;
@@ -160,9 +180,9 @@ Phases, one line of findings each:
 gibbs_chain must launch on the slice, serve, device plan, batched,
 select, manifolds, parallel (chain- and set-sharded), examples and tools
 paths, gibbs_select on phase 10's lone circular diffop and never on
-phase 8's and phase 13's (gumbel is on gibbs_chain), sharded_select on
-the parallel and shared-card paths (with no twin stage) and nowhere
-else, K1 on the slice,
+phase 8's and phase 13's (gumbel is on gibbs_chain), sharded_select and
+sharded_loo on the parallel and shared-card paths (with no twin stage)
+and nowhere else, K1 on the slice,
 functionals, parallel and shared-card paths, K4 on the slice, device
 plan, batched, functionals, manifolds and parallel paths.
 Then one JSON line on the kernels, and last the device JSON line.  Any
@@ -192,6 +212,11 @@ and gumbel, and the switch between them (see k3_diag).
 
 times the chain kernel only, against the one of the checkout in DIR (see
 k3_parent_ab).
+
+    python3 chip_smoke.py --k7-parent DIR
+
+holds K4 against the K4 of the checkout in DIR, bitwise, and times the
+sharded LOOCV search against DIR's along N (see k7_parent_ab).
 
     python3 chip_smoke.py --k6-trace TAG [DIR]
 
@@ -1545,6 +1570,30 @@ def k4_bound_ms(args, probes, sms, clock_hz, fp64_per_pair):
     return 1e3 * times[by], by
 
 
+def probe_max_rel(trace, nloo, what):
+    """Every probe ``(x, f)`` of a search's ``trace`` (loo_search.new_trace
+    format) against ``nloo(x)``, the plain entropy at the same x: the
+    non-finite values must be equal; returns the largest relative gap of
+    the finite ones."""
+    import torch
+    x, f = trace[:, :, 0], trace[:, :, 1]
+    probe_rel = 0.0
+    for k in range(x.shape[1]):
+        live = ~torch.isnan(x[:, k])
+        if not bool(live.any()):
+            break
+        fw = nloo(torch.where(live, x[:, k], torch.ones_like(x[:, k])))
+        fin = live & torch.isfinite(fw)
+        torch.testing.assert_close(f[live & ~fin, k], fw[live & ~fin],
+                                   rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{what}: non-finite probes")
+        if bool(fin.any()):
+            probe_rel = max(probe_rel, float(
+                ((f[fin, k].double() - fw[fin].double()).abs()
+                 / fw[fin].double().abs()).max()))
+    return probe_rel
+
+
 def k4_compare(args, impl, got, trace, what):
     """K4's picks ``got`` and ``trace`` against the twin on the same
     inputs: float64 at rtol K4_F64_RTOL; float32 every reported probe value
@@ -1557,21 +1606,7 @@ def k4_compare(args, impl, got, trace, what):
     with _uncounted():
         want = loo_search.loo_search_ref(*args, tol=K4_TOL, impl=impl)
         nloo = loo_search.make_nloo(args[0], args[2], args[1], impl, 1024)
-        x, f = trace[:, :, 0], trace[:, :, 1]
-        probe_rel = 0.0
-        for k in range(x.shape[1]):
-            live = ~torch.isnan(x[:, k])
-            if not bool(live.any()):
-                break
-            fw = nloo(torch.where(live, x[:, k], torch.ones_like(x[:, k])))
-            fin = live & torch.isfinite(fw)
-            torch.testing.assert_close(f[live & ~fin, k], fw[live & ~fin],
-                                       rtol=0, atol=0, equal_nan=True,
-                                       msg=f"{what}: non-finite probes")
-            if bool(fin.any()):
-                probe_rel = max(probe_rel, float(
-                    ((f[fin, k].double() - fw[fin].double()).abs()
-                     / fw[fin].double().abs()).max()))
+        probe_rel = probe_max_rel(trace, nloo, what)
     rel = float(((got.double() - want.double()).abs()
                  / want.double().abs()).max())
     limit = K4_F64_RTOL if got.dtype == torch.float64 else 2 * K4_TOL
@@ -1642,6 +1677,232 @@ def phase_loo_search(dev, cases=None):
         rows[name] = row
         print(f"loo_search ({name}): {json.dumps(row)}", flush=True)
         del args, got, again, trace
+    return rows
+
+
+# phase 3h: K7's cases, name -> (points in 2-D, dtype): phase 11a's
+# search (N_KSIZE points, S = 1) and the full-width one (K7_BIG_N)
+K7_BIG_N = 100_000
+K7_CASES = {"11a f32": (N_KSIZE, "float32"), "11a f64": (N_KSIZE, "float64"),
+            "100k f32": (K7_BIG_N, "float32"),
+            "100k f64": (K7_BIG_N, "float64")}
+K7_MAIN = "11a f32"      # the kernels line's K7 numbers
+K7_SUM_RTOL = {"float64": 1e-12, "float32": K4_PROBE_RTOL}
+# csrc/sharded_loo.cu's kernels, as a trace names them
+K7_KERNEL_NAMES = ("stage_kernel", "rows_kernel", "entropy_kernel",
+                   "golden_kernel")
+
+
+def k7_inputs(n, dtype, dev, seed=SEED):
+    """Phase 3h's problem: ``n`` points in 2-D (N(0, 1) x [1, 2.5]) with
+    uniform weights, as ksize_bandwidths_sharded forms them, and their
+    sort bracket."""
+    import torch
+    from kde_tpu_torch.ops import loocv
+    rng = np.random.default_rng(seed + 90 + n)
+    dt = getattr(torch, dtype)
+    pts = torch.as_tensor(rng.normal(size=(n, 2)) * [1.0, 2.5], dtype=dt,
+                          device=dev)
+    w = torch.full((n,), 1.0 / n, dtype=dt, device=dev)
+    bracket = loocv.bracket_rows(pts.T.contiguous(),
+                                 *loocv._slices_on(n, dev))
+    return pts, w, bracket
+
+
+def k7_phase_calls(pts, w, bracket, twin=False):
+    """One call of each K7 phase on one shard (S = 1) with sweep 0's and
+    sweep 1's inputs, as closures: name -> fn; with ``twin`` each phase's
+    plain twin (``*_ref``) on the same inputs.  The golden step works on
+    copies of the state, so repeated calls see the same inputs."""
+    import torch
+    from kde_tpu_torch.ops import sharded_loo as sl
+    base, ax, bx, cx = bracket
+    fn = {k: getattr(sl, k + ("_ref" if twin else "")) for k in (
+        "stage", "nn_shift", "probe_sums", "probe_entropy", "golden_step")}
+    xs, wp, st, fl = sl.stage(pts, w, ax, bx, cx)
+    shift = sl.nn_shift(pts, xs, wp)
+    sums = sl.probe_sums(pts, xs, wp, shift, base, st, fl, 0)
+    ent = sl.probe_entropy(sums, shift, w, base, st, fl, 0)
+    xmin = torch.empty_like(base)
+    flag = fl.new_zeros(1)
+    st1, fl1 = st.clone(), fl.clone()
+    sl.golden_step(ent, base, st1, fl1, xmin, flag, 0, K4_TOL)
+    return {
+        "stage": lambda: fn["stage"](pts, w, ax, bx, cx),
+        "nn_shift": lambda: fn["nn_shift"](pts, xs, wp),
+        "probe_sums": lambda: fn["probe_sums"](pts, xs, wp, shift, base, st,
+                                               fl, 0),
+        "probe_sums_1": lambda: fn["probe_sums"](pts, xs, wp, shift, base,
+                                                 st1, fl1, 1),
+        "probe_entropy": lambda: fn["probe_entropy"](sums, shift, w, base,
+                                                     st, fl, 0),
+        "golden_step": lambda: fn["golden_step"](
+            ent, base, st.clone(), fl.clone(), xmin, flag, 0, K4_TOL)}
+
+
+def k7_compare(pts, w, bracket, what):
+    """Every K7 phase of sweeps 0 and 1 against its twin on the same
+    inputs: staging, shifts and the golden step bitwise; the sums and the
+    entropies within K7_SUM_RTOL.  Returns the largest relative errors."""
+    import torch
+    from kde_tpu_torch.ops import sharded_loo as sl
+    base, ax, bx, cx = bracket
+    rtol = K7_SUM_RTOL[str(pts.dtype).split(".")[-1]]
+    err = {}
+
+    def check(name, got, want, exact):
+        if exact:
+            if not torch.equal(torch.nan_to_num(got, nan=0.5),
+                               torch.nan_to_num(want, nan=0.5)):
+                raise AssertionError(f"sharded_loo ({what}): {name} differs "
+                                     "from its twin")
+            err[name] = 0.0
+            return
+        if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+            raise AssertionError(f"sharded_loo ({what}): {name}'s finite "
+                                 "entries differ from its twin's")
+        fin = torch.isfinite(want)
+        rel = float(((got[fin] - want[fin]).abs()
+                     / want[fin].abs().clamp_min(1e-300)).max())
+        err[name] = max(err.get(name, 0.0), rel)
+        if not rel <= rtol:
+            raise AssertionError(f"sharded_loo ({what}): {name} {rel:.3g} "
+                                 f"from its twin (rtol {rtol})")
+    got = sl.stage(pts, w, ax, bx, cx)
+    want = sl.stage_ref(pts, w, ax, bx, cx)
+    rows = [sl.X0, sl.X1, sl.X2, sl.X3, sl.PR0, sl.PR1]
+    for name, g, t in (("stage xs", got[0], want[0]),
+                       ("stage wp", got[1], want[1]),
+                       ("stage st", got[2][rows], want[2][rows]),
+                       ("stage fl", got[3], want[3])):
+        check(name, g, t, True)
+    xs, wp, st, fl = got
+    shift = sl.nn_shift(pts, xs, wp)
+    check("nn_shift", shift, sl.nn_shift_ref(pts, xs, wp), True)
+    xmin = torch.empty_like(base)
+    flag = fl.new_zeros(1)
+    for sweep in (0, 1):
+        on = sl._searching(fl, sweep, base.shape[0])
+        sums = sl.probe_sums(pts, xs, wp, shift, base, st, fl, sweep)
+        check("probe_sums", sums[on], sl.probe_sums_ref(
+            pts, xs, wp, shift, base, st, fl, sweep)[on], False)
+        ent = sl.probe_entropy(sums, shift, w, base, st, fl, sweep)
+        check("probe_entropy", ent, sl.probe_entropy_ref(
+            sums, shift, w, base, st, fl, sweep), False)
+        st2, fl2, x2, f2 = st.clone(), fl.clone(), xmin.clone(), flag.clone()
+        sl.golden_step(ent, base, st, fl, xmin, flag, sweep, K4_TOL)
+        sl.golden_step_ref(ent, base, st2, fl2, x2, f2, sweep, K4_TOL)
+        for name, g, t in (("golden_step st", st, st2),
+                           ("golden_step fl", fl, fl2),
+                           ("golden_step xmin", xmin, x2),
+                           ("golden_step flag", flag, f2)):
+            check(name, g, t, True)
+    return err
+
+
+def k7_bound_ms(pts, w, probes, sms, clock_hz, fp64_per_pair):
+    """The least time an H100 could take for a K7 search of ``pts`` at S =
+    1, counted as k4_bound_ms counts K4's: every live pair (i != j, both
+    weights positive) once for the shifts and once per probe of its row
+    (``probes [d]``, from the trace), on the SFU's ex2 (float32, 16 a clock
+    an SM) or the FP64 pipe; the points, weights and brackets read once."""
+    return k4_bound_ms((pts.T, w), probes, sms, clock_hz, fp64_per_pair)
+
+
+def k7_sweep_bound_ms(n_live, rows, dtype, sms, clock_hz, fp64_per_pair):
+    """The least time of one probe_sums call of ``rows`` probe rows over
+    ``n_live`` live points (sweep 0: x1 and x2 of both dimensions, 4):
+    n_live (n_live - 1) pairs a row, one ex2 each on the SFU or 4 FP32
+    instructions (float32), ``fp64_per_pair`` FP64 instructions (float64)."""
+    pairs = rows * n_live * (n_live - 1)
+    rate = sms * clock_hz
+    if dtype == "float32":
+        return 1e3 * max(pairs / (SFU_EX2_PER_CLK * rate),
+                         4 * pairs / (FP32_LANES_PER_CLK * rate))
+    return 1e3 * fp64_per_pair * pairs / (FP64_LANES_PER_CLK * rate)
+
+
+def phase_sharded_loo(dev, cases=None):
+    """Phase 3h: K7 (sharded_loo, csrc/sharded_loo.cu) against its twins
+    on the card at phase 11a's search and the full-width one (K7_CASES),
+    float32 and float64, on one NCCL rank (S = 1): each phase of sweeps 0
+    and 1 (k7_compare's limits); the search itself bitwise the same over
+    repeated calls, through ksize_bandwidths_sharded, with its trace; at
+    11a's shape the twin search's picks (float64 within K4_F64_RTOL,
+    float32 within KSIZE_RTOL).  Each phase timed (one call, the
+    wrapper's host work included) beside its twin, and the search beside
+    k7_bound_ms and, at 11a's shape, the twin search.  No single PyTorch
+    call runs a LOO golden search: library_ms is null.  Returns the rows
+    printed."""
+    import torch
+    import torch.distributed as dist
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import loo_search, sharded_loo as sl
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    per_pair = k4_fp64_per_pair(loo_search.build())[0]
+    rows = {}
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl" if dev.type == "cuda" else "gloo",
+                             timeout=WORKER_TIMEOUT)
+    try:
+        mesh = par.make_mesh_2d((1, 1))
+        for name, (n, dtype) in (cases or K7_CASES).items():
+            pts, w, bracket = k7_inputs(n, dtype, dev)
+            with _uncounted():
+                row = dict(n=n, dtype=dtype,
+                           phase_max_rel=k7_compare(pts, w, bracket, name))
+            search = functools.partial(par.ksize_bandwidths_sharded, mesh,
+                                       pts)
+            with _uncounted():
+                got = search()
+                again = [search() for _ in range(2)]
+                if not all(torch.equal(a, got) for a in again):
+                    raise AssertionError(f"sharded_loo ({name}): repeated "
+                                         "searches differ")
+                trace = loo_search.new_trace(pts.T, K4_TOL)
+                base, ax, bx, cx = bracket
+                sl.search(pts, w, pts, w, base, ax, bx, cx, tol=K4_TOL,
+                          trace=trace)
+                row.update(sl.LAST)
+                probes = (~torch.isnan(trace[:, :, 0])).sum(dim=1)
+                row["probes"] = probes.tolist()
+                row["ms"] = _cuda_ms(search)
+                calls = k7_phase_calls(pts, w, bracket)
+                twins = k7_phase_calls(pts, w, bracket, twin=True)
+                row["phase_ms"] = {k: _cuda_ms(fn) for k, fn in calls.items()}
+                row["phase_plain_ms"] = {k: _cuda_ms(fn, reps=2)
+                                         for k, fn in twins.items()}
+                if n == N_KSIZE:
+                    def twin_search():
+                        with _k7_on_twin():
+                            return sl.search(pts, w, pts, w, base, ax, bx,
+                                             cx, tol=K4_TOL)
+                    want = twin_search()
+                    rel = float(((got.double() - want.double()).abs()
+                                 / want.double().abs()).max())
+                    limit = (K4_F64_RTOL if dtype == "float64"
+                             else KSIZE_RTOL)
+                    if not rel <= limit:
+                        raise AssertionError(f"sharded_loo ({name}): picks "
+                                             f"{rel:.3g} from the twin "
+                                             f"search's (limit {limit})")
+                    row["twin_rel"] = rel
+                    row["max_abs_err"] = float((got.double()
+                                                - want.double()).abs().max())
+                    row["plain_ms"] = _cuda_ms(twin_search, reps=2)
+            row["bound_ms"], row["bound_by"] = k7_bound_ms(
+                pts, w, row["probes"], sms, clock, per_pair)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["probe_sums_bound_ms"] = k7_sweep_bound_ms(
+                n, 4, dtype, sms, clock, per_pair)
+            row["library_ms"] = None
+            row["bandwidths"] = got.tolist()
+            rows[name] = row
+            print(f"sharded_loo ({name}): {json.dumps(row)}", flush=True)
+            del pts, w, bracket, got
+    finally:
+        dist.destroy_process_group()
     return rows
 
 
@@ -2786,25 +3047,29 @@ def _uncounted():
     path is compared with, not to the path: the counts are put back after
     it."""
     from kde_tpu_torch.ops import (gibbs_chain, gibbs_select, loo_search,
-                                   sharded_select, tiled_eval)
+                                   sharded_loo, sharded_select, tiled_eval)
     n, k, c = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
     s = loo_search.LAUNCHES
     k6, k6_twin = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
+    k7, k7_twin = sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES
     try:
         yield
     finally:
         tiled_eval.LAUNCHES, gibbs_select.LAUNCHES = n, k
         gibbs_chain.LAUNCHES, loo_search.LAUNCHES = c, s
         sharded_select.LAUNCHES, sharded_select.TWIN_STAGES = k6, k6_twin
+        sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES = k7, k7_twin
 
 
 @contextlib.contextmanager
-def _counting_collectives():
-    """Counts the kernel-sharded engine's collectives (pmax, psum,
-    all_gather of parallel/gibbs_kernel_sharded.py) in the block: yields
-    a one-item list that holds the count."""
-    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
-    saved = {k: getattr(gks, k) for k in ("pmax", "psum", "all_gather")}
+def _counting_collectives(module=None, names=("pmax", "psum", "all_gather")):
+    """Counts the calls of ``names`` in ``module`` made in the block (by
+    default the kernel-sharded engine's collectives, pmax, psum and
+    all_gather of parallel/gibbs_kernel_sharded.py): yields a one-item
+    list that holds the count, 0 at the start of the block."""
+    if module is None:
+        from kde_tpu_torch.parallel import gibbs_kernel_sharded as module
+    saved = {k: getattr(module, k) for k in names}
     calls = [0]
 
     def counted(fn):
@@ -2813,12 +3078,12 @@ def _counting_collectives():
             return fn(*a, **kw)
         return wrapped
     for k, fn in saved.items():
-        setattr(gks, k, counted(fn))
+        setattr(module, k, counted(fn))
     try:
         yield calls
     finally:
         for k, fn in saved.items():
-            setattr(gks, k, fn)
+            setattr(module, k, fn)
 
 
 @contextlib.contextmanager
@@ -2943,6 +3208,171 @@ def _k6_full_width(mesh, dev, seed, n=K6_BIG_N, chains=SERVE_CHAINS):
     if not bool(torch.isfinite(got[0]).all()):
         raise AssertionError("full-width kernel-sharded: non-finite points")
     return res
+
+
+K7_PHASES = ("stage", "nn_shift", "probe_sums", "probe_entropy",
+             "golden_step")
+
+
+@contextlib.contextmanager
+def _k7_on_twin():
+    """sharded_loo.search with each phase's plain twin (``*_ref``) on the
+    inputs' device, in the same loop with the same collectives; a
+    reference, not counted."""
+    from kde_tpu_torch.ops import sharded_loo
+    saved = {k: getattr(sharded_loo, k) for k in K7_PHASES}
+    for k in K7_PHASES:
+        setattr(sharded_loo, k, getattr(sharded_loo, k + "_ref"))
+    try:
+        with _uncounted():
+            yield
+    finally:
+        for k, fn in saved.items():
+            setattr(sharded_loo, k, fn)
+
+
+def k7_all_reduces(mesh, sweeps):
+    """The all-reduces a sharded LOOCV search of ``sweeps`` sweeps issues
+    on ``mesh``: the pmin and a psum a sweep over ``kernels``, a psum a
+    sweep over ``chains``; an axis the mesh lacks issues nothing."""
+    from kde_tpu_torch.parallel.mesh import CHAINS, KERNELS
+    axes = mesh.mesh_dim_names or ()
+    return (KERNELS in axes) * (1 + sweeps) + (CHAINS in axes) * sweeps
+
+
+def _k7_search(name, call, dev, mesh):
+    """``call()``, a sharded LOOCV search on ``mesh``, with its K7
+    launches and twin stages (which must be > 0 and 0 on the card), the
+    all-reduces it issued (counted at torch.distributed.all_reduce, from
+    0 at the call; they must be k7_all_reduces', 1 + 2 x sweeps on a
+    chains x kernels mesh), its sweeps, host waits and stop reason
+    (sharded_loo.LAST), the lag of every flag read (the sweep issued less
+    the sweep read, counted at sharded_loo._read_flag; each at least 1,
+    one a wait) and the allocator's peak over the call less what was
+    allocated before it.  Returns the result and those numbers."""
+    import torch
+    from kde_tpu_torch.ops import sharded_loo
+    _sync()
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    k0, t0 = sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES
+    read, lags = sharded_loo._read_flag, []
+
+    def lagged(flags, events, k):
+        lags.append(len(events) - 1 - k)
+        return read(flags, events, k)
+    sharded_loo._read_flag = lagged
+    try:
+        with _counting_collectives(torch.distributed,
+                                   ("all_reduce",)) as calls:
+            t = time.perf_counter()
+            got = call()
+            _sync()
+            ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        sharded_loo._read_flag = read
+    row = dict(ms=ms, **sharded_loo.LAST, collectives=calls[0],
+               least_lag=min(lags, default=None),
+               k7_launches=sharded_loo.LAUNCHES - k0,
+               k7_twin_stages=sharded_loo.TWIN_STAGES - t0)
+    if dev.type == "cuda":
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+        if row["k7_launches"] < 1 or row["k7_twin_stages"]:
+            raise AssertionError(f"{name}: {row['k7_launches']} K7 launches, "
+                                 f"{row['k7_twin_stages']} twin stages")
+    # a search stopped by max_iters reads no flag after its last sweep
+    waits = (row["sweeps"] - sharded_loo.FLAG_LAG
+             - (row["stop"] == "max_iters"))
+    if (row["collectives"] != k7_all_reduces(mesh, row["sweeps"])
+            or row["host_waits"] != waits or len(lags) != waits
+            or not lags or min(lags) < 1):
+        raise AssertionError(f"{name}: {json.dumps(row)}")
+    return got, row
+
+
+def _k7_probe_rel(mesh, pts):
+    """ksize_bandwidths_sharded of ``pts`` (uniform weights) with K7's
+    probe trace, each probe value against the plain LOO entropy at the
+    same x (ops/loo_search.py::make_nloo, the eager probe of K4's twin;
+    independent of K7's loop): the largest relative gap of the finite
+    values (the others must be equal), as k4_compare holds K4's."""
+    import torch
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import loo_search, loocv, sharded_loo
+    n = pts.shape[0]
+    trace = loo_search.new_trace(pts.T, K4_TOL)
+    saved = sharded_loo.search
+    sharded_loo.search = functools.partial(saved, trace=trace)
+    try:
+        with _uncounted():
+            par.ksize_bandwidths_sharded(mesh, pts, tol=K4_TOL)
+    finally:
+        sharded_loo.search = saved
+    rows = pts.T.contiguous()
+    base = loocv.bracket_rows(rows, *loocv._slices_on(n, pts.device))[0]
+    w = torch.full((n,), 1.0 / n, dtype=pts.dtype, device=pts.device)
+    with _uncounted():
+        nloo = loo_search.make_nloo(rows, base ** 2, w,
+                                    loocv.select_loo_impl(n, pts.dtype),
+                                    1024)
+        return probe_max_rel(trace, nloo, "ksize_sharded's probes")
+
+
+def _device_idle(call):
+    """One ``call()`` under torch.profiler after a warm-up: its wall time
+    on the host clock, the device's busy time (kernels, copies and sets,
+    merged) and the idle share, and the busy time by kernel group."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        call()
+        _sync()
+        wall = 1e3 * (time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev_events = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    busy = _merged_us([(e["ts"], e["ts"] + e["dur"])
+                       for e in dev_events]) / 1e3
+    groups = {}
+    for e in dev_events:
+        n = e["name"]
+        g = ("k7" if any(k in n for k in K7_KERNEL_NAMES) else
+             "nccl" if "nccl" in n.lower() else e["cat"])
+        groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=1.0 - busy / wall, busy_ms_by_group=groups,
+                device_events=len(dev_events))
+
+
+def _k7_full_width(mesh, dev, seed, n=K7_BIG_N):
+    """Phase 11a's full-width search: ksize_bandwidths_sharded of ``n``
+    N(0, 1) points in 2-D at S = 1 on K7, its picks within K4's final
+    bracket of K4's single-card search on the same points."""
+    import torch
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import loocv
+    rng = np.random.default_rng(seed + 17)
+    pts = torch.as_tensor(rng.normal(size=(n, 2)), dtype=torch.float32,
+                          device=dev)
+    par.ksize_bandwidths_sharded(mesh, pts)        # warm
+    bws, row = _k7_search(f"ksize_sharded {n}",
+                          lambda: par.ksize_bandwidths_sharded(mesh, pts), dev,
+                          mesh)
+    want = loocv.ksize_bandwidths_device(pts)
+    row.update(n=n, bandwidths=bws.tolist(), k4_bandwidths=want.tolist(),
+               k4_rel=float(((bws - want).abs() / want).max()))
+    if not (torch.isfinite(bws).all() and row["k4_rel"] <= 2 * K4_TOL):
+        raise AssertionError(f"ksize_sharded {n}: {json.dumps(row)}")
+    return row
 
 
 def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
@@ -3079,10 +3509,13 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
             want = kernels.entropy_kernel(pts, var, w)
         out["loo_rel"] = abs(float(h) / float(want) - 1.0)
         pts = pq.points[:N_KSIZE].contiguous()
-        bws = stage("ksize_sharded", par.ksize_bandwidths_sharded, mesh2,
-                    pts)
+        bws, out["ksize"] = _k7_search(
+            "ksize_sharded", lambda: stage("ksize_sharded",
+                                           par.ksize_bandwidths_sharded,
+                                           mesh2, pts), dev, mesh2)
         # against the single-device search on the same eager probes (K4's
-        # twin); K4 itself picks within its final bracket of them
+        # twin) and within K4's final bracket of K4 itself; K7's probe
+        # values against the eager entropy at the same x
         with _k4_on_twin():
             ksize_twin = loocv.ksize_bandwidths_device(pts)
         with _uncounted():
@@ -3091,9 +3524,19 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
                                   / ksize_twin).max())
         out["ksize_k4_rel"] = float(((bws - ksize_dev).abs()
                                      / ksize_dev).max())
-        if out["loo_rel"] > RTOL or out["ksize_rel"] > KSIZE_RTOL:
+        out["ksize_probe_rel"] = _k7_probe_rel(mesh2, pts)
+        if (out["loo_rel"] > RTOL or out["ksize_rel"] > KSIZE_RTOL
+                or out["ksize_k4_rel"] > 2 * K4_TOL
+                or out["ksize_probe_rel"] > K4_PROBE_RTOL):
             raise AssertionError(f"sharded LOOCV: entropy {out['loo_rel']}, "
-                                 f"bandwidths {out['ksize_rel']} apart")
+                                 f"bandwidths {out['ksize_rel']} from K4's "
+                                 f"twin, {out['ksize_k4_rel']} from K4, "
+                                 f"probes {out['ksize_probe_rel']} from the "
+                                 "eager entropy")
+        with _uncounted():
+            out["ksize_idle"] = _device_idle(
+                lambda: par.ksize_bandwidths_sharded(mesh2, pts))
+            out["ksize_full_width"] = _k7_full_width(mesh2, dev, seed)
         # NumPy inputs land on the card (config.DEVICE) and give the
         # tensor calls' results
         for name, fn, args, ref in (
@@ -3119,6 +3562,10 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
                 (serve.densities, SERVE_CHAINS, "cdf"), ([p, q], n, "cdf"),
                 (serve.densities, SERVE_CHAINS, "gumbel"),
                 ([p, q], n, "gumbel")], seed)
+        for name in ("ksize_sharded", "ksize_sharded_numpy"):
+            if launches[name] or launches[name + "_k4"]:
+                raise AssertionError(f"{name}: {launches[name]} K1 and "
+                                     f"{launches[name + '_k4']} K4 launches")
         _launched(launches, ("sharded_refit", "batched_sharded"), dev,
                   k4=True)
         _launched(launches, ("sharded_log_eval", "sharded_log_eval_numpy"),
@@ -3302,6 +3749,29 @@ def shared_card_worker(rank, world, port):
         _sync()
         out["chain_plain_s"] = time.perf_counter() - t0
         out["chain_agree"] = _agree(idx, want, "chain-sharded over 2 ranks")
+    # the sharded LOOCV search with the components split over the two
+    # ranks, on K7 on each, against rank 0's single-card search (K4)
+    from kde_tpu_torch.ops import loocv
+    pts = torch.as_tensor(np.random.default_rng(SEED + 16).normal(
+        size=(N_KSIZE, 2)), dtype=torch.float32, device=dev)
+    # kmesh has no chains axis: 1 + sweeps all-reduces
+    bws, counts = _k7_search(
+        "ksize_bandwidths_sharded S = 2",
+        lambda: par.ksize_bandwidths_sharded(kmesh, pts), dev, kmesh)
+    out["ksize_sharded_s"] = counts["ms"] / 1e3
+    out["ksize_bandwidths"] = bws.tolist()
+    out["ksize_counts"] = counts
+    out["k7_launches"] = counts["k7_launches"]
+    out["k7_twin_stages"] = counts["k7_twin_stages"]
+    if not bws.is_cuda:
+        raise AssertionError(f"ksize_bandwidths_sharded S = 2 on "
+                             f"{bws.device}")
+    if rank == 0:
+        want = loocv.ksize_bandwidths_device(pts)
+        out["ksize_k4_rel"] = float(((bws - want).abs() / want).max())
+        if out["ksize_k4_rel"] > 2 * K4_TOL:
+            raise AssertionError(f"ksize_bandwidths_sharded S = 2: "
+                                 f"{out['ksize_k4_rel']} from K4's picks")
     # the components split over the two ranks: each local part launches
     # the kernel, and the result stays on the card
     from kde_tpu_torch.ops import kernels, tiled_eval
@@ -3856,6 +4326,121 @@ def k3_parent_ab(parent):
     print(_card())
 
 
+K7_PARENT_NS = (N_KSIZE, 50_000, K7_BIG_N)   # --k7-parent's searches
+
+
+def _bits(t):
+    import torch
+    return t.contiguous().view(torch.int64 if t.element_size() == 8
+                               else torch.int32)
+
+
+def _search_run(call, dev):
+    """One ``call()`` ending in a sync: host ms, the allocator's peak over
+    it less what was allocated before, and its result; or, where the card
+    runs out of memory, the error and the peak reached."""
+    import torch
+    card = dev.type == "cuda"
+    peak = lambda: (torch.cuda.max_memory_allocated(dev) - base
+                    if card else None)
+    _sync()
+    base = torch.cuda.memory_allocated(dev) if card else 0
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    try:
+        got = call()
+        _sync()
+    except torch.cuda.OutOfMemoryError as e:
+        row = dict(oom=str(e).splitlines()[0][:300], peak_bytes=peak())
+        torch.cuda.empty_cache()
+        return row, None
+    return dict(ms=1e3 * (time.perf_counter() - t), peak_bytes=peak(),
+                bandwidths=got.tolist()), got
+
+
+def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
+    """This checkout against ``parent`` (another checkout, e.g. an unpacked
+    ``git archive``) on this card.  (1) K4: ``parent``'s
+    ``ops/loo_search.py``, loaded as a module of this package so that it
+    builds the parent's ``csrc/loo_search.cu``, against this checkout's at
+    phase 3f's seven searches (K4_CASES): picks and probe traces must be
+    bitwise equal.  (2) The sharded LOOCV search: ``parent``'s
+    ``parallel/eval.py::ksize_bandwidths_sharded`` and this checkout's on
+    the same N(0, 1) 2-D float32 points at each N of K7_PARENT_NS, S = 1
+    on one NCCL rank, in turns (parent, change, change, parent): host ms
+    of one call ending in a sync and the allocator's peak over it, or the
+    parent's out-of-memory error."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import loo_search
+    dev = dev or torch.device("cuda")
+    mods = {}
+    for name, rel in (("loo_search", ("ops", "loo_search.py")),
+                      ("eval", ("parallel", "eval.py"))):
+        path = os.path.join(os.path.abspath(parent), "kde_tpu_torch", *rel)
+        pkg = "ops" if rel[0] == "ops" else "parallel"
+        spec = importlib.util.spec_from_file_location(
+            f"kde_tpu_torch.{pkg}._{name}_parent", path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    sides = {"parent": mods["loo_search"], "change": loo_search}
+    for name, (r, n, dtype, data) in (k4_cases or K4_CASES).items():
+        args, impl, _ = k4_inputs(r, n, dtype, data, dev)
+        got = {}
+        for side, mod in sides.items():
+            trace = mod.new_trace(args[0], K4_TOL)
+            x = mod.loo_search(*args, tol=K4_TOL, impl=impl, trace=trace)
+            got[side] = (x, trace)
+        same = all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got["parent"], got["change"]))
+        digest = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in got["change"])).hexdigest()
+        print(f"k7 parent ab, K4 ({name}): "
+              f"{json.dumps(dict(bitwise_equal=same, sha256=digest))}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"K4 ({name}): the header split changed "
+                                 "its outputs")
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl" if dev.type == "cuda" else "gloo",
+                             timeout=WORKER_TIMEOUT)
+    try:
+        mesh = par.make_mesh_2d((1, 1))
+        calls = {"parent": mods["eval"].ksize_bandwidths_sharded,
+                 "change": par.ksize_bandwidths_sharded}
+        warm = torch.as_tensor(np.random.default_rng(SEED).normal(
+            size=(1000, 2)), dtype=torch.float32, device=dev)
+        for fn in calls.values():
+            fn(mesh, warm)
+        for n in ns:
+            pts = torch.as_tensor(np.random.default_rng(SEED + 18 + n).normal(
+                size=(n, 2)), dtype=torch.float32, device=dev)
+            row, picks = {"n": n}, {}
+            for side in ("parent", "change", "change", "parent"):
+                res, got = _search_run(
+                    functools.partial(calls[side], mesh, pts), dev)
+                row.setdefault(side, []).append(res)
+                if got is not None:
+                    picks[side] = got
+                if "oom" in res and side == "parent":
+                    break                  # the same call fails again
+            if len(picks) == 2:
+                row["change_vs_parent_rel"] = float(
+                    ((picks["change"] - picks["parent"]).abs()
+                     / picks["parent"]).max())
+            print(f"k7 parent ab, ksize_bandwidths_sharded N = {n}: "
+                  f"{json.dumps(row)}", flush=True)
+            del pts, picks
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(_card() if dev.type == "cuda" else "cpu")
+
+
 def _merged_us(spans):
     """Total microseconds covered by the ``(start, end)`` spans."""
     total, end = 0.0, -np.inf
@@ -4073,7 +4658,8 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from kde_tpu_torch import native
     from kde_tpu_torch.ops import gibbs_chain, gibbs_select, host_small
-    from kde_tpu_torch.ops import loo_search, sharded_select, tiled_eval
+    from kde_tpu_torch.ops import (loo_search, sharded_loo, sharded_select,
+                                   tiled_eval)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4092,13 +4678,13 @@ def main():
     def timed_build(build):
         so = build()
         return so, time.perf_counter() - t0
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         jobs = [pool.submit(timed_build, b) for b in
                 (tiled_eval.build, host_small.build, gibbs_select.build,
                  gibbs_chain.build, loo_search.build, sharded_select.build,
-                 native.build)]
+                 sharded_loo.build, native.build)]
         ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s), (k3_so, k3_s),
-         (k4_so, k4_s), (k6_so, k6_s), (tree_so, tree_s)) = [
+         (k4_so, k4_s), (k6_so, k6_s), (k7_so, k7_s), (tree_so, tree_s)) = [
             j.result() for j in jobs]
     ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -4119,27 +4705,33 @@ def main():
     print(f"build sharded_select: {k6_s:.2f} s -> {os.path.relpath(k6_so)}; "
           f"ptxas per kernel: "
           f"{json.dumps(ptxas_table(sharded_select.BUILD_LOG))}", flush=True)
+    print(f"build sharded_loo: {k7_s:.2f} s -> {os.path.relpath(k7_so)}; "
+          f"ptxas per kernel: "
+          f"{json.dumps(ptxas_table(sharded_loo.BUILD_LOG))}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
     # 3. kernel vs plain twin; 3b. the small-route kernels; 3d. the Gibbs
     # selection kernel; 3e. the Gibbs chain kernel; 3f. the LOOCV search;
-    # 3g. the kernel-sharded selection
+    # 3g. the kernel-sharded selection; 3h. the sharded LOOCV search
     rows, worst = phase_kernel(dev)
     small_rows, small_worst = phase_small(dev)
     k2_rows = phase_gibbs_select(dev)
     k3_rows = phase_gibbs_chain(dev)
     k4_rows = phase_loo_search(dev)
     k6_rows = phase_sharded_select(dev)
+    k7_rows = phase_sharded_loo(dev)
 
     # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds, small, k2, k3, k4, k6, k6_twin = ({} for _ in range(8))
+    runs, builds, small, k2, k3, k4, k6, k6_twin, k7, k7_twin = (
+        {} for _ in range(10))
 
     def run(name, fn, *args):
         tiled_eval.LAUNCHES = native.BUILDS = gibbs_select.LAUNCHES = 0
         gibbs_chain.LAUNCHES = loo_search.LAUNCHES = 0
         sharded_select.LAUNCHES = sharded_select.TWIN_STAGES = 0
+        sharded_loo.LAUNCHES = sharded_loo.TWIN_STAGES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
@@ -4148,6 +4740,7 @@ def main():
         k4[name] = loo_search.LAUNCHES
         k6[name] = sharded_select.LAUNCHES
         k6_twin[name] = sharded_select.TWIN_STAGES
+        k7[name], k7_twin[name] = sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES
         return out
 
     c1 = run("cfg1", phase_cfg1, dev)
@@ -4183,6 +4776,12 @@ def main():
     runs["shared_card"] = sum(r["log_eval_launches"] for r in sc)
     k6["shared_card"] = sum(r["k6_launches"] for r in sc)
     k6_twin["shared_card"] = sum(r["k6_twin_stages"] for r in sc)
+    k7["shared_card"] = sum(r["k7_launches"] for r in sc)
+    k7_twin["shared_card"] = sum(r["k7_twin_stages"] for r in sc)
+    if sc[0]["ksize_bandwidths"] != sc[1]["ksize_bandwidths"]:
+        raise AssertionError(f"ksize_bandwidths_sharded S = 2: the ranks "
+                             f"differ: {sc[0]['ksize_bandwidths']}, "
+                             f"{sc[1]['ksize_bandwidths']}")
     print(f"parallel 11b, two gloo ranks sharing the card, on {card}: "
           f"{json.dumps(sc)}", flush=True)
     run("examples", phase_examples, dev)
@@ -4212,6 +4811,15 @@ def main():
                                                    "shared_card")):
         raise AssertionError(f"sharded_select launched off the sharded "
                              f"paths: {k6}")
+    for name in ("parallel", "shared_card"):
+        if k7[name] < 1 or k7_twin[name] != 0:
+            raise AssertionError(f"path {name}: {k7[name]} sharded_loo "
+                                 f"launches, {k7_twin[name]} phases on its "
+                                 "twins")
+    if any(k7[name] for name in k7 if name not in ("parallel",
+                                                   "shared_card")):
+        raise AssertionError(f"sharded_loo launched off the sharded paths: "
+                             f"{k7}")
     for name in ("select", "tools"):
         if k2[name] != 0:
             raise AssertionError(f"path {name} launched gibbs_select "
@@ -4229,6 +4837,8 @@ def main():
     print(f"loo_search launches per path: {json.dumps(k4)}", flush=True)
     print(f"sharded_select launches per path: {json.dumps(k6)}; twin "
           f"stages: {json.dumps(k6_twin)}", flush=True)
+    print(f"sharded_loo launches per path: {json.dumps(k7)}; twin "
+          f"phases: {json.dumps(k7_twin)}", flush=True)
     print(f"whole script on {card}: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     golden, ev = small_rows["loo_golden cfg1"], small_rows[
@@ -4238,6 +4848,7 @@ def main():
     gumbel_rows = {name.split()[-1]: k3_rows[name] for name in K3_GUMBEL_TIMED}
     refit = k4_rows["* refit"]
     sweep = k6_rows["leaf sweep"]
+    k7_main = k7_rows[K7_MAIN]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -4350,7 +4961,27 @@ def main():
         "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
         "bound_share": sweep["bound_share"], "library_ms": None,
         **{f"{k}_{name}": k6_rows[name][k] for name in K6_TIMED
-           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}]}))
+           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}, {
+        "name": "sharded_loo", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/sharded_loo.cu",
+        "replaces": "kde_tpu/parallel/eval.py:151-191 (the probe of "
+                    "ksize_bandwidths_sharded and its golden loop, "
+                    "kde_tpu/ops/loocv.py:180; XLA-fused in the shard_map "
+                    "program, no Pallas kernel)",
+        "launches": sum(k7.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k7_rows.values()
+                           if "max_abs_err" in r),
+        "phase_max_rel": max(v for r in k7_rows.values()
+                             for v in r["phase_max_rel"].values()),
+        "ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
+        "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
+        "bound_share": k7_main["bound_share"], "library_ms": None,
+        "sweeps": pl["ksize"]["sweeps"],
+        "collectives": pl["ksize"]["collectives"],
+        "host_waits": pl["ksize"]["host_waits"],
+        **{f"{k}_{name.replace(' ', '_')}": k7_rows[name][k]
+           for name in K7_CASES for k in ("ms", "bound_ms", "bound_share")
+           if name in k7_rows}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4373,6 +5004,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k3-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k7-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k7_parent_ab(sys.argv[2])
     elif sys.argv[1:2] == ["--k3-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_diag()

@@ -111,38 +111,63 @@ def _golden_core(f, ax, bx, cx, tol, trace=None):
     tol = search_tol(tol, ft)
     n_iters = max_iters(tol, ft)
     x0, x3 = ax, cx
-    wide_right = (cx - bx).abs() > (bx - ax).abs()
-    x1 = torch.where(wide_right, bx, bx - _C * (bx - ax))
-    x2 = torch.where(wide_right, bx + _C * (cx - bx), bx)
+    x1, x2 = golden_start(ax, bx, cx)
     f1 = f(x1).to(ft)
     f2 = f(x2).to(ft)
     if trace is not None:
         trace[:, 0] = torch.stack([x1, f1], 1)
         trace[:, 1] = torch.stack([x2, f2], 1)
     for it in range(n_iters):
-        active = (x3 - x0).abs() > tol * (x1.abs() + x2.abs())
+        active = golden_active(x0, x1, x2, x3, tol)
         if not bool(active.any()):
             break
-        take2 = (f2 < f1) & active
-        take1 = (~take2) & active
-        # branch A (f2 < f1): slide the bracket right
-        nx0 = torch.where(take2, x1, x0)
-        nx1 = torch.where(take2, x2, x1)
-        nx2 = torch.where(take2, _R * x2 + _C * x3, x2)
-        # branch B: slide it left
-        nx3 = torch.where(take1, x2, x3)
-        nx2 = torch.where(take1, x1, nx2)
-        nx1 = torch.where(take1, _R * x1 + _C * x0, nx1)
-        probe = torch.where(take2, nx2, nx1)
+        (x0, x1, x2, x3), take2, take1, probe = golden_update(
+            x0, x1, x2, x3, f1, f2, active)
         fp = f(probe).to(ft)                       # one probe per element
         if trace is not None:
             trace[:, 2 + it] = torch.where(active[:, None],
                                            torch.stack([probe, fp], 1),
                                            trace[:, 2 + it])
-        nf1 = torch.where(take2, f2, torch.where(take1, fp, f1))
-        nf2 = torch.where(take2, fp, torch.where(take1, f1, f2))
-        x0, x1, x2, x3, f1, f2 = nx0, nx1, nx2, nx3, nf1, nf2
+        f1, f2 = golden_fold(f1, f2, fp, take2, take1)
     return torch.where(f1 < f2, x1, x2), torch.minimum(f1, f2)
+
+
+def golden_start(ax, bx, cx):
+    """The first two probes ``x1 < x2`` of the reference's ``golden`` in
+    the bracket ``ax < bx < cx``."""
+    wide_right = (cx - bx).abs() > (bx - ax).abs()
+    x1 = torch.where(wide_right, bx, bx - _C * (bx - ax))
+    x2 = torch.where(wide_right, bx + _C * (cx - bx), bx)
+    return x1, x2
+
+
+def golden_active(x0, x1, x2, x3, tol: float):
+    """The rows whose bracket is still wider than the stop rule allows."""
+    return (x3 - x0).abs() > tol * (x1.abs() + x2.abs())
+
+
+def golden_update(x0, x1, x2, x3, f1, f2, active):
+    """One masked bracket update: an active row with ``f2 < f1`` slides
+    its bracket right (``take2``), another active row slides it left
+    (``take1``), a frozen row keeps it.  Returns the new ``(x0, x1, x2,
+    x3)``, ``take2``, ``take1`` and each row's next probe."""
+    take2 = (f2 < f1) & active
+    take1 = (~take2) & active
+    # branch A (f2 < f1): slide the bracket right
+    nx0 = torch.where(take2, x1, x0)
+    nx1 = torch.where(take2, x2, x1)
+    nx2 = torch.where(take2, _R * x2 + _C * x3, x2)
+    # branch B: slide it left
+    nx3 = torch.where(take1, x2, x3)
+    nx2 = torch.where(take1, x1, nx2)
+    nx1 = torch.where(take1, _R * x1 + _C * x0, nx1)
+    return (nx0, nx1, nx2, nx3), take2, take1, torch.where(take2, nx2, nx1)
+
+
+def golden_fold(f1, f2, fp, take2, take1):
+    """``(f1, f2)`` after :func:`golden_update`'s probe gave ``fp``."""
+    return (torch.where(take2, f2, torch.where(take1, fp, f1)),
+            torch.where(take2, fp, torch.where(take1, f1, f2)))
 
 
 def make_nloo(rows, base_var, w, impl, chunk):

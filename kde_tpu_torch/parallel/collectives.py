@@ -1,6 +1,7 @@
 """Collectives over a named mesh axis: the eager counterparts of
-``lax.pmax``, ``lax.psum`` and ``lax.all_gather`` inside the JAX package's
-``shard_map`` programs (``lax.axis_index`` is ``mesh.axis_index``).
+``lax.pmax``, ``lax.pmin``, ``lax.psum`` and ``lax.all_gather`` inside the
+JAX package's ``shard_map`` programs (``lax.axis_index`` is
+``mesh.axis_index``).
 
 Each is a ``torch.distributed`` call on the axis's process group
 (``mesh.get_group(axis)``), issued at every axis size, 1 included, so a
@@ -39,6 +40,11 @@ def _all_reduce(x: torch.Tensor, op, mesh: DeviceMesh, axis: str):
 def pmax(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """Elementwise max over the ranks of ``axis``."""
     return _all_reduce(x, dist.ReduceOp.MAX, mesh, axis)
+
+
+def pmin(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """Elementwise min over the ranks of ``axis``."""
+    return _all_reduce(x, dist.ReduceOp.MIN, mesh, axis)
 
 
 def psum(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:

@@ -6,12 +6,14 @@ mixture components over ``kernels``; the weighted log-sum-exp over
 components becomes a ``pmax`` of the shard maxima and a ``psum`` of the
 shifted sums, and the LOO entropy adds a ``psum`` over ``chains`` of the
 per-query terms (SURVEY §5: the only places the framework needs
-communication).  Every rank passes the same full inputs and works on its
-own query and component rows, on the device of the first input (a CUDA
-tensor stays on the card whatever the backend; NumPy input goes to
-``config.DEVICE``, the card by default).  An axis the mesh lacks counts
-as size 1; the row counts must divide the axes (pad with zero-weight
-components), except in :func:`ksize_bandwidths_sharded`, which pads.
+communication); the LOOCV search shifts its sums by each query's nearest
+live neighbour instead, one ``pmin`` a search.  Every rank passes the same
+full inputs and works on its own query and component rows, on the device
+of the first input (a CUDA tensor stays on the card whatever the backend;
+NumPy input goes to ``config.DEVICE``, the card by default).  An axis the
+mesh lacks counts as size 1; the row counts must divide the axes (pad with
+zero-weight components), except in :func:`ksize_bandwidths_sharded`,
+which pads.
 """
 
 from __future__ import annotations
@@ -22,10 +24,10 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import config
-from ..ops import kernels
+from ..ops import kernels, sharded_loo
 from ..ops.kernels import LOG_2PI, pairwise_quad
-from ..ops.loocv import _golden_core, _slices_on, bracket_rows
-from .collectives import gather_rows, pmax, psum
+from ..ops.loocv import _slices_on, bracket_rows
+from .collectives import gather_rows, pmax, pmin, psum
 from .mesh import CHAINS, KERNELS, axis_index, axis_size
 
 
@@ -110,10 +112,14 @@ def ksize_bandwidths_sharded(mesh: DeviceMesh, points, weights=None,
     """LOOCV bandwidth selection with each probe's per-dimension
     ``[N, N]`` LOO entropies split over the whole mesh: the golden search
     of ``ops/loocv.py`` (brackets, probes, updates) runs on every rank with
-    replicated state, and each probe's log-sum-exps and sums are
-    collectives, so every rank takes the same branch.  ``N`` is padded to
-    the mesh with zero-weight rows, which add nothing.  Same selection as
-    ``ksize_bandwidths`` up to the order of the sums.  Returns ``[d]``
+    replicated state, as ``ops/sharded_loo.py::search`` (on the card the
+    kernels K7, with no ``[N/S, N/S]`` temporary and no host read of the
+    sweep just issued).  A search issues one ``pmin`` over ``kernels``
+    (each query's nearest live neighbour, the sums' shift) and, a sweep, a
+    ``psum`` over ``kernels`` of the shifted sums and one over ``chains``
+    of the entropies, so every rank takes the same branch.  ``N`` is padded
+    to the mesh with zero-weight rows, which add nothing.  Same selection
+    as ``ksize_bandwidths`` up to the order of the sums.  Returns ``[d]``
     std-dev bandwidths on the points' device."""
     dev = config.input_device(points)
     points = torch.as_tensor(points, dtype=dtype, device=dev)
@@ -129,28 +135,9 @@ def ksize_bandwidths_sharded(mesh: DeviceMesh, points, weights=None,
     pts_p = torch.nn.functional.pad(points, (0, 0, 0, pad))
     w_p = torch.nn.functional.pad(w, (0, pad))
     qr, kr = _rows(mesh, CHAINS, n + pad), _rows(mesh, KERNELS, n + pad)
-    q, qw, m, mw = pts_p[qr], w_p[qr], pts_p[kr], w_p[kr]
-    diag = (torch.arange(qr.start, qr.stop, device=dev)[:, None]
-            == torch.arange(kr.start, kr.stop, device=dev)[None, :])
-    logw = torch.where(mw > 0, torch.log(mw.clamp_min(
-        torch.finfo(mw.dtype).tiny)), torch.full_like(mw, -math.inf))
-
-    def nloo(x):
-        scale = (x ** 2).to(q.dtype)
-        logps = []
-        for k in range(d):
-            c = scale[k] * base[k] ** 2
-            delta = q[:, k, None] - m[None, :, k]
-            logits = logw[None, :] - 0.5 * (delta * delta / c + torch.log(c))
-            logits = logits.masked_fill(diag, -math.inf)
-            lmax = pmax(logits.max(dim=1).values, mesh,
-                        KERNELS).clamp_min(-1e30)
-            ssum = psum(torch.exp(logits - lmax[:, None]).sum(dim=1), mesh,
-                        KERNELS)
-            logps.append(torch.log(ssum) + lmax - 0.5 * LOG_2PI
-                         - torch.log1p(-qw))
-        return _entropy_terms(torch.stack(logps), qw[None].expand(d, -1),
-                              mesh)
-
-    xmin, _ = _golden_core(nloo, ax, bx, cx, float(tol))
-    return xmin * base
+    return sharded_loo.search(
+        pts_p[qr], w_p[qr], pts_p[kr], w_p[kr], base, ax, bx, cx,
+        q0=qr.start, k0=kr.start, tol=float(tol),
+        pmin=lambda x: pmin(x, mesh, KERNELS),
+        psum_kernels=lambda x: psum(x, mesh, KERNELS),
+        psum_chains=lambda x: psum(x, mesh, CHAINS))

@@ -1334,6 +1334,57 @@ def test_loo_search_refuses_bad_inputs_and_a_failed_build(cuda):
     assert loo_search.LAUNCHES == before
 
 
+# sha256 of K4's picks and probe trace at each case (the bytes of xmin,
+# then of the trace), recorded on an H100 from csrc/loo_search.cu as it
+# was before its probe arithmetic moved into csrc/loo_probe.cuh: the move
+# must leave every bit where it was.
+K4_BITS = {
+    "2x1 float32":
+        "f8e475d02d53fccf2417f7a53395f913b7f0b91648412e72a1766182ca572f63",
+    "2x1 float64":
+        "903f0a82cb374375f795cfab91149596532f197ac5280f02da12c9badc307b9e",
+    "2x20000 float32":
+        "7f17e0dc43a1a1e9e28e8f8754465cacd77709a69610722e0ee26097785e2bba",
+    "2x20000 float64":
+        "a866d112c2561357579d1d440afe61c5069f87644162657d3ca9e5f84a817766",
+    "2x4096 float32":
+        "792501a54d7b853873e31d3cfca066ddb46edabb17d26aa732cbaf72cd8902cb",
+    "2x4096 float64":
+        "98fad610f37e5b1ae4d5f0220c1f34e4d27595b5dbe5310e0329283c40b934d1",
+    "3x2 float32":
+        "1afbd824bf1b4a0fead6160d2175dc4d6f999a67316ae9ddb80bfa2a6e435d58",
+    "3x2 float64":
+        "08003f14210fe21080c7b2d1ddd87878696ca1b1e3051fb37190d4b7e880fc1b",
+    "6x3 float32":
+        "681d6a3aaad2a5f0214ca8ed66233b5d08318d4973d11a0cafdb453611b8f398",
+    "6x3 float64":
+        "89cb376bf735ea39b1abd9a4eb9a46e1861a9b723c8f962f8330b8be5ebe14b4",
+    "8x1500 float32":
+        "7169afb6ee18562a0e89a55694bafbb706a621855a10b8340446f9d05970adc2",
+    "8x1500 float64":
+        "38449f89a46b0a6105e0ba9ca64ed02fba6a6802eee7aa174651f8e6e9cdd00f",
+    "zero_tail_3x500 float32":
+        "113bb8b2c28e3e455aec55288f624ab7182dffc7f7dd687724fc9f4608fd04ae",
+    "zero_tail_3x500 float64":
+        "5e63c2ae24b9313aba5077e3d093065590d2c7673f7e89338e00ebee675b2c0a",
+}
+
+
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_loo_search_bits_unchanged_by_the_probe_header(cuda, name, dtype):
+    import hashlib
+    from kde_tpu_torch.ops import loo_search
+    r, n, zero = K4_CASES[name]
+    args = _k4_case(cuda, r, n, getattr(torch, dtype), zero=zero)
+    trace = loo_search.new_trace(args[0], K4_TOL)
+    xmin = loo_search.loo_search(*args, tol=K4_TOL, trace=trace)
+    digest = hashlib.sha256(xmin.cpu().numpy().tobytes()
+                            + trace.cpu().numpy().tobytes()).hexdigest()
+    assert digest == K4_BITS[f"{name} {dtype}"], \
+        f"K4 bits {name} {dtype}: {digest}"
+
+
 def test_loo_search_takes_a_launch_a_max_rows(cuda):
     """More than MAX_ROWS rows take a launch for each MAX_ROWS of them, and
     each row's pick is the one it gets in a launch of its own rows."""
@@ -1348,3 +1399,165 @@ def test_loo_search_takes_a_launch_a_max_rows(cuda):
     assert loo_search.LAUNCHES == before + 2 and got.shape == (many,)
     alone = loo_search.loo_search(rows, w, bv, ax, bx, cx)
     assert torch.equal(got, alone.repeat(-(-many // 3))[:many])
+
+
+# ---- the sharded LOOCV search (ops/sharded_loo.py, K7) --------------------
+
+def _k7_shards(cuda, n, dtype, zero=0, seed=0):
+    """Points [n, 2] of N(0, s^2) data with non-uniform weights (a zero
+    tail of ``zero`` points, as padding), their sort bracket, and the two
+    halves of a 2 x 2 split (rows and columns at offsets n // 2)."""
+    from kde_tpu_torch.ops import loocv
+    rng = np.random.default_rng(seed + n)
+    pts = rng.normal(size=(n, 2)) * [1.0, 2.5]
+    w = rng.uniform(0.5, 1.5, size=n)
+    w[n - zero:] = 0.0
+    t = lambda x: torch.as_tensor(x / (x.sum() if x.ndim == 1 else 1.0),
+                                  dtype=dtype, device=cuda)
+    pts, w = t(pts), t(w)
+    base, ax, bx, cx = loocv.bracket_rows(pts.T.contiguous(),
+                                          *loocv._slices_on(n, cuda))
+    h = n // 2
+    return pts, w, (base, ax, bx, cx), [(0, h), (h, n)]
+
+
+def _k7_phase_pairs(pts, w, bracket, halves):
+    """Each K7 phase of sweeps 0 and 1 on the card and on its twin, from
+    the same inputs, over the 2 x 2 split composed by hand: pairs of
+    (name, kernel output, twin output, dense rows)."""
+    from kde_tpu_torch.ops import sharded_loo as sl
+    base, ax, bx, cx = bracket
+    out = []
+    staged = []
+    for a, b in halves:
+        got = sl.stage(pts[a:b], w[a:b], ax, bx, cx)
+        want = sl.stage_ref(pts[a:b], w[a:b], ax, bx, cx)
+        for k in range(2):
+            out.append((f"stage {a} {k}", got[k], want[k]))
+        rows = [sl.X0, sl.X1, sl.X2, sl.X3, sl.PR0, sl.PR1]
+        out.append((f"stage {a} st", got[2][rows], want[2][rows]))
+        out.append((f"stage {a} fl", got[3], want[3]))
+        staged.append(got)
+    st, fl = staged[0][2].clone(), staged[0][3].clone()
+    xmin = torch.empty(2, dtype=pts.dtype, device=pts.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=pts.device)
+    for sweep in (0, 1):
+        ent = 0
+        for qa, qb in halves:
+            q, qw = pts[qa:qb], w[qa:qb]
+            shifts = []
+            for (xs, wp, _, _), (ka, _) in zip(staged, halves):
+                got = sl.nn_shift(q, xs, wp, qa, ka)
+                want = sl.nn_shift_ref(q, xs, wp, qa, ka)
+                out.append((f"nn_shift {qa} {ka}", got, want))
+                shifts.append(got)
+            shift = torch.minimum(*shifts)
+            sums = 0
+            for (xs, wp, _, _), (ka, _) in zip(staged, halves):
+                args = (q, xs, wp, shift, base, st, fl, sweep, qa, ka)
+                got = sl.probe_sums(*args)
+                want = sl.probe_sums_ref(*args)
+                on = sl._searching(fl, sweep, 2)
+                out.append((f"probe_sums {sweep} {qa} {ka}", got[on],
+                            want[on]))
+                sums = sums + got
+            args = (sums, shift, qw, base, st, fl, sweep)
+            got = sl.probe_entropy(*args)
+            out.append((f"probe_entropy {sweep} {qa}", got,
+                        sl.probe_entropy_ref(*args)))
+            ent = ent + got
+        st2, fl2, x2, f2 = st.clone(), fl.clone(), xmin.clone(), flag.clone()
+        sl.golden_step(ent, base, st, fl, xmin, flag, sweep, K4_TOL)
+        sl.golden_step_ref(ent, base, st2, fl2, x2, f2, sweep, K4_TOL)
+        for name, g, t in (("st", st, st2), ("fl", fl, fl2),
+                           ("xmin", xmin, x2), ("flag", flag, f2)):
+            out.append((f"golden_step {sweep} {name}", g.clone(), t))
+    return out
+
+
+K7_CASES = {"2x3000": (3000, 0), "2x2333_pad": (2333, 17),
+            "2x70": (70, 3)}
+
+
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_loo_phases_match_twins(cuda, name, dtype):
+    """Every K7 phase of sweeps 0 and 1 against its twin over a 2 x 2
+    split on one card (the diagonal at the shards' offsets, several tiles,
+    ragged groups, zero-weight padding): staging, shifts and the golden
+    step bitwise; float64 sums and entropies within 1e-12 (another order
+    of the sums), float32 within 2e-5 (ex2.approx against exp2)."""
+    from kde_tpu_torch.ops import sharded_loo as sl
+    n, zero = K7_CASES[name]
+    args = _k7_shards(cuda, n, getattr(torch, dtype), zero)
+    l0 = sl.LAUNCHES
+    pairs = _k7_phase_pairs(*args)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES > l0
+    rtol = 1e-12 if dtype == "float64" else 2e-5
+    for what, got, want in pairs:
+        exact = what.split()[0] in ("stage", "nn_shift", "golden_step")
+        torch.testing.assert_close(got, want, rtol=0 if exact else rtol,
+                                   atol=0, equal_nan=True, msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ksize_sharded_on_k7_without_a_host_sync(nccl_world, cuda, dtype,
+                                                 monkeypatch):
+    """ksize_bandwidths_sharded of CUDA tensors on a one-rank NCCL mesh:
+    only K7 (no twin stage, no K4 or K1 launch), 1 + 2 sweeps all-reduces
+    issued, no host sync but the lagged flag reads (each one sweep behind
+    the sweep just issued), bitwise the same on repeat, and the picks of
+    the twin search on CPU copies (float64 within 1e-10, float32 within
+    the final bracket, 2 tol relative)."""
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import loo_search, sharded_loo as sl, tiled_eval
+    dt = getattr(torch, dtype)
+    pts, w, bracket, _ = _k7_shards(cuda, 4000, dt, zero=50)
+    mesh = par.make_mesh_2d((1, 1))
+    first = par.ksize_bandwidths_sharded(mesh, pts, w)      # warm
+    torch.cuda.synchronize()
+    reads = []
+    read = sl._read_flag
+
+    def lagged(flags, events, k):
+        reads.append(len(events) - 1 - k)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(flags, events, k)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    monkeypatch.setattr(sl, "_read_flag", lagged)
+    issued = []
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(*a, **kw):
+        issued.append(1)
+        return all_reduce(*a, **kw)
+    monkeypatch.setattr(torch.distributed, "all_reduce", counted)
+    counts = (sl.LAUNCHES, sl.TWIN_STAGES, loo_search.LAUNCHES,
+              tiled_eval.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = par.ksize_bandwidths_sharded(mesh, pts, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    sweeps = sl.LAST["sweeps"]
+    assert sl.LAUNCHES - counts[0] == 2 + 3 * sweeps
+    assert (sl.TWIN_STAGES, loo_search.LAUNCHES,
+            tiled_eval.LAUNCHES) == counts[1:]
+    assert len(issued) == 1 + 2 * sweeps
+    waits = sweeps - sl.FLAG_LAG - (sl.LAST["stop"] == "max_iters")
+    assert reads and min(reads) >= 1 and len(reads) == waits
+    assert torch.equal(got, first)
+    for _ in range(3):
+        assert torch.equal(par.ksize_bandwidths_sharded(mesh, pts, w), got)
+    wn = w / w.sum()                     # as ksize_bandwidths_sharded has it
+    on_cpu = [t.cpu() for t in (pts, wn, pts, wn, *bracket)]
+    twin = sl.search(*on_cpu, tol=K4_TOL).to(cuda)
+    rel = float(((got.double() - twin.double()).abs()
+                 / twin.double().abs()).max())
+    assert rel <= (1e-10 if dtype == "float64" else 2 * K4_TOL)

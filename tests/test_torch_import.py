@@ -134,6 +134,52 @@ def test_sharded_select_source_and_shared_header():
     assert "candidate_logit" in header.read_text()
 
 
+def test_sharded_loo_imports_and_runs_its_twins_without_nvcc():
+    """The sharded LOOCV search (K7) imports torch only, and on CPU tensors
+    ksize_bandwidths_sharded runs its twins without a toolkit: nothing
+    built, nothing launched, every phase counted as a twin's."""
+    env = dict(os.environ, PATH="", CUDA_HOME="/nonexistent")
+    code = ("import os, sys, tempfile\n"
+            "import numpy as np, torch\n"
+            "import kde_tpu_torch as kt\n"
+            "from kde_tpu_torch import parallel as par\n"
+            "from kde_tpu_torch.ops import sharded_loo as sl\n"
+            "kt.config.DEVICE = 'cpu'\n"
+            "store = os.path.join(tempfile.mkdtemp(), 'store')\n"
+            "par.initialize_multihost('file://' + store, 1, 0, "
+            "backend='gloo', timeout=60)\n"
+            "pts = np.random.default_rng(0).normal(size=(50, 2))\n"
+            "bw = par.ksize_bandwidths_sharded(par.make_mesh_2d((1, 1)), "
+            "pts)\n"
+            "torch.distributed.destroy_process_group()\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kde_tpu') or "
+            "m.startswith(('jax.', 'kde_tpu.'))]\n"
+            "print(bad, sl._lib, sl.LAUNCHES, sl.TWIN_STAGES)\n"
+            "sys.exit(1 if bad or sl._lib is not None or sl.LAUNCHES\n"
+            "         or sl.TWIN_STAGES != 2 + 3 * sl.LAST['sweeps']\n"
+            "         or bw.shape != (2,) else 0)\n")
+    res = _run(code, env=env)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sharded_loo_source_and_shared_header():
+    """K7's source, its entries and flags; it and K4 include the one header
+    that holds the probe arithmetic, which the build hash covers."""
+    from kde_tpu_torch.ops import loo_search, sharded_loo, tiled_eval
+    text = sharded_loo.SOURCE.read_text()
+    assert sharded_loo.SOURCE.parent == tiled_eval.SOURCE.parent
+    for entry in ("kde_k7_stage", "kde_k7_nn_shift", "kde_k7_probe_sums",
+                  "kde_k7_probe_entropy", "kde_k7_golden_step"):
+        assert f'extern "C" int {entry}' in text
+    assert "--fmad=false" in sharded_loo.NVCC_FLAGS
+    assert "compute_90a" in " ".join(sharded_loo.NVCC_FLAGS)
+    header = sharded_loo.SOURCE.parent / "loo_probe.cuh"
+    for src in (sharded_loo.SOURCE, loo_search.SOURCE):
+        assert '#include "loo_probe.cuh"' in src.read_text()
+        assert header.read_bytes() in tiled_eval.source_bytes(src)
+    assert "pair_term" in header.read_text()
+
+
 def test_parallel_exports_equal_jax():
     import kde_tpu.parallel
     import kde_tpu_torch.parallel

@@ -8,8 +8,9 @@ unsharded keyed calls (every rank draws the unsharded streams and keeps its
 rows), padding included.  In float64 ``sharded_log_eval`` and
 ``sharded_loo_entropy`` agree with the dense evaluation within rtol 1e-10
 (another summation order), ``ksize_bandwidths_sharded`` with
-``ksize_bandwidths`` within rtol 1e-8 (a golden search stops on a
-tolerance, so ulp-level entropy differences may move the last probe).
+``ksize_bandwidths`` and the JAX package's sharded program within rtol
+1e-8 (a golden search stops on a tolerance, so ulp-level entropy
+differences may move the last probe).
 
 Worker mode: ``python tests/test_torch_sharding.py --worker <rank> <world>
 <store> <out>`` (torch only; tests/torch_world.py)."""
@@ -48,6 +49,13 @@ def _ksize_data():
     pts = rng.normal(size=(n, d)) * [1.0, 2.5]
     w = rng.uniform(0.5, 1.5, size=n)
     return pts, w / w.sum()
+
+
+def _ksize_one_live():
+    pts, _ = _ksize_data()
+    w = np.zeros(len(pts))
+    w[7] = 1.0
+    return pts, w
 
 
 def _circ_angles():
@@ -158,10 +166,33 @@ def _worker(argv):
     config.DIRECT_PAIR_LIMIT, kernels.tiled_log_eval = 1 << 24, tiled
     res["loo"] = sharded_loo_entropy(
         c2k2, *(torch.as_tensor(x) for x in _loo_data())).numpy()
+    # the sharded LOOCV search, its collectives counted where eval.py
+    # calls them and the all-reduces they issue; "live1" weighs one point
+    # only (its query has no live neighbour, so no probe's objective is
+    # finite)
+    from kde_tpu_torch.ops import sharded_loo
+    from kde_tpu_torch.parallel import eval as par_eval
+    calls, issued = [0], [0]
+
+    def counted(fn, n=calls):
+        def wrapped(*a, **kw):
+            n[0] += 1
+            return fn(*a, **kw)
+        return wrapped
+    saved = par_eval.pmin, par_eval.psum, torch.distributed.all_reduce
+    par_eval.pmin, par_eval.psum = map(counted, saved[:2])
+    torch.distributed.all_reduce = counted(saved[2], issued)
     for name in KSIZE_MESHES:
-        pts, w = _ksize_data()
-        res[f"ksize/{name}"] = ksize_bandwidths_sharded(
-            meshes[name], pts, w, dtype=f64).numpy()
+        for case, (pts, w) in (("", _ksize_data()),
+                               ("/live1", _ksize_one_live())):
+            calls[0] = issued[0] = 0
+            res[f"ksize{case}/{name}"] = ksize_bandwidths_sharded(
+                meshes[name], pts, w, dtype=f64).numpy()
+            res[f"ksize{case}/{name}/collectives"] = np.array(calls[0])
+            res[f"ksize{case}/{name}/all_reduces"] = np.array(issued[0])
+            res[f"ksize{case}/{name}/sweeps"] = np.array(
+                sharded_loo.LAST["sweeps"])
+    par_eval.pmin, par_eval.psum, torch.distributed.all_reduce = saved
     # NumPy inputs (on config.DEVICE) against the same calls on tensors
     for name, fn, data in (("eval", sharded_log_eval, _eval_data()),
                            ("loo", sharded_loo_entropy, _loo_data()),
@@ -297,6 +328,44 @@ def test_ksize_bandwidths_sharded_matches_dense(res, mesh):
                                ksize_bandwidths(pts, w), rtol=1e-8)
     np.testing.assert_allclose(res[f"ksize/{mesh}"], jax_ksize(pts, w),
                                rtol=1e-8)
+
+
+def _jax_meshes():
+    import jax
+    from jax.sharding import Mesh
+    from kde_tpu.parallel import KERNELS, make_mesh_2d
+    return {"c2k2": make_mesh_2d((2, 2)),
+            "k4": Mesh(np.array(jax.devices()[:4]), (KERNELS,))}
+
+
+@pytest.mark.parametrize("case", ["", "/live1"])
+@pytest.mark.parametrize("mesh", KSIZE_MESHES)
+def test_ksize_bandwidths_sharded_matches_jax_sharded(res, mesh, case):
+    """The same search as the JAX package's sharded program on its own
+    CPU mesh of the same shape, within rtol 1e-8, padding and non-uniform
+    weights included; and where one point alone has weight (its query has
+    no live neighbour: no probe's objective is finite, so both searches
+    walk the same masked trajectory to the same pick)."""
+    from kde_tpu.parallel import ksize_bandwidths_sharded
+    pts, w = _ksize_one_live() if case else _ksize_data()
+    want = np.asarray(ksize_bandwidths_sharded(_jax_meshes()[mesh], pts, w))
+    np.testing.assert_allclose(res[f"ksize{case}/{mesh}"], want, rtol=1e-8)
+
+
+@pytest.mark.parametrize("case", ["", "/live1"])
+@pytest.mark.parametrize("mesh", KSIZE_MESHES)
+def test_ksize_sharded_collectives_a_sweep(res, mesh, case):
+    """One pmin a search and two collectives a sweep (the kernels psum of
+    the sums, the chains psum of the entropies), counted where they are
+    called; each issues one all-reduce, but over the chains axis of the
+    kernels-only mesh, which it lacks; the search stops one sweep after
+    its last active one."""
+    sweeps = int(res[f"ksize{case}/{mesh}/sweeps"])
+    assert sweeps >= 3
+    assert int(res[f"ksize{case}/{mesh}/collectives"]) == 1 + 2 * sweeps
+    chains = mesh != "k4"
+    assert int(res[f"ksize{case}/{mesh}/all_reduces"]) == (
+        1 + sweeps + chains * sweeps)
 
 
 @pytest.mark.parametrize("name", ["eval", "loo", "ksize"])
