@@ -70,11 +70,15 @@ Phases, one line of findings each:
      every phase's outputs and the winner's stats, the shards of S = 1
      slices and S = 2 halves composed on one rank, float32 and float64,
      d = 1, 2, 3, circular and SE(2), dead rows, shards holding only
-     padding, a partial mask, dn = 3, the warp/block switch; the global
-     index equal but for float64 CDF ties within 1e-12 of u (listed);
-     each phase of the leaf stages of phase 11a's replay (256 chains over
-     2 x 50,000) and of the full-width case's (2 x 1,000,000) timed beside
-     its twin, their sum beside k6_bound_ms;
+     padding, a partial mask, dn = 3, uniform bandwidths (every dim, one
+     dim, one shard's half), widths 1 and at the plan's chunk boundaries
+     (k6_chunk_widths); the global index equal but for float64 CDF ties
+     within 1e-12 of u (listed); each phase of the leaf stages of phase
+     11a's replay (256 chains over 2 x 50,000) and of the full-width
+     case's (2 x 1,000,000), with varied and with uniform bandwidths,
+     timed with its wrapper (prepare, once a stage, among them) and as a
+     bare kernel call (k6_raw_calls) beside its twin, their sum beside
+     k6_bound_ms;
  3h. the sharded LOOCV search's kernels sharded_loo (K7,
      csrc/sharded_loo.cu) against their plain twins (phase_sharded_loo)
      at phase 11a's search (N_KSIZE points in 2-D) and the full-width one
@@ -217,6 +221,12 @@ k3_parent_ab).
 
 holds K4 against the K4 of the checkout in DIR, bitwise, and times the
 sharded LOOCV search against DIR's along N (see k7_parent_ab).
+
+    python3 chip_smoke.py --k6-parent DIR
+
+holds K2 bitwise against the K2 of the checkout in DIR at phase 3d's
+cases, and times K6 against DIR's at the timed stages of phase 3g and the
+full-width replay against DIR's engine, in turns (see k6_parent_ab).
 
     python3 chip_smoke.py --k6-trace TAG [DIR]
 
@@ -959,16 +969,11 @@ def _k2_dead_rows(args, codes):
                     < thr.to(mu.device)).sum()) for j in js)
 
 
-def phase_gibbs_select(dev):
-    """Phase 3d: the Gibbs selection kernel against its plain twin at the
-    slice's shapes and at the edges of its layouts; the leaf stages timed
-    (one call, 20 back-to-back) beside the twin, the bound and, for scale
-    only, torch.multinomial over precomputed probabilities.  Returns the
-    rows printed."""
+def k2_cases(gibbs_select):
+    """Phase 3d's cases for ``gibbs_select`` (a module, whose layout
+    constants set the edge widths): name -> (b, c, dn, w, d, js, dtype,
+    cov, codes, mode, extras)."""
     import torch
-    from kde_tpu_torch.ops import gibbs_select
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock = _sm_clock_hz()
     f32, f64 = torch.float32, torch.float64
     n = N_SLICE
     # name: (b, c, dn, w, d, js, dtype, cov, codes, mode, extras)
@@ -1012,6 +1017,20 @@ def phase_gibbs_select(dev):
         for w in (edge, edge + 1):
             cases[f"w={w} {str(dt)[-7:]} cache edge"] = (
                 1, 64, 2, w, 2, (0, 1), dt, False, (0, 0), "cdf", {})
+    return cases
+
+
+def phase_gibbs_select(dev):
+    """Phase 3d: the Gibbs selection kernel against its plain twin at the
+    slice's shapes and at the edges of its layouts; the leaf stages timed
+    (one call, 20 back-to-back) beside the twin, the bound and, for scale
+    only, torch.multinomial over precomputed probabilities.  Returns the
+    rows printed."""
+    import torch
+    from kde_tpu_torch.ops import gibbs_select
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    cases = k2_cases(gibbs_select)
     rows = {}
     for i, (name, (b, c, dn, w, d, js, dt, cov, codes, mode, ex)) in \
             enumerate(cases.items()):
@@ -1907,7 +1926,7 @@ def phase_sharded_loo(dev, cases=None):
 
 
 def k6_inputs(seed, dev, dtype, c, w, d, js, cov, codes, n_shards, dn=2,
-              pad=0, dead=0, mixed=False):
+              pad=0, dead=0, mixed=False, uniform=None):
     """One selection of the kernel-sharded engine at one level, its
     ``w`` candidates of ``dn`` densities in ``d`` dims split over
     ``n_shards`` shards as ``_KShardPlan`` splits them (padded to a
@@ -1918,9 +1937,12 @@ def k6_inputs(seed, dev, dtype, c, w, d, js, cov, codes, n_shards, dn=2,
     None; ``pad`` padded candidates at the end of the last density's
     level (more than w / 2 leave its last half-shard only padding),
     ``dead`` chains at 10^3 on the Euclidean dims, ``mixed``: density
-    1's first dim inactive.  Returns a dict: ``rows`` (``sharded_select.
-    Rows`` a shard), ``stats`` and ``real`` a shard, ``u [c, |js|]``,
-    ``js``, ``n_shards``."""
+    1's first dim inactive; ``uniform``: "all" gives every candidate of a
+    density its first candidate's bandwidth, "half" only those of the
+    first shard's slice (at S = 2 a level uniform on shard 0 and not on
+    shard 1), "dim0" only in dim 0 (the same draws either way).  Returns a
+    dict: ``rows`` (``sharded_select.Rows`` a shard), ``stats`` and
+    ``real`` a shard, ``u [c, |js|]``, ``js``, ``n_shards``."""
     import torch
     from kde_tpu_torch.ops import gibbs_select, sharded_select as ss
     rng = np.random.default_rng(seed)
@@ -1929,6 +1951,13 @@ def k6_inputs(seed, dev, dtype, c, w, d, js, cov, codes, n_shards, dn=2,
     mean[..., circ] = rng.uniform(-np.pi, np.pi, size=(dn, w, circ.sum()))
     h2 = (1.06 * max(w, 2) ** -0.2) ** 2
     bw = h2 * rng.uniform(0.5, 1.5, size=(dn, w, d))
+    w_loc = -(-w // n_shards)
+    if uniform == "all":
+        bw[:] = bw[:, :1]
+    elif uniform == "half":
+        bw[:, :w_loc] = bw[:, :1]
+    elif uniform == "dim0":
+        bw[..., 0] = bw[:, :1, 0]
     wt = rng.uniform(0.5, 1.5, size=(dn, w))
     logw = np.log(wt / wt.sum(axis=-1, keepdims=True))
     if pad:
@@ -1941,7 +1970,6 @@ def k6_inputs(seed, dev, dtype, c, w, d, js, cov, codes, n_shards, dn=2,
     active = np.ones((dn, d), dtype=bool)
     if mixed:
         active[1, 0] = False
-    w_loc = -(-w // n_shards)
 
     def split(x, fill=None):
         tail = np.repeat(x[:, -1:], n_shards * w_loc - w, axis=1)
@@ -1980,13 +2008,16 @@ K6_MAX_TIES = 100        # ...on at most this many rows of a case
 def k6_select(inp, twin=False):
     """One kernel-sharded selection over ``inp``'s shards on one rank, the
     collectives by hand in the engine's order (max, sum and stack over
-    the shards): K6's entries, or with ``twin`` their plain twins.
-    Returns every phase's outputs (per shard where each shard has its
-    own) and the winner's stats ``sel [|js|, C, 2d+1]``."""
+    the shards): K6's entries on a stage prepared a shard
+    (``sharded_select.prepare``), or with ``twin`` their plain twins on the
+    rows.  Returns every phase's outputs (per shard where each shard has
+    its own), the winner's stats ``sel [|js|, C, 2d+1]`` and the
+    ``stages``."""
     import torch
     from kde_tpu_torch.ops import sharded_select as ss
     f = {n: getattr(ss, n + "_ref" if twin else n) for n in K6_PHASES}
-    rows, js, S = inp["rows"], inp["js"], inp["n_shards"]
+    js, S = inp["js"], inp["n_shards"]
+    rows = inp["rows"] if twin else [ss.prepare(r) for r in inp["rows"]]
     m = [f["local_max"](r) for r in rows]
     m0 = torch.stack(m).amax(dim=0)
     ssum_s = [f["shifted_sum"](r, m0) for r in rows]
@@ -2001,7 +2032,8 @@ def k6_select(inp, twin=False):
     sel = torch.stack([f["owner_stats"](inp["stats"][s], js, z, S, s)
                        for s in range(S)]).sum(dim=0)
     return dict(m=m, m0=m0, ssum=ssum_s, dead=dead, mfb=[x[1] for x in dm],
-                gmax=gmax, tots=tots, counts=counts, z=z, sel=sel)
+                gmax=gmax, tots=tots, counts=counts, z=z, sel=sel,
+                stages=rows)
 
 
 def _k6_twin_cdf(inp, got, jj, c):
@@ -2119,15 +2151,24 @@ def k6_bound_ms(inp, sms, clock_hz):
     return 1e3 * times[by], by
 
 
-def k6_phase_calls(inp, twin=False):
+def k6_phase_calls(inp, twin=False, ss=None):
     """Each phase of one shard-0 selection as a call on fixed inputs (the
-    earlier phases' outputs, from K6), for timing: name -> callable."""
+    earlier phases' outputs, from K6), for timing: name -> callable.  K6's
+    calls start with ``prepare`` (once a stage) and take its stage; the
+    twins take the rows.  ``ss``: another checkout's sharded_select module
+    (one without ``prepare`` takes the rows)."""
     import functools as ft
-    from kde_tpu_torch.ops import sharded_select as ss
+    if ss is None:
+        from kde_tpu_torch.ops import sharded_select as ss
     pre = k6_select(inp)
     f = {n: getattr(ss, n + "_ref" if twin else n) for n in K6_PHASES}
     r, s = inp["rows"][0], 0
-    return {"local_max": ft.partial(f["local_max"], r),
+    calls = {}
+    if not twin and hasattr(ss, "prepare"):
+        calls["prepare"] = ft.partial(ss.prepare, r)
+        r = ss.prepare(r)
+        f["exp_sum"](r, pre["gmax"], pre["dead"])     # count_below reads it
+    return {**calls, "local_max": ft.partial(f["local_max"], r),
             "shifted_sum": ft.partial(f["shifted_sum"], r, pre["m0"]),
             "dead_max": ft.partial(f["dead_max"], pre["m0"],
                                    sum(pre["ssum"]), pre["m"][s],
@@ -2140,13 +2181,95 @@ def k6_phase_calls(inp, twin=False):
                                       s)}
 
 
+def k6_raw_calls(inp):
+    """The bare kernel calls of the same phases as k6_phase_calls (K6's),
+    without the wrappers' checks, allocations and packing: the row phases
+    through ``Stage.launch`` into outputs made beforehand, dead_max and
+    owner_stats through their ctypes entries with every argument
+    precomputed.  name -> callable."""
+    import torch
+    from kde_tpu_torch.ops import sharded_select as ss
+    pre = k6_select(inp)
+    st = ss.prepare(inp["rows"][0])
+    g, dd = pre["gmax"], pre["dead"]
+    ss.exp_sum(st, g, dd)
+    lib = ss._load()
+    dev = st.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    outs = {n: st.out(t) for n, t in (("m", st.dtype), ("s", st.dtype),
+                                      ("e", torch.float64),
+                                      ("z", torch.int64))}
+    m0, m, real = pre["m0"], pre["m"][0], inp["real"][0]
+    ssum = sum(pre["ssum"])
+    dead, mfb = torch.empty_like(dd), torch.empty_like(m)
+    dm = (m.element_size(), m0.data_ptr(), ssum.data_ptr(), m.data_ptr(),
+          real.data_ptr(), m.shape[0], m.shape[1], ss.LOG_DEAD,
+          dead.data_ptr(), mfb.data_ptr(), stream)
+    stats, js, z, S = inp["stats"][0], inp["js"], pre["z"], inp["n_shards"]
+    sel = torch.empty(tuple(z.shape) + (stats.shape[2],),
+                      dtype=torch.float64, device=dev)
+    os_ = (z.data_ptr(), stats.data_ptr(), stats.stride(0), js[0], len(js),
+           z.shape[1], stats.shape[0], stats.shape[1], stats.shape[2], S, 0,
+           sel.data_ptr(), stream)
+    return {"local_max": lambda: st.launch(0, outs["m"]),
+            "shifted_sum": lambda: st.launch(1, outs["s"], m0=m0),
+            "dead_max": lambda: lib.kde_k6_dead_max(*dm),
+            "exp_sum": lambda: st.launch(2, outs["e"], gmax=g, dead=dd),
+            "count_below": lambda: st.launch(
+                3, outs["z"], gmax=g, dead=dd, tots=pre["tots"], sid=0,
+                u=inp["u"]),
+            "owner_stats": lambda: lib.kde_k6_owner_stats(*os_)}
+
+
+def k6_plan(inp):
+    """``sharded_select.plan`` of shard 0's rows on this card, as a dict
+    with its block count."""
+    import torch
+    from kde_tpu_torch.ops import sharded_select as ss
+    r = inp["rows"][0]
+    dn, w, d = r.mean.shape
+    sms = torch.cuda.get_device_properties(r.mean.device).multi_processor_count
+    p = ss.plan(r.mu.shape[0], len(inp["js"]), w, d, r.mean.element_size(),
+                sms)
+    return dict(p._asdict(), blocks=p.blocks)
+
+
+def k6_chunk_widths(c, n_js, d, itemsize, sms):
+    """Widths at the chunk boundaries of ``sharded_select.plan`` for ``c``
+    chains over ``n_js`` densities: one chunk of one ring slot less a
+    candidate, one exact, and two chunks with a last of one candidate; and
+    the plan's full chunk count n of one slot each (n slots less one, n
+    exact, n - 1 slots and one).  Each width's plan is checked to cut
+    there.  Returns name -> w (the names do not depend on the card)."""
+    from kde_tpu_torch.ops import sharded_select as ss
+    pl = ss.plan(c, n_js, 1 << 24, d, itemsize, sms)
+    slot = pl.slot
+    n = pl.chunks
+    widths = {"chunk-1": slot - 1, "chunk": slot, "chunk+1": slot + 1,
+              "n chunks-1": n * slot - 1, "n chunks": n * slot,
+              "n chunks, last 1": (n - 1) * slot + 1}
+    want = {"chunk-1": (1, slot - 1), "chunk": (1, slot),
+            "chunk+1": (2, 1), "n chunks-1": (n, slot - 1),
+            "n chunks": (n, slot), "n chunks, last 1": (n, 1)}
+    for name, w in widths.items():
+        p = ss.plan(c, n_js, w, d, itemsize, sms)
+        got = (p.chunks, w - (p.chunks - 1) * p.chunk)
+        if p.chunk != slot or got != want[name]:
+            raise AssertionError(f"k6_chunk_widths ({name}): w = {w} plans "
+                                 f"{p}, want (chunks, last) {want[name]}")
+    return widths
+
+
 # phase 3g: name -> (chains, w, d, js, dtype, cov, codes, shards, extras);
 # the timed cases are S = 1 slices at phase 11a's leaf (256 chains over
-# 2 x 50,000) and at the full-width case's (2 x 1,000,000)
-K6_TIMED = ("leaf cond", "leaf sweep", "1M leaf sweep")
+# 2 x 50,000) and at the full-width case's (2 x 1,000,000), with the
+# bandwidths of k6_inputs (varied) and, as a fitted density's leaves have
+# them, uniform
+K6_TIMED = ("leaf cond", "leaf sweep", "1M leaf sweep", "leaf sweep uniform",
+            "1M leaf sweep uniform")
 
 
-def k6_cases(n_leaf=N_SERVE, n_big=1_000_000, chains=SERVE_CHAINS):
+def k6_cases(n_leaf=N_SERVE, n_big=1_000_000, chains=SERVE_CHAINS, sms=132):
     import torch
     f32, f64 = torch.float32, torch.float64
     cases = {
@@ -2178,6 +2301,32 @@ def k6_cases(n_leaf=N_SERVE, n_big=1_000_000, chains=SERVE_CHAINS):
                 128, 300, d, (0, 1), dt, d % 2 == 0, (0,) * d, 2, {})
     for w, S in ((1024, 1), (1025, 1), (2049, 2)):   # the warp/block switch
         cases[f"w={w} S={S}"] = (64, w, 2, (0,), f32, True, (0, 0), S, {})
+    uni = dict(uniform="all")
+    cases.update({
+        "leaf sweep uniform": (chains, n_leaf, 2, (1,), f32, True, (0, 0), 1,
+                               uni),
+        "1M leaf sweep uniform": (chains, n_big, 2, (0,), f32, True, (0, 0),
+                                  1, uni),
+        "leaf cond uniform S=2": (chains, n_leaf, 2, (0, 1), f32, False,
+                                  (0, 0), 2, uni),
+        "half uniform S=2": (512, 4000, 2, (0, 1), f32, True, (0, 0), 2,
+                             dict(uniform="half")),
+        "dim0 uniform f64 S=2": (256, 3000, 2, (1,), f64, False, (0, 0), 2,
+                                 dict(uniform="dim0", dead=5)),
+        "se2 uniform S=1": (512, 4000, 3, (0, 1), f32, True, (0, 0, 1), 1,
+                            uni),
+        "dead pad uniform S=2": (512, 1000, 2, (0, 1), f32, True, (0, 0), 2,
+                                 dict(pad=700, dead=5, uniform="all")),
+        "d=5 uniform f64 S=2": (128, 700, 5, (0, 1), f64, True, (0,) * 5, 2,
+                                dict(uniform="dim0")),
+        "w=1 S=1": (chains, 1, 2, (0, 1), f32, True, (0, 0), 1, {}),
+    })
+    # the chunk boundaries of the plan, float32 and float64, S = 1
+    for dt, item in ((f32, 4), (f64, 8)):
+        for name, w in k6_chunk_widths(chains, 1, 2, item, sms).items():
+            cases[f"w={w} ({name}) {str(dt)[-7:]}"] = (
+                chains, w, 2, (1,), dt, True, (0, 0), 1,
+                dict(uniform="all") if item == 8 else {})
     return cases
 
 
@@ -2194,7 +2343,7 @@ def phase_sharded_select(dev, cases=None):
     clock = _sm_clock_hz()
     rows = {}
     for i, (name, (c, w, d, js, dt, cov, codes, S, ex)) in \
-            enumerate((cases or k6_cases()).items()):
+            enumerate((cases or k6_cases(sms=sms)).items()):
         inp = k6_inputs(SEED + 60 + i, dev, dt, c, w, d, js, cov, codes, S,
                         **ex)
         with _uncounted():
@@ -2206,9 +2355,13 @@ def phase_sharded_select(dev, cases=None):
                 calls = k6_phase_calls(inp)
                 twins = k6_phase_calls(inp, twin=True)
                 row["phase_ms"] = {n: _cuda_ms(fn) for n, fn in calls.items()}
+                row["phase_raw_ms"] = {n: _cuda_ms(fn) for n, fn in
+                                       k6_raw_calls(inp).items()}
                 row["phase_plain_ms"] = {n: _cuda_ms(fn, reps=2)
                                          for n, fn in twins.items()}
+            row["plan"] = k6_plan(inp)
             row["ms"] = sum(row["phase_ms"].values())
+            row["raw_ms"] = sum(row["phase_raw_ms"].values())
             row["plain_ms"] = sum(row["phase_plain_ms"].values())
             row["bound_ms"], row["bound_by"] = k6_bound_ms(inp, sms, clock)
             row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -3115,7 +3268,7 @@ def _k6_shadow_ties(call):
         choose = saved(mesh, d, route)
 
         def checked(stage, lvl):
-            mean, bw, logw, stats, real = lvl
+            mean, bw, logw, stats, real, _ = lvl
             js = tuple(stage.js)
             rows = ss.Rows(mean[0], bw[0], logw[0], js, stage.mu[0],
                            None if stage.cov is None else stage.cov[0],
@@ -4326,6 +4479,20 @@ def k3_parent_ab(parent):
     print(_card())
 
 
+def _parent_module(parent, pkg, name):
+    """``parent``'s ``kde_tpu_torch/<pkg>/<name>.py`` loaded as a module of
+    this package (``kde_tpu_torch.<pkg>._<name>_parent``), so that its
+    relative imports resolve here and its build reads the parent's
+    ``csrc/``."""
+    path = os.path.join(os.path.abspath(parent), "kde_tpu_torch", pkg,
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        f"kde_tpu_torch.{pkg}._{name}_parent", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 K7_PARENT_NS = (N_KSIZE, 50_000, K7_BIG_N)   # --k7-parent's searches
 
 
@@ -4377,15 +4544,8 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
     from kde_tpu_torch import parallel as par
     from kde_tpu_torch.ops import loo_search
     dev = dev or torch.device("cuda")
-    mods = {}
-    for name, rel in (("loo_search", ("ops", "loo_search.py")),
-                      ("eval", ("parallel", "eval.py"))):
-        path = os.path.join(os.path.abspath(parent), "kde_tpu_torch", *rel)
-        pkg = "ops" if rel[0] == "ops" else "parallel"
-        spec = importlib.util.spec_from_file_location(
-            f"kde_tpu_torch.{pkg}._{name}_parent", path)
-        mods[name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mods[name])
+    mods = {"loo_search": _parent_module(parent, "ops", "loo_search"),
+            "eval": _parent_module(parent, "parallel", "eval")}
     sides = {"parent": mods["loo_search"], "change": loo_search}
     for name, (r, n, dtype, data) in (k4_cases or K4_CASES).items():
         args, impl, _ = k4_inputs(r, n, dtype, data, dev)
@@ -4439,6 +4599,144 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
     finally:
         dist.destroy_process_group()
     print(_card() if dev.type == "cuda" else "cpu")
+
+
+K6_PARENT_ROUNDS = 2         # parent, change, change, parent: twice
+
+
+def k6_parent_ab(parent, dev=None, k2_names=None, k6_cases_=None,
+                 n_big=K6_BIG_N, chains=SERVE_CHAINS):
+    """This checkout against ``parent`` (another checkout, e.g. an unpacked
+    ``git archive``) on this card.  (1) K2: ``parent``'s
+    ``ops/gibbs_select.py``, loaded as a module of this package so that it
+    builds the parent's ``csrc/gibbs_select.cu`` with the parent's
+    ``csrc/gibbs_logit.cuh``, against this checkout's on phase 3d's cases
+    (``k2_names`` of them, default all) with phase 3d's inputs: labels and
+    gathered stats bitwise equal, each side's digest printed.  (2) K6:
+    ``parent``'s ``ops/sharded_select.py`` against this checkout's at
+    phase 3g's timed stages (k6_inputs at 3g's seeds), one selection's
+    phases summed (this checkout's with its prepare), in turns (parent,
+    change, change, parent, K6_PARENT_ROUNDS times).  (3) The full-width
+    replay (``chains`` chains over 2 x ``n_big``, float32, 2-D, S = 1 in a
+    one-rank NCCL world, as phase 11a's _k6_full_width): ``parent``'s
+    ``parallel/gibbs_kernel_sharded.py`` on the parent's K6 against this
+    checkout's engine, in turns: host ms of one call ending in a sync, the
+    allocator's peak over it, the chains whose labels differ."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import gibbs_select, sharded_select
+    dev = dev or torch.device("cuda")
+    card = dev.type == "cuda"
+    sync = _sync if card else (lambda: None)
+    k2p = _parent_module(parent, "ops", "gibbs_select")
+    k6p = _parent_module(parent, "ops", "sharded_select")
+    gksp = _parent_module(parent, "parallel", "gibbs_kernel_sharded")
+    gksp._ss = k6p
+
+    # (1) K2 bitwise
+    sides = {"parent": k2p, "change": gibbs_select}
+    cases = k2_cases(gibbs_select)
+    for i, (name, (b, c, dn, w, d, js, dt, cov, codes, mode, ex)) in \
+            enumerate(cases.items()):
+        if k2_names is not None and name not in k2_names:
+            continue
+        args, codes, kw = k2_inputs(SEED + 20 + i, dev, b, c, dn, w, d, js,
+                                    dt, cov, codes, mode, **ex)
+        got = {side: mod.gibbs_select(*args, codes, **kw)
+               for side, mod in sides.items()}
+        sync()
+        same = all(torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(b_) if b_.is_floating_point() else b_)
+                   for a, b_ in zip(got["parent"], got["change"]))
+        digest = {side: hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
+                  for side, out in got.items()}
+        print(f"k6 parent ab, K2 ({name}): "
+              f"{json.dumps(dict(bitwise_equal=same, sha256=digest))}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"K2 ({name}): the shared header's change "
+                                 "moved its outputs")
+        del args, kw, got
+    if card:
+        print("k6 parent ab, K2 builds: " + json.dumps(
+            {"parent": os.path.basename(str(k2p.build())),
+             "change": os.path.basename(str(gibbs_select.build()))}),
+            flush=True)
+
+    # (2) K6's phases at the timed stages, in turns
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    all_cases = k6_cases(sms=sms)
+    timed = k6_cases_ or {n: all_cases[n] for n in K6_TIMED}
+    k6_seed = {n: SEED + 60 + i for i, n in enumerate(all_cases)}
+    clock = _sm_clock_hz()
+    for name, (c, w, d, js, dt, cov, codes, S, ex) in timed.items():
+        inp = k6_inputs(k6_seed.get(name, SEED + 60), dev, dt, c, w, d, js,
+                        cov, codes, S, **ex)
+        with _uncounted():
+            calls = {"parent": k6_phase_calls(inp, ss=k6p),
+                     "change": k6_phase_calls(inp)}
+            row = {"name": name, "parent_ms": [], "change_ms": []}
+            for _ in range(K6_PARENT_ROUNDS):
+                for side in ("parent", "change", "change", "parent"):
+                    row[f"{side}_ms"].append(sum(
+                        _cuda_ms(fn) for fn in calls[side].values()))
+        row["bound_ms"], row["bound_by"] = k6_bound_ms(inp, sms, clock)
+        for side in ("parent", "change"):
+            row[f"{side}_bound_share"] = row["bound_ms"] / float(
+                np.median(row[f"{side}_ms"]))
+        print(f"k6 parent ab, K6 ({name}): {json.dumps(row)}", flush=True)
+        del inp, calls
+
+    # (3) the full-width replay, parent's engine against this one
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl" if card else "gloo",
+                             timeout=WORKER_TIMEOUT)
+    try:
+        mesh = par.make_mesh_2d((1, 1))
+        rng = np.random.default_rng(SEED + 16)
+        bw = [float(1.06 * n_big ** -0.2)]
+        dens = [kt.kde((rng.normal(size=(2, n_big)) + s).astype(np.float32),
+                       bw, device=dev, dtype=torch.float32)
+                for s in (0.0, 0.5)]
+        ru, rn = _replay_streams(np.random.default_rng(SEED + 17), chains,
+                                 dens, 5)
+        engines = {"parent": gksp.prod_appx_ms_gibbs_kernel_sharded,
+                   "change": par.prod_appx_ms_gibbs_kernel_sharded}
+        call = {side: functools.partial(fn, mesh, chains, dens, n_iter=5,
+                                        rand_u=ru, rand_n=rn,
+                                        record_labels=True)
+                for side, fn in engines.items()}
+        row, labels = {"n": n_big, "chains": chains}, {}
+        for side in ("parent", "change"):            # plans, communicator
+            labels[side] = call[side]()[2]
+        sync()
+        for _ in range(K6_PARENT_ROUNDS):
+            for side in ("parent", "change", "change", "parent"):
+                base = torch.cuda.memory_allocated(dev) if card else 0
+                if card:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                sync()
+                t0 = time.perf_counter()
+                out = call[side]()
+                sync()
+                row.setdefault(f"{side}_ms", []).append(
+                    1e3 * (time.perf_counter() - t0))
+                row.setdefault(f"{side}_peak_bytes", []).append(
+                    torch.cuda.max_memory_allocated(dev) - base if card
+                    else None)
+                labels[side] = out[2]
+                del out
+        row["differing_chains"] = int((labels["parent"] != labels["change"])
+                                      .any(dim=2).any(dim=1).sum())
+        print(f"k6 parent ab, full-width replay 2 x {n_big}: "
+              f"{json.dumps(row)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(_card() if card else "cpu")
 
 
 def _merged_us(spans):
@@ -4537,7 +4835,8 @@ def k6_trace(tag="tree", seed=SEED, out_dir="k6_traces", n=N_SERVE,
     gks._sharded_choose = counted_choose(saved["_sharded_choose"])
     try:                                 # the parent of K6 has no wrappers
         from kde_tpu_torch.ops import sharded_select as ss
-        saved_k6 = {k: getattr(ss, k) for k in K6_PHASES}
+        saved_k6 = {k: getattr(ss, k) for k in K6_PHASES + ("prepare",)
+                    if hasattr(ss, k)}
     except ImportError:
         ss, saved_k6 = None, {}
     for k, fn in saved_k6.items():
@@ -4960,8 +5259,12 @@ def main():
         "ms": sweep["ms"], "plain_ms": sweep["plain_ms"],
         "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
         "bound_share": sweep["bound_share"], "library_ms": None,
+        "design": "redesigned: row tiles x candidate chunks staged in shared "
+                  "memory by cp.async, log c once a row on uniform levels, "
+                  "count_below from per-chunk sums; prepared once a stage",
         **{f"{k}_{name}": k6_rows[name][k] for name in K6_TIMED
-           for k in ("ms", "plain_ms", "bound_ms", "bound_share")}}, {
+           for k in ("ms", "raw_ms", "plain_ms", "bound_ms",
+                     "bound_share")}}, {
         "name": "sharded_loo", "route": "cuda",
         "source": "kde_tpu_torch/csrc/sharded_loo.cu",
         "replaces": "kde_tpu/parallel/eval.py:151-191 (the probe of "
@@ -5007,6 +5310,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k7-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k7_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k6-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k6_parent_ab(sys.argv[2])
     elif sys.argv[1:2] == ["--k3-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_diag()

@@ -11,7 +11,9 @@
 //
 // (a NaN pd gives 0), then logw - 0.5 * sum pd (a NaN logit -inf).  Built
 // with --fmad=false, CUDA's logf/log and IEEE division, so the logits are
-// bitwise the twin's.
+// bitwise the twin's.  K2 issues candidate_logit; K6 issues row_logit, the
+// same value from a row's constants (log c once a row where the level's
+// bandwidth is uniform in a dim).
 
 #pragma once
 
@@ -53,6 +55,75 @@ __device__ __forceinline__ T candidate_logit(
     const T sq = dl * dl;
     const T quad = sq / cc;
     T pd = quad + lg(cc);
+    if (isnan(pd)) pd = (T)0;
+    acc = acc + pd;
+  }
+  const T half = (T)0.5 * acc;
+  T l = logw - half;
+  if (isnan(l)) l = neg_inf<T>();
+  return l;
+}
+
+// A row's constants for row_logit: per dim k its flags f (candidate_logit's
+// bits 0 and 1, and bit 2: every candidate of the level has the same
+// bandwidth in k), mu_k, cov_k (0 without cov) and, on uniform dims, c_k =
+// bw_k (+ cov_k) of that one bandwidth and lc_k = lg(c_k).  In registers
+// for a d known at compile time (D > 0); in shared memory otherwise.
+template <typename T, int D>
+struct RowQ {
+  T x[D], q[D], c[D], lc[D];
+  unsigned char f[D];
+  __device__ __forceinline__ int dims() const { return D; }
+  __device__ __forceinline__ T X(int k) const { return x[k]; }
+  __device__ __forceinline__ T Q(int k) const { return q[k]; }
+  __device__ __forceinline__ T C(int k) const { return c[k]; }
+  __device__ __forceinline__ T LC(int k) const { return lc[k]; }
+  __device__ __forceinline__ unsigned char F(int k) const { return f[k]; }
+};
+template <typename T>
+struct RowQ<T, 0> {
+  const T *x, *q, *c, *lc;
+  const unsigned char* f;
+  int d;
+  __device__ __forceinline__ int dims() const { return d; }
+  __device__ __forceinline__ T X(int k) const { return x[k]; }
+  __device__ __forceinline__ T Q(int k) const { return q[k]; }
+  __device__ __forceinline__ T C(int k) const { return c[k]; }
+  __device__ __forceinline__ T LC(int k) const { return lc[k]; }
+  __device__ __forceinline__ unsigned char F(int k) const { return f[k]; }
+};
+
+// candidate_logit against a row's constants r: the same operations in the
+// same order, but on a uniform dim c and log c are the row's, the very
+// values candidate_logit computes for every candidate there, so the logit
+// is bitwise candidate_logit's; s is read only on the other dims.
+template <typename T, int D>
+__device__ __forceinline__ T row_logit(const RowQ<T, D>& r, const T* m,
+                                       const T* s, T logw, bool has_cov,
+                                       T two_pi, T inv_two_pi) {
+  T acc = (T)0;
+#pragma unroll
+  for (int k = 0; k < r.dims(); ++k) {
+    const unsigned char f = r.F(k);
+    if (!(f & 1)) continue;
+    T cc, lc;
+    if (f & 4) {
+      cc = r.C(k);
+      lc = r.LC(k);
+    } else {
+      cc = s[k];
+      if (has_cov) cc = cc + r.Q(k);
+      lc = lg(cc);
+    }
+    T dl = m[k] - r.X(k);
+    if (f & 2) {
+      const T q = dl * inv_two_pi;
+      const T rr = two_pi * rnd(q);
+      dl = dl - rr;
+    }
+    const T sq = dl * dl;
+    const T quad = sq / cc;
+    T pd = quad + lc;
     if (isnan(pd)) pd = (T)0;
     acc = acc + pd;
   }

@@ -60,8 +60,11 @@ class _KShardPlan:
     the winner's ``psum``).  Level ``l`` is the local slice
     ``offsets[l-1]``, at the same offset on every rank; ``lvl_real [L,
     dn]`` says whether the shard holds a real (not padded) candidate of
-    each density at each level.  The roots' ``t_mean``/``t_bw`` ``[1, dn,
-    1, d]`` are replicated."""
+    each density at each level, and ``lvl_uniform [L, dn, d]`` whether
+    every candidate of the shard's slice of a level has the same bandwidth
+    in a dim (``sharded_select.uniform_dims``, taken once here: K6 then
+    takes ``log c`` once a row there).  The roots' ``t_mean``/``t_bw``
+    ``[1, dn, 1, d]`` are replicated."""
 
     def __init__(self, densities: Sequence[KDE], n_out: int, dtype,
                  n_shards: int, shard: int, device):
@@ -113,17 +116,20 @@ class _KShardPlan:
              torch.as_tensor(perm, dtype=torch.float64,
                              device=device)[None, ..., None]], dim=-1)
         self.lvl_real = torch.as_tensor(real, device=device)
+        self.lvl_uniform = torch.stack([_ss.uniform_dims(
+            self.lvl_bw[0, :, o:o + w]) for o, w in self.offsets])
         # the trees' roots, [1, dn, 1, d]: ``_run_chain`` reads slot 0
         self.t_mean = dev(np.stack([t.means[:1] for t in trees]))
         self.t_bw = dev(np.stack([t.bandwidth[:1] for t in trees]))
 
     def level(self, l: int):
         """Level ``l`` (1-based): this shard's mean/bw ``[1, dn, w, d]``,
-        logw ``[1, dn, w]``, stats ``[1, dn, w, 2d+1]`` and real ``[dn]``."""
+        logw ``[1, dn, w]``, stats ``[1, dn, w, 2d+1]``, real ``[dn]`` and
+        uniform ``[dn, d]``."""
         o, w = self.offsets[l - 1]
         return (self.lvl_mean[:, :, o:o + w], self.lvl_bw[:, :, o:o + w],
                 self.lvl_logw[:, :, o:o + w], self.lvl_stats[:, :, o:o + w],
-                self.lvl_real[l - 1])
+                self.lvl_real[l - 1], self.lvl_uniform[l - 1])
 
 
 # Shard plans keyed by the densities' identity, the level count, dtype, the
@@ -186,7 +192,11 @@ def _sharded_choose(mesh: DeviceMesh, d: int, route: str):
       (5) the global index, an integer ``psum`` of the counts of CDF
           entries (offset + local cumsum) / total below u;
       (6) the winner's mean, variance and label, a ``psum`` of the owner's
-          float64 stats (zeros on the other shards), exact."""
+          float64 stats (zeros on the other shards), exact.
+
+    On the ``sharded`` route the stage's rows are checked and packed once
+    (``sharded_select.prepare``, with the level's uniform flags) before
+    the phases launch."""
     s = axis_size(mesh, KERNELS)
     sid = axis_index(mesh, KERNELS)
     f = [getattr(_ss, name if route == "sharded" else name + "_ref")
@@ -197,10 +207,12 @@ def _sharded_choose(mesh: DeviceMesh, d: int, route: str):
         if route != "sharded":
             _ss.TWIN_STAGES += 1
         js = tuple(stage.js)
-        mean, bw, logw, stats, real = lvl
+        mean, bw, logw, stats, real, uniform = lvl
         rows = _ss.Rows(mean[0], bw[0], logw[0], js, stage.mu[0],
                         None if stage.cov is None else stage.cov[0],
                         stage.active[0], stage.diffop)
+        if route == "sharded":
+            rows = _ss.prepare(rows, uniform)
         m = local_max(rows)
         m0 = pmax(m, mesh, KERNELS)
         ssum = psum(shifted_sum(rows, m0), mesh, KERNELS)
@@ -209,6 +221,7 @@ def _sharded_choose(mesh: DeviceMesh, d: int, route: str):
         tots = all_gather(exp_sum(rows, gmax, dead), mesh, KERNELS)
         z = psum(count_below(rows, gmax, dead, tots, sid, stage.u[0]), mesh,
                  KERNELS)
+        del rows           # the stage's scratch is free for the stats
         sel = psum(owner_stats(stats[0], js, z, s, sid), mesh, KERNELS)
         dt = logw.dtype
         mv, label = sel[..., :2 * d].to(dt), sel[..., 2 * d].to(torch.int64)

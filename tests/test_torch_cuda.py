@@ -1154,6 +1154,76 @@ def test_sharded_select_matches_twin(cuda, name):
         assert row["dead_rows"] > 0
 
 
+# widths of a shard's slice: one candidate, the plan's chunk boundaries
+# (chip_smoke.k6_chunk_widths, computed on the card) and the main path's
+K6_WIDTHS = ("1", "chunk-1", "chunk", "chunk+1", "n chunks-1", "n chunks",
+             "n chunks, last 1", "50k", "1M")
+K6_VARIANTS = {
+    # name: (chains, dtype, cov, codes, shards, extras)
+    "f32 uniform cov S=1": (256, "f32", True, (0, 0), 1,
+                            dict(uniform="all")),
+    "f64 varied dead S=2": (64, "f64", False, (0, 0), 2, dict(dead=5)),
+    "f32 circular half-uniform dead S=2": (256, "f32", True, (0, 1), 2,
+                                           dict(uniform="half", dead=3)),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(K6_VARIANTS))
+@pytest.mark.parametrize("width", K6_WIDTHS)
+def test_sharded_select_chunk_boundaries(cuda, width, variant):
+    """K6 against its twins (k6_compare's limits, six launches a shard) at
+    the widths of K6_WIDTHS, each shard holding that many candidates:
+    uniform and varied bandwidths, cov on and off, circular codes, float32
+    and float64, S = 1 and 2, dead rows."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import sharded_select as ss
+    c, dt, cov, codes, shards, ex = K6_VARIANTS[variant]
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    item = 4 if dt == "f32" else 8
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widths = dict(cs.k6_chunk_widths(c, 1, 2, item, sms), **{
+        "1": 1, "50k": 50_000, "1M": 1_000_000})
+    w_loc = widths[width]
+    inp = cs.k6_inputs(K6_WIDTHS.index(width), cuda, dtype, c,
+                       shards * w_loc, 2, (1,), cov, codes, shards, **ex)
+    assert inp["rows"][0].mean.shape[1] == w_loc
+    row = cs.k6_compare(inp, f"{width} {variant}")
+    assert row["launches"] == 6 * shards
+    assert row["max_abs_err"] == 0.0
+    if ex.get("dead"):
+        assert row["dead_rows"] > 0
+    pl = ss.prepare(inp["rows"][0]).plan
+    assert pl.chunks <= ss.MAX_CHUNKS
+
+
+def test_sharded_select_stage_contract(cuda):
+    """The packed stage matches the source (its size is checked at load,
+    each launch's shared memory against the plan's), uniform flags are
+    bitwise per candidate, and count_below on the card takes only the
+    Stage whose exp_sum ran on the same gmax and dead."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import sharded_select as ss
+    inp = cs.k6_inputs(3, cuda, torch.float32, 256, 40_000, 2, (0, 1), True,
+                       (0, 0), 1, uniform="dim0")
+    rows = inp["rows"][0]
+    st = ss.prepare(rows)
+    lib = ss._load()
+    assert lib.kde_k6_smem(st._addr, 0) == st.plan.tile_smem
+    assert lib.kde_k6_smem(st._addr, 3) == st.plan.count_smem
+    assert st.uniform.tolist() == [[True, False], [True, False]]
+    pre = cs.k6_select(inp)
+    g, dead = pre["gmax"], pre["dead"]
+    with pytest.raises(ValueError, match="Stage"):
+        ss.count_below(rows, g, dead, pre["tots"], 0, inp["u"])
+    with pytest.raises(ValueError, match="Stage"):
+        ss.count_below(st, g, dead, pre["tots"], 0, inp["u"])   # no exp_sum
+    ss.exp_sum(st, g, dead)
+    with pytest.raises(ValueError, match="Stage"):
+        ss.count_below(st, g.clone(), dead, pre["tots"], 0, inp["u"])
+    z = ss.count_below(st, g, dead, pre["tots"], 0, inp["u"])
+    assert torch.equal(z, pre["counts"][0])
+
+
 def test_kernel_sharded_replay_on_k6(nccl_world, cuda, monkeypatch):
     """A float64 replay product through the kernel-sharded engine at S = 1
     runs every selection on K6 (six launches a selection, no twin stage)

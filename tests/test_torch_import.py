@@ -123,8 +123,10 @@ def test_sharded_select_source_and_shared_header():
     from kde_tpu_torch.ops import gibbs_select, sharded_select, tiled_eval
     text = sharded_select.SOURCE.read_text()
     assert sharded_select.SOURCE.parent == tiled_eval.SOURCE.parent
-    for entry in ("kde_k6_rows", "kde_k6_dead_max", "kde_k6_owner_stats"):
+    for entry in ("kde_k6_phase", "kde_k6_stage_bytes", "kde_k6_dead_max",
+                  "kde_k6_owner_stats"):
         assert f'extern "C" int {entry}' in text
+    assert 'extern "C" long long kde_k6_smem' in text
     assert "--fmad=false" in sharded_select.NVCC_FLAGS
     assert "compute_90a" in " ".join(sharded_select.NVCC_FLAGS)
     header = sharded_select.SOURCE.parent / "gibbs_logit.cuh"
@@ -132,6 +134,7 @@ def test_sharded_select_source_and_shared_header():
         assert '#include "gibbs_logit.cuh"' in src.read_text()
         assert header.read_bytes() in tiled_eval.source_bytes(src)
     assert "candidate_logit" in header.read_text()
+    assert "row_logit" in header.read_text() and "row_logit" in text
 
 
 def test_sharded_loo_imports_and_runs_its_twins_without_nvcc():

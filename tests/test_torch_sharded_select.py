@@ -336,3 +336,203 @@ def test_shifted_sum_cut_keeps_the_degenerate_test():
                                                                   dtype=bool))
     assert bool(dead.all())
     assert mfb[0].eq(0).all() and torch.isneginf(mfb[1]).all()
+
+
+# ---- the card's launch plan, uniform flags and chunked count (pure Python) --
+
+@pytest.mark.parametrize("c,n_js,w,d,item", [
+    (256, 1, 1_000_000, 2, 4), (256, 2, 50_000, 2, 4), (256, 1, 50_000, 2, 4),
+    (1024, 2, 10_000, 2, 4), (64, 1, 1025, 2, 8), (300, 2, 900, 3, 8),
+    (5, 1, 7, 1, 4), (1, 3, 1, 9, 8), (128, 2, 700, 5, 8), (0, 1, 40, 2, 4)])
+def test_plan_covers_every_candidate_once_in_chunk_order(c, n_js, w, d, item):
+    """Chunks of whole ring slots tile [0, w) in order, each nonempty; a
+    tile holds at most MAX_ROWS rows (a power of two), the tiles cover
+    every chain of every density, the shared memory fits a block."""
+    pl = ss.plan(c, n_js, w, d, item)
+    starts = [q * pl.chunk for q in range(pl.chunks)]
+    ends = [min(w, s + pl.chunk) for s in starts]
+    assert starts[0] == 0 and ends[-1] == w
+    assert all(e > s for s, e in zip(starts, ends))
+    assert all(ends[q] == starts[q + 1] for q in range(pl.chunks - 1))
+    assert pl.chunk % pl.slot == 0 and pl.slot % 32 == 0
+    assert pl.slot * (2 * d + 1) * item <= max(ss.SLOT_BYTES,
+                                               32 * (2 * d + 1) * item)
+    assert pl.rows & (pl.rows - 1) == 0 and 1 <= pl.rows <= ss.MAX_ROWS
+    assert pl.tiles == n_js * -(-c // pl.rows)
+    assert pl.tiles * pl.rows >= n_js * c
+    assert 1 <= pl.chunks <= ss.MAX_CHUNKS
+    assert pl.count_group == (32 if pl.chunk <= ss.COUNT_WARP_MAX
+                              else ss.COUNT_THREADS)
+    assert max(pl.tile_smem, pl.count_smem) <= ss.SMEM_MAX_BYTES
+    generic = not 1 <= d <= 3
+    assert (pl.count_smem > 0) == generic
+
+
+def test_plan_fills_the_card_and_bounds_the_scratch():
+    """256 chains over a 1M slice fill the 132 SMs (16 row tiles alone
+    would leave most SMs idle) with one wave of RESIDENT_PER_SM blocks an
+    SM, no block left over for a second; the [rows, chunks] scratch stops
+    growing with w; a narrow level is one chunk."""
+    big = ss.plan(256, 1, 1_000_000, 2, 4, sms=132)
+    assert big.tiles == 16 and 132 <= big.blocks <= ss.RESIDENT_PER_SM * 132
+    assert big.blocks > ss.RESIDENT_PER_SM * 132 - big.tiles
+    cond = ss.plan(256, 2, 50_000, 2, 4, sms=132)
+    assert 132 <= cond.blocks <= ss.RESIDENT_PER_SM * 132
+    chunks = [ss.plan(256, 1, w, 2, 4).chunks
+              for w in (10 ** 6, 10 ** 7, 10 ** 8, 10 ** 9)]
+    assert chunks == [chunks[0]] * 4 and chunks[0] <= ss.MAX_CHUNKS
+    few = [ss.plan(1, 1, w, 2, 4).chunks for w in (10 ** 6, 10 ** 8)]
+    assert few == [ss.MAX_CHUNKS] * 2
+    assert ss.plan(256, 1, 300, 2, 4).chunks == 1
+    assert ss.plan(20_000, 2, 20_000, 2, 4).chunks == 1     # tiles enough
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.plan(256, 1, 2000, 200, 8)
+    with pytest.raises(ValueError):
+        ss.plan(4, 0, 10, 2, 4)
+
+
+def test_uniform_dims_compare_bits():
+    """A dim is uniform where every candidate has the first's bits: 0.0
+    and -0.0 differ (their divisions differ in sign), a repeated NaN is
+    uniform (its logit is NaN either way)."""
+    bw = torch.full((3, 4, 2), 0.25, dtype=F64)
+    bw[1, 2, 0] = 0.5
+    bw[2, :, 1] = float("nan")
+    assert ss.uniform_dims(bw).tolist() == [[True, True], [False, True],
+                                            [True, True]]
+    z = torch.zeros((1, 3, 1), dtype=torch.float32)
+    z[0, 1, 0] = -0.0
+    assert ss.uniform_dims(z).tolist() == [[False]]
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_shard_plan_uniform_flags_per_candidate(n_shards):
+    """``_KShardPlan.lvl_uniform`` against a per-candidate check of each
+    shard's slice of every level: one point of density 0 has another
+    bandwidth in dim 1, so at the leaves dim 1 is uniform on the shards
+    that do not hold it and not on the one that does; padded slots
+    (repeats of the last node) keep a slice uniform."""
+    import kde_tpu_torch as kt
+    rng = np.random.default_rng(2)
+    n = 13                                   # 13 % 4 != 0: padding
+    bw0 = np.full((2, n), 0.4)
+    bw0[1, 5] = 0.5
+    dens = [kt.kde(rng.normal(size=(2, n)), bw0, dtype=F64),
+            kt.kde(rng.normal(size=(2, n)) + 1.0, [0.3, 0.4], dtype=F64)]
+    leaf_flags = []
+    for shard in range(n_shards):
+        plan = gks._KShardPlan(dens, 8, F64, n_shards, shard, "cpu")
+        assert tuple(plan.lvl_uniform.shape) == (plan.n_levels, 2, 2)
+        for l in range(1, plan.n_levels + 1):
+            lvl = plan.level(l)
+            assert len(lvl) == 6
+            bw = lvl[1][0].numpy()                       # [dn, w, d]
+            want = np.array([[all(bw[j, i, k] == bw[j, 0, k]
+                                  for i in range(bw.shape[1]))
+                              for k in range(2)] for j in range(2)])
+            np.testing.assert_array_equal(lvl[5].numpy(), want)
+        leaf_flags.append(plan.lvl_uniform[-1].numpy())
+    leaf = np.stack(leaf_flags)                          # [S, dn, d]
+    assert leaf[:, 0, 0].all() and leaf[:, 1].all()      # dim 0, density 1
+    if n_shards > 1:
+        assert leaf[:, 0, 1].any() and not leaf[:, 0, 1].all()
+    else:
+        assert not leaf[0, 0, 1]
+
+
+def _chunked_count(rows, gmax, dead, tots, sid, u, pl):
+    """The card's count_below, step for step in float64 on the twin's
+    exps: the chunk sums of exp_sum (each chunk's sum, then the chunks in
+    order), the first chunk whose end is not below u, then the scan of that
+    chunk from its prefix (w where no chunk reaches u)."""
+    e = torch.exp(ss._fallback_logits(rows, dead) - gmax[..., None]).double()
+    total, offset = tots.sum(dim=0), tots[:sid].sum(dim=0)
+    n_js, c, w = e.shape
+    out = torch.full((n_js, c), w, dtype=torch.int64)
+    for jj in range(n_js):
+        for ci in range(c):
+            uu = float(u[ci, jj])
+            parts = [float(e[jj, ci, q * pl.chunk:(q + 1) * pl.chunk].sum())
+                     for q in range(pl.chunks)]
+            run = 0.0
+            for q, p in enumerate(parts):
+                if not (float(offset[jj, ci]) + (run + p)) \
+                        / float(total[jj, ci]) < uu:
+                    z = min(w, (q + 1) * pl.chunk)
+                    acc = run
+                    for i in range(q * pl.chunk, z):
+                        acc += float(e[jj, ci, i])
+                        if not (float(offset[jj, ci]) + acc) \
+                                / float(total[jj, ci]) < uu:
+                            z = i
+                            break
+                    out[jj, ci] = z
+                    break
+                run += p
+    return out
+
+
+@pytest.mark.parametrize("name", ["cond", "circular", "dead_padding"])
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_chunked_count_equals_the_twin(name, n_shards, monkeypatch):
+    """The card's chunk search (chunk sums, the crossing chunk, a scan in
+    it) gives the twin's count_below on every row, at chunks of one ring
+    slot's candidates (many chunks a row), but where the twin's float64
+    CDF lies within 1e-12 of u between the two counts (k6_compare's tie
+    rule; the case's u = 1 rows are such ties by construction)."""
+    monkeypatch.setattr(ss, "SLOT_BYTES", 1)          # 32-candidate slots
+    case = _case(name)
+    t = lambda x: None if x is None else torch.as_tensor(x, dtype=F64)
+    js, d = case["js"], case["mean"].shape[-1]
+    diffop = (tuple(manifolds.circular_diff if k in case["circ"]
+                    else manifolds.euclid_diff for k in range(d))
+              if case["circ"] else None)
+    k = -(-65 // case["mean"].shape[1])                # w > 64: chunks > 1
+    rep = lambda x: np.concatenate([x] * k, axis=1)
+    mean, bw = (_split(rep(case[k]), n_shards) for k in ("mean", "bw"))
+    logw = _split(rep(case["logw"]), n_shards, -np.inf)
+    mu, cov, u = t(case["mu"]), t(case["cov"]), t(case["u"])
+    act = torch.as_tensor(case["active"])
+    rows = [ss.Rows(t(mean[:, s]), t(bw[:, s]), t(logw[:, s]), js, mu, cov,
+                    act, diffop) for s in range(n_shards)]
+    real = [torch.as_tensor(np.isfinite(logw[js[0]:js[-1] + 1, s]).any(-1))
+            for s in range(n_shards)]
+    m = [ss.local_max_ref(r) for r in rows]
+    m0 = torch.stack(m).amax(dim=0)
+    ssum = sum(ss.shifted_sum_ref(r, m0) for r in rows)
+    dm = [ss.dead_max_ref(m0, ssum, m[s], real[s]) for s in range(n_shards)]
+    gmax, dead = torch.stack([x[1] for x in dm]).amax(dim=0), dm[0][0]
+    tots = torch.stack([ss.exp_sum_ref(r, gmax, dead) for r in rows])
+    for s, r in enumerate(rows):
+        pl = ss.plan(mu.shape[0], len(js), r.mean.shape[1], d, 8)
+        assert pl.chunks > 1 and pl.chunk == 32
+        want = ss.count_below_ref(r, gmax, dead, tots, s, u)
+        got = _chunked_count(r, gmax, dead, tots, s, u, pl)
+        e = torch.exp(ss._fallback_logits(r, dead)
+                      - gmax[..., None]).double()
+        cdf = ((tots[:s].sum(dim=0)[..., None] + torch.cumsum(e, dim=-1))
+               / tots.sum(dim=0)[..., None])
+        for jj, ci in (got != want).nonzero().tolist():
+            lo, hi = sorted((int(got[jj, ci]), int(want[jj, ci])))
+            gap = (cdf[jj, ci, lo:min(hi, cdf.shape[-1])]
+                   - float(u[ci, jj])).abs().max()
+            assert float(gap) <= 1e-12
+        assert int((got != want).sum()) <= 2
+
+
+def test_cpu_stage_runs_the_twins():
+    """A Stage of CPU tensors (prepare) runs every row phase's twin and
+    holds no kernel state; count_below takes it or the rows."""
+    rows = _rows()
+    st = ss.prepare(rows)
+    assert st.device.type == "cpu" and st.plan is None and st.shape == (2, 4)
+    m = ss.local_max(st)
+    assert torch.equal(m, ss.local_max_ref(rows))
+    dead = torch.zeros_like(m, dtype=torch.bool)
+    tots = ss.exp_sum(st, m, dead)[None]
+    assert torch.equal(tots[0], ss.exp_sum_ref(rows, m, dead))
+    u = torch.full((4, 2), 0.5, dtype=F64)
+    assert torch.equal(ss.count_below(st, m, dead, tots, 0, u),
+                       ss.count_below(rows, m, dead, tots, 0, u))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ss.exp_sum(st, m.to("meta"), dead)

@@ -58,6 +58,22 @@ def _ksize_one_live():
     return pts, w
 
 
+def _ks_uniform_data():
+    """Two 2-D densities for the kernel-sharded replay on the 2 x 2 mesh:
+    density 0's point 5 has another bandwidth in dim 1, so at the leaves
+    dim 1 is uniform on one kernels shard and not on the other; 13 points
+    (padding on both shards' levels)."""
+    rng = np.random.default_rng(14)
+    n, n_out, n_iter = 13, 8, 2
+    bw0 = np.full((2, n), 0.4)
+    bw0[1, 5] = 0.55
+    dens = [(rng.normal(size=(2, n)), bw0),
+            (rng.normal(size=(2, n)) + 0.5, np.full((2, n), 0.3))]
+    from fixtures import gibbs_streams
+    ru, rn, _ = gibbs_streams(rng, 2, 2, n_out, n_iter, max(n, n_out))
+    return dens, n_out, n_iter, ru, rn
+
+
 def _circ_angles():
     rng = np.random.default_rng(5)
     a = np.mod(rng.normal(size=(1, 64)) * 0.3 + np.pi - 0.15 + np.pi,
@@ -203,6 +219,34 @@ def _worker(argv):
             got = fn(c2k2, *args)
             res[f"{kind}/{name}"] = got.numpy()
             res[f"{kind}/{name}/dev"] = np.array(got.device.type)
+
+    # the kernel-sharded replay on the 2 x 2 mesh, and each rank's level
+    # flags (taken once with its plan) against a check candidate by
+    # candidate, gathered so that every rank holds all of them
+    from kde_tpu_torch.parallel import gibbs_kernel_sharded as gks
+    kdata, n_out, n_iter, ru, rn = _ks_uniform_data()
+    kd = [kt.kde(p, b, dtype=f64) for p, b in kdata]
+    ks = prod_appx_ms_gibbs_kernel_sharded(c2k2, n_out, kd, n_iter=n_iter,
+                                           rand_u=ru, rand_n=rn,
+                                           record_labels=True)
+    for k, v in zip(("pts", "idx", "lab"), ks):
+        res[f"ks2x2/{k}"] = v.numpy()
+    plan = gks._get_ks_plan(kd, n_out, f64, 2,
+                            c2k2.get_local_rank(KERNELS), kd[0].device)
+    ok = True
+    for l in range(1, plan.n_levels + 1):
+        bw, flags = plan.level(l)[1][0], plan.level(l)[5]
+        want = [[all(float(bw[j, i, k]) == float(bw[j, 0, k])
+                     for i in range(bw.shape[1])) for k in range(2)]
+                for j in range(2)]
+        ok = ok and flags.tolist() == want
+    flags = [torch.zeros_like(plan.lvl_uniform) for _ in range(4)]
+    torch.distributed.all_gather(flags, plan.lvl_uniform)
+    res["ks2x2/flags"] = torch.stack(flags).numpy()
+    oks = [torch.zeros(1) for _ in range(4)]
+    torch.distributed.all_gather(oks, torch.tensor([float(ok)]))
+    res["ks2x2/flags_ok"] = torch.cat(oks).numpy()
+    res["ks2x2/kernels_rank"] = np.array([0, 1, 0, 1])
 
     errors = []
     for fn in (lambda: make_mesh(3), lambda: make_mesh_2d((4, 2)),
@@ -389,6 +433,29 @@ def test_no_process_group_raises():
         par.make_mesh()
     with pytest.raises(RuntimeError, match="initialize_multihost"):
         par.make_mesh_2d((1, 1))
+
+
+def test_kernel_sharded_replay_matches_jax_on_2x2(res):
+    """The kernel-sharded replay on the 2 x 2 gloo mesh equals the JAX
+    package's kernel-sharded program on its 2 x 2 CPU mesh (labels exact,
+    points within 1e-12: the same association), on densities whose leaf
+    flags differ between the kernels shards; every rank's flags are those
+    of a check candidate by candidate."""
+    from kde_tpu import kde as jkde
+    from kde_tpu.parallel import prod_appx_ms_gibbs_kernel_sharded as jks
+    dens, n_out, n_iter, ru, rn = _ks_uniform_data()
+    want = jks(_jax_meshes()["c2k2"], n_out, [jkde(p, b) for p, b in dens],
+               n_iter=n_iter, rand_u=ru, rand_n=rn, record_labels=True)
+    for k, w in zip(("pts", "idx", "lab"), want):
+        if k == "pts":
+            np.testing.assert_allclose(res["ks2x2/pts"], np.asarray(w),
+                                       rtol=1e-12, atol=1e-14)
+        else:
+            np.testing.assert_array_equal(res[f"ks2x2/{k}"], np.asarray(w))
+    assert res["ks2x2/flags_ok"].all()
+    leaf = res["ks2x2/flags"][:, -1]                     # [rank, dn, d]
+    assert leaf[:, :, 0].all() and leaf[:, 1].all()
+    assert leaf[:, 0, 1].any() and not leaf[:, 0, 1].all()
 
 
 if __name__ == "__main__" and "--worker" in sys.argv:
