@@ -48,10 +48,13 @@ Phases, one line of findings each:
      replay streams, circular and SE(2)
      stages, padding with forced-dead rows and a mixed active dim, d =
      1..8 at a small width, and widths at the warp/block and shared-memory
-     switch points; gumbel labels equal on every row, cdf labels but for
-     float64 CDF ties within 1e-12 of u (listed), gathered stats equal;
-     the leaf stages timed (one call, 20 back-to-back) beside the twin, the
-     bound (k2_bound_ms) and torch.multinomial, for scale only;
+     switch points; cdf's tiles (k2_tile_cases) at their chunk edges,
+     threshold width and rows, padded and dead rows, d = 1..8 and 17,
+     float32 and float64, uniform and varied bandwidths; gumbel labels
+     equal on every row, cdf labels but for float64 CDF ties within 1e-12
+     of u (listed), gathered stats equal; the leaf stages, cdf also with
+     uniform bandwidths, timed (one call, 20 back-to-back) beside the
+     twin, the bound (k2_bound_ms) and torch.multinomial, for scale only;
  3e. the Gibbs chain kernel gibbs_chain (csrc/gibbs_chain.cu) against
      its plain twin (phase_gibbs_chain): cdf, then gumbel (K3_GUMBEL) on
      the warp, block and staged layouts, float32 and float64, circular,
@@ -132,6 +135,10 @@ Phases, one line of findings each:
      again on the twin; the circular pair with a lone circular diffop
      (explicit hooks), cdf and gumbel, on gibbs_select's stage route
      against its twin;
+ 10b. a keyed cdf product of MANY_DENS = 20 densities of N_MANY 2-D
+     points (more than the chain kernel takes), MANY_CHAINS chains: the
+     stage route, one gibbs_select launch a step; its Gibbs seconds, its
+     launches and its labels against the same call on the twin;
  11. the distributed layer (kde_tpu_torch.parallel).  (a) In a one-rank
      NCCL world: the chain-sharded product of phase 4's densities
      (20,000 chains) and the kernel-sharded replay product of phase 5's
@@ -183,7 +190,8 @@ Phases, one line of findings each:
      launch and no gibbs_select launch; one line each with its seconds.
 gibbs_chain must launch on the slice, serve, device plan, batched,
 select, manifolds, parallel (chain- and set-sharded), examples and tools
-paths, gibbs_select on phase 10's lone circular diffop and never on
+paths, gibbs_select on phase 10's lone circular diffop and phase 10b's
+product (which launches no gibbs_chain) and never on
 phase 8's and phase 13's (gumbel is on gibbs_chain), sharded_select and
 sharded_loo on the parallel and shared-card paths (with no twin stage)
 and nowhere else, K1 on the slice,
@@ -204,8 +212,10 @@ times the small-route kernels only, against those of the checkout in DIR
 
     python3 chip_smoke.py --k2-diag
 
-times gibbs_select under each layout, its wrapper's host cost and a serve
-request without it (see k2_diag).
+times gibbs_select under each layout (cdf's tiles among them), the switch
+between the block layout and the tiles along the rows of a launch and the
+width of the level, its wrapper's host cost and a serve request without
+it (see k2_diag).
 
     python3 chip_smoke.py --k3-diag
 
@@ -228,6 +238,14 @@ holds K2 bitwise against the K2 of the checkout in DIR at phase 3d's
 cases, and times K6 against DIR's at the timed stages of phase 3g and the
 full-width replay against DIR's engine, in turns (see k6_parent_ab).
 
+    python3 chip_smoke.py --k2-parent DIR
+
+holds K2's gumbel labels at phase 3d's cases and K6's phase outputs at
+phase 3g's bitwise against the builds of the checkout in DIR, and times
+K2's cdf against DIR's in turns at 3d's leaf stages (varied and uniform),
+phase 10's lone circular diffop product and phase 10b's product (see
+k2_parent_ab).
+
     python3 chip_smoke.py --k6-trace TAG [DIR]
 
 profiles phase 11a's kernel-sharded replay on the checkout it runs from
@@ -237,6 +255,7 @@ and writes DIR/k6_trace_TAG.json.gz (default k6_traces/; see k6_trace).
 import contextlib
 import functools
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -271,9 +290,16 @@ GUMBEL_CHAIN0, GUMBEL_SEL0 = 1000, 7     # phase 3d's gumbel offsets
 K2_TIE = 1e-12           # gibbs_select cdf labels may differ from the
                          # twin's only where its float64 CDF is this near u
 K2_MAX_TIES = 100        # ...on at most this many rows of a case
+# --k2-diag: the rows of a launch and the level widths along which the
+# block layout and cdf's tiles are timed
+K2_DIAG_ROWS = (256, 512, 1024, 2048, 3072, 4096, 6144, 8192, 16384)
+K2_DIAG_WIDTHS = (1536, 2048, 4096, 8192, 12288, 16384, 20000, 50000)
 FP32_FLOPS = 67e12       # H100 SXM, outside the tensor cores
 HBM_BYTES = 3.35e12      # H100 SXM
 AGREE_MIN = 0.999        # sharded vs unsharded: share of chains that agree
+MANY_DENS = 20           # phase 10b: a product of more densities than K3
+N_MANY = 5000            # takes (gibbs_chain.MAX_DENS = 16), of this many
+MANY_CHAINS = 4096       # 2-D points each, this many chains: K2 a step
 N_LOO = 4096             # sharded LOO entropy
 N_KSIZE = 8192           # sharded LOOCV bandwidths
 KSIZE_RTOL = 1e-5        # sharded vs single-device bandwidths, float32
@@ -800,18 +826,21 @@ def phase_small(dev):
 
 
 def k2_inputs(seed, dev, b, c, dn, w, d, js, dtype, cov, codes, mode,
-              pad=0, dead=0, mixed=False):
+              pad=0, dead=0, mixed=False, uniform=False):
     """``gibbs_select``'s arguments for one level: ``b`` sets of ``dn``
     densities of ``w`` candidates in ``d`` dims (bandwidths at Silverman's
     scale for ``w`` points, weights uniform(0.5, 1.5), each slab's labels a
     permutation), ``c`` chains at N(0, I) (angles uniform on circular
     dims), ``cov`` at the same scale or None; ``pad`` padded candidates in
     the last set, ``dead`` chains of set 0 at 10^3 on the Euclidean dims,
-    ``mixed``: density 1's first dim inactive in set 0.  The uniforms
-    (``cdf``) or the sets' counter seeds (``gumbel``, chains from
-    GUMBEL_CHAIN0 and selections from GUMBEL_SEL0) come from a generator
-    on the card seeded with ``seed``.  Returns ``(args, codes,
-    kwargs)``."""
+    ``mixed``: density 1's first dim inactive in set 0; ``uniform``: one
+    bandwidth a (set, density, dim), the first candidate's of the same
+    draws (a fitted density's level), with the level's flags passed as
+    ``uniform=`` (each dim's bandwidths checked equal, as
+    ``gibbs_chain.level_uniform`` does).  The uniforms (``cdf``) or the
+    sets' counter seeds (``gumbel``, chains from GUMBEL_CHAIN0 and
+    selections from GUMBEL_SEL0) come from a generator on the card seeded
+    with ``seed``.  Returns ``(args, codes, kwargs)``."""
     import torch
     rng = np.random.default_rng(seed)
     circ = np.asarray(codes, dtype=bool)
@@ -819,6 +848,8 @@ def k2_inputs(seed, dev, b, c, dn, w, d, js, dtype, cov, codes, mode,
     mean[..., circ] = rng.uniform(-np.pi, np.pi, size=(b, dn, w, circ.sum()))
     h2 = (1.06 * max(w, 2) ** -0.2) ** 2
     bw = h2 * rng.uniform(0.5, 1.5, size=(b, dn, w, d))
+    if uniform:
+        bw = np.broadcast_to(bw[:, :, :1], bw.shape).copy()
     wt = rng.uniform(0.5, 1.5, size=(b, dn, w))
     logw = np.log(wt / wt.sum(axis=-1, keepdims=True))
     if pad:
@@ -845,6 +876,8 @@ def k2_inputs(seed, dev, b, c, dn, w, d, js, dtype, cov, codes, mode,
                   chain0=GUMBEL_CHAIN0, sel0=GUMBEL_SEL0)
     args = (t(mean), t(bw), t(logw), torch.as_tensor(perm, device=dev),
             tuple(js), t(mu), covv, torch.as_tensor(active, device=dev))
+    if uniform:
+        kw["uniform"] = (args[1] == args[1][:, :, :1]).all(dim=2)
     return args, tuple(codes), kw
 
 
@@ -911,39 +944,45 @@ def k2_compare(args, codes, kw, what):
                 cdf_ties=ties, max_abs_err=err), got[2]
 
 
-def k2_bound_ms(args, codes, kw, labels, sms, clock_hz, scan=True):
+def k2_bound_ms(args, codes, kw, sms, clock_hz):
     """The least time an H100 could take for one ``gibbs_select`` call,
     counting what these inputs need.  Per (row, candidate) pair with k
-    active dims: k logs, k divisions (one reciprocal each) and the dead
-    test's exp on the SFU, 5k + 5 FP32 operations (difference, square,
-    scale, log add, accumulate; weight, max, shift, sum); gumbel takes two
-    logs and no exp but on the rows below log(1e-99) (the dead test's
-    sum), 4 more FP32 operations and the counter generator's integer work
-    (THREEFRY_INT_OPS a block, a block for two float32 candidates or one
-    float64, WORD_INT_OPS a float32 word) on 64 INT32 lanes an SM; cdf an
-    exp, a float64 reciprocal and 4 operations for each candidate the scan
-    needs (up to the label); with ``scan`` False, not (the count
-    chain_bound_ms takes: the scan reuses the exps the sum needs).  SFU at
-    16 a clock an SM, FP32 on 128 lanes an SM; bytes (the level, mu, cov
-    and u read once, the outputs written once) at 3.35 TB/s."""
-    import torch
+    active dims: k divisions (one reciprocal each) and the dead test's exp
+    on the SFU, 5k + 5 FP32 operations (difference, square, scale, log
+    add, accumulate; weight, max, shift, sum), and the logs of c: with cov,
+    k a pair on varied dims and one a row on a dim the call flags uniform
+    (``kw["uniform"]``, as chain_bound_ms and k6_bound_ms count); without
+    cov c is the candidate's own bandwidth, which no row changes, so one a
+    (set, density, candidate) on varied dims and one a (set, density) on
+    uniform ones.  gumbel takes two logs and no exp but on the rows below
+    log(1e-99) (the dead test's sum), 4 more FP32 operations and the
+    counter generator's integer work (THREEFRY_INT_OPS a block, a block
+    for two float32 candidates or one float64, WORD_INT_OPS a float32
+    word) on 64 INT32 lanes an SM.  cdf's scan is not counted (as
+    chain_bound_ms: it reuses the exps the sum needs, over the one chunk
+    that the chunk sums point to).  SFU at 16 a clock an SM, FP32 on 128
+    lanes an SM; bytes (the level, mu, cov and u read once, the outputs
+    written once) at 3.35 TB/s."""
     lm, lb, lw, lp, js, mu, cov, act = args
     b, dn, w, d = lm.shape
     c, n_js, item = mu.shape[1], len(js), lm.element_size()
-    k = int(act[:, list(js)].sum()) / (b * n_js)       # active dims a row
-    pairs = b * c * n_js * w
+    slabs = b * n_js
+    k = int(act[:, list(js)].sum()) / slabs            # active dims a row
+    uni = kw.get("uniform")
+    ku = 0.0                      # uniform active dims a row, on average
+    if uni is not None:
+        ku = int((act & uni.bool())[:, list(js)].sum()) / slabs
+    pairs, rows = slabs * c * w, slabs * c
+    logs = (pairs * (k - ku) + rows * ku if cov is not None
+            else slabs * (w * (k - ku) + ku))
     int32 = 0.0
     if kw["u"] is None:
         dead = float(_k2_dead_rows(args, codes)) * w   # pairs of dead rows
-        sfu, fp32 = pairs * (2 * k + 2) + dead, pairs * (5 * k + 9)
+        sfu, fp32 = pairs * (k + 2) + logs + dead, pairs * (5 * k + 9)
         int32 = pairs * (THREEFRY_INT_OPS / 2 + WORD_INT_OPS if item == 4
                          else THREEFRY_INT_OPS + 4)
     else:
-        inv = torch.argsort(lp[:, list(js)], dim=-1)       # label -> index
-        idx = torch.gather(inv, 2, labels.permute(0, 2, 1)).double()
-        scanned = float((idx + 1).sum()) if scan else 0.0
-        sfu = pairs * (2 * k + 1) + 2 * scanned
-        fp32 = pairs * (5 * k + 5) + 4 * scanned
+        sfu, fp32 = pairs * (k + 1) + logs, pairs * (5 * k + 5)
     nbytes = (n_js * b * w * (2 * d + 2) * item + b * c * d * item
               * (2 if cov is not None else 1) + b * c * n_js * (2 * d * item + 8)
               + (b * c * n_js * item if kw["u"] is not None else b * 16))
@@ -985,6 +1024,10 @@ def k2_cases(gibbs_select):
                           {}),
         "leaf cond gumbel": (1, n, 2, n, 2, (0, 1), f32, False, (0, 0),
                              "gumbel", {}),
+        "leaf sweep cdf uniform": (1, n, 2, n, 2, (0,), f32, True, (0, 0),
+                                   "cdf", dict(uniform=True)),
+        "leaf cond cdf uniform": (1, n, 2, n, 2, (0, 1), f32, False,
+                                  (0, 0), "cdf", dict(uniform=True)),
         "f64 replay": (1, SERVE_CHAINS, 2, 2000, 2, (0, 1), f64, False,
                        (0, 0), "cdf", {}),
         "f64 replay sweep": (1, SERVE_CHAINS, 2, 2000, 2, (1,), f64, True,
@@ -1010,13 +1053,61 @@ def k2_cases(gibbs_select):
             for mode in ("cdf", "gumbel"):
                 cases[f"w={w} {str(dt)[-7:]} {mode}"] = (
                     1, 512, 2, w, 2, (0,), dt, True, (0, 0), mode, {})
-    # the shared-memory cache's edge: (w + 2d) itemsize + d <= CACHE_MAX_BYTES
+    # the shared-memory cache's edge: (w + 4d) itemsize + d <= CACHE_MAX_BYTES
     for dt in (f32, f64):
         item = 4 if dt == f32 else 8
-        edge = (gibbs_select.CACHE_MAX_BYTES - 2) // item - 4
+        edge = (gibbs_select.CACHE_MAX_BYTES - 2) // item - 8
         for w in (edge, edge + 1):
             cases[f"w={w} {str(dt)[-7:]} cache edge"] = (
                 1, 64, 2, w, 2, (0, 1), dt, False, (0, 0), "cdf", {})
+    cases.update(k2_tile_cases(gibbs_select))
+    return cases
+
+
+def k2_tile_cases(gibbs_select):
+    """cdf's tile layout at its edges (k2_cases' tuples): widths at a
+    chunk's edge (chunk - 1, chunk, chunk + 1, at one slot a chunk and at
+    two), the threshold width WARP_MAX_WIDTH and one above, the rows of a
+    launch at TILE_MIN_ROWS and one below (chains not a multiple of the
+    tile's rows), the conditioning stage with padded and dead rows, and
+    d = 1-8 and 17 in float32 and float64, bandwidths uniform and varied,
+    cov on and off, circular codes."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    rmin = gibbs_select.TILE_MIN_ROWS
+    c = rmin + 5                              # not a multiple of 16 or 8
+    cases = {}
+    for dt in (f32, f64):
+        item = 4 if dt == f32 else 8
+        slot = gibbs_select.launch_plan(4000, 2, item, rows=c).slot
+        first = -(-(gibbs_select.WARP_MAX_WIDTH + 1) // slot) + 1
+        mc = gibbs_select.MAX_CHUNKS
+        for spc, k in ((1, first), (2, mc // 2 + mc // 8 + 1)):
+            for w in (k * spc * slot - 1, k * spc * slot, k * spc * slot + 1):
+                plan = gibbs_select.launch_plan(w, 2, item, rows=c)
+                if (plan.layout, plan.chunk) != ("tiles", spc * slot):
+                    raise AssertionError(f"k2 tile cases: w = {w} plans "
+                                         f"{plan}")
+                cases[f"tiles w={w} {str(dt)[-7:]} chunk edge"] = (
+                    1, c, 2, w, 2, (0,), dt, True, (0, 0), "cdf", {})
+    for w in (gibbs_select.WARP_MAX_WIDTH, gibbs_select.WARP_MAX_WIDTH + 1):
+        cases[f"tiles w={w} width edge"] = (1, c, 2, w, 2, (1,), f32, True,
+                                            (0, 0), "cdf", {})
+    for rows in (rmin - 1, rmin):
+        cases[f"tiles {rows} rows edge"] = (1, rows, 2, 3000, 2, (0,), f32,
+                                            False, (0, 0), "cdf", {})
+    cases["tiles pad dead cond"] = (2, rmin // 4 + 3, 2, 3000, 2, (0, 1),
+                                    f32, False, (0, 0), "cdf",
+                                    dict(pad=37, dead=5, mixed=True))
+    cases["tiles pad dead cond uniform"] = (
+        2, rmin // 4 + 3, 2, 3000, 2, (0, 1), f32, True, (0, 0), "cdf",
+        dict(pad=37, dead=5, mixed=True, uniform=True))
+    for d in list(range(1, 9)) + [17]:
+        dt = f32 if d % 2 else f64
+        codes = tuple(int(d > 1 and k == d - 1) for k in range(d))
+        cases[f"tiles d={d} {str(dt)[-7:]}"] = (
+            1, rmin // 2 + 3, 2, 1500, d, (0, 1), dt, d % 3 == 0, codes, "cdf",
+            dict(uniform=d % 2 == 0, mixed=d > 1))
     return cases
 
 
@@ -1036,9 +1127,12 @@ def phase_gibbs_select(dev):
             enumerate(cases.items()):
         args, codes, kw = k2_inputs(SEED + 20 + i, dev, b, c, dn, w, d, js,
                                     dt, cov, codes, mode, **ex)
-        row, labels = k2_compare(args, codes, kw, name)
+        row = k2_compare(args, codes, kw, name)[0]
         row.update(B=b, C=c, w=w, d=d, js=list(js), dtype=str(dt), mode=mode,
-                   plan=gibbs_select.launch_plan(w, d, args[0].element_size()))
+                   uniform=bool(ex.get("uniform")),
+                   plan=gibbs_select.launch_plan(
+                       w, d, args[0].element_size(), rows=b * c * len(js),
+                       gumbel=mode == "gumbel")._asdict())
         if name.startswith("leaf"):
             call = functools.partial(gibbs_select.gibbs_select, *args, codes,
                                      **kw)
@@ -1047,18 +1141,14 @@ def phase_gibbs_select(dev):
             row["plain_ms"] = _cuda_ms(functools.partial(
                 gibbs_select.gibbs_select_ref, *args, codes, **kw), reps=3)
             row["bound_ms"], row["bound_by"] = k2_bound_ms(
-                args, codes, kw, labels, sms, clock)
+                args, codes, kw, sms, clock)
             row["bound_share"] = row["bound_ms"] / row["ms"]
-            row["bound_ms_chain_count"] = k2_bound_ms(
-                args, codes, kw, labels, sms, clock, scan=False)[0]
-            row["bound_share_chain_count"] = (row["bound_ms_chain_count"]
-                                              / row["ms"])
             probs = torch.rand((b * c * len(js), w), device=dev)
             row["multinomial_ms_for_scale"] = _cuda_ms(
                 lambda: torch.multinomial(probs, 1))
         rows[name] = row
         print(f"gibbs_select ({name}): {json.dumps(row)}", flush=True)
-        del args, kw, labels
+        del args, kw
     return rows
 
 
@@ -2005,16 +2095,17 @@ K6_TIE = 1e-12           # K6's labels may differ from the twin's only where
 K6_MAX_TIES = 100        # ...on at most this many rows of a case
 
 
-def k6_select(inp, twin=False):
+def k6_select(inp, twin=False, ss=None):
     """One kernel-sharded selection over ``inp``'s shards on one rank, the
     collectives by hand in the engine's order (max, sum and stack over
     the shards): K6's entries on a stage prepared a shard
     (``sharded_select.prepare``), or with ``twin`` their plain twins on the
     rows.  Returns every phase's outputs (per shard where each shard has
     its own), the winner's stats ``sel [|js|, C, 2d+1]`` and the
-    ``stages``."""
+    ``stages``.  ``ss``: another checkout's sharded_select module."""
     import torch
-    from kde_tpu_torch.ops import sharded_select as ss
+    if ss is None:
+        from kde_tpu_torch.ops import sharded_select as ss
     f = {n: getattr(ss, n + "_ref" if twin else n) for n in K6_PHASES}
     js, S = inp["js"], inp["n_shards"]
     rows = inp["rows"] if twin else [ss.prepare(r) for r in inp["rows"]]
@@ -3023,6 +3114,72 @@ def _check_near_pi(x, what):
     return med, near0
 
 
+def _circ_pair(rng, n, dev, shift=0.0):
+    """The pair of tests/test_manifolds.py:67-70, either side of pi, ``n``
+    angles each drawn from ``rng``, as circular float32 densities on
+    ``dev``."""
+    import torch
+    import kde_tpu_torch as kt
+    a = _wrap(np.pi - 0.2 + shift + 0.05 * rng.normal(size=(1, n)))
+    b = _wrap(-np.pi + 0.2 + shift + 0.05 * rng.normal(size=(1, n)))
+    return [kt.kde(torch.as_tensor(x, dtype=torch.float32, device=dev),
+                   [0.1], **_hook_kw("c")) for x in (a, b)]
+
+
+def _many_densities(dev, n=N_MANY, dn=MANY_DENS, seed=SEED):
+    """Phase 10b's ``dn`` float32 densities of ``n`` 2-D points each
+    (N(0.1 i, 1) at Silverman's bandwidth for ``n``), on ``dev``."""
+    import torch
+    import kde_tpu_torch as kt
+    rng = np.random.default_rng(seed + 30)
+    bw = [float(1.06 * n ** -0.2)]
+    return [kt.kde((rng.normal(size=(2, n)) + 0.1 * i).astype(np.float32),
+                   bw, device=dev, dtype=torch.float32) for i in range(dn)]
+
+
+def phase_many_densities(dev, n=N_MANY, dn=MANY_DENS, n_out=MANY_CHAINS,
+                         seed=SEED):
+    """Phase 10b: a keyed cdf product of ``dn`` densities of ``n`` 2-D
+    points, more than the chain kernel takes (gibbs_chain.MAX_DENS), so
+    the stage route: one gibbs_select launch a selection step, the tiles
+    at its wide levels.  Its Gibbs seconds and K2 launches; then the same
+    call with every selection on K2's twin (``_on_gibbs_twin``), and the
+    share of chains whose labels agree (at least AGREE_MIN: cdf labels
+    part only at float64 CDF ties)."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs, gibbs_select
+    card = dev.type == "cuda"
+    sync = _sync if card else (lambda: None)
+    dens = _many_densities(dev, n, dn, seed)
+    route = gibbs._route("cdf", None, dev, dn, 2)
+    if card and route != "kernel":
+        raise AssertionError(f"{dn} densities take the {route} route")
+    call = functools.partial(kt.prod_appx_ms_gibbs, n_out, dens, key=seed,
+                             select="cdf")
+    call()                                       # the plan, the build
+    sync()
+    k2 = gibbs_select.LAUNCHES
+    t0 = time.perf_counter()
+    got = call()
+    sync()
+    out = dict(n=n, densities=dn, chains=n_out, route=route,
+               gibbs_s=time.perf_counter() - t0,
+               gibbs_select_launches=gibbs_select.LAUNCHES - k2)
+    with _on_gibbs_twin():
+        t0 = time.perf_counter()
+        twin = call()
+        sync()
+        out["twin_gibbs_s"] = time.perf_counter() - t0
+    out["twin_same_labels"] = float((got[1] == twin[1]).all(dim=0)
+                                    .double().mean())
+    out["finite"] = bool(torch.isfinite(got[0]).all())
+    if card and (out["gibbs_select_launches"] < 1 or not out["finite"]
+                 or out["twin_same_labels"] < AGREE_MIN):
+        raise AssertionError(f"{dn}-density product: {out}")
+    return out
+
+
 def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     """Phase 10: circular and SE(2) products at full width, a hooked
     batched product, and the circular pair multiplied with a lone circular
@@ -3039,12 +3196,7 @@ def phase_manifolds(dev, n=N_SLICE, b=BATCH_SETS, seed=SEED):
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     circ, se2 = _hook_kw("c"), _hook_kw("eec")
     stages, launches, out = {}, {}, {}
-
-    def circ_pair(shift=0.0):
-        """The pair of tests/test_manifolds.py:67-70, either side of pi."""
-        a = _wrap(np.pi - 0.2 + shift + 0.05 * rng.normal(size=(1, n)))
-        b = _wrap(-np.pi + 0.2 + shift + 0.05 * rng.normal(size=(1, n)))
-        return [kt.kde(f32(x), [0.1], **circ) for x in (a, b)]
+    circ_pair = functools.partial(_circ_pair, rng, n, dev)
 
     pa, pb = circ_pair()
     kt.set_seed(seed)
@@ -4153,78 +4305,122 @@ def small_parent_ab(parent):
     print(_card())
 
 
-def _k2_raw(args, codes, kw, group, cache):
-    """A call of kde_gibbs_select with the layout ``group`` threads a row
-    and ``cache`` forced (ops/gibbs_select.py::launch_plan picks them on
-    the package's path), into fresh outputs; returns the labels."""
+def _k2_raw(args, codes, kw, plan, gs=None):
+    """A call of ``gs``'s (default the package's) ``kde_gibbs_select``
+    with ``plan`` forced (ops/gibbs_select.py::launch_plan picks it on the
+    package's path), uncounted, into fresh outputs; returns the
+    labels."""
+    if gs is None:
+        from kde_tpu_torch.ops import gibbs_select as gs
+    lib = gs._load()
+    return lambda: gs._launch(lib, plan, *args, codes, kw["u"],
+                              kw.get("seeds"), kw.get("chain0", 0),
+                              kw.get("sel0", 0), kw.get("uniform"))[2]
+
+
+def _k2_layouts(gs, w, d, item, gumbel):
+    """The layouts ``--k2-diag`` times at a level of ``w`` candidates:
+    name -> plan (the warp layout recomputing where 8 rows' logits do not
+    fit; tiles only for cdf)."""
+    return {name: gs.launch_plan(w, d, item, gumbel=gumbel, layout=name)
+            for name in ("block", "warp") + (() if gumbel else ("tiles",))}
+
+
+def _k2_layout_row(gs, args, codes, kw, plans):
+    """Each plan's ms (one call, CUDA events; and 10 back to back, each
+    call's host work hidden) and its labels' mismatches against the
+    package's plan (0 but at float64 CDF ties)."""
+    import torch
+    want = gs.gibbs_select(*args, codes, **kw)[2]
+    row = {}
+    for name, plan in plans.items():
+        call = _k2_raw(args, codes, kw, plan)
+        off = int((call() != want).sum())
+        if off > K2_MAX_TIES or (off and kw["u"] is None):
+            raise AssertionError(f"k2 diag: layout {name} {off} labels off "
+                                 "the plan's")
+        row[name] = _cuda_ms(call)
+        row[name + " inner10"] = _cuda_ms(call, inner=10)
+        if off:
+            row[name + " off"] = off
+        torch.cuda.empty_cache()
+    return row
+
+
+def k2_switch(seed=SEED):
+    """The block layout beside cdf's tiles at a sweep stage (float32, cov,
+    varied bandwidths; d = 2 Euclidean as the leaf sweep and 10b's product,
+    d = 1 circular as phase 10's lone diffop product) for each row count
+    of K2_DIAG_ROWS over each width of K2_DIAG_WIDTHS, with the layout
+    launch_plan picks there: the readings that set gibbs_select's
+    TILE_MIN_ROWS."""
     import torch
     from kde_tpu_torch.ops import gibbs_select as gs
-    lm, lb, lw, lp, js, mu, cov, act = args
-    b, dn, w, d = lm.shape
-    c, dev = mu.shape[1], mu.device
-    seeds, u = kw.get("seeds"), kw["u"]
-    om = torch.empty((b, c, len(js), d), dtype=mu.dtype, device=dev)
-    ov = torch.empty_like(om)
-    ol = torch.empty((b, c, len(js)), dtype=torch.int64, device=dev)
-    two_pi, inv = gs._two_pi(mu.dtype)
-    codes_t = gs._codes_on(tuple(codes), dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
-
-    def call():
-        rc = gs._load().kde_gibbs_select(
-            lm.element_size(), int(seeds is not None), group, cache,
-            lm.data_ptr(), lb.data_ptr(), lw.data_ptr(), lp.data_ptr(),
-            lm.stride(0), lm.stride(1), lw.stride(0), lw.stride(1),
-            mu.data_ptr(), ptr(cov), act.data_ptr(), codes_t.data_ptr(),
-            ptr(u), ptr(seeds), kw.get("chain0", 0), kw.get("sel0", 0),
-            om.data_ptr(), ov.data_ptr(),
-            ol.data_ptr(), b, c, len(js), js[0], dn, w, d, two_pi, inv,
-            gs.LOG_DEAD, torch._C._cuda_getCurrentRawStream(dev.index or 0))
-        if rc != 0:
-            raise RuntimeError(f"kde_gibbs_select: CUDA error {rc}")
-        return ol
-    return call
+    dev = torch.device("cuda")
+    for d, codes in ((2, (0, 0)), (1, (1,))):
+        for w in K2_DIAG_WIDTHS:
+            for rows in K2_DIAG_ROWS:
+                args, codes, kw = k2_inputs(seed + 3, dev, 1, rows, 2, w, d,
+                                            (0,), torch.float32, True, codes,
+                                            "cdf")
+                plans = {"block": gs.launch_plan(w, d, 4, layout="block"),
+                         "tiles": gs.launch_plan(w, d, 4, layout="tiles")}
+                row = _k2_layout_row(gs, args, codes, kw, plans)
+                row["plan"] = gs.launch_plan(w, d, 4, rows=rows).layout
+                print(f"k2 diag switch, d = {d}, {rows} rows over {w}, ms: "
+                      f"{json.dumps(row)}", flush=True)
+                del args, kw
 
 
 def k2_diag(seed=SEED):
-    """Where K2's time goes on this card: the leaf sweep stage (20,000 rows
-    x 20,000 candidates) and the serve shape (256 x 50,000), cdf and
-    gumbel, under each layout the C entry takes (a 512-thread block a row
-    with the logits cached or recomputed each pass, a warp a row
-    recomputing), each checked equal to the plan's labels; the wrapper's
-    host microseconds a call beside its bare ctypes call (2,000 calls at a
-    tiny shape); and a serve request (2 x 50,000, 256 chains) as is and
-    with gibbs_select's outputs precomputed (no launch, no wrapper), so
-    the eager ops around K2 are timed alone."""
+    """Where K2's time goes on this card, each layout forced through the C
+    entry (``_k2_raw``) and checked against the plan's labels: the leaf
+    sweep and conditioning stages (20,000 chains x 20,000 candidates) with
+    varied and uniform bandwidths under the block layout (logits cached),
+    a warp a row, and cdf's tiles; the switch between the block layout
+    and the tiles (``k2_switch``, which sets gibbs_select's
+    TILE_MIN_ROWS); gumbel at the leaf and serve shapes
+    (256 x 50,000); the wrapper's host microseconds a call beside its bare
+    launch (2,000 calls at a tiny shape); and a serve request (2 x 50,000,
+    256 chains) as is and with gibbs_select's outputs precomputed (no
+    launch, no wrapper), so the eager ops around K2 are timed alone."""
     import torch
     import kde_tpu_torch as kt
     from kde_tpu_torch.ops import gibbs_select as gs
     dev = torch.device("cuda")
     gs.build()
+    print(f"k2 diag ptxas: {json.dumps(ptxas_table(gs.BUILD_LOG))}",
+          flush=True)
     f32 = torch.float32
-    layouts = ((gs.CTA_THREADS, 1), (gs.CTA_THREADS, 0), (32, 0))
+    for name, js, uni in (("leaf sweep", (0,), False),
+                          ("leaf sweep uniform", (0,), True),
+                          ("leaf cond", (0, 1), False),
+                          ("leaf cond uniform", (0, 1), True)):
+        args, codes, kw = k2_inputs(seed + 1, dev, 1, N_SLICE, 2, N_SLICE, 2,
+                                    js, f32, len(js) == 1, (0, 0), "cdf",
+                                    uniform=uni)
+        row = _k2_layout_row(gs, args, codes, kw,
+                             _k2_layouts(gs, N_SLICE, 2, 4, False))
+        print(f"k2 diag {name} cdf, ms by layout: {json.dumps(row)}",
+              flush=True)
+        del args, kw
+    k2_switch(seed)
     for shape, (c, w) in (("leaf", (N_SLICE, N_SLICE)),
                           ("serve", (SERVE_CHAINS, N_SERVE))):
-        for mode, js in (("cdf", (0,)), ("gumbel", (1,))):
-            args, codes, kw = k2_inputs(seed + 1, dev, 1, c, 2, w, 2, js,
-                                        f32, True, (0, 0), mode)
-            want = gs.gibbs_select(*args, codes, **kw)[2]
-            row = {}
-            for group, cache in layouts:
-                call = _k2_raw(args, codes, kw, group, cache)
-                if not torch.equal(call(), want):
-                    raise AssertionError(f"k2 diag {shape} {mode}: layout "
-                                         f"{group}x{cache} off the plan's")
-                row[f"{group}x{cache}"] = _cuda_ms(call)
-            print(f"k2 diag {shape} {mode}, ms by layout (threads a row x "
-                  f"cache): {json.dumps(row)}", flush=True)
+        args, codes, kw = k2_inputs(seed + 1, dev, 1, c, 2, w, 2, (1,), f32,
+                                    True, (0, 0), "gumbel")
+        row = _k2_layout_row(gs, args, codes, kw,
+                             _k2_layouts(gs, w, 2, 4, True))
+        print(f"k2 diag {shape} gumbel, ms by layout: {json.dumps(row)}",
+              flush=True)
+        del args, kw
     args, codes, kw = k2_inputs(seed + 2, dev, 1, 8, 2, 16, 2, (0,), f32,
                                 True, (0, 0), "cdf")
     calls = {"wrapper": functools.partial(gs.gibbs_select, *args, codes,
                                           **kw),
-             "ctypes": _k2_raw(args, codes, kw, 32, 1)}
+             "launch": _k2_raw(args, codes, kw, gs.launch_plan(16, 2, 4))}
     host = {}
-    for name in ("wrapper", "ctypes", "ctypes", "wrapper"):
+    for name in ("wrapper", "launch", "launch", "wrapper"):
         calls[name]()
         _sync()
         t0 = time.perf_counter()
@@ -4242,7 +4438,7 @@ def k2_diag(seed=SEED):
     real, outs = gs.gibbs_select, {}
 
     def precomputed(lm, lb, lw, lp, js, mu, cov, act, codes, u=None,
-                    seeds=None, chain0=0, sel0=0):
+                    seeds=None, chain0=0, sel0=0, uniform=None):
         key = (tuple(mu.shape), len(js))
         if key not in outs:
             b, c, d = mu.shape
@@ -4739,6 +4935,179 @@ def k6_parent_ab(parent, dev=None, k2_names=None, k6_cases_=None,
     print(_card() if card else "cpu")
 
 
+K2_PARENT_ROUNDS = 2         # parent, change, change, parent: twice
+K2_PARENT_TIMED = ("leaf sweep cdf", "leaf sweep cdf uniform",
+                   "leaf cond cdf", "leaf cond cdf uniform")
+
+
+def _digest(tensors):
+    import hashlib
+    return hashlib.sha256(b"".join(t.detach().cpu().contiguous().numpy()
+                                   .tobytes() for t in tensors)
+                          ).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def _k2_of(mod):
+    """Every selection of the package's stage route on ``mod``'s
+    gibbs_select (another checkout's; one without ``uniform=`` is called
+    without it), counted in ``mod.LAUNCHES``."""
+    from kde_tpu_torch.ops import gibbs_select
+    saved, fn = gibbs_select.gibbs_select, mod.gibbs_select
+    takes = "uniform" in inspect.signature(fn).parameters
+
+    def call(*args, uniform=None, **kw):
+        return fn(*args, **kw, **({"uniform": uniform} if takes else {}))
+    gibbs_select.gibbs_select = call
+    try:
+        yield
+    finally:
+        gibbs_select.gibbs_select = saved
+
+
+def k2_parent_ab(parent, dev=None, k2_names=None, k6_names=None,
+                 rounds=K2_PARENT_ROUNDS, n=N_SLICE, many=None):
+    """This checkout's K2 against ``parent``'s (another checkout, e.g. an
+    unpacked ``git archive``), each side's ``ops/gibbs_select.py`` loaded
+    as a module of this package so that it builds its own
+    ``csrc/gibbs_select.cu``.  (1) Phase 3d's gumbel cases (``k2_names``
+    of them, default all): labels and gathered stats bitwise equal, each
+    side's digest printed; its cdf cases: the labels that differ (a float64
+    CDF tie may part them; the parent is called without ``uniform=``).
+    (2) K6 at phase 3g's cases (``k6_names``, default all): every phase's
+    outputs of one selection (``k6_select``) on ``parent``'s
+    ``ops/sharded_select.py`` and on this checkout's, bitwise, by digests.
+    (3) K2 cdf in turns (parent, change, change, parent, ``rounds``
+    times; one call, CUDA events): phase 3d's leaf stages with varied and
+    uniform bandwidths.  (4) In turns, host seconds ending in a sync:
+    phase 10's lone circular diffop product (cdf, ``n`` chains over the
+    circular pair of ``n``) and phase 10b's product of MANY_DENS densities
+    (``many`` = (n, chains), default N_MANY, MANY_CHAINS), every selection
+    on each side's K2, the chains whose labels differ."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch import manifolds
+    from kde_tpu_torch.ops import gibbs_select, sharded_select
+    dev = dev or torch.device("cuda")
+    card = dev.type == "cuda"
+    sync = _sync if card else (lambda: None)
+    k2p = _parent_module(parent, "ops", "gibbs_select")
+    k6p = _parent_module(parent, "ops", "sharded_select")
+    sides = {"parent": k2p, "change": gibbs_select}
+    if card:
+        print("k2 parent ab, builds: " + json.dumps(
+            {side: os.path.basename(str(mod.build()))
+             for side, mod in sides.items()}), flush=True)
+
+    # (1) K2: gumbel bitwise, cdf labels
+    cases = k2_cases(gibbs_select)
+    inputs = {}
+    for i, (name, (b, c, dn, w, d, js, dt, cov, codes, mode, ex)) in \
+            enumerate(cases.items()):
+        if k2_names is not None and name not in k2_names:
+            continue
+        args, codes, kw = k2_inputs(SEED + 20 + i, dev, b, c, dn, w, d, js,
+                                    dt, cov, codes, mode, **ex)
+        pkw = {k: v for k, v in kw.items() if k != "uniform"}
+        got = {"parent": k2p.gibbs_select(*args, codes, **pkw),
+               "change": gibbs_select.gibbs_select(*args, codes, **kw)}
+        sync()
+        row = {side: _digest(out) for side, out in got.items()}
+        if mode == "gumbel":
+            row["bitwise_equal"] = all(
+                torch.equal(_bits(a) if a.is_floating_point() else a,
+                            _bits(b_) if b_.is_floating_point() else b_)
+                for a, b_ in zip(got["parent"], got["change"]))
+            if not row["bitwise_equal"]:
+                raise AssertionError(f"K2 gumbel ({name}): off the parent")
+        else:
+            row["labels_off"] = int((got["parent"][2] != got["change"][2])
+                                    .sum())
+            if row["labels_off"] > K2_MAX_TIES:
+                raise AssertionError(f"K2 cdf ({name}): {row}")
+        print(f"k2 parent ab, K2 {mode} ({name}): {json.dumps(row)}",
+              flush=True)
+        if name in K2_PARENT_TIMED:
+            inputs[name] = (args, codes, kw, pkw)
+        del got
+
+    # (2) K6's phase outputs, bitwise
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k6_all = k6_cases(sms=sms)
+    for i, (name, (c, w, d, js, dt, cov, codes, S, ex)) in \
+            enumerate(k6_all.items()):
+        if k6_names is not None and name not in k6_names:
+            continue
+        inp = k6_inputs(SEED + 60 + i, dev, dt, c, w, d, js, cov, codes, S,
+                        **ex)
+        with _uncounted():
+            got = {side: k6_select(inp, ss=mod) for side, mod in
+                   (("parent", k6p), ("change", sharded_select))}
+        sync()
+        flat = {side: [t for k, v in out.items() if k != "stages"
+                       for t in (v if isinstance(v, list) else [v])]
+                for side, out in got.items()}
+        row = {side: _digest(ts) for side, ts in flat.items()}
+        row["bitwise_equal"] = row["parent"] == row["change"]
+        print(f"k2 parent ab, K6 ({name}): {json.dumps(row)}", flush=True)
+        if not row["bitwise_equal"]:
+            raise AssertionError(f"K6 ({name}): off the parent's build")
+        del inp, got, flat
+
+    # (3) K2 cdf at the leaf stages, in turns
+    clock = _sm_clock_hz()
+    for name, (args, codes, kw, pkw) in inputs.items():
+        calls = {"parent": functools.partial(k2p.gibbs_select, *args, codes,
+                                             **pkw),
+                 "change": functools.partial(gibbs_select.gibbs_select,
+                                             *args, codes, **kw)}
+        row = {"parent_ms": [], "change_ms": []}
+        for _ in range(rounds):
+            for side in ("parent", "change", "change", "parent"):
+                row[f"{side}_ms"].append(_cuda_ms(calls[side]))
+        row["bound_ms"], row["bound_by"] = k2_bound_ms(args, codes, kw, sms,
+                                                       clock)
+        for side in ("parent", "change"):
+            row[f"{side}_bound_share"] = row["bound_ms"] / float(
+                np.median(row[f"{side}_ms"]))
+        print(f"k2 parent ab, K2 cdf ({name}): {json.dumps(row)}",
+              flush=True)
+    del inputs
+
+    # (4) the stage-route products, in turns
+    pa, pb = _circ_pair(np.random.default_rng(SEED + 5), n, dev)
+    nm, cm = many or (N_MANY, MANY_CHAINS)
+    products = {
+        "lone circular diffop": functools.partial(
+            kt.prod_appx_ms_gibbs, n, [pa, pb], n_iter=5, key=SEED,
+            select="cdf", diffop=(manifolds.circular_diff,)),
+        f"{MANY_DENS} densities": functools.partial(
+            kt.prod_appx_ms_gibbs, cm, _many_densities(dev, nm, MANY_DENS),
+            key=SEED, select="cdf")}
+    for name, call in products.items():
+        row, labels = {}, {}
+        for side in ("parent", "change"):            # plans, builds
+            with _k2_of(sides[side]):
+                labels[side] = call()[1]
+        for _ in range(rounds):
+            for side in ("parent", "change", "change", "parent"):
+                with _k2_of(sides[side]):
+                    l0 = sides[side].LAUNCHES
+                    sync()
+                    t0 = time.perf_counter()
+                    out = call()
+                    sync()
+                    row.setdefault(f"{side}_s", []).append(
+                        time.perf_counter() - t0)
+                    row[f"{side}_launches"] = sides[side].LAUNCHES - l0
+                labels[side] = out[1]
+        row["differing_chains"] = int((labels["parent"] != labels["change"])
+                                      .any(dim=0).sum())
+        print(f"k2 parent ab, product ({name}): {json.dumps(row)}",
+              flush=True)
+    print(_card() if card else "cpu")
+
+
 def _merged_us(spans):
     """Total microseconds covered by the ``(start, end)`` spans."""
     total, end = 0.0, -np.inf
@@ -5067,6 +5436,9 @@ def main():
     mf = run("manifolds", phase_manifolds, dev)
     print(f"manifold products 2x{N_SLICE}, batched {BATCH_SETS} sets on "
           f"{card}: {json.dumps(mf)}", flush=True)
+    md = run("many_densities", phase_many_densities, dev)
+    print(f"{MANY_DENS}-density product of {N_MANY} 2-D points, "
+          f"{MANY_CHAINS} chains on {card}: {json.dumps(md)}", flush=True)
     pl = run("parallel", phase_parallel, dev, p, q, serve)
     print(f"parallel 11a, one NCCL rank, on {card}: {json.dumps(pl)}",
           flush=True)
@@ -5101,6 +5473,10 @@ def main():
     if k2["manifolds"] < 1:
         raise AssertionError("the lone circular diffop never launched "
                              "gibbs_select")
+    if k2["many_densities"] < 1 or k3["many_densities"] != 0:
+        raise AssertionError(f"the {MANY_DENS}-density product: "
+                             f"{k2['many_densities']} gibbs_select and "
+                             f"{k3['many_densities']} gibbs_chain launches")
     for name in ("parallel", "shared_card"):
         if k6[name] < 1 or k6_twin[name] != 0:
             raise AssertionError(f"path {name}: {k6[name]} sharded_select "
@@ -5193,6 +5569,15 @@ def main():
         "replaces": "kde_tpu/ops/gibbs.py:267 (_kernel_logits_raw, "
                     "_dead_predicate, _apply_dead_fallback, _select_label "
                     "or _select_label_gumbel, select_stats; XLA-fused)",
+        "design": "cdf redesigned: tiles of rows sharing each staged "
+                  "chunk of the level, log c once a row on uniform levels, "
+                  "the CDF scan in one chunk",
+        "layout": leaf["plan"]["layout"],
+        "ms_uniform": k2_rows["leaf sweep cdf uniform"]["ms"],
+        "bound_ms_uniform": k2_rows["leaf sweep cdf uniform"]["bound_ms"],
+        "ms_cond": k2_rows["leaf cond cdf"]["ms"],
+        "ms_cond_uniform": k2_rows["leaf cond cdf uniform"]["ms"],
+        "many_densities_gibbs_s": md["gibbs_s"],
         "launches": sum(k2.values()),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows.values()),
         "label_mismatches": sum(r["label_mismatches"]
@@ -5313,6 +5698,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k6-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k6_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k2-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k2_parent_ab(sys.argv[2])
     elif sys.argv[1:2] == ["--k3-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_diag()

@@ -152,6 +152,10 @@ class _SetPlans(NamedTuple):
         return (self.lvl_mean[:, :, o:o + w], self.lvl_bw[:, :, o:o + w],
                 self.lvl_logw[:, :, o:o + w], self.lvl_perm[:, :, o:o + w])
 
+    def level_uniform(self, l: int) -> torch.Tensor:
+        """Level ``l``'s uniform flags ``[B, dn, d]`` (contiguous)."""
+        return self.lvl_uniform[:, :, l - 1].contiguous()
+
 
 def _stack_plans(plans) -> _SetPlans:
     """One plan gets a set axis of 1 (views); several are stacked.  Sets of
@@ -503,7 +507,9 @@ class _Stage(NamedTuple):
     ``active [B, dn, d]`` with their host copy, the per-dim ``diffop``
     (None: Euclidean) and the selection id of ``js[0]``, ``sel`` (density
     ``js[jj]``'s is ``sel + jj``): the column of the uniform stream that
-    cdf reads for it, which keys gumbel's counter noise."""
+    cdf reads for it, which keys gumbel's counter noise; ``uniform [B, dn,
+    d]`` flags the dims where the level's bandwidth is the same for every
+    candidate (the plan's ``level_uniform``; None: not known)."""
     js: Tuple[int, ...]
     mu: torch.Tensor
     cov: Optional[torch.Tensor]
@@ -512,6 +518,7 @@ class _Stage(NamedTuple):
     active_host: np.ndarray
     diffop: Optional[tuple]
     sel: int = 0
+    uniform: Optional[torch.Tensor] = None
 
     def logits(self, j: int, lvl):
         """Density ``j``'s raw candidate logits ``[B, C, w]`` at the level
@@ -572,7 +579,7 @@ def _local_choose(select: str = "cdf", seeds=None, chain0: int = 0):
                 *lvl, stage.js, stage.mu, stage.cov, stage.active, codes,
                 u=None if gumbel else stage.u,
                 seeds=seeds if gumbel else None, chain0=chain0,
-                sel0=stage.sel)
+                sel0=stage.sel, uniform=None if gumbel else stage.uniform)
         return [(mean[:, :, i], var[:, :, i], label[:, :, i])
                 for i in range(len(stage.js))]
     return choose
@@ -618,7 +625,7 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
     act_host = act_all.cpu().numpy()
     stage = lambda js, mu, cov, us, sel: _Stage(tuple(js), mu, cov, us,
                                                 act_all, act_host, diffop,
-                                                sel)
+                                                sel, uni)
     if u is not None:
         per_level = u[:, :, dn:].reshape(b, c, L, (1 + n_iter) * dn)
         u_cond = per_level[..., :dn]
@@ -640,7 +647,7 @@ def _run_chain(u, nrm, plans: _SetPlans, mask, n_iter: int,
         perms[:, :, j] = perm
 
     for l in range(1, L + 1):
-        lvl = plans.level(l)
+        lvl, uni = plans.level(l), plans.level_uniform(l)
         sel = dn + (l - 1) * (1 + n_iter) * dn      # u's column of the stage
         # (1) draw X from the product of the current selections (:594)
         x = _sample_point(mu_sel, var_sel, mask, normals[:, :, l - 1], True,

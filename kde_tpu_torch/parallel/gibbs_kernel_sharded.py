@@ -131,6 +131,12 @@ class _KShardPlan:
                 self.lvl_logw[:, :, o:o + w], self.lvl_stats[:, :, o:o + w],
                 self.lvl_real[l - 1], self.lvl_uniform[l - 1])
 
+    def level_uniform(self, l: int) -> torch.Tensor:
+        """Level ``l``'s uniform flags with the set axis, ``[1, dn, d]``
+        (``_run_chain`` puts them on its stages; the sharded selection
+        reads them from :meth:`level`)."""
+        return self.lvl_uniform[l - 1][None]
+
 
 # Shard plans keyed by the densities' identity, the level count, dtype, the
 # shard count, this rank's shard and its device; an entry is evicted when

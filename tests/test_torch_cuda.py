@@ -812,6 +812,123 @@ def test_blocked_and_user_diffop_take_the_twin_on_card(cuda):
         assert (gibbs_select.TWIN_STAGES > t0) == (route == "twin")
 
 
+
+# cdf's tile layout: name -> (b, chains as a function of TILE_MIN_ROWS, dn,
+# w, d, js, dtype, cov, codes, extras); at the chunk edges (one slot a
+# chunk; two slots a chunk past MAX_CHUNKS slots), the threshold width and
+# the threshold rows, chains not a multiple of a tile's 16 rows, the
+# conditioning stage with padded and dead rows
+K2_TILE_CASES = {
+    "f32 chunk - 1": (1, lambda r: r + 5, 2, 4 * 512 - 1, 2, (0,), "f32",
+                      True, (0, 0), {}),
+    "f32 chunk": (1, lambda r: r + 5, 2, 4 * 512, 2, (0,), "f32", True,
+                  (0, 0), {}),
+    "f32 chunk + 1": (1, lambda r: r + 5, 2, 4 * 512 + 1, 2, (0,), "f32",
+                      True, (0, 0), dict(uniform=True)),
+    "f32 two-slot chunk - 1": (1, lambda r: r + 5, 2, 41 * 1024 - 1, 2,
+                               (1,), "f32", True, (0, 0), {}),
+    "f32 two-slot chunk + 1": (1, lambda r: r + 5, 2, 41 * 1024 + 1, 2,
+                               (1,), "f32", False, (0, 0),
+                               dict(uniform=True)),
+    "f64 chunk - 1": (1, lambda r: r + 5, 2, 5 * 256 - 1, 2, (0,), "f64",
+                      True, (0, 0), {}),
+    "f64 chunk + 1": (1, lambda r: r + 5, 2, 5 * 256 + 1, 2, (0,), "f64",
+                      False, (0, 0), {}),
+    "threshold width": (1, lambda r: r + 5, 2, 1024, 2, (0,), "f32", True,
+                        (0, 0), {}),
+    "threshold width + 1": (1, lambda r: r + 5, 2, 1025, 2, (0,), "f32",
+                            True, (0, 0), {}),
+    "threshold rows - 1": (1, lambda r: r - 1, 2, 3000, 2, (0,), "f32",
+                           True, (0, 0), {}),
+    "threshold rows": (1, lambda r: r, 2, 3000, 2, (0,), "f32", True,
+                       (0, 0), {}),
+    "cond pad dead": (2, lambda r: r // 4 + 3, 2, 3000, 2, (0, 1), "f32",
+                      False, (0, 0), dict(pad=37, dead=5, mixed=True)),
+    "cond pad dead uniform": (2, lambda r: r // 4 + 3, 2, 3000, 2, (0, 1),
+                              "f32", False, (0, 0),
+                              dict(pad=37, dead=5, mixed=True,
+                                   uniform=True)),
+    "cond pad dead cov f64": (2, lambda r: r // 4 + 3, 2, 2000, 2, (0, 1),
+                              "f64", True, (0, 0),
+                              dict(pad=21, dead=7, mixed=True)),
+    "circular": (1, lambda r: r + 9, 2, 4000, 1, (1,), "f32", True, (1,),
+                 {}),
+    "se2 cond": (1, lambda r: r // 2 + 7, 2, 4000, 3, (0, 1), "f32", False,
+                 (0, 0, 1), dict(uniform=True)),
+}
+
+
+def _k2_tile(cuda, seed, b, c, dn, w, d, js, dt, cov, codes, ex):
+    """chip_smoke.k2_inputs of a tile case; checks that the plan takes the
+    tiles exactly where launch_plan says (cdf, w > WARP_MAX_WIDTH, rows >=
+    TILE_MIN_ROWS) and returns (args, codes, kw, plan)."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_select as gs
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    args, codes, kw = cs.k2_inputs(seed, cuda, b, c, dn, w, d, js, dtype,
+                                   cov, codes, "cdf", **ex)
+    plan = gs.launch_plan(w, d, args[0].element_size(), rows=b * c * len(js))
+    tiles = w > gs.WARP_MAX_WIDTH and b * c * len(js) >= gs.TILE_MIN_ROWS
+    assert (plan.layout == "tiles") == tiles
+    return args, codes, kw, plan
+
+
+def _k2_one_launch(args, codes, kw, name):
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_select
+    before = gibbs_select.LAUNCHES
+    row, labels = cs.k2_compare(args, codes, kw, name)
+    assert gibbs_select.LAUNCHES == before + 1
+    assert row["max_abs_err"] == 0.0
+    assert len(row["cdf_ties"]) <= cs.K2_MAX_TIES
+    assert all(t <= cs.K2_TIE for t in row["cdf_ties"])
+    return labels
+
+
+@pytest.mark.parametrize("name", sorted(K2_TILE_CASES))
+def test_gibbs_select_tiles_match_twin(cuda, name):
+    """cdf's tile layout against the twin at its edges, with phase 3d's
+    limits: labels equal but float64 CDF ties within K2_TIE of u (at most
+    K2_MAX_TIES), the gathered stats exact, one launch a call."""
+    from kde_tpu_torch.ops import gibbs_select as gs
+    b, c_of, *rest = K2_TILE_CASES[name]
+    case = _k2_tile(cuda, 70 + sorted(K2_TILE_CASES).index(name), b,
+                    c_of(gs.TILE_MIN_ROWS), *rest)
+    _k2_one_launch(*case[:3], name)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("uniform", [False, True], ids=["varied", "uniform"])
+@pytest.mark.parametrize("d", list(range(1, 9)) + [17])
+def test_gibbs_select_tiles_every_dim(cuda, d, uniform, dt):
+    """The tiles at d = 1-8 and 17 (registers for d <= 3, shared memory
+    above), float32 and float64, bandwidths uniform (log c once a row) and
+    varied, cov on (odd d) and off (the conditioning stage, whose varied
+    logs the block takes once a slot), a circular last dim where d > 1,
+    mixed active dims."""
+    from kde_tpu_torch.ops import gibbs_select as gs
+    codes = tuple(int(d > 1 and k == d - 1) for k in range(d))
+    args, codes, kw, plan = _k2_tile(
+        cuda, 90 + d, 1, gs.TILE_MIN_ROWS // 2 + 3, 2, 1500, d, (0, 1), dt,
+        d % 2 == 1, codes, dict(uniform=uniform, mixed=d > 1))
+    assert plan.layout == "tiles"
+    _k2_one_launch(args, codes, kw, f"tiles d={d}")
+
+
+def test_gibbs_select_stage_route_of_many_densities(cuda):
+    """A keyed cdf product of MAX_DENS + 4 densities takes the stage route
+    on the card, one gibbs_select launch a selection step (the tiles at
+    its wide levels: more than TILE_MIN_ROWS chains), and agrees with the
+    same call on the twin on at least AGREE_MIN of its chains."""
+    import chip_smoke as cs
+    from kde_tpu_torch.ops import gibbs_select
+    out = cs.phase_many_densities(cuda, n=1500,
+                                  n_out=gibbs_select.TILE_MIN_ROWS + 104)
+    assert out["route"] == "kernel"
+    assert out["gibbs_select_launches"] > 0 and out["finite"]
+    assert out["twin_same_labels"] >= cs.AGREE_MIN
+
+
 # ---- the Gibbs chain kernel (csrc/gibbs_chain.cu) --------------------------
 
 K3_CASES = {

@@ -251,19 +251,20 @@ def test_diff_codes():
 def test_launch_plan():
     """A warp a row up to WARP_MAX_WIDTH, a block above; the logits cached
     where they fit CACHE_MAX_BYTES (float32 at 50,000 candidates, float64
-    not); shared memory as the kernel's smem_bytes counts it."""
-    assert gs.launch_plan(1, 2, 4) == (32, True, 8 * (4 * 4 + 1 * 4 + 2))
-    g, cache, smem = gs.launch_plan(gs.WARP_MAX_WIDTH, 8, 8)
-    assert (g, cache) == (32, True) and smem == 8 * ((16 + 1024) * 8 + 8)
-    assert gs.launch_plan(gs.WARP_MAX_WIDTH + 1, 2, 4)[:2] == (512, True)
-    assert gs.launch_plan(50_000, 2, 4) == (512, True,
-                                            (50_000 + 4) * 4 + 2)
-    assert gs.launch_plan(50_000, 2, 8) == (512, False, 4 * 8 + 2)
-    assert gs.launch_plan(20_000, 2, 8)[1]
+    not); shared memory as the kernel's smem_bytes counts it (per row mu,
+    cov, c and log c [d], the cache, d flag bytes)."""
+    gcs = lambda *a: tuple(gs.launch_plan(*a)[1:4])   # group, cache, smem
+    assert gcs(1, 2, 4) == (32, True, 8 * (8 * 4 + 1 * 4 + 2))
+    g, cache, smem = gcs(gs.WARP_MAX_WIDTH, 8, 8)
+    assert (g, cache) == (32, True) and smem == 8 * ((32 + 1024) * 8 + 8)
+    assert gcs(gs.WARP_MAX_WIDTH + 1, 2, 4)[:2] == (512, True)
+    assert gcs(50_000, 2, 4) == (512, True, (50_000 + 8) * 4 + 2)
+    assert gcs(50_000, 2, 8) == (512, False, 8 * 8 + 2)
+    assert gcs(20_000, 2, 8)[1]
     for w in (1, 1000, 1024, 1025, 25_000, 60_000):
         for d in (1, 2, 8):
             for item in (4, 8):
-                assert gs.launch_plan(w, d, item)[2] <= 226 * 1024
+                assert gcs(w, d, item)[2] <= 226 * 1024
 
 
 def _counter_word(seed, chain, sel, i):
@@ -460,3 +461,185 @@ def test_gumbel_draw_does_not_depend_on_chain_blocks(route, monkeypatch):
         monkeypatch.setattr(tgibbs, "_chain_block", lambda *a: 7)
     for x, y in zip(one, draw()):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("item", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("d", list(range(1, 18)))
+def test_launch_plan_tiles_fit_and_cover(d, item):
+    """Every shape maps to one layout: cdf over a level wider than
+    WARP_MAX_WIDTH with at least TILE_MIN_ROWS rows takes the tiles, gumbel
+    never, the rest the warp or block layout; a block's shared memory stays
+    within the card's 227 KB at d = 1-17 in both dtypes (the kernel's
+    tile_smem: chunk sums, a ring of bandwidths and their logs, the rows'
+    constants where d > 3); the chunks are whole ring slots, at most
+    MAX_CHUNKS, and cover the level once, in order."""
+    rmin = gs.TILE_MIN_ROWS
+    for w in (1, 1000, gs.WARP_MAX_WIDTH, gs.WARP_MAX_WIDTH + 1, 4097,
+              20_000, 33_000, 50_000, 1_000_000):
+        for rows in (1, rmin - 1, rmin, 20_000):
+            for gumbel in (False, True):
+                p = gs.launch_plan(w, d, item, rows=rows, gumbel=gumbel)
+                tiles = (not gumbel and w > gs.WARP_MAX_WIDTH
+                         and rows >= rmin)
+                want = ("tiles" if tiles else
+                        "warp" if w <= gs.WARP_MAX_WIDTH else "block")
+                assert p.layout == want, (w, rows, gumbel, p)
+                assert p.smem <= 227 * 1024 and p.smem <= gs.SMEM_MAX_BYTES
+                if p.layout != "tiles":
+                    assert (p.chunk, p.chunks, p.slot) == (w, 1, 0)
+                    continue
+                assert p.group == 32 and p.rows == gs.TILE_ROWS
+                assert not p.cache
+                assert p.slot >= 32 and p.slot % 32 == 0
+                assert p.chunk % p.slot == 0 and p.chunks <= gs.MAX_CHUNKS
+                bounds = [(k * p.chunk, min(w, (k + 1) * p.chunk))
+                          for k in range(p.chunks)]
+                assert bounds[0][0] == 0 and bounds[-1][1] == w
+                assert all(lo < hi for lo, hi in bounds)
+                assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+                generic = not 1 <= d <= 3
+                smem = (p.rows * p.chunks * 8
+                        + gs.STAGES * p.slot * (3 * d + 1) * item
+                        + (p.rows * (4 * d * item + d) if generic else 0))
+                assert p.smem == smem
+
+
+def test_launch_plan_forced_layouts():
+    """``--k2-diag``'s forced layouts: tiles of fewer rows where a block's
+    shared memory cannot hold 16 rows' constants (``_tile_plan`` of 8 rows
+    as of 16 otherwise), the block layout where one row's cannot; gumbel
+    has no tiles."""
+    p = gs._tile_plan(20_000, 2, 4, 8)
+    assert (p.layout, p.rows, p.group, p.cache) == ("tiles", 8, 32, False)
+    assert gs.launch_plan(20_000, 2, 4, layout="tiles").rows == gs.TILE_ROWS
+    assert gs.launch_plan(20_000, 2, 4, layout="block").layout == "block"
+    assert gs.launch_plan(2000, 2, 4, layout="warp").cache
+    assert not gs.launch_plan(20_000, 2, 4, layout="warp").cache
+    p = gs.launch_plan(20_000, 90, 8, rows=20_000)
+    assert p.layout == "tiles" and p.rows < gs.TILE_ROWS
+    assert gs.launch_plan(20_000, 200, 8, rows=20_000).layout == "block"
+    with pytest.raises(ValueError, match="gumbel"):
+        gs.launch_plan(20_000, 2, 4, gumbel=True, layout="tiles")
+    with pytest.raises(ValueError, match="layout"):
+        gs.launch_plan(20_000, 2, 4, layout="staged")
+
+
+def _tile_rows(plan, b, c, n_js):
+    """The rows each block of a tile launch over ``b`` sets, ``c`` chains
+    and ``n_js`` densities holds, as csrc/gibbs_select.cu's ``k2_tiles``
+    walks them: ``[blocks, plan.rows]`` indices into the ``(b, c, jj)``
+    row order of the outputs, -1 where a tile runs past the chains.
+    Blocks walk the (set, density) slabs in order, each slab's chains in
+    tiles of ``plan.rows``."""
+    tiles = -(-c // plan.rows)
+    slab = np.arange(b * n_js)[:, None, None]
+    chain = (np.arange(tiles)[None, :, None] * plan.rows
+             + np.arange(plan.rows)[None, None, :])
+    row = (slab // n_js * c + chain) * n_js + slab % n_js
+    return np.where(chain < c, row, -1).reshape(-1, plan.rows)
+
+
+@pytest.mark.parametrize("b,c,n_js", [(1, 20_000, 1), (2, 1027, 2),
+                                      (3, 16, 1), (1, 5, 3)])
+def test_tile_rows_share_their_set_and_density(b, c, n_js):
+    """A tile's rows are chains of one (set, density), consecutive, in the
+    outputs' (b, c, jj) order; every row lies in exactly one tile, and only
+    the last tile of a slab runs past the chains."""
+    p = gs.launch_plan(20_000, 2, 4, rows=max(gs.TILE_MIN_ROWS, b * c * n_js))
+    rows = _tile_rows(p, b, c, n_js)
+    tiles = -(-c // p.rows)
+    assert rows.shape == (b * n_js * tiles, p.rows)
+    real = rows[rows >= 0]
+    assert np.array_equal(np.sort(real), np.arange(b * c * n_js))
+    bi, ci, jj = real // (c * n_js), real // n_js % c, real % n_js
+    for blk in rows:
+        r = blk[blk >= 0]
+        slab = {(int(x) // (c * n_js), int(x) % n_js) for x in r}
+        assert len(slab) == 1
+        ch = r // n_js % c
+        assert np.array_equal(ch, np.arange(ch[0], ch[0] + len(ch)))
+    assert int((rows < 0).sum()) == b * n_js * (tiles * p.rows - c)
+    assert bi.max() == b - 1 and jj.max() == n_js - 1 and ci.max() == c - 1
+
+
+def test_wrapper_rejects_a_malformed_uniform():
+    """uniform is [B, dn, d], bool or uint8, on the inputs' device; the
+    twin ignores it (the CPU's labels are the same with or without)."""
+    a, codes = _inputs(6, 2, True, True, F32)
+    args, u = _torch_args(a)
+    lm, lb, lw, lp, js, mu, cov, act = args
+    b, dn, w, d = lm.shape
+    uni = torch.ones((b, dn, d), dtype=torch.bool)
+    want = gs.gibbs_select(*args, codes, u=u)
+    for flags in (uni, uni.to(torch.uint8), torch.zeros_like(uni)):
+        got = gs.gibbs_select(*args, codes, u=u, uniform=flags)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="uniform"):
+        gs.gibbs_select(*args, codes, u=u, uniform=uni[:, :, :1])
+    with pytest.raises(ValueError, match="uniform"):
+        gs.gibbs_select(*args, codes, u=u, uniform=uni[0])
+    with pytest.raises(TypeError, match="uniform"):
+        gs.gibbs_select(*args, codes, u=u, uniform=uni.float())
+    with pytest.raises(ValueError, match="device"):
+        gs.gibbs_select(*args, codes, u=u, uniform=uni.to("meta"))
+
+
+def test_run_chain_passes_each_levels_uniform_flags(monkeypatch):
+    """On the stage route every selection (conditioning without cov,
+    sweeps with) gets its level's flags, [B, dn, d], equal to a check of
+    every candidate's bandwidth at that level, padded slots included (two
+    densities of 30 and 41 points); a level whose leaves share one
+    bandwidth in dim 0 but not in dim 1 is flagged in dim 0 alone."""
+    rng = np.random.default_rng(21)
+    dens = []
+    for n in (30, 41):
+        var = np.stack([np.full(n, 0.09), rng.uniform(0.05, 0.2, n)], 1)
+        dens.append(tgibbs.KDE(rng.normal(size=(n, 2)), var, np.ones(n) / n,
+                               True, device="cpu", dtype=F64))
+    seen, real = [], gs.gibbs_select
+
+    def spy(*args, **kw):
+        seen.append((args[1], args[6] is not None, kw["uniform"]))
+        return real(*args, **kw)
+    monkeypatch.setattr(gs, "gibbs_select", spy)
+    monkeypatch.setattr(tgibbs, "_route", lambda *a: "kernel")
+    prod_appx_ms_gibbs(12, dens, n_iter=2, key=3)
+    assert seen and {c for _, c, _ in seen} == {False, True}
+    one_dim = 0
+    for bw, _, uni in seen:
+        assert uni.shape == (1, 2, 2)
+        want = (bw == bw[:, :, :1]).all(dim=2)
+        assert torch.equal(uni.bool(), want)
+        one_dim += int(bool((uni[..., 0].bool() & ~uni[..., 1].bool())
+                            .any()))
+    assert one_dim > 0
+
+
+def test_replay_product_of_more_densities_than_the_chain_kernel(monkeypatch):
+    """MAX_DENS + 1 = 17 one-dimensional densities of about 40 points, in
+    float64: more than the chain kernel takes, so on the card the stage
+    route (one gibbs_select a selection step, forced here on the CPU,
+    where it runs the twin); trace-exact against kde_tpu and the serial
+    oracle (test_torch_gibbs's check: labels equal, points to 1e-9), every
+    selection handed its level's uniform flags."""
+    import kde_tpu
+    from kde_tpu_torch.ops import gibbs_chain
+    from test_torch_gibbs import _check_replay
+    dn = gibbs_chain.MAX_DENS + 1
+    rng = np.random.default_rng(22)
+    jdens = [kde_tpu.kde(rng.normal(size=(1, 38 + j % 5)) + 0.05 * j, [0.5])
+             for j in range(dn)]
+    n_out, n_iter = 8, 1
+    ru, rn, _ = gibbs_streams(rng, dn, 1, n_out, n_iter, 42)
+    assert tgibbs._route("cdf", None, "cuda", dn, 1) == "kernel"
+    calls, real = [], gs.gibbs_select
+
+    def spy(*args, **kw):
+        calls.append(kw["uniform"] is not None)
+        return real(*args, **kw)
+    monkeypatch.setattr(gs, "gibbs_select", spy)
+    monkeypatch.setattr(tgibbs, "_route", lambda *a: "kernel")
+    _check_replay(jdens, n_out, n_iter, ru, rn)
+    n_levels = int(np.floor(np.log2(42) + 1))
+    assert len(calls) == n_levels * (1 + n_iter * dn) and all(calls)
