@@ -63,11 +63,14 @@ Phases, one line of findings each:
  3f. the LOOCV search kernel loo_search (K4, csrc/loo_search.cu) against
      its plain twin at the main path's searches (K4_CASES: the slice's
      fit and refit, the batched refit, the dense range, the unscented
-     fit, phase 9's float64 ksize): float64 to rtol 1e-10, float32 probe
-     values within 2e-5 of the twin's entropies and picks within the
-     final bracket, bitwise repeats, one launch a call; timed beside
-     k4_bound_ms, the twin and ksize_rows on the twin (the parent's
-     route);
+     fit, phase 9's float64 ksize on the grid plan; 2 x 256, the `*`
+     refit of 1,000-sample beliefs, the headline's batched refit 12 x
+     1,000, 2 x 1,100, 2 x 2,048, 2 x 4,096, 2 x 16,384 and a float64
+     ksize at 2 x 1,000 on the rows plan): float64 to rtol 1e-10,
+     float32 probe values within 2e-5 of the twin's entropies and picks
+     within the final bracket, bitwise repeats, one launch a call; timed
+     beside k4_bound_ms, the twin and ksize_rows on the twin (the
+     parent's route);
  3g. the kernel-sharded selection kernel sharded_select (K6,
      csrc/sharded_select.cu) against its plain twins (phase_sharded_select):
      every phase's outputs and the winner's stats, the shards of S = 1
@@ -227,6 +230,17 @@ and gumbel, and the switch between them (see k3_diag).
 times the chain kernel only, against the one of the checkout in DIR (see
 k3_parent_ab).
 
+    python3 chip_smoke.py --k4-diag
+
+splits one K4 call on each plan at K4_DIAG_CASES from a diag build's
+stamps, times the rows plan's cluster barrier against its per-row counter,
+and sweeps the switch between the plans (see k4_diag).
+
+    python3 chip_smoke.py --k4-parent DIR
+
+holds K4 against the K4 of the checkout in DIR at phase 3f's searches,
+times both in turns, and the small refits end to end (see k4_parent_ab).
+
     python3 chip_smoke.py --k7-parent DIR
 
 holds K4 against the K4 of the checkout in DIR, bitwise, and times the
@@ -322,7 +336,17 @@ K4_CASES = {"slice fit": (2, N_SLICE, "float32", "fit"),
             "dense 2x4096": (2, 4096, "float32", "fit"),
             "dense 2x16384": (2, 16384, "float32", "fit"),
             "unscented fit": (1, N_UNSCENTED, "float32", "fit"),
-            "ksize f64": (2, N_SLICE, "float64", "fit")}
+            "ksize f64": (2, N_SLICE, "float64", "fit"),
+            "2x256": (2, 256, "float32", "fit"),
+            "* refit 2x1000": (2, 1000, "float32", "refit"),
+            "batched refit 12x1000": (12, 1000, "float32", "refit"),
+            "2x1100": (2, 1100, "float32", "fit"),
+            "2x2048": (2, 2048, "float32", "fit"),
+            "ksize f64 2x1000": (2, 1000, "float64", "fit")}
+# --k4-diag: the 3f searches whose K4 call is split by the diag build
+K4_DIAG_CASES = ("2x256", "* refit 2x1000", "batched refit 12x1000",
+                 "2x1100", "2x2048", "dense 2x4096", "dense 2x16384",
+                 "ksize f64 2x1000")
 SMALL_RTOL = 1e-9        # small-route selections (tests/test_host_small.py)
 SMALL_ATOL = 1e-10       # small-route log p
 SMALL_TOL = 1e-2         # the LOOCV search's tolerance (kde's default)
@@ -1764,7 +1788,9 @@ def phase_loo_search(dev, cases=None):
         if not all(torch.equal(a, got) for a in again):
             raise AssertionError(f"loo_search ({name}): repeated calls "
                                  "differ")
+        plan = loo_search.launch_plan(r, n, args[0].dtype, sms)
         row = dict(rows=r, n=n, dtype=dtype, twin_route=impl,
+                   plan=plan._asdict(),
                    **k4_compare(args, impl, got, trace, name))
         search = functools.partial(loo_search.loo_search, *args, tol=K4_TOL,
                                    impl=impl)
@@ -1787,6 +1813,260 @@ def phase_loo_search(dev, cases=None):
         print(f"loo_search ({name}): {json.dumps(row)}", flush=True)
         del args, got, again, trace
     return rows
+
+
+def k4_diag_split(rec, sms):
+    """The split of one diag-build K4 call from its stamps ``rec``
+    (uint64 [blocks, max_iters + 2, 8], csrc/loo_search.cu's K4_DIAG
+    record): for the nearest-neighbour sweep, the first sweep (two probes
+    a row) and the mean of the later sweeps, the means over the blocks
+    that ran the sweep of its item compute, item fetch and idle time
+    (between the golden step and the last item, less the compute), the
+    barrier (the grid sync, or the row's barrier) and the slot reduction
+    and update (the golden step before the items, the reduction and fold
+    after the barrier), all in us; the sweep's wall (first start to last
+    fold); the items each SM ran (max, mean, min over all ``sms`` SMs, and
+    the SMs that ran none) and the busiest SM's compute.  ``span_us`` runs
+    from the first block's start to the last block's fold."""
+    ran = rec[:, :, 7] > 0
+    parts = {"nn": [], "first": [], "later": []}
+    t_min, t_max = None, None
+    for s in np.nonzero(ran.any(axis=0))[0]:
+        r = rec[ran[:, s], s].astype(np.int64)
+        t = r[:, :5] - r[:, 0].min()
+        busy, items, sm = r[:, 5], r[:, 6], r[:, 7] - 1
+        per_sm = np.bincount(sm, weights=items, minlength=sms)
+        row = dict(
+            wall_us=float(t[:, 4].max()) / 1e3,
+            compute_us=float(busy.mean()) / 1e3,
+            fetch_idle_us=float((t[:, 2] - t[:, 1] - busy).mean()) / 1e3,
+            barrier_us=float((t[:, 3] - t[:, 2]).mean()) / 1e3,
+            update_us=float(((t[:, 1] - t[:, 0]) + (t[:, 4] - t[:, 3])
+                             ).mean()) / 1e3,
+            busiest_sm_compute_us=float(np.bincount(
+                sm, weights=busy, minlength=sms).max()) / 1e3,
+            items_per_sm_max=float(per_sm.max()),
+            items_per_sm_mean=float(per_sm.mean()),
+            items_per_sm_min=float(per_sm.min()),
+            sms_without_items=int((per_sm == 0).sum()), blocks=len(r))
+        parts["nn" if s == 0 else "first" if s == 1 else "later"].append(row)
+        lo, hi = r[:, 0].min(), r[:, 4].max()
+        t_min = lo if t_min is None else min(t_min, lo)
+        t_max = hi if t_max is None else max(t_max, hi)
+    out = {k: v[0] for k, v in parts.items() if k != "later" and v}
+    later = parts["later"]
+    out["later_sweeps"] = len(later)
+    if later:
+        out["later_mean"] = {k: float(np.mean([x[k] for x in later]))
+                             for k in later[0]}
+    out["span_us"] = float(t_max - t_min) / 1e3
+    return out
+
+
+def k4_diag_lib():
+    """csrc/loo_search.cu built with -DK4_DIAG, and bound."""
+    from kde_tpu_torch.ops import loo_search, tiled_eval
+    return loo_search.bind(tiled_eval.nvcc_build(
+        loo_search.SOURCE, [*loo_search.NVCC_FLAGS, "-DK4_DIAG"],
+        "loo_search_k4_diag")[0])
+
+
+def k4_plan(args, layout, sms):
+    """The plan of ``layout`` for loo_search's ``args``: the grid plan, or
+    the rows plan with no cap on N (``loo_search._rows_plan``; None where
+    the row does not fit a block)."""
+    from kde_tpu_torch.ops import loo_search
+    if layout == "grid":
+        return loo_search.GRID
+    r, n = args[0].shape
+    plan = loo_search._rows_plan(r, n, args[0].dtype, sms)
+    return plan if plan.layout == "rows" else None
+
+
+# the grid plan's blocks an SM at most: 2,048 threads an SM on sm_90, 256
+# a block (csrc/loo_probe.cuh's kThreads)
+K4_GRID_BLOCKS_PER_SM = 2048 // 256
+
+
+def k4_diag_call(diag, args, plan, sms):
+    """One call of the diag build ``diag`` on ``plan`` with a zeroed stamp
+    buffer (a record for every block the launch can have; blocks that did
+    not run leave theirs 0); returns (xmin, k4_diag_split of its
+    stamps)."""
+    import torch
+    from kde_tpu_torch.ops import loo_search
+    rows = args[0]
+    r = rows.shape[0]
+    iters = loo_search.max_iters(K4_TOL, rows.dtype)
+    blocks = (r * plan.blocks_per_row if plan.layout == "rows" else
+              K4_GRID_BLOCKS_PER_SM * sms)
+    buf = torch.zeros(blocks * (iters + 2) * 8, dtype=torch.int64,
+                      device=rows.device)
+    diag.kde_loo_set_diag(buf.data_ptr())
+    try:
+        x = loo_search.launch(diag, *args, K4_TOL, plan=plan)
+        _sync()
+    finally:
+        diag.kde_loo_set_diag(None)
+    rec = buf.cpu().numpy().view(np.uint64).reshape(blocks, iters + 2, 8)
+    return x, k4_diag_split(rec, sms)
+
+
+K4_HOST_CALLS = 20        # --k4-diag: launches whose host time is averaged
+
+
+def k4_diag(dev=None, names=K4_DIAG_CASES, plans=("grid", "rows"),
+            sweep=True):
+    """Where a K4 call's time goes on this card, at phase 3f's searches
+    K4_DIAG_CASES, for each plan of ``plans`` (the grid plan, the parent's
+    design; the rows plan): the release build's CUDA-event ms of one call
+    (``_cuda_ms``) beside k4_bound_ms, the host us of one launch (the mean
+    of K4_HOST_CALLS back to back, no sync between) and the diag build's
+    split of the same call (k4_diag_split, its second call; its picks
+    bitwise the release build's grid plan's); the nearest-neighbour
+    sweep's ``update_us`` is the block's staging prologue.  Then
+    k4_barriers and (``sweep``) k4_switch."""
+    import torch
+    from kde_tpu_torch.ops import loo_search
+    dev = dev or torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    per_pair = k4_fp64_per_pair(loo_search.build())[0]
+    print(f"k4 ptxas: {json.dumps(ptxas_table(loo_search.BUILD_LOG))}",
+          flush=True)
+    diag, lib = k4_diag_lib(), loo_search._load()
+    for name in names:
+        r, n, dtype, data = K4_CASES[name]
+        args, impl, _ = k4_inputs(r, n, dtype, data, dev)
+        trace = loo_search.new_trace(args[0], K4_TOL)
+        want = loo_search.launch(lib, *args, K4_TOL, trace)
+        probes = (~torch.isnan(trace[:, :, 0])).sum(dim=1).tolist()
+        bound, by = k4_bound_ms(args, probes, sms, clock, per_pair)
+        for layout in plans:
+            plan = k4_plan(args, layout, sms)
+            if plan is None:
+                continue
+            k4_diag_call(diag, args, plan, sms)
+            got, split = k4_diag_call(diag, args, plan, sms)
+            if not torch.equal(_bits(got), _bits(want)):
+                raise AssertionError(f"k4 diag ({name}, {plan}): the picks "
+                                     "differ from the grid plan's")
+            ms = _cuda_ms(functools.partial(loo_search.launch, lib, *args,
+                                            K4_TOL, plan=plan))
+            diag_ms = _cuda_ms(functools.partial(loo_search.launch, diag,
+                                                 *args, K4_TOL, plan=plan))
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(K4_HOST_CALLS):
+                loo_search.launch(lib, *args, K4_TOL, plan=plan)
+            host_us = 1e6 * (time.perf_counter() - t0) / K4_HOST_CALLS
+            _sync()
+            row = dict(case=name, plan=plan._asdict(), rows=r, n=n,
+                       dtype=dtype, ms=ms, diag_ms=diag_ms, host_us=host_us,
+                       bound_ms=bound,
+                       bound_by=by, bound_share=bound / ms, probes=probes,
+                       **split)
+            print(f"k4 diag: {json.dumps(row)}", flush=True)
+    k4_barriers(dev, lib, diag)
+    if sweep:
+        k4_switch(dev, lib)
+    print(_card())
+
+
+# --k4-diag's barrier comparison: (rows, points, dtype) whose rows plan
+# meets on a cluster, and whose blocks a cooperative launch also holds
+K4_BARRIER_CASES = ((1, 100, "float32"), (2, 256, "float32"),
+                    (12, 256, "float32"), (64, 256, "float32"),
+                    (2, 256, "float64"))
+
+
+def k4_barriers(dev, lib, diag, cases=K4_BARRIER_CASES):
+    """The rows plan's two barriers at K4_BARRIER_CASES (N(0, 1) rows, as
+    phase 3f's fit): the plan on its cluster and the same plan at the
+    per-row counter, picks and probe traces bitwise equal; one call each
+    between CUDA events (``_cuda_ms``, the wrapper included) in turns
+    (cluster, counter, counter, cluster), and the diag build's mean later
+    sweep on each (k4_diag_split)."""
+    import torch
+    from kde_tpu_torch.ops import loo_search
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r, n, dtype in cases:
+        args, _, _ = k4_inputs(r, n, dtype, "fit", dev)
+        cl = k4_plan(args, "rows", sms)
+        if cl is None or not cl.cluster:
+            raise AssertionError(f"k4 barriers {r}x{n}: no cluster plan")
+        plans = {"cluster": cl, "counter": cl._replace(cluster=False)}
+        got, row = {}, dict(rows=r, n=n, dtype=dtype, plan=cl._asdict())
+        for side, plan in plans.items():
+            trace = loo_search.new_trace(args[0], K4_TOL)
+            got[side] = (loo_search.launch(lib, *args, K4_TOL, trace, plan),
+                         trace)
+            later = k4_diag_call(diag, args, plan, sms)[1].get("later_mean",
+                                                               {})
+            row[f"{side}_later_sweep"] = {
+                k: later.get(k) for k in ("wall_us", "compute_us",
+                                          "barrier_us", "update_us")}
+        if not all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got["cluster"], got["counter"])):
+            raise AssertionError(f"k4 barriers {r}x{n} {dtype}: the "
+                                 "barriers' bits differ")
+        for side in ("cluster", "counter", "counter", "cluster"):
+            row.setdefault(f"{side}_ms", []).append(_cuda_ms(
+                functools.partial(loo_search.launch, lib, *args, K4_TOL,
+                                  plan=plans[side]), reps=9))
+        row["counter_over_cluster"] = (min(row["counter_ms"])
+                                       / min(row["cluster_ms"]))
+        print(f"k4 barriers: {json.dumps(row)}", flush=True)
+
+
+# --k4-diag's switch sweep: rows x points, float32 and float64
+K4_SWITCH_ROWS = (1, 2, 3, 12)
+K4_SWITCH_NS = (256, 512, 1024, 2048, 4096, 8192, 16384)
+
+
+def k4_switch(dev, lib, rows_=K4_SWITCH_ROWS, ns=K4_SWITCH_NS):
+    """The switch between K4's plans: at every rows x N of K4_SWITCH_ROWS x
+    K4_SWITCH_NS, float32 and float64 (N(0, 1) rows, as phase 3f's fit),
+    the grid plan and the rows plan (uncapped N, where the row fits a
+    block) timed in turns (grid, rows, rows, grid), one call each between
+    CUDA events (``_cuda_ms``, median of 3), their picks and probe traces
+    bitwise equal; the rows plan's share of the grid plan's time."""
+    import torch
+    from kde_tpu_torch.ops import loo_search
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in ("float32", "float64"):
+        for r in rows_:
+            for n in ns:
+                args, _, _ = k4_inputs(r, n, dtype, "fit", dev)
+                plans = {"grid": loo_search.GRID,
+                         "rows": k4_plan(args, "rows", sms)}
+                row = dict(rows=r, n=n, dtype=dtype,
+                           plan=None if plans["rows"] is None
+                           else plans["rows"]._asdict())
+                if plans["rows"] is None:
+                    row["grid_ms"] = [_cuda_ms(functools.partial(
+                        loo_search.launch, lib, *args, K4_TOL), reps=3)]
+                    print(f"k4 switch: {json.dumps(row)}", flush=True)
+                    continue
+                got = {}
+                for side, plan in plans.items():
+                    trace = loo_search.new_trace(args[0], K4_TOL)
+                    x = loo_search.launch(lib, *args, K4_TOL, trace, plan)
+                    got[side] = (x, trace)
+                row["bitwise_equal"] = all(
+                    torch.equal(_bits(a), _bits(b))
+                    for a, b in zip(got["grid"], got["rows"]))
+                if not row["bitwise_equal"]:
+                    raise AssertionError(f"k4 switch {r}x{n} {dtype}: the "
+                                         "plans' bits differ")
+                for side in ("grid", "rows", "rows", "grid"):
+                    row.setdefault(f"{side}_ms", []).append(_cuda_ms(
+                        functools.partial(loo_search.launch, lib, *args,
+                                          K4_TOL, plan=plans[side]),
+                        reps=3))
+                row["rows_over_grid"] = (min(row["rows_ms"])
+                                         / min(row["grid_ms"]))
+                print(f"k4 switch: {json.dumps(row)}", flush=True)
 
 
 # phase 3h: K7's cases, name -> (points in 2-D, dtype): phase 11a's
@@ -3354,7 +3634,7 @@ def _uncounted():
     from kde_tpu_torch.ops import (gibbs_chain, gibbs_select, loo_search,
                                    sharded_loo, sharded_select, tiled_eval)
     n, k, c = tiled_eval.LAUNCHES, gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
-    s = loo_search.LAUNCHES
+    s, s_rows = loo_search.LAUNCHES, loo_search.ROWS_LAUNCHES
     k6, k6_twin = sharded_select.LAUNCHES, sharded_select.TWIN_STAGES
     k7, k7_twin = sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES
     try:
@@ -3362,6 +3642,7 @@ def _uncounted():
     finally:
         tiled_eval.LAUNCHES, gibbs_select.LAUNCHES = n, k
         gibbs_chain.LAUNCHES, loo_search.LAUNCHES = c, s
+        loo_search.ROWS_LAUNCHES = s_rows
         sharded_select.LAUNCHES, sharded_select.TWIN_STAGES = k6, k6_twin
         sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES = k7, k7_twin
 
@@ -4797,6 +5078,103 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
     print(_card() if dev.type == "cuda" else "cpu")
 
 
+K4_E2E_SETS = 6              # --k4-parent: product_batched's sets
+K4_E2E_N = 1000              # ... of two 2-D beliefs of this many points
+K4_E2E_REPS = 5              # products a turn
+
+
+def k4_parent_ab(parent, dev=None, cases=None):
+    """This checkout's K4 against ``parent``'s (``ops/loo_search.py`` of
+    another checkout, e.g. an unpacked ``git archive``, loaded as a module
+    of this package so that it builds the parent's ``csrc/loo_search.cu``)
+    on this card.  At every phase 3f search (K4_CASES): both sides' picks
+    and probe traces, bitwise equal where this checkout takes the grid
+    plan, else k4_compare's limits against the twin and a count of the
+    picks whose bits moved; each side timed in turns (parent, change,
+    change, parent), one call between CUDA events (``_cuda_ms``) beside
+    k4_bound_ms.  Then end to end, with ops/loocv.py's search on each side
+    in turns: the refit seconds (host clock ending in a sync) of `*` on two
+    K4_E2E_N-sample 2-D beliefs and of product_batched over K4_E2E_SETS
+    sets of two, K4_E2E_REPS products a turn."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs, loo_search, loocv
+    dev = dev or torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _sm_clock_hz()
+    per_pair = k4_fp64_per_pair(loo_search.build())[0]
+    old = _parent_module(parent, "ops", "loo_search")
+    sides = {"parent": old, "change": loo_search}
+    for name, (r, n, dtype, data) in (cases or K4_CASES).items():
+        args, impl, _ = k4_inputs(r, n, dtype, data, dev)
+        got = {}
+        for side, mod in sides.items():
+            trace = mod.new_trace(args[0], K4_TOL)
+            got[side] = (mod.loo_search(*args, tol=K4_TOL, impl=impl,
+                                        trace=trace), trace)
+        plan = loo_search.launch_plan(r, n, args[0].dtype, sms)
+        same = all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got["parent"], got["change"]))
+        row = dict(case=name, rows=r, n=n, dtype=dtype, plan=plan._asdict(),
+                   bitwise_equal=same, picks_moved=int(
+                       (_bits(got["parent"][0]) != _bits(got["change"][0]))
+                       .sum()))
+        if plan.layout == "grid" and not same:
+            raise AssertionError(f"K4 ({name}): the grid plan's bits moved")
+        with _uncounted():
+            cmp = k4_compare(args, impl, *got["change"], name)
+        row.update(max_rel=cmp["max_rel"], probe_max_rel=cmp["probe_max_rel"])
+        row["bound_ms"] = k4_bound_ms(args, cmp["probes"], sms, clock,
+                                      per_pair)[0]
+        for side in ("parent", "change", "change", "parent"):
+            row.setdefault(f"{side}_ms", []).append(_cuda_ms(
+                functools.partial(sides[side].loo_search, *args, tol=K4_TOL,
+                                  impl=impl)))
+        row["share"] = {side: row["bound_ms"] / min(row[f"{side}_ms"])
+                        for side in sides}
+        print(f"k4 parent ab: {json.dumps(row)}", flush=True)
+        del args, got
+
+    rng = np.random.default_rng(SEED + 19)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    bw = [1.06 * K4_E2E_N ** -0.2]
+    p, q = (kt.kde(f32(rng.normal(size=(2, K4_E2E_N)) + m), bw)
+            for m in (0.0, 0.5))
+    sets = [[kt.kde(f32(rng.normal(size=(2, K4_E2E_N)) + 0.25 * i), bw),
+             kt.kde(f32(rng.normal(size=(2, K4_E2E_N)) + 0.25 * i + 0.5),
+                    bw)] for i in range(K4_E2E_SETS)]
+
+    def star_refit():
+        stages, launches = {}, {}
+        _timed_product(lambda: p * q, _sync, stages, launches)
+        return stages["refit"]
+
+    def batched_refit():
+        saved = gibbs.ksize_rows
+        stages, launches = {}, {}
+        gibbs.ksize_rows = _timed("refit", saved, _sync, stages, launches)
+        try:
+            kt.product_batched(sets, key=SEED)
+        finally:
+            gibbs.ksize_rows = saved
+        return stages["refit"]
+    saved = loocv.loo_search
+    try:
+        for what, fn in (("* refit 2x1000", star_refit),
+                         (f"product_batched refit {K4_E2E_SETS}x[2x1000]",
+                          batched_refit)):
+            row = {"case": what}
+            for side in ("parent", "change", "change", "parent"):
+                loocv.loo_search = sides[side].loo_search
+                fn()
+                row.setdefault(f"{side}_s", []).append(float(np.median(
+                    [fn() for _ in range(K4_E2E_REPS)])))
+            print(f"k4 parent ab, end to end: {json.dumps(row)}", flush=True)
+    finally:
+        loocv.loo_search = saved
+    print(_card())
+
+
 K6_PARENT_ROUNDS = 2         # parent, change, change, parent: twice
 
 
@@ -5394,10 +5772,12 @@ def main():
     # just after it ran (and the native tree builds, likewise)
     runs, builds, small, k2, k3, k4, k6, k6_twin, k7, k7_twin = (
         {} for _ in range(10))
+    k4_rows_plan = {}
 
     def run(name, fn, *args):
         tiled_eval.LAUNCHES = native.BUILDS = gibbs_select.LAUNCHES = 0
         gibbs_chain.LAUNCHES = loo_search.LAUNCHES = 0
+        loo_search.ROWS_LAUNCHES = 0
         sharded_select.LAUNCHES = sharded_select.TWIN_STAGES = 0
         sharded_loo.LAUNCHES = sharded_loo.TWIN_STAGES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
@@ -5406,6 +5786,7 @@ def main():
         small[name] = dict(host_small.LAUNCHES)
         k2[name], k3[name] = gibbs_select.LAUNCHES, gibbs_chain.LAUNCHES
         k4[name] = loo_search.LAUNCHES
+        k4_rows_plan[name] = loo_search.ROWS_LAUNCHES
         k6[name] = sharded_select.LAUNCHES
         k6_twin[name] = sharded_select.TWIN_STAGES
         k7[name], k7_twin[name] = sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES
@@ -5509,7 +5890,8 @@ def main():
     print(f"native tree builds per path: {json.dumps(builds)}", flush=True)
     print(f"gibbs_select launches per path: {json.dumps(k2)}", flush=True)
     print(f"gibbs_chain launches per path: {json.dumps(k3)}", flush=True)
-    print(f"loo_search launches per path: {json.dumps(k4)}", flush=True)
+    print(f"loo_search launches per path: {json.dumps(k4)}; on the rows "
+          f"plan: {json.dumps(k4_rows_plan)}", flush=True)
     print(f"sharded_select launches per path: {json.dumps(k6)}; twin "
           f"stages: {json.dumps(k6_twin)}", flush=True)
     print(f"sharded_loo launches per path: {json.dumps(k7)}; twin "
@@ -5618,6 +6000,7 @@ def main():
         "replaces": "kde_tpu/ops/loocv.py:273 (_ksize_search; its Pallas "
                     "probe kde_tpu/ops/kernels.py:269)",
         "launches": sum(k4.values()),
+        "launches_rows_plan": sum(k4_rows_plan.values()),
         "max_abs_err": max(r["max_abs_err"] for r in k4_rows.values()),
         "f64_max_rel": max(r["max_rel"] for r in k4_rows.values()
                            if r["dtype"] == "float64"),
@@ -5701,6 +6084,12 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k2-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k2_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k4-parent"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k4_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k4-diag"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k4_diag()
     elif sys.argv[1:2] == ["--k3-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_diag()

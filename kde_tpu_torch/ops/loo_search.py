@@ -7,7 +7,12 @@ one jitted ``lax.while_loop`` around the probe, the Pallas kernel K1 above
 the LOO entropy with variance ``base_var * x^2``, from the bracket
 ``ax < bx < cx``.  CUDA tensors launch the hand-written kernel
 ``csrc/loo_search.cu`` once, with no host read: the probes, the loop and
-its stop rule all stay on the card.  CPU tensors take the plain twin
+its stop rule all stay on the card, on one of the kernel's two plans,
+chosen by :func:`launch_plan` from the shape before the launch: rows that
+fit a block's shared memory take the rows plan (each block keeps its row
+resident, a row's blocks meet at a barrier of their own), others the grid
+plan (one cooperative grid, a grid-wide sync a sweep).  Both give the same
+bits.  CPU tensors take the plain twin
 :func:`loo_search_ref`, the eager golden loop :func:`_golden_core` over the
 probe route ``impl`` (``dense``, ``chunk`` or ``tiled``, as
 ``ops/loocv.py::select_loo_impl`` picks it; on the card the route only
@@ -19,29 +24,122 @@ the kernel does not take raises, and nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .kernels import (batched_loo_entropy, loo_entropy_given_d2,
                       loo_pairwise_d2)
-from .tiled_eval import nvcc_build
+from .tiled_eval import _sm_count, nvcc_build
 
 _C = (3.0 - math.sqrt(5.0)) / 2.0   # golden-section constants
 _R = 1.0 - _C                       # (reference src/CrossValidation.jl:51-52)
 
 # Launches of the CUDA kernel; a run sets it to 0 and reads it to show the
-# path went through the kernel.
+# path went through the kernel.  ROWS_LAUNCHES: those on the rows plan.
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
 
 # The most rows one launch takes: every block keeps each row's search state
 # in shared memory (csrc/loo_search.cu's kMaxRows).  More rows take a
 # launch for each MAX_ROWS of them.
 MAX_ROWS = 1024
+
+# The kernel's work item: a group of GROUP queries (csrc/loo_probe.cuh's
+# kGroup).
+GROUP = 32
+# The rows plan (csrc/loo_search.cu's loo_rows_kernel): a row's blocks
+# meet on a thread-block cluster of at most ROWS_MAX_CLUSTER blocks
+# (kMaxCluster, the portable size), else at a per-row counter; a block is
+# up to ROWS_MAX_TEAMS teams of 256 threads (kMaxTeams), each taking a
+# group at a time, and holds its row, the weights and its queries'
+# constants in at most ROWS_SMEM bytes of shared memory (kRowsSmemMax).
+# Rows of more points than ROWS_MAX_N gives their type take the grid plan:
+# the crossover of `chip_smoke.py --k4-diag`'s sweep over 1, 2, 3 and 12
+# rows of 256 to 16,384 points on an H100 (PERF.md), where the rows plan
+# read 0.31-0.93 of the grid plan's time at every float32 shape and
+# 0.27-0.99 in float64 up to 2,048 points (1.03-1.18 from 4,096 at three
+# rows or more and from 8,192 at any: sixteen warps an SM hide the FP64
+# exp's latency less well than the grid plan's twenty-four).
+ROWS_MAX_CLUSTER = 8
+ROWS_MAX_TEAMS = 2
+ROWS_SMEM = 232448 - 2048
+ROWS_MAX_N = {torch.float32: 16384, torch.float64: 2048}
+
+
+class Plan(NamedTuple):
+    """A launch's plan: ``layout`` "rows" (``blocks_per_row`` blocks a row,
+    ``groups_per_block`` query groups a block, ``teams`` teams of 256
+    threads a block, on a cluster or meeting at a per-row counter, ``smem``
+    bytes of dynamic shared memory a block) or "grid" (its blocks the
+    library's occupancy query's)."""
+    layout: str
+    blocks_per_row: int = 0
+    groups_per_block: int = 0
+    teams: int = 0
+    cluster: bool = False
+    smem: int = 0
+
+
+GRID = Plan("grid")
+
+
+def n_groups(n: int) -> int:
+    return -(-n // GROUP)
+
+
+def rows_smem(n: int, gpb: int, itemsize: int) -> int:
+    """Dynamic shared memory of a rows-plan block (``rows_smem_bytes``):
+    its groups' sums [2][2][gpb] and its queries' log1p(-w) in float64, the
+    staged row and weights (``n`` rounded up to whole 16-byte vectors) and
+    its queries' shifts and x."""
+    return ((4 + GROUP) * gpb * 8
+            + (2 * (-(-n // 4) * 4) + 2 * gpb * GROUP) * itemsize)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(r: int, n: int, dtype, sms: int,
+                smem: int = ROWS_SMEM) -> Plan:
+    """The plan of one launch of ``r`` rows of ``n`` points of ``dtype`` on
+    a card of ``sms`` SMs whose blocks may use ``smem`` bytes of shared
+    memory: :func:`_rows_plan` for rows of 1 to ``ROWS_MAX_N[dtype]``
+    points, else the grid plan."""
+    if not 1 <= n <= ROWS_MAX_N[dtype]:
+        return GRID
+    return _rows_plan(r, n, dtype, sms, smem)
+
+
+def _rows_plan(r: int, n: int, dtype, sms: int,
+               smem: int = ROWS_SMEM) -> Plan:
+    """The rows plan of ``r`` rows of ``n >= 1`` points where its block
+    fits in ``smem`` bytes, else the grid plan: a sweep's ``r *
+    n_groups(n)`` query groups spread evenly over about one block an SM
+    (``groups_per_block`` of them, the row's ``blocks_per_row`` blocks each
+    a contiguous run, two teams where a block has two groups or more), a
+    row's blocks on one cluster where they are at most ROWS_MAX_CLUSTER,
+    else at most ``sms`` blocks in all, so that a cooperative launch holds
+    them at once."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    g = n_groups(n)
+    gpb = max(1, -(-r * g // sms))
+    b = -(-g // gpb)
+    while b > ROWS_MAX_CLUSTER and r * b > sms:
+        gpb += 1
+        b = -(-g // gpb)
+    gpb = -(-g // b)
+    b = -(-g // gpb)
+    need = rows_smem(n, gpb, itemsize)
+    if need > smem:
+        return GRID
+    return Plan("rows", b, gpb, min(ROWS_MAX_TEAMS, gpb),
+                b <= ROWS_MAX_CLUSTER, need)
+
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "loo_search.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,19 +159,34 @@ def build() -> Path:
     return out
 
 
+def bind(path) -> ctypes.CDLL:
+    """The library at ``path`` with its entry points' signatures set (and
+    ``kde_loo_set_diag``'s where it is a diag build, ``-DK4_DIAG``)."""
+    lib = ctypes.CDLL(str(path))
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.kde_loo_search_scratch.argtypes = [i, i, i, i]
+    lib.kde_loo_search_scratch.restype = ctypes.c_longlong
+    lib.kde_loo_search.argtypes = [vp] * 9 + [i, i, f, i, f, f, i, vp]
+    lib.kde_loo_search.restype = i
+    lib.kde_loo_rows_scratch.argtypes = [i] * 8
+    lib.kde_loo_rows_scratch.restype = ctypes.c_longlong
+    lib.kde_loo_rows.argtypes = ([vp] * 9 + [i, i, f, i, f, f, i, i, i, i,
+                                             i, vp])
+    lib.kde_loo_rows.restype = i
+    if hasattr(lib, "kde_loo_set_diag"):
+        lib.kde_loo_set_diag.argtypes = [vp]
+        lib.kde_loo_set_diag.restype = None
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.kde_loo_search_scratch.argtypes = [i, i, i, i]
-        lib.kde_loo_search_scratch.restype = ctypes.c_longlong
-        lib.kde_loo_search.argtypes = [vp] * 9 + [i, i, f, i, f, f, i, vp]
-        lib.kde_loo_search.restype = i
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
+@functools.lru_cache(maxsize=64)
 def search_tol(tol: float, dtype) -> float:
     """The stop rule's tolerance: at float32 clamped to sqrt(eps), so that
     the rule stays reachable."""
@@ -82,6 +195,7 @@ def search_tol(tol: float, dtype) -> float:
     return tol
 
 
+@functools.lru_cache(maxsize=64)
 def max_iters(tol: float, dtype) -> int:
     """The bound on a search's iterations (``_golden_core``'s)."""
     tol = search_tol(tol, dtype)
@@ -232,7 +346,7 @@ def loo_search(rows: torch.Tensor, w: torch.Tensor, base_var: torch.Tensor,
     :func:`loo_search_ref` on route ``impl``.  CUDA tensors launch the
     kernel once for every ``MAX_ROWS`` rows; nothing reads the device.
     ``trace`` (:func:`new_trace`) receives every probe and its value."""
-    global LAUNCHES
+    global LAUNCHES, ROWS_LAUNCHES
     dev = _check(rows, w, base_var, ax, bx, cx, trace, tol)
     if dev.type == "cpu":
         return loo_search_ref(rows, w, base_var, ax, bx, cx, tol=tol,
@@ -249,25 +363,50 @@ def loo_search(rows: torch.Tensor, w: torch.Tensor, base_var: torch.Tensor,
             for k in range(0, r, MAX_ROWS)])
     if trace is not None and not trace.is_contiguous():
         raise ValueError("loo_search: the trace must be contiguous")
+    plan = launch_plan(r, n, rows.dtype, _sm_count(dev.index))
+    xmin = launch(_load(), rows, w, base_var, ax, bx, cx, tol, trace, plan)
+    LAUNCHES += 1
+    ROWS_LAUNCHES += plan.layout == "rows"
+    return xmin
+
+
+def launch(lib, rows, w, base_var, ax, bx, cx, tol, trace=None,
+           plan: Plan = GRID):
+    """One launch of library ``lib``'s search of at most ``MAX_ROWS`` CUDA
+    rows on ``plan``, checked by :func:`loo_search`; uncounted.  A plan
+    the kernel does not take or a refused launch raises."""
+    r, n = rows.shape
+    dev = rows.device
     rows, w, base_var, ax, bx, cx = (t.contiguous() for t in
                                      (rows, w, base_var, ax, bx, cx))
     f64 = int(rows.dtype == torch.float64)
     iters = max_iters(tol, rows.dtype)
-    lib = _load()
-    nbytes = lib.kde_loo_search_scratch(r, n, iters, f64)
+    shape = (plan.blocks_per_row, plan.groups_per_block, plan.teams,
+             int(plan.cluster))
+    if plan.layout == "rows":
+        nbytes = lib.kde_loo_rows_scratch(r, n, iters, f64, *shape)
+    else:
+        nbytes = lib.kde_loo_search_scratch(r, n, iters, f64)
     if nbytes < 0:
         raise ValueError(f"loo_search: rows {tuple(rows.shape)} exceed the "
-                         "kernel's index range")
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                         f"kernel's index range or {plan}")
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     xmin = torch.empty(r, dtype=rows.dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.kde_loo_search(
-            rows.data_ptr(), w.data_ptr(), base_var.data_ptr(),
+    ptrs = (rows.data_ptr(), w.data_ptr(), base_var.data_ptr(),
             ax.data_ptr(), bx.data_ptr(), cx.data_ptr(), xmin.data_ptr(),
-            None if trace is None else trace.data_ptr(), scratch.data_ptr(),
-            r, n, search_tol(float(tol), rows.dtype), iters, _C, _R, f64,
-            torch._C._cuda_getCurrentRawStream(dev.index))
+            None if trace is None else trace.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            r, n, search_tol(float(tol), rows.dtype), iters, _C, _R, f64)
+    guard = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if plan.layout == "rows":
+            rc = lib.kde_loo_rows(*ptrs, *shape, stream)
+        else:
+            rc = lib.kde_loo_search(*ptrs, stream)
     if rc != 0:
-        raise RuntimeError(f"kde_loo_search launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"kde_loo_search launch failed ({plan.layout} "
+                           f"plan): CUDA error {rc}")
     return xmin

@@ -1423,7 +1423,10 @@ def _k4_case(cuda, r, n, dtype, zero=0, seed=0):
 
 K4_CASES = {"2x20000": (2, 20000, 0), "2x4096": (2, 4096, 0),
             "6x3": (6, 3, 0), "3x2": (3, 2, 0), "2x1": (2, 1, 0),
-            "zero_tail_3x500": (3, 500, 120), "8x1500": (8, 1500, 0)}
+            "zero_tail_3x500": (3, 500, 120), "8x1500": (8, 1500, 0),
+            "2x256": (2, 256, 0), "2x1100": (2, 1100, 0),
+            "12x1000": (12, 1000, 0), "2x2048": (2, 2048, 0),
+            "zero_tail_2x300": (2, 300, 61)}
 
 
 @pytest.mark.parametrize("name", sorted(K4_CASES))
@@ -1498,6 +1501,80 @@ def test_loo_search_repeats_bit_for_bit(cuda, dtype):
         assert torch.equal(loo_search.loo_search(*args), first)
 
 
+# K4's plans: shapes of the rows plan on a cluster and at per-row
+# counters, at tile edges, MAX_ROWS rows, and its largest rows (near a
+# block's shared memory: 16,384 float32 points, 12,000 float64): name ->
+# (rows, points, zero-weight tail, dtypes)
+K4_PLAN_CASES = {"2x256": (2, 256, 0, ("float32", "float64")),
+                 "2x1000": (2, 1000, 0, ("float32", "float64")),
+                 "12x1000": (12, 1000, 0, ("float32", "float64")),
+                 "2x1023": (2, 1023, 0, ("float32", "float64")),
+                 "2x1025": (2, 1025, 7, ("float32", "float64")),
+                 "3x2049": (3, 2049, 0, ("float32", "float64")),
+                 "1024x300": (1024, 300, 40, ("float32", "float64")),
+                 "2x16384": (2, 16384, 0, ("float32",)),
+                 "12x16384": (12, 16384, 0, ("float32",)),
+                 "2x12000": (2, 12000, 0, ("float64",)),
+                 "12x12000": (12, 12000, 0, ("float64",))}
+
+
+@pytest.mark.parametrize("name,dtype", [
+    (name, dt) for name, (_, _, _, dts) in sorted(K4_PLAN_CASES.items())
+    for dt in dts])
+def test_loo_search_rows_plan_matches_grid_plan_bitwise(cuda, name, dtype):
+    """The rows plan (each block keeps its row resident, a row's blocks
+    meet at their own barrier) gives the grid plan's picks and probe
+    trace bit for bit, and repeated calls give equal bits; rows past
+    ROWS_MAX_N take the grid plan in the wrapper."""
+    from kde_tpu_torch.ops import loo_search
+    r, n, zero, _ = K4_PLAN_CASES[name]
+    dt = getattr(torch, dtype)
+    args = _k4_case(cuda, r, n, dt, zero=zero)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = loo_search._rows_plan(r, n, dt, sms)
+    assert plan.layout == "rows", plan
+    lib = loo_search._load()
+    got = {}
+    for side, pl in (("grid", loo_search.GRID), ("rows", plan)):
+        trace = loo_search.new_trace(args[0], K4_TOL)
+        got[side] = (loo_search.launch(lib, *args, K4_TOL, trace, pl), trace)
+    for a, b in zip(got["grid"], got["rows"]):
+        assert torch.equal(a.view(torch.int64 if dt == torch.float64
+                                  else torch.int32),
+                           b.view(torch.int64 if dt == torch.float64
+                                  else torch.int32)), plan
+    for _ in range(3):
+        assert torch.equal(loo_search.launch(lib, *args, K4_TOL, None, plan),
+                           got["rows"][0])
+    want = loo_search.launch_plan(r, n, dt, sms)
+    assert want == (plan if n <= loo_search.ROWS_MAX_N[dt]
+                    else loo_search.GRID)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_loo_search_rows_plan_duplicate_points(cuda, dtype):
+    """Rows of many duplicate points (nearest-neighbour shift 0) on the
+    rows plan: bitwise the grid plan's, and float64 on the twin's
+    trajectory."""
+    from kde_tpu_torch.ops import loo_search, loocv
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    rows = torch.as_tensor(np.round(rng.normal(size=(3, 700)) * 4) / 4,
+                           dtype=dt, device=cuda)
+    w = torch.full((700,), 1 / 700, dtype=dt, device=cuda)
+    base, ax, bx, cx = loocv.bracket_rows(rows, *loocv._slices_on(700, cuda))
+    args = (rows, w, (base ** 2).contiguous(), ax, bx, cx)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = loo_search.launch_plan(3, 700, dt, sms)
+    assert plan.layout == "rows"
+    lib = loo_search._load()
+    got = loo_search.launch(lib, *args, K4_TOL, None, plan)
+    assert torch.equal(got, loo_search.launch(lib, *args, K4_TOL))
+    if dt == torch.float64:
+        want = loo_search.loo_search_ref(*args, tol=K4_TOL)
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+
+
 def test_loo_search_refuses_bad_inputs_and_a_failed_build(cuda):
     """A CPU/CUDA mix raises ValueError, float16 TypeError and a failed
     build RuntimeError; nothing runs the twin instead and nothing is
@@ -1524,7 +1601,8 @@ def test_loo_search_refuses_bad_inputs_and_a_failed_build(cuda):
 # sha256 of K4's picks and probe trace at each case (the bytes of xmin,
 # then of the trace), recorded on an H100 from csrc/loo_search.cu as it
 # was before its probe arithmetic moved into csrc/loo_probe.cuh: the move
-# must leave every bit where it was.
+# must leave every bit where it was, and so must the rows plan, which the
+# cases up to 16,384 points now take.
 K4_BITS = {
     "2x1 float32":
         "f8e475d02d53fccf2417f7a53395f913b7f0b91648412e72a1766182ca572f63",
@@ -1554,6 +1632,28 @@ K4_BITS = {
         "113bb8b2c28e3e455aec55288f624ab7182dffc7f7dd687724fc9f4608fd04ae",
     "zero_tail_3x500 float64":
         "5e63c2ae24b9313aba5077e3d093065590d2c7673f7e89338e00ebee675b2c0a",
+    # recorded on an H100 from the grid plan, the one layout of
+    # csrc/loo_search.cu before the rows plan was added
+    "2x256 float32":
+        "b7cf625a6cf46d951828455c78fa26eb77defe323e2ec088664f4eecc54edb45",
+    "2x256 float64":
+        "fbd0c6ae0de256ae78cf0f9f8dba34ba72ea3c0c685e9ac9d645c050479b38e3",
+    "2x1100 float32":
+        "130b130cb0d703c99d9d76f0777c644c4617ddebb5fd10ce582a39504c996096",
+    "2x1100 float64":
+        "fe3bd98ea42679351a7077f22123415f5173b6097b54182b63ca3f6b1f84b34d",
+    "12x1000 float32":
+        "e68402237e4c7c9430c7d96a6cde97fdd5c280993d723d5469a45e905c9fd0a2",
+    "12x1000 float64":
+        "391d33c7dd62705df4cfa1d11afad27cba94212e0f64e094daae1be6bdd615b1",
+    "2x2048 float32":
+        "7c12f293f48f3f7cbcc1bbda44cc2e5cb5404908e11c3b84b994ecdb3943d40e",
+    "2x2048 float64":
+        "27122a848fe0580977c481c574d12336d18b064d9814cc15d6dd868dffa7934e",
+    "zero_tail_2x300 float32":
+        "0954d999d3b7c669c5a708a980836f3e5aaf1e8a43f465d63da7abdbeb3ebe26",
+    "zero_tail_2x300 float64":
+        "97822417434c550d247bc6d7ccff1c81a2909908d44f8f32b976b4f49bd7fe86",
 }
 
 

@@ -34,7 +34,8 @@ TOL = 1e-2
 # tail
 CASES = {"d1": (1, 150, 0), "d2": (2, 150, 0), "d3": (3, 120, 0),
          "batched_2x3": (6, 100, 0), "n1": (2, 1, 0), "n2": (3, 2, 0),
-         "n3": (3, 3, 0), "zero_tail": (2, 200, 40)}
+         "n3": (3, 3, 0), "zero_tail": (2, 200, 40),
+         "2x256": (2, 256, 0), "12x1000": (12, 1000, 0)}
 
 
 def _case(name, seed=0):
@@ -189,3 +190,88 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):
         tls.loo_search(t, wt, base ** 2, ax, bx, cx,
                        trace=torch.zeros(2, 3, 2, dtype=F64))
+
+
+TILE = 1024      # columns a tile (csrc/loo_probe.cuh's kTile)
+
+
+def _plan_groups(plan, n):
+    """The query groups ``[g0, g1)`` of each block of a row on a rows plan
+    (csrc/loo_search.cu's loo_rows_kernel: block k takes a contiguous run
+    of groups_per_block)."""
+    g, gpb = tls.n_groups(n), plan.groups_per_block
+    return [(k * gpb, min(g, (k + 1) * gpb))
+            for k in range(plan.blocks_per_row)]
+
+
+def _plan_tiles(plan, n):
+    """The column ranges ``[c0, c1)`` a query's pass takes: on the rows
+    plan tiles of TILE columns, the last one ending at the row's last
+    column (rows_group's loop); on the grid plan whole tiles past it."""
+    end = n if plan.layout == "rows" else -(-n // TILE) * TILE
+    return [(c, min(c + TILE, end)) for c in range(0, end, TILE)]
+
+
+# launch_plan's shapes: (rows, points, dtype); the rows plan's small
+# rows, the tile edges, N = 1, 2, 3, MAX_ROWS rows, and the grid plan's
+# large rows
+PLAN_SHAPES = [(2, 256, F32), (2, 1000, F32), (12, 1000, F32),
+               (2, 1100, F32), (2, 2048, F32), (2, 4096, F32),
+               (3, 4096, F32), (2, 16384, F32), (12, 16384, F32),
+               (1, 1023, F32), (1, 1025, F32), (2, 3071, F32),
+               (1, 1, F32), (3, 2, F32), (6, 3, F64), (1024, 256, F32),
+               (1024, 1000, F64), (2, 1000, F64), (2, 8192, F64),
+               (2, 16384, F64), (2, 20000, F32), (8, 20000, F32),
+               (1, 100000, F32), (2, 20000, F64)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("r,n,dtype", PLAN_SHAPES)
+def test_launch_plan_covers_every_query_once(r, n, dtype, sms):
+    """The rows plan gives every query group of a row to exactly one of
+    its blocks (so every query, groups of GROUP), its passes cover the
+    live columns and stop at the last one, a cluster has at most
+    ROWS_MAX_CLUSTER (<= 16) blocks, a grid that meets at per-row counters
+    is at most one block an SM (a cooperative launch holds it at once),
+    and a block's shared memory fits; other rows take the grid plan, whose
+    tiles run past the row's end in whole tiles."""
+    plan = tls.launch_plan(r, n, dtype, sms)
+    g = tls.n_groups(n)
+    tiles = _plan_tiles(plan, n)
+    assert tiles[0][0] == 0 and all(
+        a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+    assert all(0 < c1 - c0 <= TILE for c0, c1 in tiles)
+    itemsize = 8 if dtype == F64 else 4
+    if plan.layout == "grid":
+        assert n > tls.ROWS_MAX_N[dtype] or tls.rows_smem(n, 1, itemsize) > \
+            tls.ROWS_SMEM
+        assert tiles[-1][1] >= n and tiles[-1][1] % TILE == 0
+        return
+    assert n <= tls.ROWS_MAX_N[dtype] and tiles[-1][1] == n
+    groups = _plan_groups(plan, n)
+    assert len(groups) == plan.blocks_per_row and all(
+        g1 > g0 for g0, g1 in groups)
+    owner = [k for k, (g0, g1) in enumerate(groups) for _ in range(g0, g1)]
+    assert len(owner) == g and owner == sorted(owner)
+    queries = np.bincount([i // tls.GROUP for i in range(n)], minlength=g)
+    assert queries.sum() == n and bool((queries > 0).all())
+    assert 1 <= plan.teams <= min(tls.ROWS_MAX_TEAMS, plan.groups_per_block)
+    assert plan.cluster == (plan.blocks_per_row <= tls.ROWS_MAX_CLUSTER)
+    assert tls.ROWS_MAX_CLUSTER <= 16
+    if not plan.cluster:
+        assert r * plan.blocks_per_row <= sms
+    assert plan.smem == tls.rows_smem(n, plan.groups_per_block, itemsize)
+    assert plan.smem <= tls.ROWS_SMEM
+
+
+def test_launch_plan_spreads_a_sweep_over_the_card():
+    """Where a sweep has at least a group an SM, the rows plan's blocks
+    (at most one an SM) carry at most one group more than the even
+    share."""
+    for r, n in [(2, 4096), (12, 1000), (3, 4096), (2, 16384), (1, 16384)]:
+        plan = tls.launch_plan(r, n, F32, 132)
+        share = -(-r * tls.n_groups(n) // 132)
+        assert plan.layout == "rows"
+        assert r * plan.blocks_per_row <= 132
+        assert plan.groups_per_block <= share + 1
+
