@@ -88,12 +88,13 @@ Phases, one line of findings each:
  3h. the sharded LOOCV search's kernels sharded_loo (K7,
      csrc/sharded_loo.cu) against their plain twins (phase_sharded_loo)
      at phase 11a's search (N_KSIZE points in 2-D) and the full-width one
-     (K7_BIG_N), float32 and float64, S = 1 on one NCCL rank: every phase
-     of sweeps 0 and 1 (staging, shifts and the golden step bitwise, sums
-     and entropies within 1e-12 / 2e-5), repeated searches bitwise equal,
-     at 11a's shape the twin search's picks (float64 within 1e-10,
-     float32 within KSIZE_RTOL); each phase timed beside its twin, the
-     search beside k7_bound_ms and the twin search;
+     (K7_BIG_N), float32 and float64, S = 1 on one NCCL rank: every launch
+     of sweeps 0-2 and the closing step (staging, shifts, each sweep's
+     head and the golden step bitwise, entropies within 1e-12 / 2e-5), at
+     11a's shape also over 4 query shards (the chunked plan), repeated
+     searches bitwise equal, at 11a's shape the twin search's picks
+     (float64 within 1e-10, float32 within KSIZE_RTOL); each launch timed
+     beside its twin, the search beside k7_bound_ms and the twin search;
  3c. README cfg 1 end to end with the package's defaults (kde(x), p(grid),
      resample(p, 75, "lcv"), the LOO evaluate): float64 results equal to
      the same flow on the CPU, both small kernels launched; flows/s with
@@ -159,7 +160,7 @@ Phases, one line of findings each:
      K1 launch, within KSIZE_RTOL of K4's twin search and K4's final
      bracket of K4's picks, its probe values within K4_PROBE_RTOL of the
      eager entropy at the same x; its sweeps, the all-reduces it issued
-     (1 + 2 x sweeps), host waits, each on a sweep before the one just
+     (one a sweep), host waits, each on a sweep before the one just
      issued, the allocator's peak and the
      device's idle share under torch.profiler; the full-width search of
      K7_BIG_N points against K4), the same three and
@@ -173,7 +174,7 @@ Phases, one line of findings each:
      kernel-sharded product at S = 2 (on K6 on both ranks, 1,024 chains
      over 2 x 20,000) and the chain-sharded product over
      both ranks against the plain engine, ksize_bandwidths_sharded with
-     the components split over both ranks (on K7 on each, the same picks
+     the queries split over both ranks (on K7 on each, the same picks
      on both, within K4's final bracket of rank 0's single-card search),
      and sharded_log_eval with the
      components split over both ranks (each rank must launch the kernel
@@ -243,8 +244,14 @@ times both in turns, and the small refits end to end (see k4_parent_ab).
 
     python3 chip_smoke.py --k7-parent DIR
 
-holds K4 against the K4 of the checkout in DIR, bitwise, and times the
-sharded LOOCV search against DIR's along N (see k7_parent_ab).
+holds K4 against the K4 of the checkout in DIR, bitwise, splits one
+sharded LOOCV search's time on each side, and times the search against
+DIR's along N, in turns (see k7_parent_ab).
+
+    python3 chip_smoke.py --k7-split DIR
+
+splits one sharded LOOCV search of the checkout in DIR only (see
+k7_split).
 
     python3 chip_smoke.py --k6-parent DIR
 
@@ -2078,8 +2085,11 @@ K7_CASES = {"11a f32": (N_KSIZE, "float32"), "11a f64": (N_KSIZE, "float64"),
 K7_MAIN = "11a f32"      # the kernels line's K7 numbers
 K7_SUM_RTOL = {"float64": 1e-12, "float32": K4_PROBE_RTOL}
 # csrc/sharded_loo.cu's kernels, as a trace names them
-K7_KERNEL_NAMES = ("stage_kernel", "rows_kernel", "entropy_kernel",
+K7_KERNEL_NAMES = ("stage_kernel", "nn_kernel", "sweep_kernel",
                    "golden_kernel")
+# the kernels of the design before the fused sweep, for --k7-parent's split
+K7_PARENT_KERNEL_NAMES = ("stage_kernel", "rows_kernel", "entropy_kernel",
+                          "golden_kernel")
 
 
 def k7_inputs(n, dtype, dev, seed=SEED):
@@ -2098,43 +2108,53 @@ def k7_inputs(n, dtype, dev, seed=SEED):
     return pts, w, bracket
 
 
+def _k7_sweeps(pts, w, bracket, q=None, q0=0, **kw):
+    """A search's sweep buffers on one rank: the queries ``q`` (rows ``q0``
+    on; all of ``pts`` by default) against every column, staged anew."""
+    from kde_tpu_torch.ops import sharded_loo as sl
+    base, ax, bx, cx = bracket
+    q = pts if q is None else q
+    qw = w[q0:q0 + q.shape[0]]
+    xs, wp, st, fl = sl.stage(pts, w, ax, bx, cx)
+    return sl.sweeps(q, qw, xs, wp, sl.nn_shift(q, xs, wp, q0), base, st, fl,
+                     q0=q0, tol=K4_TOL, **kw)
+
+
 def k7_phase_calls(pts, w, bracket, twin=False):
-    """One call of each K7 phase on one shard (S = 1) with sweep 0's and
-    sweep 1's inputs, as closures: name -> fn; with ``twin`` each phase's
-    plain twin (``*_ref``) on the same inputs.  The golden step works on
+    """One call of each K7 launch on one rank (S = 1) with sweep 0's and
+    sweep 1's inputs, as closures: name -> fn; with ``twin`` each launch's
+    plain twin (``*_ref``) on the same inputs.  Sweep 1 reads buffer 0 and
+    ent[0] and writes the other buffer, and the golden step works on
     copies of the state, so repeated calls see the same inputs."""
     import torch
     from kde_tpu_torch.ops import sharded_loo as sl
     base, ax, bx, cx = bracket
     fn = {k: getattr(sl, k + ("_ref" if twin else "")) for k in (
-        "stage", "nn_shift", "probe_sums", "probe_entropy", "golden_step")}
-    xs, wp, st, fl = sl.stage(pts, w, ax, bx, cx)
-    shift = sl.nn_shift(pts, xs, wp)
-    sums = sl.probe_sums(pts, xs, wp, shift, base, st, fl, 0)
-    ent = sl.probe_entropy(sums, shift, w, base, st, fl, 0)
-    xmin = torch.empty_like(base)
-    flag = fl.new_zeros(1)
-    st1, fl1 = st.clone(), fl.clone()
-    sl.golden_step(ent, base, st1, fl1, xmin, flag, 0, K4_TOL)
+        "stage", "nn_shift", "sweep", "golden_step")}
+    sw = _k7_sweeps(pts, w, bracket)
+    sl.sweep(sw, 0)
+    sl.sweep(sw, 1)
+    ent1 = sw.ent_v[1].clone()
     return {
         "stage": lambda: fn["stage"](pts, w, ax, bx, cx),
-        "nn_shift": lambda: fn["nn_shift"](pts, xs, wp),
-        "probe_sums": lambda: fn["probe_sums"](pts, xs, wp, shift, base, st,
-                                               fl, 0),
-        "probe_sums_1": lambda: fn["probe_sums"](pts, xs, wp, shift, base,
-                                                 st1, fl1, 1),
-        "probe_entropy": lambda: fn["probe_entropy"](sums, shift, w, base,
-                                                     st, fl, 0),
+        "nn_shift": lambda: fn["nn_shift"](pts, sw.xs, sw.wp),
+        "sweep_0": lambda: fn["sweep"](sw, 0),
+        "sweep_1": lambda: fn["sweep"](sw, 1),
         "golden_step": lambda: fn["golden_step"](
-            ent, base, st.clone(), fl.clone(), xmin, flag, 0, K4_TOL)}
+            ent1, base, sw.st.clone(), sw.fl.clone(), torch.empty_like(base),
+            sw.flags[:1].clone(), 1, K4_TOL)}
 
 
-def k7_compare(pts, w, bracket, what):
-    """Every K7 phase of sweeps 0 and 1 against its twin on the same
-    inputs: staging, shifts and the golden step bitwise; the sums and the
-    entropies within K7_SUM_RTOL.  Returns the largest relative errors."""
+def k7_compare(pts, w, bracket, what, ranks=1):
+    """Every K7 launch of sweeps 0, 1 and 2 against its twin on the same
+    inputs, over ``ranks`` query shards with every column on each (the
+    psum composed by hand): staging, shifts, each sweep's head (state,
+    flags, picks, trace) and the closing golden step bitwise; the
+    entropies within K7_SUM_RTOL.  The twin's sweeps take the kernels'
+    summed entropies, so each head folds the same values.  Returns the
+    largest relative errors."""
     import torch
-    from kde_tpu_torch.ops import sharded_loo as sl
+    from kde_tpu_torch.ops import loo_search, sharded_loo as sl
     base, ax, bx, cx = bracket
     rtol = K7_SUM_RTOL[str(pts.dtype).split(".")[-1]]
     err = {}
@@ -2159,33 +2179,53 @@ def k7_compare(pts, w, bracket, what):
                                  f"from its twin (rtol {rtol})")
     got = sl.stage(pts, w, ax, bx, cx)
     want = sl.stage_ref(pts, w, ax, bx, cx)
-    rows = [sl.X0, sl.X1, sl.X2, sl.X3, sl.PR0, sl.PR1]
     for name, g, t in (("stage xs", got[0], want[0]),
                        ("stage wp", got[1], want[1]),
-                       ("stage st", got[2][rows], want[2][rows]),
-                       ("stage fl", got[3], want[3])):
+                       ("stage st", got[2][0], want[2][0]),
+                       ("stage fl", got[3][0], want[3][0])):
         check(name, g, t, True)
-    xs, wp, st, fl = got
-    shift = sl.nn_shift(pts, xs, wp)
-    check("nn_shift", shift, sl.nn_shift_ref(pts, xs, wp), True)
-    xmin = torch.empty_like(base)
-    flag = fl.new_zeros(1)
-    for sweep in (0, 1):
-        on = sl._searching(fl, sweep, base.shape[0])
-        sums = sl.probe_sums(pts, xs, wp, shift, base, st, fl, sweep)
-        check("probe_sums", sums[on], sl.probe_sums_ref(
-            pts, xs, wp, shift, base, st, fl, sweep)[on], False)
-        ent = sl.probe_entropy(sums, shift, w, base, st, fl, sweep)
-        check("probe_entropy", ent, sl.probe_entropy_ref(
-            sums, shift, w, base, st, fl, sweep), False)
-        st2, fl2, x2, f2 = st.clone(), fl.clone(), xmin.clone(), flag.clone()
-        sl.golden_step(ent, base, st, fl, xmin, flag, sweep, K4_TOL)
-        sl.golden_step_ref(ent, base, st2, fl2, x2, f2, sweep, K4_TOL)
-        for name, g, t in (("golden_step st", st, st2),
-                           ("golden_step fl", fl, fl2),
-                           ("golden_step xmin", xmin, x2),
-                           ("golden_step flag", flag, f2)):
-            check(name, g, t, True)
+    n = pts.shape[0]
+    m = -(-n // ranks)
+    sides = []
+    for r in range(ranks):
+        q0 = min(n, r * m)
+        q = pts[q0:q0 + m]
+        if not len(q):
+            continue
+        pair = [_k7_sweeps(pts, w, bracket, q=q, q0=q0,
+                           trace=loo_search.new_trace(pts.T, K4_TOL))
+                for _ in range(2)]
+        check("nn_shift", pair[0].shift, sl.nn_shift_ref(
+            q, pair[0].xs, pair[0].wp, q0), True)
+        sides.append(pair)
+    for s in (0, 1, 2):
+        for k, t in sides:
+            sl.sweep(k, s)
+            sl.sweep_ref(t, s)
+            check("sweep ent", k.ent_v[s], t.ent_v[s], False)
+            b = s & 1
+            for name, g, h in (("sweep st", k.st[b], t.st[b]),
+                               ("sweep fl", k.fl[b], t.fl[b]),
+                               ("sweep flag", k.flag_v[s], t.flag_v[s]),
+                               ("sweep trace", k.trace, t.trace)):
+                check(name, g, h, True)
+            if s:
+                check("sweep xmin", k.xmin, t.xmin, True)
+        total = sum(k.ent_v[s] for k, _ in sides)
+        for pair in sides:
+            for side in pair:
+                side.ent_v[s].copy_(total)
+    k, t = sides[0]
+    outs = []
+    for side, fn in ((k, sl.golden_step), (t, sl.golden_step_ref)):
+        flag = side.flags[:1].clone()
+        fn(side.ent_v[2], base, side.st, side.fl, side.xmin, flag, 2,
+           K4_TOL, side.trace)
+        outs.append((side.st[1], side.fl[1], side.xmin, flag, side.trace))
+    for name, g, h in zip(("golden_step st", "golden_step fl",
+                           "golden_step xmin", "golden_step flag",
+                           "golden_step trace"), *outs):
+        check(name, g, h, True)
     return err
 
 
@@ -2199,7 +2239,7 @@ def k7_bound_ms(pts, w, probes, sms, clock_hz, fp64_per_pair):
 
 
 def k7_sweep_bound_ms(n_live, rows, dtype, sms, clock_hz, fp64_per_pair):
-    """The least time of one probe_sums call of ``rows`` probe rows over
+    """The least time of one sweep's probe work, ``rows`` probe rows over
     ``n_live`` live points (sweep 0: x1 and x2 of both dimensions, 4):
     n_live (n_live - 1) pairs a row, one ex2 each on the SFU or 4 FP32
     instructions (float32), ``fp64_per_pair`` FP64 instructions (float64)."""
@@ -2211,18 +2251,23 @@ def k7_sweep_bound_ms(n_live, rows, dtype, sms, clock_hz, fp64_per_pair):
     return 1e3 * fp64_per_pair * pairs / (FP64_LANES_PER_CLK * rate)
 
 
+K7_COMPARE_RANKS = 4     # 3h: the query split k7_compare also holds
+
+
 def phase_sharded_loo(dev, cases=None):
     """Phase 3h: K7 (sharded_loo, csrc/sharded_loo.cu) against its twins
     on the card at phase 11a's search and the full-width one (K7_CASES),
-    float32 and float64, on one NCCL rank (S = 1): each phase of sweeps 0
-    and 1 (k7_compare's limits); the search itself bitwise the same over
-    repeated calls, through ksize_bandwidths_sharded, with its trace; at
-    11a's shape the twin search's picks (float64 within K4_F64_RTOL,
-    float32 within KSIZE_RTOL).  Each phase timed (one call, the
-    wrapper's host work included) beside its twin, and the search beside
-    k7_bound_ms and, at 11a's shape, the twin search.  No single PyTorch
-    call runs a LOO golden search: library_ms is null.  Returns the rows
-    printed."""
+    float32 and float64, on one NCCL rank (S = 1): each launch of sweeps
+    0-2 and the closing step (k7_compare's limits), at 11a's shape also
+    over K7_COMPARE_RANKS query shards (the chunked plan); the search
+    itself bitwise the same over repeated calls, through
+    ksize_bandwidths_sharded, with its trace; at 11a's shape the twin
+    search's picks (float64 within K4_F64_RTOL, float32 within
+    KSIZE_RTOL).  Each launch timed (one call, the wrapper's host work
+    included) beside its twin, and the search beside k7_bound_ms and, at
+    11a's shape, the twin search.  No single PyTorch call runs a LOO
+    golden search: library_ms is null.
+    Returns the rows printed."""
     import torch
     import torch.distributed as dist
     from kde_tpu_torch import parallel as par
@@ -2239,8 +2284,14 @@ def phase_sharded_loo(dev, cases=None):
         for name, (n, dtype) in (cases or K7_CASES).items():
             pts, w, bracket = k7_inputs(n, dtype, dev)
             with _uncounted():
-                row = dict(n=n, dtype=dtype,
-                           phase_max_rel=k7_compare(pts, w, bracket, name))
+                row = dict(n=n, dtype=dtype, plans=[
+                    list(sl.sweep_plan(n, sl.n_padded(n), r, sms))
+                    for r in (4, 2)],
+                    phase_max_rel=k7_compare(pts, w, bracket, name))
+                if n == N_KSIZE:
+                    row["split_max_rel"] = k7_compare(
+                        pts, w, bracket, f"{name} over {K7_COMPARE_RANKS}",
+                        ranks=K7_COMPARE_RANKS)
             search = functools.partial(par.ksize_bandwidths_sharded, mesh,
                                        pts)
             with _uncounted():
@@ -2283,7 +2334,7 @@ def phase_sharded_loo(dev, cases=None):
             row["bound_ms"], row["bound_by"] = k7_bound_ms(
                 pts, w, row["probes"], sms, clock, per_pair)
             row["bound_share"] = row["bound_ms"] / row["ms"]
-            row["probe_sums_bound_ms"] = k7_sweep_bound_ms(
+            row["sweep_0_bound_ms"] = k7_sweep_bound_ms(
                 n, 4, dtype, sms, clock, per_pair)
             row["library_ms"] = None
             row["bandwidths"] = got.tolist()
@@ -3796,8 +3847,7 @@ def _k6_full_width(mesh, dev, seed, n=K6_BIG_N, chains=SERVE_CHAINS):
     return res
 
 
-K7_PHASES = ("stage", "nn_shift", "probe_sums", "probe_entropy",
-             "golden_step")
+K7_PHASES = ("stage", "nn_shift", "sweep", "golden_step")
 
 
 @contextlib.contextmanager
@@ -3819,19 +3869,17 @@ def _k7_on_twin():
 
 def k7_all_reduces(mesh, sweeps):
     """The all-reduces a sharded LOOCV search of ``sweeps`` sweeps issues
-    on ``mesh``: the pmin and a psum a sweep over ``kernels``, a psum a
-    sweep over ``chains``; an axis the mesh lacks issues nothing."""
-    from kde_tpu_torch.parallel.mesh import CHAINS, KERNELS
-    axes = mesh.mesh_dim_names or ()
-    return (KERNELS in axes) * (1 + sweeps) + (CHAINS in axes) * sweeps
+    on ``mesh``: one a sweep, the psum of its entropies over every rank of
+    the mesh, whatever axes it has."""
+    return sweeps
 
 
 def _k7_search(name, call, dev, mesh):
     """``call()``, a sharded LOOCV search on ``mesh``, with its K7
     launches and twin stages (which must be > 0 and 0 on the card), the
     all-reduces it issued (counted at torch.distributed.all_reduce, from
-    0 at the call; they must be k7_all_reduces', 1 + 2 x sweeps on a
-    chains x kernels mesh), its sweeps, host waits and stop reason
+    0 at the call; they must be k7_all_reduces', one a sweep on any
+    mesh), its sweeps, host waits and stop reason
     (sharded_loo.LAST), the lag of every flag read (the sweep issued less
     the sweep read, counted at sharded_loo._read_flag; each at least 1,
     one a wait) and the allocator's peak over the call less what was
@@ -3905,10 +3953,11 @@ def _k7_probe_rel(mesh, pts):
         return probe_max_rel(trace, nloo, "ksize_sharded's probes")
 
 
-def _device_idle(call):
+def _device_idle(call, k7_names=K7_KERNEL_NAMES):
     """One ``call()`` under torch.profiler after a warm-up: its wall time
     on the host clock, the device's busy time (kernels, copies and sets,
-    merged) and the idle share, and the busy time by kernel group."""
+    merged) and the idle share, and the busy time by kernel group (K7's
+    kernels named by ``k7_names``)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -3931,7 +3980,7 @@ def _device_idle(call):
     groups = {}
     for e in dev_events:
         n = e["name"]
-        g = ("k7" if any(k in n for k in K7_KERNEL_NAMES) else
+        g = ("k7" if any(k in n for k in k7_names) else
              "nccl" if "nccl" in n.lower() else e["cat"])
         groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
     return dict(wall_ms=wall, device_busy_ms=busy,
@@ -4335,12 +4384,13 @@ def shared_card_worker(rank, world, port):
         _sync()
         out["chain_plain_s"] = time.perf_counter() - t0
         out["chain_agree"] = _agree(idx, want, "chain-sharded over 2 ranks")
-    # the sharded LOOCV search with the components split over the two
-    # ranks, on K7 on each, against rank 0's single-card search (K4)
+    # the sharded LOOCV search with the queries split over the two ranks,
+    # on K7 on each, against rank 0's single-card search (K4)
     from kde_tpu_torch.ops import loocv
     pts = torch.as_tensor(np.random.default_rng(SEED + 16).normal(
         size=(N_KSIZE, 2)), dtype=torch.float32, device=dev)
-    # kmesh has no chains axis: 1 + sweeps all-reduces
+    # the queries split over both ranks, every column on each: one
+    # all-reduce a sweep
     bws, counts = _k7_search(
         "ksize_bandwidths_sharded S = 2",
         lambda: par.ksize_bandwidths_sharded(kmesh, pts), dev, kmesh)
@@ -5003,6 +5053,101 @@ def _search_run(call, dev):
                 bandwidths=got.tolist()), got
 
 
+def _k7_modules(root):
+    """``(sharded_loo, eval)`` of the checkout at ``root``: this checkout's
+    own modules where ``root`` is this checkout, else ``root``'s
+    ``ops/sharded_loo.py`` and ``parallel/eval.py`` loaded as modules of
+    this package (_parent_module), its eval bound to its sharded_loo."""
+    from kde_tpu_torch.ops import sharded_loo
+    from kde_tpu_torch.parallel import eval as par_eval
+    if os.path.abspath(root) == os.path.dirname(os.path.abspath(__file__)):
+        return sharded_loo, par_eval
+    sl = _parent_module(root, "ops", "sharded_loo")
+    ev = _parent_module(root, "parallel", "eval")
+    ev.sharded_loo = sl
+    return sl, ev
+
+
+K7_WRAPPERS = ("stage", "nn_shift", "probe_sums", "probe_entropy", "sweep",
+               "golden_step", "_read_flag")
+
+
+def k7_split(mods, dev, n=N_KSIZE):
+    """Where one sharded LOOCV search's time goes (``mods``, _k7_modules'
+    pair), on ``n`` N(0, 1) 2-D float32 points at S = 1 in the open
+    one-rank world: host µs a call of each K7 wrapper the search calls
+    (K7_WRAPPERS, timed where they are called; ``_read_flag``, the lagged
+    flag read, includes its wait), of each all-reduce (at
+    torch.distributed.all_reduce) and the search's host ms ending in a
+    sync; then the same search under torch.profiler (_device_idle): the
+    device's busy µs a sweep by group (K7's kernels, NCCL, copies) and its
+    idle share."""
+    import torch
+    import torch.distributed as dist
+    from kde_tpu_torch import parallel as par
+    sl, ev = mods
+    mesh = par.make_mesh_2d((1, 1))
+    pts = torch.as_tensor(np.random.default_rng(SEED + 18 + n).normal(
+        size=(n, 2)), dtype=torch.float32, device=dev)
+    call = functools.partial(ev.ksize_bandwidths_sharded, mesh, pts)
+    call()
+    _sync()
+    names = [k for k in K7_WRAPPERS if hasattr(sl, k)]
+    host = {k: [0.0, 0] for k in names + ["all_reduce"]}
+
+    def timed(k, fn):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[k][0] += time.perf_counter() - t
+                host[k][1] += 1
+        return wrapped
+    saved = {k: getattr(sl, k) for k in names}
+    all_reduce = dist.all_reduce
+    for k in names:
+        setattr(sl, k, timed(k, saved[k]))
+    dist.all_reduce = timed("all_reduce", all_reduce)
+    try:
+        t = time.perf_counter()
+        call()
+        _sync()
+        wall = 1e3 * (time.perf_counter() - t)
+    finally:
+        for k, fn in saved.items():
+            setattr(sl, k, fn)
+        dist.all_reduce = all_reduce
+    sweeps = sl.LAST["sweeps"]
+    idle = _device_idle(call, K7_KERNEL_NAMES if hasattr(sl, "sweep")
+                        else K7_PARENT_KERNEL_NAMES)
+    return dict(
+        n=n, sweeps=sweeps, host_ms=wall, host_us_a_sweep=1e3 * wall / sweeps,
+        calls={k: v[1] for k, v in host.items()},
+        host_us_a_call={k: 1e6 * v[0] / max(v[1], 1)
+                        for k, v in host.items()},
+        device_us_a_sweep={g: 1e3 * ms / sweeps for g, ms in
+                           idle["busy_ms_by_group"].items()},
+        profiled=idle)
+
+
+def k7_split_main(root):
+    """``--k7-split DIR``: k7_split of DIR's search alone."""
+    import torch
+    import torch.distributed as dist
+    from kde_tpu_torch import parallel as par
+    dev = torch.device("cuda")
+    mods = _k7_modules(root)
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl", timeout=WORKER_TIMEOUT)
+    try:
+        print(f"k7 split ({root}): {json.dumps(k7_split(mods, dev))}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(_card())
+
+
 def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
     """This checkout against ``parent`` (another checkout, e.g. an unpacked
     ``git archive``) on this card.  (1) K4: ``parent``'s
@@ -5010,20 +5155,23 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
     builds the parent's ``csrc/loo_search.cu``, against this checkout's at
     phase 3f's seven searches (K4_CASES): picks and probe traces must be
     bitwise equal.  (2) The sharded LOOCV search: ``parent``'s
-    ``parallel/eval.py::ksize_bandwidths_sharded`` and this checkout's on
-    the same N(0, 1) 2-D float32 points at each N of K7_PARENT_NS, S = 1
-    on one NCCL rank, in turns (parent, change, change, parent): host ms
-    of one call ending in a sync and the allocator's peak over it, or the
-    parent's out-of-memory error."""
+    ``parallel/eval.py::ksize_bandwidths_sharded`` on ``parent``'s
+    ``ops/sharded_loo.py`` (_k7_modules) and this checkout's, S = 1 on one
+    NCCL rank: k7_split of each at N_KSIZE, then the same N(0, 1) 2-D
+    float32 points at each N of K7_PARENT_NS in turns (parent, change,
+    change, parent): host ms of one call ending in a sync and the
+    allocator's peak over it, or the parent's out-of-memory error; at
+    N_KSIZE also phase 3h's CUDA-event ms (_cuda_ms)."""
     import hashlib
     import torch
     import torch.distributed as dist
     from kde_tpu_torch import parallel as par
     from kde_tpu_torch.ops import loo_search
     dev = dev or torch.device("cuda")
-    mods = {"loo_search": _parent_module(parent, "ops", "loo_search"),
-            "eval": _parent_module(parent, "parallel", "eval")}
-    sides = {"parent": mods["loo_search"], "change": loo_search}
+    here = os.path.dirname(os.path.abspath(__file__))
+    mods = {"parent": _k7_modules(parent), "change": _k7_modules(here)}
+    sides = {"parent": _parent_module(parent, "ops", "loo_search"),
+             "change": loo_search}
     for name, (r, n, dtype, data) in (k4_cases or K4_CASES).items():
         args, impl, _ = k4_inputs(r, n, dtype, data, dev)
         got = {}
@@ -5039,15 +5187,18 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
               f"{json.dumps(dict(bitwise_equal=same, sha256=digest))}",
               flush=True)
         if not same:
-            raise AssertionError(f"K4 ({name}): the header split changed "
+            raise AssertionError(f"K4 ({name}): the shared header changed "
                                  "its outputs")
     par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
                              backend="nccl" if dev.type == "cuda" else "gloo",
                              timeout=WORKER_TIMEOUT)
     try:
         mesh = par.make_mesh_2d((1, 1))
-        calls = {"parent": mods["eval"].ksize_bandwidths_sharded,
-                 "change": par.ksize_bandwidths_sharded}
+        for side in ("parent", "change"):
+            print(f"k7 parent ab, split ({side}): "
+                  f"{json.dumps(k7_split(mods[side], dev))}", flush=True)
+        calls = {side: m[1].ksize_bandwidths_sharded
+                 for side, m in mods.items()}
         warm = torch.as_tensor(np.random.default_rng(SEED).normal(
             size=(1000, 2)), dtype=torch.float32, device=dev)
         for fn in calls.values():
@@ -5057,8 +5208,10 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
                 size=(n, 2)), dtype=torch.float32, device=dev)
             row, picks = {"n": n}, {}
             for side in ("parent", "change", "change", "parent"):
-                res, got = _search_run(
-                    functools.partial(calls[side], mesh, pts), dev)
+                call = functools.partial(calls[side], mesh, pts)
+                res, got = _search_run(call, dev)
+                if got is not None and dev.type == "cuda" and n == N_KSIZE:
+                    res["event_ms"] = _cuda_ms(call)
                 row.setdefault(side, []).append(res)
                 if got is not None:
                     picks[side] = got
@@ -6047,6 +6200,10 @@ def main():
         "ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
         "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
         "bound_share": k7_main["bound_share"], "library_ms": None,
+        "design": "redesigned: the queries split over the whole mesh with "
+                  "every column on each rank; one launch a sweep (the golden "
+                  "step before it in its head, the entropies in its tail) "
+                  "and one all-reduce",
         "sweeps": pl["ksize"]["sweeps"],
         "collectives": pl["ksize"]["collectives"],
         "host_waits": pl["ksize"]["host_waits"],
@@ -6078,6 +6235,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k7-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k7_parent_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--k7-split"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k7_split_main(sys.argv[2])
     elif sys.argv[1:2] == ["--k6-parent"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k6_parent_ab(sys.argv[2])

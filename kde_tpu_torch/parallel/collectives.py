@@ -6,7 +6,10 @@ JAX package's ``shard_map`` programs (``lax.axis_index`` is
 Each is a ``torch.distributed`` call on the axis's process group
 (``mesh.get_group(axis)``), issued at every axis size, 1 included, so a
 single-rank NCCL run goes through NCCL too.  An axis the mesh does not have
-is a reduction over one rank and issues nothing.  Every rank must call the
+is a reduction over one rank and issues nothing.  :func:`psum` also takes a
+tuple of axes, ``lax.psum(x, (CHAINS, KERNELS))``: one all-reduce on the
+group of all the listed axes' ranks (the world, which a mesh spans, where
+it lists every axis of the mesh).  Every rank must call the
 same collectives in the same order: a loop around them may branch only on
 values that are replicated, i.e. on results of these calls, which are
 bitwise equal on every rank of the group.
@@ -22,17 +25,37 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..utils.random import split
 
 
-def _group(mesh: DeviceMesh, axis: str):
-    if axis not in (mesh.mesh_dim_names or ()):
+def _group(mesh: DeviceMesh, axis):
+    """The process group of ``axis`` (or a tuple of axes) on ``mesh``,
+    found once a mesh and kept on it."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    groups = mesh.__dict__.setdefault("_kde_groups", {})
+    if axes not in groups:
+        groups[axes] = _group_of(mesh, axes)
+    return groups[axes]
+
+
+def _group_of(mesh: DeviceMesh, axes: tuple):
+    names = mesh.mesh_dim_names or ()
+    present = [a for a in names if a in axes]
+    if not present:
         return None
-    return mesh.get_group(axis)
+    if len(present) == 1:
+        return mesh.get_group(present[0])
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}: a mesh spans the world")
+    return dist.group.WORLD
 
 
-def _all_reduce(x: torch.Tensor, op, mesh: DeviceMesh, axis: str):
+def _all_reduce(x: torch.Tensor, op, mesh: DeviceMesh, axis,
+                inplace: bool = False):
     group = _group(mesh, axis)
     if group is None:
         return x
-    y = x.contiguous().clone()
+    if inplace and not x.is_contiguous():
+        raise ValueError("an all-reduce in place needs a contiguous tensor")
+    y = x if inplace else x.contiguous().clone()
     dist.all_reduce(y, op=op, group=group)
     return y
 
@@ -47,9 +70,12 @@ def pmin(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     return _all_reduce(x, dist.ReduceOp.MIN, mesh, axis)
 
 
-def psum(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
-    """Elementwise sum over the ranks of ``axis``."""
-    return _all_reduce(x, dist.ReduceOp.SUM, mesh, axis)
+def psum(x: torch.Tensor, mesh: DeviceMesh, axis,
+         inplace: bool = False) -> torch.Tensor:
+    """Elementwise sum over the ranks of ``axis``, or of a tuple of axes
+    (one all-reduce over all their ranks); with ``inplace`` into ``x``
+    (contiguous) itself, which it returns."""
+    return _all_reduce(x, dist.ReduceOp.SUM, mesh, axis, inplace)
 
 
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:

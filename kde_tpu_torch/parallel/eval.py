@@ -6,8 +6,9 @@ mixture components over ``kernels``; the weighted log-sum-exp over
 components becomes a ``pmax`` of the shard maxima and a ``psum`` of the
 shifted sums, and the LOO entropy adds a ``psum`` over ``chains`` of the
 per-query terms (SURVEY §5: the only places the framework needs
-communication); the LOOCV search shifts its sums by each query's nearest
-live neighbour instead, one ``pmin`` a search.  Every rank passes the same
+communication).  The LOOCV search splits its queries over the whole mesh
+with every column on each rank, so it needs one ``psum`` a sweep over all
+the mesh's ranks and nothing else.  Every rank passes the same
 full inputs and works on its own query and component rows, on the device
 of the first input (a CUDA tensor stays on the card whatever the backend;
 NumPy input goes to ``config.DEVICE``, the card by default).  An axis the
@@ -27,7 +28,7 @@ from .. import config
 from ..ops import kernels, sharded_loo
 from ..ops.kernels import LOG_2PI, pairwise_quad
 from ..ops.loocv import _slices_on, bracket_rows
-from .collectives import gather_rows, pmax, pmin, psum
+from .collectives import gather_rows, pmax, psum
 from .mesh import CHAINS, KERNELS, axis_index, axis_size
 
 
@@ -113,14 +114,16 @@ def ksize_bandwidths_sharded(mesh: DeviceMesh, points, weights=None,
     ``[N, N]`` LOO entropies split over the whole mesh: the golden search
     of ``ops/loocv.py`` (brackets, probes, updates) runs on every rank with
     replicated state, as ``ops/sharded_loo.py::search`` (on the card the
-    kernels K7, with no ``[N/S, N/S]`` temporary and no host read of the
-    sweep just issued).  A search issues one ``pmin`` over ``kernels``
-    (each query's nearest live neighbour, the sums' shift) and, a sweep, a
-    ``psum`` over ``kernels`` of the shifted sums and one over ``chains``
-    of the entropies, so every rank takes the same branch.  ``N`` is padded
-    to the mesh with zero-weight rows, which add nothing.  Same selection
-    as ``ksize_bandwidths`` up to the order of the sums.  Returns ``[d]``
-    std-dev bandwidths on the points' device."""
+    kernels K7, one launch a sweep, with no ``[N/S, N]`` temporary and no
+    host read of the sweep just issued).  The padded query rows are split
+    over all ``chains x kernels`` ranks in a flat, chains-major order, and
+    every rank holds all ``N`` columns: a query's sum is whole on its rank,
+    so a sweep issues one ``psum`` of its ``[rows, 2]`` entropies over
+    every rank (``lax.psum(x, (CHAINS, KERNELS))``) and every rank takes the
+    same branch.  ``N`` is padded to the mesh with zero-weight query rows,
+    which add nothing.  Same selection as ``ksize_bandwidths`` up to the
+    order of the sums.  Returns ``[d]`` std-dev bandwidths on the points'
+    device."""
     dev = config.input_device(points)
     points = torch.as_tensor(points, dtype=dtype, device=dev)
     n, d = points.shape
@@ -130,14 +133,13 @@ def ksize_bandwidths_sharded(mesh: DeviceMesh, points, weights=None,
         w = torch.as_tensor(weights, dtype=points.dtype).to(dev)
         w = w / w.sum()
     base, ax, bx, cx = bracket_rows(points.T.contiguous(), *_slices_on(n, dev))
-    nc, nk = axis_size(mesh, CHAINS), axis_size(mesh, KERNELS)
-    pad = (-n) % (nc * nk)
-    pts_p = torch.nn.functional.pad(points, (0, 0, 0, pad))
-    w_p = torch.nn.functional.pad(w, (0, pad))
-    qr, kr = _rows(mesh, CHAINS, n + pad), _rows(mesh, KERNELS, n + pad)
+    nk = axis_size(mesh, KERNELS)
+    ranks = axis_size(mesh, CHAINS) * nk
+    m = -(-n // ranks)
+    q0 = (axis_index(mesh, CHAINS) * nk + axis_index(mesh, KERNELS)) * m
+    pts_p = torch.nn.functional.pad(points, (0, 0, 0, m * ranks - n))
+    w_p = torch.nn.functional.pad(w, (0, m * ranks - n))
     return sharded_loo.search(
-        pts_p[qr], w_p[qr], pts_p[kr], w_p[kr], base, ax, bx, cx,
-        q0=qr.start, k0=kr.start, tol=float(tol),
-        pmin=lambda x: pmin(x, mesh, KERNELS),
-        psum_kernels=lambda x: psum(x, mesh, KERNELS),
-        psum_chains=lambda x: psum(x, mesh, CHAINS))
+        pts_p[q0:q0 + m], w_p[q0:q0 + m], points, w, base, ax, bx, cx,
+        q0=q0, tol=float(tol),
+        psum=lambda x: psum(x, mesh, (CHAINS, KERNELS), inplace=True))

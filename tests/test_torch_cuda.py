@@ -1690,10 +1690,10 @@ def test_loo_search_takes_a_launch_a_max_rows(cuda):
 
 # ---- the sharded LOOCV search (ops/sharded_loo.py, K7) --------------------
 
-def _k7_shards(cuda, n, dtype, zero=0, seed=0):
+def _k7_shards(cuda, n, dtype, zero=0, seed=0, ranks=4):
     """Points [n, 2] of N(0, s^2) data with non-uniform weights (a zero
-    tail of ``zero`` points, as padding), their sort bracket, and the two
-    halves of a 2 x 2 split (rows and columns at offsets n // 2)."""
+    tail of ``zero`` points, as padding), their sort bracket, and the query
+    rows of ``ranks`` ranks (every column on each)."""
     from kde_tpu_torch.ops import loocv
     rng = np.random.default_rng(seed + n)
     pts = rng.normal(size=(n, 2)) * [1.0, 2.5]
@@ -1704,96 +1704,142 @@ def _k7_shards(cuda, n, dtype, zero=0, seed=0):
     pts, w = t(pts), t(w)
     base, ax, bx, cx = loocv.bracket_rows(pts.T.contiguous(),
                                           *loocv._slices_on(n, cuda))
-    h = n // 2
-    return pts, w, (base, ax, bx, cx), [(0, h), (h, n)]
+    m = -(-n // ranks)
+    return pts, w, (base, ax, bx, cx), [(a, min(n, a + m))
+                                        for a in range(0, n, m)]
 
 
-def _k7_phase_pairs(pts, w, bracket, halves):
-    """Each K7 phase of sweeps 0 and 1 on the card and on its twin, from
-    the same inputs, over the 2 x 2 split composed by hand: pairs of
-    (name, kernel output, twin output, dense rows)."""
+def _k7_rank(pts, w, bracket, a, b, **kw):
+    from kde_tpu_torch.ops import loo_search, sharded_loo as sl
+    base, ax, bx, cx = bracket
+    q = pts[a:b]
+    xs, wp, st, fl = sl.stage(pts, w, ax, bx, cx)
+    return sl.sweeps(q, w[a:b], xs, wp, sl.nn_shift(q, xs, wp, a), base, st,
+                     fl, q0=a, tol=K4_TOL,
+                     trace=loo_search.new_trace(pts.T, K4_TOL), **kw)
+
+
+def _k7_phase_pairs(pts, w, bracket, ranks):
+    """Each K7 launch of sweeps 0-2 and the closing step on the card and on
+    its twin, from the same inputs, over a query split with every column
+    on each rank, the psum composed by hand (the twin's heads fold the
+    kernels' summed entropies): pairs of (name, kernel output, twin
+    output)."""
     from kde_tpu_torch.ops import sharded_loo as sl
     base, ax, bx, cx = bracket
     out = []
-    staged = []
-    for a, b in halves:
-        got = sl.stage(pts[a:b], w[a:b], ax, bx, cx)
-        want = sl.stage_ref(pts[a:b], w[a:b], ax, bx, cx)
-        for k in range(2):
-            out.append((f"stage {a} {k}", got[k], want[k]))
-        rows = [sl.X0, sl.X1, sl.X2, sl.X3, sl.PR0, sl.PR1]
-        out.append((f"stage {a} st", got[2][rows], want[2][rows]))
-        out.append((f"stage {a} fl", got[3], want[3]))
-        staged.append(got)
-    st, fl = staged[0][2].clone(), staged[0][3].clone()
-    xmin = torch.empty(2, dtype=pts.dtype, device=pts.device)
-    flag = torch.zeros(1, dtype=torch.int32, device=pts.device)
-    for sweep in (0, 1):
-        ent = 0
-        for qa, qb in halves:
-            q, qw = pts[qa:qb], w[qa:qb]
-            shifts = []
-            for (xs, wp, _, _), (ka, _) in zip(staged, halves):
-                got = sl.nn_shift(q, xs, wp, qa, ka)
-                want = sl.nn_shift_ref(q, xs, wp, qa, ka)
-                out.append((f"nn_shift {qa} {ka}", got, want))
-                shifts.append(got)
-            shift = torch.minimum(*shifts)
-            sums = 0
-            for (xs, wp, _, _), (ka, _) in zip(staged, halves):
-                args = (q, xs, wp, shift, base, st, fl, sweep, qa, ka)
-                got = sl.probe_sums(*args)
-                want = sl.probe_sums_ref(*args)
-                on = sl._searching(fl, sweep, 2)
-                out.append((f"probe_sums {sweep} {qa} {ka}", got[on],
-                            want[on]))
-                sums = sums + got
-            args = (sums, shift, qw, base, st, fl, sweep)
-            got = sl.probe_entropy(*args)
-            out.append((f"probe_entropy {sweep} {qa}", got,
-                        sl.probe_entropy_ref(*args)))
-            ent = ent + got
-        st2, fl2, x2, f2 = st.clone(), fl.clone(), xmin.clone(), flag.clone()
-        sl.golden_step(ent, base, st, fl, xmin, flag, sweep, K4_TOL)
-        sl.golden_step_ref(ent, base, st2, fl2, x2, f2, sweep, K4_TOL)
-        for name, g, t in (("st", st, st2), ("fl", fl, fl2),
-                           ("xmin", xmin, x2), ("flag", flag, f2)):
-            out.append((f"golden_step {sweep} {name}", g.clone(), t))
+    got = sl.stage(pts, w, ax, bx, cx)
+    want = sl.stage_ref(pts, w, ax, bx, cx)
+    for k in range(2):
+        out.append((f"stage {k}", got[k], want[k]))
+    out.append(("stage st", got[2][0], want[2][0]))
+    out.append(("stage fl", got[3][0], want[3][0]))
+    sides = []
+    for a, b in ranks:
+        pair = [_k7_rank(pts, w, bracket, a, b) for _ in range(2)]
+        out.append((f"nn_shift {a}", pair[0].shift, sl.nn_shift_ref(
+            pts[a:b], pair[0].xs, pair[0].wp, a)))
+        sides.append(pair)
+    for s in (0, 1, 2):
+        for (k, t), (a, _) in zip(sides, ranks):
+            sl.sweep(k, s)
+            sl.sweep_ref(t, s)
+            out.append((f"sweep ent {s} {a}", k.ent_v[s].clone(),
+                        t.ent_v[s].clone()))
+            for name in ("st", "fl"):
+                out.append((f"sweep {name} {s} {a}",
+                            getattr(k, name)[s & 1].clone(),
+                            getattr(t, name)[s & 1].clone()))
+            out.append((f"sweep flag {s} {a}", k.flag_v[s].clone(),
+                        t.flag_v[s].clone()))
+            out.append((f"sweep trace {s} {a}", k.trace.clone(),
+                        t.trace.clone()))
+        total = sum(k.ent_v[s] for k, _ in sides)
+        for pair in sides:
+            for side in pair:
+                side.ent_v[s].copy_(total)
+    k, t = sides[0]
+    res = []
+    for side, fn in ((k, sl.golden_step), (t, sl.golden_step_ref)):
+        flag = side.flags[:1].clone()
+        fn(side.ent_v[2], base, side.st, side.fl, side.xmin, flag, 2,
+           K4_TOL, side.trace)
+        res.append((side.st[1], side.fl[1], side.xmin, flag, side.trace))
+    for name, g, h in zip(("st", "fl", "xmin", "flag", "trace"), *res):
+        out.append((f"golden_step {name}", g, h))
     return out
 
 
-K7_CASES = {"2x3000": (3000, 0), "2x2333_pad": (2333, 17),
-            "2x70": (70, 3)}
+K7_CASES = {"4x3000": (3000, 0), "4x2333_pad": (2333, 17),
+            "4x70": (70, 3), "1x9000": (9000, 5)}
 
 
 @pytest.mark.parametrize("name", sorted(K7_CASES))
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_sharded_loo_phases_match_twins(cuda, name, dtype):
-    """Every K7 phase of sweeps 0 and 1 against its twin over a 2 x 2
-    split on one card (the diagonal at the shards' offsets, several tiles,
-    ragged groups, zero-weight padding): staging, shifts and the golden
-    step bitwise; float64 sums and entropies within 1e-12 (another order
-    of the sums), float32 within 2e-5 (ex2.approx against exp2)."""
+def test_sharded_loo_launches_match_twins(cuda, name, dtype):
+    """Every K7 launch of sweeps 0-2 and the closing step against its twin
+    over a query split (4 ranks, or 1) with every column on each rank (the
+    diagonal at the ranks' offsets, several tiles, ragged groups, the
+    chunked plan at few queries a rank, zero-weight padding): staging,
+    shifts, each sweep's head and the golden step bitwise; float64
+    entropies within 1e-12 (another order of the sums), float32 within
+    2e-5 (ex2.approx against exp2)."""
     from kde_tpu_torch.ops import sharded_loo as sl
     n, zero = K7_CASES[name]
-    args = _k7_shards(cuda, n, getattr(torch, dtype), zero)
+    pts, w, bracket, ranks = _k7_shards(cuda, n, getattr(torch, dtype), zero,
+                                        ranks=int(name.split("x")[0]))
     l0 = sl.LAUNCHES
-    pairs = _k7_phase_pairs(*args)
+    pairs = _k7_phase_pairs(pts, w, bracket, ranks)
     torch.cuda.synchronize()
     assert sl.LAUNCHES > l0
     rtol = 1e-12 if dtype == "float64" else 2e-5
     for what, got, want in pairs:
-        exact = what.split()[0] in ("stage", "nn_shift", "golden_step")
+        exact = not what.startswith("sweep ent")
         torch.testing.assert_close(got, want, rtol=0 if exact else rtol,
                                    atol=0, equal_nan=True, msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_loo_plans_agree(cuda, dtype, monkeypatch):
+    """The fused sweep on its own plan and on plans forced to cut the
+    columns into 2, 3 and 7 chunks: each plan's entropies bitwise the same
+    over repeated launches, the plans' within 1e-12 (float64) or 2e-5 of
+    each other, and the heads' state bitwise equal."""
+    from kde_tpu_torch.ops import sharded_loo as sl
+    pts, w, bracket, _ = _k7_shards(cuda, 7000, getattr(torch, dtype), 9)
+    plan = sl.sweep_plan
+    outs = {}
+    for tiles in (None, 4, 3, 1):
+        if tiles is not None:
+            monkeypatch.setattr(sl, "sweep_plan", lambda mq, n_pad, rows, sms,
+                                t=tiles: plan(mq, n_pad, rows, sms)._replace(
+                                    chunks=-(-n_pad // (t * sl.TILE)),
+                                    tiles=t))
+        sw = _k7_rank(pts, w, bracket, 0, len(pts))
+        runs = []
+        for _ in range(2):
+            sl.sweep(sw, 0)
+            sl.sweep(sw, 1)
+            runs.append((sw.ent_v[0].clone(), sw.ent_v[1].clone(),
+                         sw.st[1].clone(), sw.fl[1].clone()))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        outs[tiles] = runs[0]
+    rtol = 1e-12 if dtype == "float64" else 2e-5
+    for tiles, got in outs.items():
+        for k in (0, 1):
+            torch.testing.assert_close(got[k], outs[None][k], rtol=rtol,
+                                       atol=0, msg=str(tiles))
+        torch.testing.assert_close(got[3], outs[None][3], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_ksize_sharded_on_k7_without_a_host_sync(nccl_world, cuda, dtype,
                                                  monkeypatch):
     """ksize_bandwidths_sharded of CUDA tensors on a one-rank NCCL mesh:
-    only K7 (no twin stage, no K4 or K1 launch), 1 + 2 sweeps all-reduces
-    issued, no host sync but the lagged flag reads (each one sweep behind
+    only K7 (no twin stage, no K4 or K1 launch: stage, nn_shift, one a
+    sweep and the closing step), one all-reduce a sweep issued, no host
+    sync but the lagged flag reads (each one sweep behind
     the sweep just issued), bitwise the same on repeat, and the picks of
     the twin search on CPU copies (float64 within 1e-10, float32 within
     the final bracket, 2 tol relative)."""
@@ -1833,10 +1879,10 @@ def test_ksize_sharded_on_k7_without_a_host_sync(nccl_world, cuda, dtype,
     torch.cuda.synchronize()
     monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
     sweeps = sl.LAST["sweeps"]
-    assert sl.LAUNCHES - counts[0] == 2 + 3 * sweeps
+    assert sl.LAUNCHES - counts[0] == 3 + sweeps
     assert (sl.TWIN_STAGES, loo_search.LAUNCHES,
             tiled_eval.LAUNCHES) == counts[1:]
-    assert len(issued) == 1 + 2 * sweeps
+    assert len(issued) == sweeps
     waits = sweeps - sl.FLAG_LAG - (sl.LAST["stop"] == "max_iters")
     assert reads and min(reads) >= 1 and len(reads) == waits
     assert torch.equal(got, first)

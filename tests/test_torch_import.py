@@ -140,7 +140,8 @@ def test_sharded_select_source_and_shared_header():
 def test_sharded_loo_imports_and_runs_its_twins_without_nvcc():
     """The sharded LOOCV search (K7) imports torch only, and on CPU tensors
     ksize_bandwidths_sharded runs its twins without a toolkit: nothing
-    built, nothing launched, every phase counted as a twin's."""
+    built, nothing launched, every launch counted as a twin's (stage,
+    nn_shift, one a sweep and the closing step)."""
     env = dict(os.environ, PATH="", CUDA_HOME="/nonexistent")
     code = ("import os, sys, tempfile\n"
             "import numpy as np, torch\n"
@@ -159,7 +160,7 @@ def test_sharded_loo_imports_and_runs_its_twins_without_nvcc():
             "m.startswith(('jax.', 'kde_tpu.'))]\n"
             "print(bad, sl._lib, sl.LAUNCHES, sl.TWIN_STAGES)\n"
             "sys.exit(1 if bad or sl._lib is not None or sl.LAUNCHES\n"
-            "         or sl.TWIN_STAGES != 2 + 3 * sl.LAST['sweeps']\n"
+            "         or sl.TWIN_STAGES != 3 + sl.LAST['sweeps']\n"
             "         or bw.shape != (2,) else 0)\n")
     res = _run(code, env=env)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -171,8 +172,8 @@ def test_sharded_loo_source_and_shared_header():
     from kde_tpu_torch.ops import loo_search, sharded_loo, tiled_eval
     text = sharded_loo.SOURCE.read_text()
     assert sharded_loo.SOURCE.parent == tiled_eval.SOURCE.parent
-    for entry in ("kde_k7_stage", "kde_k7_nn_shift", "kde_k7_probe_sums",
-                  "kde_k7_probe_entropy", "kde_k7_golden_step"):
+    for entry in ("kde_k7_stage", "kde_k7_nn_shift", "kde_k7_sweep",
+                  "kde_k7_golden_step"):
         assert f'extern "C" int {entry}' in text
     assert "--fmad=false" in sharded_loo.NVCC_FLAGS
     assert "compute_90a" in " ".join(sharded_loo.NVCC_FLAGS)

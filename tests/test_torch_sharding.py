@@ -195,9 +195,9 @@ def _worker(argv):
             n[0] += 1
             return fn(*a, **kw)
         return wrapped
-    saved = par_eval.pmin, par_eval.psum, torch.distributed.all_reduce
-    par_eval.pmin, par_eval.psum = map(counted, saved[:2])
-    torch.distributed.all_reduce = counted(saved[2], issued)
+    saved = par_eval.psum, torch.distributed.all_reduce
+    par_eval.psum = counted(saved[0])
+    torch.distributed.all_reduce = counted(saved[1], issued)
     for name in KSIZE_MESHES:
         for case, (pts, w) in (("", _ksize_data()),
                                ("/live1", _ksize_one_live())):
@@ -208,7 +208,8 @@ def _worker(argv):
             res[f"ksize{case}/{name}/all_reduces"] = np.array(issued[0])
             res[f"ksize{case}/{name}/sweeps"] = np.array(
                 sharded_loo.LAST["sweeps"])
-    par_eval.pmin, par_eval.psum, torch.distributed.all_reduce = saved
+    par_eval.psum, torch.distributed.all_reduce = saved
+    res["eval_has_pmin"] = np.array(hasattr(par_eval, "pmin"))
     # NumPy inputs (on config.DEVICE) against the same calls on tensors
     for name, fn, data in (("eval", sharded_log_eval, _eval_data()),
                            ("loo", sharded_loo_entropy, _loo_data()),
@@ -399,17 +400,16 @@ def test_ksize_bandwidths_sharded_matches_jax_sharded(res, mesh, case):
 @pytest.mark.parametrize("case", ["", "/live1"])
 @pytest.mark.parametrize("mesh", KSIZE_MESHES)
 def test_ksize_sharded_collectives_a_sweep(res, mesh, case):
-    """One pmin a search and two collectives a sweep (the kernels psum of
-    the sums, the chains psum of the entropies), counted where they are
-    called; each issues one all-reduce, but over the chains axis of the
-    kernels-only mesh, which it lacks; the search stops one sweep after
-    its last active one."""
+    """One collective a sweep, the psum of its entropies over every rank
+    of the mesh (the queries split over both axes, every column on each
+    rank), counted where it is called, and one all-reduce a sweep issued,
+    on the 2-D mesh and the kernels-only one alike; no pmin (the shift is
+    local); the search stops one sweep after its last active one."""
     sweeps = int(res[f"ksize{case}/{mesh}/sweeps"])
     assert sweeps >= 3
-    assert int(res[f"ksize{case}/{mesh}/collectives"]) == 1 + 2 * sweeps
-    chains = mesh != "k4"
-    assert int(res[f"ksize{case}/{mesh}/all_reduces"]) == (
-        1 + sweeps + chains * sweeps)
+    assert int(res[f"ksize{case}/{mesh}/collectives"]) == sweeps
+    assert int(res[f"ksize{case}/{mesh}/all_reduces"]) == sweeps
+    assert not bool(res["eval_has_pmin"])
 
 
 @pytest.mark.parametrize("name", ["eval", "loo", "ksize"])
