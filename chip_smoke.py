@@ -19,7 +19,13 @@ Phases, one line of findings each:
      unscented kld's fit); CUDA-event times of kernel and twin at (a), (b)
      and (e) beside the kernel's bound (SFU ex2 rate, FP32 rate, bytes) and,
      at (a) and (b), the dense route as context; (f) data at 10^3 against
-     the float64 twin (atol 1e-4, rtol 1e-5);
+     the float64 twin (atol 1e-4, rtol 1e-5); (g) LOO with a diagonal
+     offset (query m skips component m + diag) at the shapes of phase 11's
+     shards, 10k x 20k and 20k x 10k in 2-D, each query on the component
+     it skips: 0, +-1, +- a query block, across a split boundary, +-N/2
+     (phase 11b's ranks) and past either end, rtol = atol = 2e-4 against
+     the twin; diag = 0 bitwise the call without it and an offset past
+     either end bitwise the call without LOO, on every launch plan;
  3b. the float64 small-route kernels of csrc/small_ops.cu against their
      plain twins on the card: the LOOCV selection ksize_small (the bracket
      and every row's golden search in one launch, each row on a
@@ -156,7 +162,13 @@ Phases, one line of findings each:
      product_batched(mesh=) over 4 x [2 x 20,000] against the unsharded
      batch, sharded_log_eval at 20,000 x 20,000 (must launch the kernel),
      sharded_loo_entropy and ksize_bandwidths_sharded against their
-     single-device calls (the bandwidths on K7 only, no twin phase, K4 or
+     single-device calls (the entropy at N_LOO = 20,000 points one K1
+     launch, and at N_LOO_BIG = 100,000 one K1 launch within RTOL of
+     entropy_kernel, its host and CUDA-event ms beside K1's alone and its
+     allocator peak under 16 MB above its inputs; at N_LOO_DENSE = 4,096,
+     below the gate, no K1 launch and within RTOL of entropy_kernel; the
+     bandwidths on K7
+     only, no twin phase, K4 or
      K1 launch, within KSIZE_RTOL of K4's twin search and K4's final
      bracket of K4's picks, its probe values within K4_PROBE_RTOL of the
      eager entropy at the same x; its sweeps, the all-reduces it issued
@@ -176,9 +188,12 @@ Phases, one line of findings each:
      both ranks against the plain engine, ksize_bandwidths_sharded with
      the queries split over both ranks (on K7 on each, the same picks
      on both, within K4's final bracket of rank 0's single-card search),
-     and sharded_log_eval with the
+     sharded_log_eval with the
      components split over both ranks (each rank must launch the kernel
-     and keep the result on the card).  Launches made by the references
+     and keep the result on the card), and sharded_loo_entropy of N_LOO
+     points on a kernels mesh of two and a chains mesh of two (one K1
+     launch a call on each rank, rank 1's offset -N/2 and +N/2, within
+     RTOL of entropy_kernel).  Launches made by the references
      that a sharded call is compared with are not counted;
  12. the eight examples_torch twins on the card at their own sizes, one
      line each (their checks raise; they stay below the kernel's gates).
@@ -321,7 +336,11 @@ AGREE_MIN = 0.999        # sharded vs unsharded: share of chains that agree
 MANY_DENS = 20           # phase 10b: a product of more densities than K3
 N_MANY = 5000            # takes (gibbs_chain.MAX_DENS = 16), of this many
 MANY_CHAINS = 4096       # 2-D points each, this many chains: K2 a step
-N_LOO = 4096             # sharded LOO entropy
+N_LOO = 20_000           # sharded LOO entropy: above the gate, on K1
+N_LOO_BIG = 100_000      # ...and its full-width case on the (1, 1) mesh
+N_LOO_DENSE = 4096       # ...and below the gate (N^2 pairs, not above
+                         # config.DIRECT_PAIR_LIMIT): one block of logits
+LOO_PEAK_BYTES = 16 << 20   # its allocator peak above its inputs: O(N)
 N_KSIZE = 8192           # sharded LOOCV bandwidths
 KSIZE_RTOL = 1e-5        # sharded vs single-device bandwidths, float32
                          # (first set at 1e-3; the H100 read 0.0)
@@ -524,7 +543,76 @@ def phase_kernel(dev):
     rows["f"] = {"M": n, "N": n, "d": 2, "loo": False, "max_abs_err": err,
                  "vs": "float64 twin", "atol": OFFSET_ATOL, "rtol": OFFSET_RTOL}
     print(f"kernel (f): {json.dumps(rows['f'])}", flush=True)
-    return rows, worst
+    rows["g"], err = phase_kernel_diag(dev, rng, sms)
+    print(f"kernel (g): {json.dumps(rows['g'])}", flush=True)
+    return rows, max(worst, err)
+
+
+K1_DIAG_SHAPES = ((N_LOO // 2, N_LOO, 2), (N_LOO, N_LOO // 2, 2))
+
+
+def k1_diag_offsets(m, n, d, sms):
+    """Name -> offset of phase 3 (g) for an ``[m, d] x [n, d]`` LOO call:
+    0, +-1, +- one query block of the chosen plan, query block 0's skipped
+    columns across the plan's first split boundary (entering its chunks
+    part-way), the +-N/2 of phase 11b's ranks where it fits, and past
+    either end."""
+    from kde_tpu_torch.ops import tiled_eval
+    plan = tiled_eval.launch_plan(m, n, d, sms)
+    block = plan.threads * plan.rows_per_thread
+    out = {"0": 0, "+1": 1, "-1": -1, "+block": block, "-block": -block,
+           "split": plan.per_split - block // 2 - 3,
+           "past_n": max(m, n) + 5, "past_m": -max(m, n) - 5}
+    out["+N/2" if m < n else "-N/2"] = (n if m < n else -m) // 2
+    return out
+
+
+def k1_diag_inputs(rng, m, n, d, diag, dev):
+    """K1's float32 inputs with query i on the component it skips, mean
+    i + diag, where that is a column: a mask missed or misplaced moves the
+    row far beyond the tolerance."""
+    import torch
+    mu = rng.normal(size=(n, d))
+    q = rng.normal(size=(m, d))
+    i = np.arange(m)
+    on = (i + diag >= 0) & (i + diag < n)
+    q[on] = mu[i[on] + diag]
+    var = rng.uniform(0.005, 0.05, size=(n, d))
+    w = rng.uniform(0.1, 1.0, size=n)
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (q, mu, var, w / w.sum())]
+
+
+def phase_kernel_diag(dev, rng, sms):
+    """Phase 3 (g): K1's LOO mask at a diagonal offset against the twin
+    on the chosen plan, and on every plan of the shape that diag = 0 is
+    bitwise the call without an offset and an offset past either end
+    bitwise the call without LOO.  Returns the row and the largest
+    error."""
+    import torch
+    from kde_tpu_torch.ops import tiled_eval
+    row, worst = {}, 0.0
+    for m, n, d in K1_DIAG_SHAPES:
+        plans = [p for _, p in tiled_eval.plans(m, n, d, sms)]
+        for name, diag in k1_diag_offsets(m, n, d, sms).items():
+            args = k1_diag_inputs(rng, m, n, d, diag, dev)
+            got = tiled_eval.tiled_log_eval(*args, loo=True, diag=diag)
+            _sync()
+            want = tiled_eval.tiled_log_eval_ref(*args, loo=True, diag=diag)
+            what = f"case (g) {m}x{n} diag {name} ({diag})"
+            err = compare(got, want, what)
+            worst = max(worst, err)
+            row[f"{m}x{n} {name}"] = {"diag": diag, "max_abs_err": err}
+            if name == "0" or name.startswith("past"):
+                for plan in plans:
+                    a = tiled_eval.launch_with_plan(*args, True, plan, diag)
+                    b = tiled_eval.launch_with_plan(*args, name == "0",
+                                                    plan)
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{what}: not bitwise the "
+                                             f"call without it, {plan}")
+                row[f"{m}x{n} {name}"]["bitwise_plans"] = len(plans)
+    return row, worst
 
 
 def cfg1_points(seed):
@@ -4017,7 +4105,7 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
     import torch
     import torch.distributed as dist
     import kde_tpu_torch as kt
-    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch import config, parallel as par
     from kde_tpu_torch.ops import kernels, loocv
     from kde_tpu_torch.ops import gibbs_chain, sharded_select
     from kde_tpu_torch.parallel import product as par_product
@@ -4143,6 +4231,26 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         with _uncounted():
             want = kernels.entropy_kernel(pts, var, w)
         out["loo_rel"] = abs(float(h) / float(want) - 1.0)
+        out["loo_full_width"] = _loo_full_width(mesh2, dev, seed, stage)
+        if N_LOO_DENSE ** 2 > config.DIRECT_PAIR_LIMIT:
+            raise AssertionError(f"N_LOO_DENSE {N_LOO_DENSE} is above the "
+                                 "gate")
+        dense = (pq.points[:N_LOO_DENSE].contiguous(),
+                 pq.bw[:N_LOO_DENSE].contiguous(),
+                 torch.full((N_LOO_DENSE,), 1.0 / N_LOO_DENSE,
+                            dtype=pts.dtype, device=dev))
+        hd = stage("sharded_loo_entropy_dense", par.sharded_loo_entropy,
+                   mesh2, *dense)
+        with _uncounted():
+            want = kernels.entropy_kernel(*dense)
+        out["loo_dense_rel"] = abs(float(hd) / float(want) - 1.0)
+        if not (hd.is_cuda and out["loo_dense_rel"] <= RTOL
+                and launches["sharded_loo_entropy_dense"] == 0
+                and launches["sharded_loo_entropy_dense_k4"] == 0):
+            raise AssertionError(
+                f"sharded_loo_entropy below the gate: on {hd.device}, "
+                f"{out['loo_dense_rel']} from entropy_kernel, "
+                f"{launches['sharded_loo_entropy_dense']} K1 launches")
         pts = pq.points[:N_KSIZE].contiguous()
         bws, out["ksize"] = _k7_search(
             "ksize_sharded", lambda: stage("ksize_sharded",
@@ -4201,6 +4309,11 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
             if launches[name] or launches[name + "_k4"]:
                 raise AssertionError(f"{name}: {launches[name]} K1 and "
                                      f"{launches[name + '_k4']} K4 launches")
+        for name in ("sharded_loo_entropy", "sharded_loo_entropy_numpy",
+                     "sharded_loo_entropy_full_width"):
+            if launches[name] != 1:
+                raise AssertionError(f"{name}: {launches[name]} K1 launches, "
+                                     "not one")
         _launched(launches, ("sharded_refit", "batched_sharded"), dev,
                   k4=True)
         _launched(launches, ("sharded_log_eval", "sharded_log_eval_numpy"),
@@ -4211,6 +4324,46 @@ def phase_parallel(dev, p, q, serve, b=BATCH_SETS, seed=SEED):
         dist.destroy_process_group()
     out["scaling"] = phase_scaling()
     return dict(seconds=stages, launches=launches, **out)
+
+
+def loo_points(n, seed, dev):
+    """``n`` N(0, 1) 2-D float32 points on ``dev`` with Silverman's
+    bandwidth (as variances) and uniform weights: the sharded LOO
+    entropy's inputs."""
+    import torch
+    pts = np.random.default_rng(seed).normal(size=(n, 2))
+    var = np.full((n, 2), (1.06 * n ** -0.2) ** 2)
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (pts, var, np.full(n, 1.0 / n))]
+
+
+def _loo_full_width(mesh, dev, seed, stage, n=N_LOO_BIG):
+    """Phase 11a's full-width LOO entropy: ``n`` 2-D points on the (1, 1)
+    mesh, one K1 launch (counted, as the stage
+    ``sharded_loo_entropy_full_width``) against the single-device
+    ``entropy_kernel`` (K1, uncounted) within RTOL; its host ms and
+    allocator peak above its inputs (under LOO_PEAK_BYTES: no [N, N]
+    block), the CUDA-event ms of the call and of K1 alone."""
+    import torch
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    args = loo_points(n, seed + 17, dev)
+    call = functools.partial(par.sharded_loo_entropy, mesh, *args)
+    row, got = _peak_run(lambda: stage("sharded_loo_entropy_full_width",
+                                       call), dev)
+    if got is None:
+        raise AssertionError(f"sharded_loo_entropy at {n}: {row}")
+    with _uncounted():
+        want = kernels.entropy_kernel(*args)
+        row["rel"] = abs(float(got) / float(want) - 1.0)
+        row["cuda_ms"] = _cuda_ms(call)
+        row["k1_ms"] = _cuda_ms(functools.partial(
+            tiled_eval.tiled_log_eval, args[0], *args, loo=True))
+    row["n"], row["input_bytes"] = n, sum(a.nbytes for a in args)
+    if not (torch.isfinite(got) and row["rel"] <= RTOL
+            and (dev.type != "cuda" or row["peak_bytes"] < LOO_PEAK_BYTES)):
+        raise AssertionError(f"sharded_loo_entropy at {n}: {row}")
+    return row
 
 
 def phase_scaling():
@@ -4425,8 +4578,51 @@ def shared_card_worker(rank, world, port):
                              f"on {lp.device}")
     out["log_eval_err"] = compare(lp, kernels.log_eval_gated(
         qs, k.points, k.bw, k.weights), "sharded_log_eval S = 2")
+    out.update(_shared_card_loo(rank, kmesh, par.make_mesh_2d((2, 1)), dev))
     torch.distributed.destroy_process_group()
     print(json.dumps(out), flush=True)
+
+
+def _shared_card_loo(rank, kmesh, cmesh, dev):
+    """Phase 11b's LOO entropy of N_LOO 2-D points with the components
+    split over the two ranks (``kmesh``: this rank's offset -rank N/2) and
+    with the queries split (``cmesh``, chains 2 x kernels 1: +rank N/2):
+    one K1 launch a call on each rank with that offset, the entropy
+    within RTOL of the single-device ``entropy_kernel``."""
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    args = loo_points(N_LOO, SEED + 18, dev)
+    out, diags = {"loo_launches": 0}, []
+    launch = kernels.tiled_log_eval
+
+    def recording(*a, **kw):
+        diags.append(kw["diag"])
+        return launch(*a, **kw)
+    kernels.tiled_log_eval = recording
+    try:
+        for name, mesh, diag in (("kernels", kmesh, -rank * N_LOO // 2),
+                                 ("chains", cmesh, rank * N_LOO // 2)):
+            n0, t0 = tiled_eval.LAUNCHES, time.perf_counter()
+            h = par.sharded_loo_entropy(mesh, *args)
+            _sync()
+            out[f"loo_{name}_s"] = time.perf_counter() - t0
+            n = tiled_eval.LAUNCHES - n0
+            out["loo_launches"] += n
+            if n != 1 or diags[-1:] != [diag] or h.device != dev:
+                raise AssertionError(f"sharded_loo_entropy S = 2 over "
+                                     f"{name}: {n} K1 launches, offsets "
+                                     f"{diags}, not {diag}; on {h.device}")
+            out[f"loo_{name}"] = float(h)
+    finally:
+        kernels.tiled_log_eval = launch
+    out["loo_diags"] = diags
+    want = float(kernels.entropy_kernel(*args))
+    out["loo_rel"] = max(abs(out[f"loo_{k}"] / want - 1.0)
+                         for k in ("kernels", "chains"))
+    if out["loo_rel"] > RTOL:
+        raise AssertionError(f"sharded_loo_entropy S = 2: {out['loo_rel']} "
+                             f"from entropy_kernel")
+    return out
 
 
 def phase_shared_card():
@@ -4472,10 +4668,16 @@ def k1_parent_ab(parent):
     module of another checkout, e.g. an unpacked ``git archive``, loaded
     from its file) on this card, in turns: parent, change, change, parent.
     At every shape of K1_AB_SHAPES both must pass ``compare`` against this
-    checkout's twin; each side is timed single-call and back-to-back
-    (``_cuda_ms``), beside the bound (``k1_bound_ms``).  Then the host cost of one wrapper call at 128 x 128,
-    every plan of ``tiled_eval.plans`` at K1_SWEEP's shapes (back-to-back,
-    one launch each), and the SM clock under K1."""
+    checkout's twin and give the same bits (each side's wrapper calls its
+    own library with its own C signature: the parent's takes no diagonal
+    offset); each side is timed single-call and back-to-back
+    (``_cuda_ms``), beside the bound (``k1_bound_ms``); first each
+    library's ptxas registers, shared memory and spills by kernel, where
+    this run built it.  Then the host cost
+    of one wrapper call at 128 x 128, every plan of ``tiled_eval.plans`` at
+    K1_SWEEP's shapes (back-to-back, one launch each), the SM clock under
+    K1, and the sharded LOO entropy against the parent's
+    (``k1_parent_loo``)."""
     import torch
     from kde_tpu_torch.ops import tiled_eval
     path = os.path.join(os.path.abspath(parent), "kde_tpu_torch", "ops",
@@ -4486,10 +4688,9 @@ def k1_parent_ab(parent):
     mods = {"parent": old, "change": tiled_eval}
     for name, mod in mods.items():
         mod.build()
-    ptxas = [ln.split(":", 1)[1].strip() for ln in
-             tiled_eval.BUILD_LOG.splitlines()
-             if "entry function" in ln or "registers" in ln]
-    print(f"k1 ptxas: {json.dumps(ptxas)}", flush=True)
+        table = (ptxas_table(mod.BUILD_LOG)
+                 or "library already built: no ptxas output")
+        print(f"k1 ptxas ({name}): {json.dumps(table)}", flush=True)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = _sm_clock_hz()
@@ -4501,10 +4702,15 @@ def k1_parent_ab(parent):
                "plan": tiled_eval.launch_plan(m, n, d, sms)._asdict()}
         row["bound_ms"], row["bound_by"] = k1_bound_ms(m, n, d, loo, sms,
                                                      clock)
+        got = {}
         for name, mod in mods.items():
-            got = mod.tiled_log_eval(*args, loo=loo)
+            got[name] = mod.tiled_log_eval(*args, loo=loo)
             _sync()
-            row[f"{name}_max_abs_err"] = compare(got, want, f"{name} ({shape})")
+            row[f"{name}_max_abs_err"] = compare(got[name], want,
+                                                 f"{name} ({shape})")
+        row["bitwise"] = torch.equal(got["parent"], got["change"])
+        if not row["bitwise"]:
+            raise AssertionError(f"K1 ({shape}): not the parent's bits")
         for name in ("parent", "change", "change", "parent"):
             call = functools.partial(mods[name].tiled_log_eval, *args, loo=loo)
             row.setdefault(f"{name}_ms", []).append(_cuda_ms(call))
@@ -4541,7 +4747,40 @@ def k1_parent_ab(parent):
     smi = smi.communicate(timeout=60)[0].strip()
     _sync()
     print(f"k1 under load, clocks/power/temperature: {smi}", flush=True)
+    k1_parent_loo(parent, dev)
     print(_card())
+
+
+def k1_parent_loo(parent, dev, ns=(N_LOO, N_LOO_BIG)):
+    """The sharded LOO entropy of ``n`` 2-D points (``loo_points``) on a
+    one-rank (1, 1) mesh (NCCL; gloo off the card), this checkout's
+    against ``parent``'s ``parallel/eval.py`` (loaded as a module of this
+    package, ``_parent_module``), in turns: change, parent, parent,
+    change.  Each turn's host ms, allocator peak above its inputs and
+    entropy, or the out-of-memory error and the peak reached; one line a
+    size."""
+    import torch.distributed as dist
+    from kde_tpu_torch import parallel as par
+    from kde_tpu_torch.parallel import eval as ev
+    mods = {"change": ev, "parent": _parent_module(parent, "parallel",
+                                                   "eval")}
+    par.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             backend="nccl" if dev.type == "cuda" else "gloo",
+                             timeout=WORKER_TIMEOUT)
+    try:
+        mesh = par.make_mesh_2d((1, 1))
+        for n in ns:
+            args = loo_points(n, SEED + 17, dev)
+            row = {"n": n, "input_bytes": sum(a.nbytes for a in args)}
+            for name in ("change", "parent", "parent", "change"):
+                call = functools.partial(mods[name].sharded_loo_entropy,
+                                         mesh, *args)
+                row.setdefault(name, []).append(_peak_run(call, dev)[0])
+            print(f"k1 sharded_loo_entropy ab: {json.dumps(row)}",
+                  flush=True)
+            del args
+    finally:
+        dist.destroy_process_group()
 
 
 def small_parent_ab(parent):
@@ -5029,10 +5268,11 @@ def _bits(t):
                                else torch.int32)
 
 
-def _search_run(call, dev):
+def _peak_run(call, dev):
     """One ``call()`` ending in a sync: host ms, the allocator's peak over
-    it less what was allocated before, and its result; or, where the card
-    runs out of memory, the error and the peak reached."""
+    it less what was allocated before (its inputs), and its result (also
+    as a list, ``result``); or, where the card runs out of memory, the
+    error and the peak reached."""
     import torch
     card = dev.type == "cuda"
     peak = lambda: (torch.cuda.max_memory_allocated(dev) - base
@@ -5050,7 +5290,7 @@ def _search_run(call, dev):
         torch.cuda.empty_cache()
         return row, None
     return dict(ms=1e3 * (time.perf_counter() - t), peak_bytes=peak(),
-                bandwidths=got.tolist()), got
+                result=got.tolist()), got
 
 
 def _k7_modules(root):
@@ -5209,7 +5449,7 @@ def k7_parent_ab(parent, dev=None, ns=K7_PARENT_NS, k4_cases=None):
             row, picks = {"n": n}, {}
             for side in ("parent", "change", "change", "parent"):
                 call = functools.partial(calls[side], mesh, pts)
-                res, got = _search_run(call, dev)
+                res, got = _peak_run(call, dev)
                 if got is not None and dev.type == "cuda" and n == N_KSIZE:
                     res["event_ms"] = _cuda_ms(call)
                 row.setdefault(side, []).append(res)
@@ -5978,7 +6218,8 @@ def main():
           flush=True)
     sc = phase_shared_card()
     # counted in the two worker processes, around the sharded calls only
-    runs["shared_card"] = sum(r["log_eval_launches"] for r in sc)
+    runs["shared_card"] = sum(r["log_eval_launches"] + r["loo_launches"]
+                              for r in sc)
     k6["shared_card"] = sum(r["k6_launches"] for r in sc)
     k6_twin["shared_card"] = sum(r["k6_twin_stages"] for r in sc)
     k7["shared_card"] = sum(r["k7_launches"] for r in sc)
@@ -6071,7 +6312,15 @@ def main():
         "bound_share_b": rows["b"]["bound_share"],
         "ms_back_to_back": rows["a"]["ms_back_to_back"],
         "ms_b_back_to_back": rows["b"]["ms_back_to_back"],
-        "dense_ms": rows["a"]["dense_ms"]}, {
+        "dense_ms": rows["a"]["dense_ms"],
+        "diag_max_abs_err": max(r["max_abs_err"] for r in rows["g"].values()),
+        "sharded_loo_launches": sum(
+            [pl["launches"][k] for k in ("sharded_loo_entropy",
+                                         "sharded_loo_entropy_numpy",
+                                         "sharded_loo_entropy_full_width")]
+            + [r["loo_launches"] for r in sc]),
+        "sharded_loo_100k_ms": pl["loo_full_width"]["cuda_ms"],
+        "sharded_loo_100k_peak_bytes": pl["loo_full_width"]["peak_bytes"]}, {
         "name": "loo_golden", "route": "cuda",
         "entry": "ksize_small: bracket and golden search, one launch",
         "source": "kde_tpu_torch/csrc/small_ops.cu",

@@ -6,9 +6,11 @@
 //
 //   out[m] = log sum_n w_n prod_k N(q_mk; mu_nk, var_nk)
 //
-// from the raw means, variances and weights.  With loo, component m is
-// skipped for query m; the caller applies the -log1p(-w) rescale.  A row
-// whose every component is skipped (or has zero weight) gives -inf, as the
+// from the raw means, variances and weights.  With loo, component
+// m + diag is skipped for query m (diag = 0: the diagonal; a shard of the
+// pairs passes the global start of its query rows minus that of its
+// components); the caller applies the -log1p(-w) rescale.  A row whose
+// every component is skipped (or has zero weight) gives -inf, as the
 // Pallas kernel's guard does.
 //
 // What bounds it: the bytes are O((M + N) d), which is nothing.  Every
@@ -50,7 +52,10 @@
 //     distributed shared memory and rank 0 writes out: one launch, no
 //     scratch in device memory;
 //   * the LOO mask is applied only in the chunks that overlap the block's
-//     own query range;
+//     own query range shifted by diag, the columns its rows skip; a diag
+//     with no column in [0, N) for any row runs the kernel without a mask,
+//     and diag = 0 runs an instantiation with the offset folded away (a
+//     runtime offset of 0 ran the 100k 1-D LOO case 1.4 % slower);
 //   * the dimension is a compile-time constant for d = 1..8; d = 9..16 run
 //     at a padded width DS of 12 or 16 (a padded dim has q = mu = 0 and
 //     var = 1, so it adds nothing), without a per-dim branch, and without
@@ -99,6 +104,10 @@ template <int DS> struct Shape {
   static constexpr bool PREFETCH = DS <= 8;
 };
 
+// What a launch leaves out: nothing, component m for query m, or
+// component m + diag.
+enum Loo { kNoLoo = 0, kDiagonal = 1, kOffset = 2 };
+
 __device__ __forceinline__ float fast_ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -108,9 +117,10 @@ __device__ __forceinline__ float fast_ex2(float x) {
 // One chunk of J staged components against the thread's R queries.
 // cs: the chunk's (mu[DS], hinv[DS]) records; cc: its J c's (16-byte
 // aligned); cmax: the largest of them; n_first: the global index of its
-// first component; q_first: the global index of the thread's query 0
-// (query r is q_first + r * T).  Query r's state: its running max m[r],
-// lim[r] = m[r] + kBound and four partial sums a[r][0..3] relative to m[r].
+// first component; skip_first: the component the thread's query 0 skips
+// under MASK, its global index plus diag (query r skips skip_first + r * T).
+// Query r's state: its running max m[r], lim[r] = m[r] + kBound and four
+// partial sums a[r][0..3] relative to m[r].
 template <int DS, bool MASK>
 __device__ __forceinline__ void chunk(const float* __restrict__ cs,
                                       const float* __restrict__ cc,
@@ -119,7 +129,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ cs,
                                       float (&m)[Shape<DS>::R],
                                       float (&lim)[Shape<DS>::R],
                                       float (&a)[Shape<DS>::R][4],
-                                      int n_first, int q_first, int T) {
+                                      int n_first, int skip_first, int T) {
   constexpr int R = Shape<DS>::R, J = Shape<DS>::J;
   float l[J][R];
 #pragma unroll
@@ -163,7 +173,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ cs,
           const float t = qv[r][k] - mu[k];
           acc = fmaf(-(t * h[k]), t, acc);
         }
-        if (MASK && n_first + jj == q_first + r * T) acc = -INFINITY;
+        if (MASK && n_first + jj == skip_first + r * T) acc = -INFINITY;
         l[jj][r] = acc;
       }
     }
@@ -202,12 +212,14 @@ __device__ __forceinline__ void chunk(const float* __restrict__ cs,
 }
 
 // Width DS: d = DS for DS <= 8, d = 9..DS (runtime) for DS = 12 or 16.
-// Grid (ceil(M / (T * R)), splits), cluster (1, splits, 1).
-template <int DS, bool LOO>
+// Grid (ceil(M / (T * R)), splits), cluster (1, splits, 1).  diag is read
+// only when LOO is kOffset.
+template <int DS, int LOO>
 __global__ void __launch_bounds__(kMaxThreads)
 tiled_eval(const float* __restrict__ q, const float* __restrict__ mu,
            const float* __restrict__ var, const float* __restrict__ w,
-           float* __restrict__ out, int M, int N, int d_rt, int per_split) {
+           float* __restrict__ out, int M, int N, int d_rt, int per_split,
+           int diag) {
   using S = Shape<DS>;
   constexpr int R = S::R, J = S::J, TILE = S::TILE;
   constexpr int STRIDE = 2 * DS;
@@ -223,6 +235,7 @@ tiled_eval(const float* __restrict__ q, const float* __restrict__ mu,
   const int tid = threadIdx.x;
   const int q_base = blockIdx.x * T * R;
   const int q_first = q_base + tid;
+  const int dg = LOO == kOffset ? diag : 0;
 
   float qv[R][DS];
   float m[R], lim[R], a[R][4];
@@ -299,10 +312,13 @@ tiled_eval(const float* __restrict__ q, const float* __restrict__ mu,
     for (int j0 = 0; j0 < cnt; j0 += J) {
       const float* cs = &comp_s[buf][j0 * STRIDE];
       const float* cc = &c_s[buf][j0];
-      const bool diag = LOO && n0 + j0 < q_base + T * R && n0 + j0 + J > q_base;
+      // the block's rows skip the columns [q_base + dg, + T * R)
+      const bool masked = LOO != kNoLoo && n0 + j0 < q_base + dg + T * R &&
+                          n0 + j0 + J > q_base + dg;
       const float cmax = cmax_s[buf][j0 / J];
-      if (diag)
-        chunk<DS, true>(cs, cc, cmax, qv, m, lim, a, n0 + j0, q_first, T);
+      if (masked)
+        chunk<DS, true>(cs, cc, cmax, qv, m, lim, a, n0 + j0, q_first + dg,
+                        T);
       else
         chunk<DS, false>(cs, cc, cmax, qv, m, lim, a, n0 + j0, q_first, T);
     }
@@ -358,7 +374,7 @@ tiled_eval(const float* __restrict__ q, const float* __restrict__ mu,
 
 template <int DS>
 int launch(const float* q, const float* mu, const float* var, const float* w,
-           float* out, int M, int N, int d, bool loo, int threads,
+           float* out, int M, int N, int d, bool loo, int diag, int threads,
            int rows_per_thread, int splits, int per_split, cudaStream_t st) {
   if (rows_per_thread != Shape<DS>::R) return (int)cudaErrorInvalidValue;
   const int rows = threads * Shape<DS>::R;
@@ -379,12 +395,15 @@ int launch(const float* q, const float* mu, const float* var, const float* w,
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   cudaError_t e;
-  if (loo)
-    e = cudaLaunchKernelEx(&cfg, tiled_eval<DS, true>, q, mu, var, w, out,
-                           M, N, d, per_split);
+  if (!loo)
+    e = cudaLaunchKernelEx(&cfg, tiled_eval<DS, kNoLoo>, q, mu, var, w, out,
+                           M, N, d, per_split, 0);
+  else if (diag == 0)
+    e = cudaLaunchKernelEx(&cfg, tiled_eval<DS, kDiagonal>, q, mu, var, w,
+                           out, M, N, d, per_split, 0);
   else
-    e = cudaLaunchKernelEx(&cfg, tiled_eval<DS, false>, q, mu, var, w, out,
-                           M, N, d, per_split);
+    e = cudaLaunchKernelEx(&cfg, tiled_eval<DS, kOffset>, q, mu, var, w,
+                           out, M, N, d, per_split, diag);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -394,10 +413,12 @@ int launch(const float* q, const float* mu, const float* var, const float* w,
 // Launches on `stream`, allocates nothing, returns a CUDA error code (0 on
 // success).  threads, rows_per_thread, splits and per_split come from the
 // wrapper's launch plan; rows_per_thread must equal the kernel's R for d.
+// With loo, query m skips component m + diag; any diag may be given, and
+// one at or beyond N, or at or below -M, skips nothing.
 extern "C" int kde_tiled_log_eval(const float* q, const float* mu,
                                   const float* var, const float* w,
                                   float* out, int M, int N, int d, int loo,
-                                  int threads, int rows_per_thread,
+                                  int diag, int threads, int rows_per_thread,
                                   int splits, int per_split, void* stream) {
   if (d < 1 || d > kMaxDim || N < 0 || splits < 1 || splits > kMaxSplits ||
       (threads != kMinThreads && threads != kMaxThreads) || per_split < 1 ||
@@ -405,10 +426,11 @@ extern "C" int kde_tiled_log_eval(const float* q, const float* mu,
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool l = loo != 0;
+  // no row's skipped column lies in [0, N): nothing to mask
+  const bool l = loo != 0 && diag < N && diag > -M;
 #define KDE_LAUNCH(DIM)                                                      \
-  launch<DIM>(q, mu, var, w, out, M, N, d, l, threads, rows_per_thread,      \
-              splits, per_split, st)
+  launch<DIM>(q, mu, var, w, out, M, N, d, l, diag, threads,                 \
+              rows_per_thread, splits, per_split, st)
   switch (d) {
     case 1: return KDE_LAUNCH(1);
     case 2: return KDE_LAUNCH(2);

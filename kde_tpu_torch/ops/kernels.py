@@ -82,33 +82,48 @@ def log_gauss_mixture(query: torch.Tensor, means: torch.Tensor,
 def log_eval(query: torch.Tensor, means: torch.Tensor, var: torch.Tensor,
              weights: torch.Tensor,
              diffop: Optional[Sequence[Callable]] = None,
-             chunk: Optional[int] = None) -> torch.Tensor:
+             chunk: Optional[int] = None,
+             loo_diag: Optional[int] = None) -> torch.Tensor:
     """``log p(x)`` for each query row, in query blocks of ``chunk`` rows
-    when given (bounds the live ``[chunk, N]`` logits)."""
+    when given (bounds the live ``[chunk, N]`` logits); with ``loo_diag``,
+    query ``m`` leaves out component ``m + loo_diag``."""
     logw = torch.log(weights)
-    if chunk is None or query.shape[0] <= chunk:
-        return log_gauss_mixture(query, means, var, logw, diffop)
-    return torch.cat([log_gauss_mixture(query[s:s + chunk], means, var, logw,
-                                        diffop)
-                      for s in range(0, query.shape[0], chunk)])
+    m = query.shape[0]
+
+    def block(s, e):
+        exclude = None
+        if loo_diag is not None:
+            exclude = torch.arange(s + loo_diag, e + loo_diag,
+                                   device=query.device)
+        return log_gauss_mixture(query[s:e], means, var, logw, diffop,
+                                 exclude)
+    if chunk is None or m <= chunk:
+        return block(0, m)
+    return torch.cat([block(s, min(s + chunk, m))
+                      for s in range(0, m, chunk)])
 
 
 def log_eval_gated(query: torch.Tensor, means: torch.Tensor,
                    var: torch.Tensor, weights: torch.Tensor,
-                   diffop: Optional[Sequence[Callable]] = None
-                   ) -> torch.Tensor:
+                   diffop: Optional[Sequence[Callable]] = None,
+                   loo_diag: Optional[int] = None) -> torch.Tensor:
     """:func:`log_eval` with the size gate of ``KDE.log_eval``
     (``kde_tpu/density.py:287-301``): above ``config.DIRECT_PAIR_LIMIT``
     query*component pairs a float32 Euclidean density takes the tiled
     route, anything else query blocks that keep the live logits within the
-    limit."""
+    limit.  With ``loo_diag`` query ``m`` leaves out component
+    ``m + loo_diag`` on every route (a shard of the ``N x N`` LOO pairs
+    passes its rows' global start minus its components'; a value that
+    puts no row's column in ``[0, N)`` leaves out nothing)."""
     n = means.shape[0]
     chunk = None
     if query.shape[0] * n > config.DIRECT_PAIR_LIMIT:
         if use_tiled_eval(means.dtype, diffop):
-            return tiled_log_eval(query, means, var, weights)
+            loo = {} if loo_diag is None else dict(loo=True, diag=loo_diag)
+            return tiled_log_eval(query, means, var, weights, **loo)
         chunk = max(1, config.DIRECT_PAIR_LIMIT // n)
-    return log_eval(query, means, var, weights, diffop, chunk=chunk)
+    return log_eval(query, means, var, weights, diffop, chunk=chunk,
+                    loo_diag=loo_diag)
 
 
 def log_eval_loo(points: torch.Tensor, var: torch.Tensor,
@@ -128,22 +143,15 @@ def log_eval_loo(points: torch.Tensor, var: torch.Tensor,
                     - torch.log1p(-weights))
         return log_eval_loo_chunked(points, var, weights,
                                     max(1, config.DIRECT_PAIR_LIMIT // n))
-    lp = log_gauss_mixture(points, points, var, torch.log(weights), diffop,
-                           exclude=torch.arange(n, device=points.device))
+    lp = log_eval(points, points, var, weights, diffop, loo_diag=0)
     return lp - torch.log1p(-weights)
 
 
 def log_eval_loo_chunked(points: torch.Tensor, var: torch.Tensor,
                          weights: torch.Tensor, chunk: int) -> torch.Tensor:
     """:func:`log_eval_loo` in ``chunk``-row query blocks."""
-    n = points.shape[0]
-    logw = torch.log(weights)
-    idx = torch.arange(n, device=points.device)
-    out = torch.cat([
-        log_gauss_mixture(points[s:s + chunk], points, var, logw,
-                          exclude=idx[s:s + chunk])
-        for s in range(0, n, chunk)])
-    return out - torch.log1p(-weights)
+    return (log_eval(points, points, var, weights, chunk=chunk, loo_diag=0)
+            - torch.log1p(-weights))
 
 
 def eval_avg_logl_from_logp(logp: torch.Tensor,

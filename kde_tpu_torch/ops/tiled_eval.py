@@ -8,8 +8,10 @@
     out[m] = log sum_n w_n prod_k N(q_mk; mu_nk, var_nk)
 
 with the direct ``(q - mu)^2 / var + log var`` form, never materializing the
-``[M, N]`` logits in device memory.  With ``loo``, component ``m`` is
-left out of query ``m`` and the caller applies the ``-log1p(-w)`` rescale.
+``[M, N]`` logits in device memory.  With ``loo``, component
+``m + diag`` is left out of query ``m`` (``diag = 0``: the diagonal; a
+shard of the ``N x N`` pairs passes its query rows' global start minus
+its components') and the caller applies the ``-log1p(-w)`` rescale.
 
 The kernel is built with ``nvcc`` into ``kde_tpu_torch/_build/`` the first
 time it is launched, and loaded with ``ctypes``.  A failed build raises
@@ -179,7 +181,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.kde_tiled_log_eval
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -203,9 +205,11 @@ def _check(query, means, var, weights):
 
 def tiled_log_eval(query: torch.Tensor, means: torch.Tensor,
                    var: torch.Tensor, weights: torch.Tensor,
-                   loo: bool = False) -> torch.Tensor:
+                   loo: bool = False, diag: int = 0) -> torch.Tensor:
     """``log p`` of the mixture at each query row (``[M, d]`` queries,
-    ``[N, d]`` means and variances, ``[N]`` weights) -> ``[M]``.
+    ``[N, d]`` means and variances, ``[N]`` weights) -> ``[M]``; with
+    ``loo``, query ``m`` leaves out component ``m + diag`` (any ``diag``:
+    one at or beyond ``N``, or at or below ``-M``, leaves out nothing).
 
     CPU tensors take :func:`tiled_log_eval_ref`.  CUDA tensors launch the
     kernel once (it prepares its own inverse variances and log weights and
@@ -214,24 +218,25 @@ def tiled_log_eval(query: torch.Tensor, means: torch.Tensor,
     global LAUNCHES
     _check(query, means, var, weights)
     if {t.device for t in (query, means, var, weights)} == {_CPU}:
-        return tiled_log_eval_ref(query, means, var, weights, loo)
+        return tiled_log_eval_ref(query, means, var, weights, loo, diag=diag)
     dev = _cuda_device(query, means, var, weights)
     m, d = query.shape
     out = _launch(query, means, var, weights, loo,
-                  launch_plan(m, means.shape[0], d, _sm_count(dev.index)))
+                  launch_plan(m, means.shape[0], d, _sm_count(dev.index)),
+                  diag)
     LAUNCHES += 1
     return out
 
 
 def launch_with_plan(query: torch.Tensor, means: torch.Tensor,
                      var: torch.Tensor, weights: torch.Tensor, loo: bool,
-                     plan: LaunchPlan) -> torch.Tensor:
+                     plan: LaunchPlan, diag: int = 0) -> torch.Tensor:
     """:func:`tiled_log_eval` of CUDA tensors cut by ``plan`` (one of
     :func:`plans` for these shapes) instead of :func:`launch_plan`'s
     choice, and not counted in ``LAUNCHES``: it times the other plans."""
     _check(query, means, var, weights)
     _cuda_device(query, means, var, weights)
-    return _launch(query, means, var, weights, loo, plan)
+    return _launch(query, means, var, weights, loo, plan, diag)
 
 
 def _cuda_device(*tensors: torch.Tensor) -> torch.device:
@@ -252,22 +257,24 @@ def _cuda_device(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch(query, means, var, weights, loo, plan: LaunchPlan):
+def _launch(query, means, var, weights, loo, plan: LaunchPlan, diag=0):
     """One kernel launch of ``plan`` on the inputs' device and its current
     stream into a new ``[M]`` tensor; raises on a refused launch."""
     dev = query.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return _launch(query, means, var, weights, loo, plan)
+            return _launch(query, means, var, weights, loo, plan, diag)
     m, d = query.shape
+    n = means.shape[0]
     out = torch.empty((m,), dtype=torch.float32, device=dev)
     # the raw handle of torch.cuda.current_stream, without its Stream object
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rc = _load().kde_tiled_log_eval(
         query.data_ptr(), means.data_ptr(), var.data_ptr(),
-        weights.data_ptr(), out.data_ptr(), m, means.shape[0], d,
-        int(bool(loo)), plan.threads, plan.rows_per_thread, plan.splits,
-        plan.per_split, stream)
+        weights.data_ptr(), out.data_ptr(), m, n, d, int(bool(loo)),
+        # an offset past either end skips nothing; clamped to fit a C int
+        max(-m, min(n, int(diag))), plan.threads, plan.rows_per_thread,
+        plan.splits, plan.per_split, stream)
     if rc != 0:
         raise RuntimeError(f"kde_tiled_log_eval launch failed: CUDA error {rc}")
     return out
@@ -275,10 +282,12 @@ def _launch(query, means, var, weights, loo, plan: LaunchPlan):
 
 def tiled_log_eval_ref(query: torch.Tensor, means: torch.Tensor,
                        var: torch.Tensor, weights: torch.Tensor,
-                       loo: bool = False, chunk: int = None) -> torch.Tensor:
+                       loo: bool = False, diag: int = 0,
+                       chunk: int = None) -> torch.Tensor:
     """Plain torch twin of :func:`tiled_log_eval`: the same math in any
     float dtype, chunked over queries so the live logits stay
-    ``[chunk, N]``."""
+    ``[chunk, N]`` (query ``m`` of a chunk starting at ``s`` skips column
+    ``s + m + diag``)."""
     m, d = query.shape
     n = means.shape[0]
     if chunk is None:
@@ -294,7 +303,8 @@ def tiled_log_eval_ref(query: torch.Tensor, means: torch.Tensor,
             t = qc[:, k:k + 1] - means[None, :, k]
             logits -= t * t * hinv[None, :, k]
         if loo:
-            rows = torch.arange(s, s + qc.shape[0], device=query.device)
+            rows = torch.arange(s + diag, s + diag + qc.shape[0],
+                                device=query.device)
             logits.masked_fill_(rows[:, None] == cols[None, :], -math.inf)
         out.append(torch.logsumexp(logits, dim=1))
     if not out:

@@ -26,7 +26,6 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .. import config
 from ..ops import kernels, sharded_loo
-from ..ops.kernels import LOG_2PI, pairwise_quad
 from ..ops.loocv import _slices_on, bracket_rows
 from .collectives import gather_rows, pmax, psum
 from .mesh import CHAINS, KERNELS, axis_index, axis_size
@@ -90,21 +89,26 @@ def _entropy_terms(logp, qw, mesh: DeviceMesh):
 def sharded_loo_entropy(mesh: DeviceMesh, points, var,
                         weights) -> torch.Tensor:
     """Leave-one-out entropy with the ``N x N`` pairs split over both axes:
-    the diagonal mask is offset by the shard's row and column starts, the
-    log-sum-exp over ``kernels`` and the weighted sum over ``chains`` are
-    collectives.  Returns a scalar on the points' device."""
+    each shard's rows are ``kernels.log_eval_gated`` of its components with
+    the diagonal mask offset by the shard's row start minus its column
+    start (above ``config.DIRECT_PAIR_LIMIT`` local pairs the tiled kernel
+    K1 in float32, else query blocks within the limit, so no shard builds
+    more than the limit's logits), combined over ``kernels`` by a ``pmax``
+    and a ``psum`` as in :func:`sharded_log_eval`, then summed over
+    ``chains`` by a ``psum``.  That takes the log-sum-exp of each shard
+    before the ``pmax``, where the JAX package takes the ``pmax`` of the
+    logits' maxima: within rtol 1e-10 of it in float64 and 1e-5 in
+    float32 (tests/test_torch_sharding.py).  Returns a scalar on the
+    points' device."""
     dev = config.input_device(points)
-    n, d = points.shape
+    n = points.shape[0]
     qr, kr = _rows(mesh, CHAINS, n), _rows(mesh, KERNELS, n)
-    q, qw = _local(points, qr, dev), _local(weights, qr, dev)
-    m, v, w = (_local(x, kr, dev) for x in (points, var, weights))
-    logits = torch.log(w)[None, :] - 0.5 * pairwise_quad(q, m, v)
-    rows = torch.arange(qr.start, qr.stop, device=dev)
-    cols = torch.arange(kr.start, kr.stop, device=dev)
-    logits = logits.masked_fill(rows[:, None] == cols[None, :], -math.inf)
-    lmax = pmax(logits.max(dim=1).values, mesh, KERNELS).clamp_min(-1e30)
-    s = psum(torch.exp(logits - lmax[:, None]).sum(dim=1), mesh, KERNELS)
-    logp = torch.log(s) + lmax - 0.5 * d * LOG_2PI - torch.log1p(-qw)
+    qw = _local(weights, qr, dev)
+    v = kernels.log_eval_gated(
+        _local(points, qr, dev),
+        *(_local(x, kr, dev) for x in (points, var, weights)),
+        loo_diag=qr.start - kr.start)
+    logp = _lse_over_kernels(v, mesh) - torch.log1p(-qw)
     return _entropy_terms(logp[None], qw[None], mesh)[0]
 
 

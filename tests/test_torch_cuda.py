@@ -50,13 +50,14 @@ def _kernel_inputs(cuda, m, n, d, loo, seed, zero_weights=0):
             for x in (q, mu, var, w)]
 
 
-def _check_kernel(args, loo):
+def _check_kernel(args, loo, diag=0):
     from kde_tpu_torch.ops import tiled_eval
     before = tiled_eval.LAUNCHES
-    got = tiled_eval.tiled_log_eval(*args, loo=loo)
+    got = tiled_eval.tiled_log_eval(*args, loo=loo, diag=diag)
     torch.cuda.synchronize()
     assert tiled_eval.LAUNCHES == before + 1
-    _assert_close(got, tiled_eval.tiled_log_eval_ref(*args, loo=loo))
+    _assert_close(got, tiled_eval.tiled_log_eval_ref(*args, loo=loo,
+                                                     diag=diag))
     return got
 
 
@@ -123,6 +124,102 @@ def test_kernel_offset_data_against_float64(cuda):
     got = tiled_eval.tiled_log_eval(*args)
     want = tiled_eval.tiled_log_eval_ref(*(a.double() for a in args))
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
+# ---- K1's LOO mask at a diagonal offset: query m skips component m + diag --
+
+DIAG_SHAPES = [(300, 700, 2), (700, 300, 3), (257, 257, 1),
+               (4097, 8192, 2), (10000, 20000, 2), (2000, 4097, 9)]
+DIAG_NAMES = ("0", "+1", "-1", "+block", "-block", "split", "last_col",
+              "first_col", "past_n", "past_m")
+
+
+def _diag(name, m, n, d, sms):
+    """0, +-1, +- one query block of the chosen plan, query block 0's
+    skipped columns across its first split boundary (entering a chunk
+    part-way), a column for the first row only (n - 1) and the last row
+    only (1 - m), and past either end (nothing skipped)."""
+    from kde_tpu_torch.ops import tiled_eval
+    plan = tiled_eval.launch_plan(m, n, d, sms)
+    block = plan.threads * plan.rows_per_thread
+    return {"0": 0, "+1": 1, "-1": -1, "+block": block, "-block": -block,
+            "split": plan.per_split - block // 2 - 3, "last_col": n - 1,
+            "first_col": 1 - m, "past_n": max(m, n) + 5,
+            "past_m": -max(m, n) - 5}[name]
+
+
+def _diag_inputs(cuda, m, n, d, diag, seed):
+    """Query i sits on the component it skips (mean i + diag, where that
+    is a column), so a missed or misplaced mask fails the tolerance."""
+    rng = np.random.default_rng(seed)
+    mu = rng.normal(size=(n, d))
+    q = rng.normal(size=(m, d))
+    i = np.arange(m)
+    on = (i + diag >= 0) & (i + diag < n)
+    q[on] = mu[i[on] + diag]
+    var = rng.uniform(0.005, 0.05, size=(n, d))
+    w = rng.uniform(0.1, 1.0, size=n)
+    return [torch.as_tensor(x, dtype=torch.float32, device=cuda)
+            for x in (q, mu, var, w / w.sum())]
+
+
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("name", DIAG_NAMES)
+@pytest.mark.parametrize("m,n,d", DIAG_SHAPES)
+def test_kernel_diag_matches_twin_every_plan(cuda, m, n, d, name):
+    """K1 with an offset against its twin: the chosen plan (one counted
+    launch) and every plan of the shape (launch_with_plan, uncounted)."""
+    from kde_tpu_torch.ops import tiled_eval
+    sms = _sms(cuda)
+    diag = _diag(name, m, n, d, sms)
+    args = _diag_inputs(cuda, m, n, d, diag, m + n + d)
+    want = tiled_eval.tiled_log_eval_ref(*args, loo=True, diag=diag)
+    _check_kernel(args, True, diag)
+    before = tiled_eval.LAUNCHES
+    for _, plan in tiled_eval.plans(m, n, d, sms):
+        _assert_close(tiled_eval.launch_with_plan(*args, True, plan, diag),
+                      want)
+    assert tiled_eval.LAUNCHES == before
+
+
+@pytest.mark.parametrize("m,n,d", DIAG_SHAPES)
+def test_kernel_diag_zero_and_past_the_ends_bitwise(cuda, m, n, d):
+    """On every plan: diag = 0 is bitwise the LOO launch without an
+    offset, and an offset past either end (even one beyond a C int)
+    bitwise the launch without LOO."""
+    from kde_tpu_torch.ops import tiled_eval
+    args = _diag_inputs(cuda, m, n, d, 0, 7 * m + d)
+    for _, plan in tiled_eval.plans(m, n, d, _sms(cuda)):
+        loo = tiled_eval.launch_with_plan(*args, True, plan)
+        assert torch.equal(tiled_eval.launch_with_plan(*args, True, plan, 0),
+                           loo)
+        plain = tiled_eval.launch_with_plan(*args, False, plan)
+        for diag in (n, n + 1, -m, -m - 7, 1 << 40, -(1 << 40)):
+            assert torch.equal(
+                tiled_eval.launch_with_plan(*args, True, plan, diag), plain)
+
+
+def test_kernel_diag_fully_masked_rows(cuda):
+    """One positive-weight component k: the row k - diag is -inf, the
+    others finite; a one-column call skips its column in one row only."""
+    from kde_tpu_torch.ops import tiled_eval
+    m, n, d = 700, 300, 3
+    for name in ("+1", "-block", "split", "first_col"):
+        diag = _diag(name, m, n, d, _sms(cuda))
+        row = min(max(m // 2, -diag), n - 1 - diag, m - 1)
+        q, mu, var, _ = _diag_inputs(cuda, m, n, d, diag, 3)
+        w = torch.zeros(n, dtype=torch.float32, device=cuda)
+        w[row + diag] = 1.0
+        got = _check_kernel([q, mu, var, w], True, diag)
+        dead = torch.zeros(m, dtype=torch.bool, device=cuda)
+        dead[row] = True
+        assert torch.equal(torch.isneginf(got), dead)
+    q, mu, var, w = _diag_inputs(cuda, 50, 1, 2, -20, 4)
+    got = _check_kernel([q, mu, var, w], True, -20)
+    assert torch.isneginf(got).nonzero().flatten().tolist() == [20]
 
 
 def test_numpy_density_lands_on_the_card(cuda, tmp_path):
@@ -402,6 +499,41 @@ def test_gloo_sharded_eval_stays_on_card(gloo_world, cuda, monkeypatch):
     monkeypatch.setattr(loocv, "loo_search", loo_search.loo_search_ref)
     torch.testing.assert_close(bws, loocv.ksize_bandwidths_device(pts),
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [20000, 300])
+def test_sharded_loo_entropy_on_k1(nccl_world, cuda, monkeypatch, n):
+    """sharded_loo_entropy of float32 CUDA points on the (1, 1) mesh above
+    the gate (20,000 points; 300 with the gate at 1) is one K1 launch and
+    never the twin or a dense block of logits, holds no [N, N] block (the
+    allocator's peak under 16 MB above its inputs), and agrees with
+    entropy_kernel (K1)."""
+    from kde_tpu_torch import config, parallel as par
+    from kde_tpu_torch.ops import kernels, tiled_eval
+    if n < 1000:
+        monkeypatch.setattr(config, "DIRECT_PAIR_LIMIT", 1)
+    rng = np.random.default_rng(n)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    pts = f32(rng.normal(size=(n, 2)))
+    var = f32(np.full((n, 2), (1.06 * n ** -0.2) ** 2))
+    w = f32(np.full(n, 1.0 / n))
+    mesh = par.make_mesh_2d((1, 1))
+    par.sharded_loo_entropy(mesh, pts, var, w)          # NCCL's first call
+
+    def refused(*a, **kw):
+        raise AssertionError("the twin or dense logits on CUDA tensors")
+    monkeypatch.setattr(tiled_eval, "tiled_log_eval_ref", refused)
+    monkeypatch.setattr(kernels, "log_gauss_mixture", refused)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = tiled_eval.LAUNCHES
+    h = par.sharded_loo_entropy(mesh, pts, var, w)
+    torch.cuda.synchronize()
+    assert tiled_eval.LAUNCHES == before + 1 and h.is_cuda
+    assert torch.cuda.max_memory_allocated(cuda) - base < 16 << 20
+    torch.testing.assert_close(h, kernels.entropy_kernel(pts, var, w),
+                               rtol=2e-4, atol=0)
 
 
 # ---- the float64 small routes (ops/host_small.py, csrc/small_ops.cu) -------

@@ -14,6 +14,7 @@ differences may move the last probe).
 
 Worker mode: ``python tests/test_torch_sharding.py --worker <rank> <world>
 <store> <out>`` (torch only; tests/torch_world.py)."""
+import functools
 import os
 import sys
 
@@ -41,6 +42,28 @@ def _loo_data():
     rng = np.random.default_rng(4)
     n, d = 64, 2
     return rng.normal(size=(n, d)), np.full((n, d), 0.3), np.full(n, 1.0 / n)
+
+
+LOO_ROUTES = ("dense", "f64", "f32")
+
+
+def _loo_cases():
+    """name -> (mesh, points, var, weights) of the sharded LOO entropy:
+    64 2-D points with varied bandwidths and weights on the 2 x 2 mesh;
+    the same with point 5 at zero weight (a zero-weight query row, and
+    column); and one column a rank: 4 points on a 1 x 4 mesh, 2 on the
+    2 x 2 (a rank whose one column is its row's own holds a fully masked
+    row)."""
+    rng = np.random.default_rng(8)
+    pts = rng.normal(size=(64, 2))
+    var = rng.uniform(0.1, 0.5, size=(64, 2))
+    w = rng.uniform(0.5, 1.5, size=64)
+    w0 = w.copy()
+    w0[5] = 0.0
+    return {"varied": ("c2k2", pts, var, w / w.sum()),
+            "zero_row": ("c2k2", pts, var, w0 / w0.sum()),
+            "one_col_k4": ("c1k4", pts[:4], var[:4], w[:4] / w[:4].sum()),
+            "one_col_c2k2": ("c2k2", pts[:2], var[:2], w[:2] / w[:2].sum())}
 
 
 def _ksize_data():
@@ -182,6 +205,43 @@ def _worker(argv):
     config.DIRECT_PAIR_LIMIT, kernels.tiled_log_eval = 1 << 24, tiled
     res["loo"] = sharded_loo_entropy(
         c2k2, *(torch.as_tensor(x) for x in _loo_data())).numpy()
+    # the LOO entropy's three routes: one block of local rows (the default
+    # gate), and with the gate at 0 (a 1 x 1 shard too) query blocks of one
+    # row in float64 and K1's wrapper in float32 (its twin on the CPU);
+    # each rank's offset as eval.py hands it to log_eval_gated and as K1
+    # gets it, and the rows of each dense block, gathered from every rank
+    meshes["c1k4"] = make_mesh_2d((1, 4))
+    gated, mixture = kernels.log_eval_gated, kernels.log_gauss_mixture
+    seen = {"gated": [], "kernel": [], "rows": []}
+
+    def recording(fn, key, arg):
+        def wrapped(*a, **kw):
+            seen[key].append(arg(a, kw))
+            return fn(*a, **kw)
+        return wrapped
+    kernels.log_eval_gated = recording(gated, "gated",
+                                       lambda a, kw: kw["loo_diag"])
+    kernels.tiled_log_eval = recording(tiled, "kernel",
+                                       lambda a, kw: kw["diag"])
+    kernels.log_gauss_mixture = recording(mixture, "rows",
+                                          lambda a, kw: a[0].shape[0])
+    for case, (mesh_name, *data) in _loo_cases().items():
+        for route in LOO_ROUTES:
+            for key in seen:
+                seen[key].clear()
+            config.DIRECT_PAIR_LIMIT = 1 << 24 if route == "dense" else 0
+            dt = torch.float32 if route == "f32" else f64
+            res[f"loo/{case}/{route}"] = sharded_loo_entropy(
+                meshes[mesh_name],
+                *(torch.as_tensor(x, dtype=dt) for x in data)).numpy()
+            for key, got in seen.items():
+                every = [None] * 4
+                torch.distributed.all_gather_object(every, list(got))
+                res[f"loo/{case}/{route}/{key}"] = np.array(every,
+                                                           dtype=np.int64)
+    config.DIRECT_PAIR_LIMIT = 1 << 24
+    kernels.tiled_log_eval = tiled
+    kernels.log_eval_gated, kernels.log_gauss_mixture = gated, mixture
     # the sharded LOOCV search, its collectives counted where eval.py
     # calls them and the all-reduces they issue; "live1" weighs one point
     # only (its query has no live neighbour, so no probe's objective is
@@ -360,6 +420,80 @@ def test_sharded_loo_entropy_matches_dense(res):
     from kde_tpu.ops import kernels
     want = float(kernels.entropy_kernel(*_loo_data()))
     np.testing.assert_allclose(float(res["loo"]), want, rtol=1e-10)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_loo(case):
+    from kde_tpu.parallel.eval import sharded_loo_entropy
+    from kde_tpu.parallel.mesh import make_mesh_2d
+    mesh, *data = _loo_cases()[case]
+    shape = (1, 4) if mesh == "c1k4" else (2, 2)
+    return float(sharded_loo_entropy(make_mesh_2d(shape), *data))
+
+
+def _rank_offsets(mesh, n):
+    """The offset each rank of the gloo mesh passes: its rows' start
+    minus its columns' (ranks row-major over chains x kernels)."""
+    c, k = (1, 4) if mesh == "c1k4" else (2, 2)
+    return np.array([(r // k) * (n // c) - (r % k) * (n // k)
+                     for r in range(4)])
+
+
+@pytest.mark.parametrize("route", LOO_ROUTES)
+@pytest.mark.parametrize("case", ["varied", "zero_row", "one_col_k4",
+                                  "one_col_c2k2"])
+def test_sharded_loo_entropy_matches_jax_sharded(res, case, route):
+    """The port's LOO entropy on the gloo mesh against the JAX package's
+    sharded program on its CPU mesh of the same shape, float64 at rtol
+    1e-10 on the dense local rows and on K1's twin route (gate at 0), and
+    float32 on K1's route at rtol = atol = 1e-5 (float32 sums against
+    float64); finite where one rank's only column is its row's own."""
+    got = float(res[f"loo/{case}/{route}"])
+    want = _jax_loo(case)
+    assert np.isfinite(got) and np.isfinite(want)
+    tol = dict(rtol=1e-5, atol=1e-5) if route == "f32" else dict(rtol=1e-10)
+    np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.parametrize("case", ["varied", "zero_row", "one_col_k4",
+                                  "one_col_c2k2"])
+def test_sharded_loo_entropy_routes_pass_the_offset(res, case):
+    """Every rank hands ``log_eval_gated`` its rows' start minus its
+    columns' as the LOO offset, nonzero on the off-diagonal ranks.  Above
+    the gate in float32 K1 gets that offset (one call a rank) and no dense
+    block is built; in float64 the rows go in blocks of one row (the gate
+    at 0) and K1 is not called; below the gate each rank builds one block
+    of all its rows."""
+    mesh, pts = _loo_cases()[case][:2]
+    offsets = _rank_offsets(mesh, len(pts))
+    rows = len(pts) // (1 if mesh == "c1k4" else 2)
+    assert offsets.any()
+    for route in LOO_ROUTES:
+        np.testing.assert_array_equal(res[f"loo/{case}/{route}/gated"],
+                                      offsets[:, None])
+    np.testing.assert_array_equal(res[f"loo/{case}/f32/kernel"],
+                                  offsets[:, None])
+    assert res[f"loo/{case}/f32/rows"].size == 0
+    for route, blocks in (("f64", [1] * rows), ("dense", [rows])):
+        assert res[f"loo/{case}/{route}/kernel"].size == 0
+        np.testing.assert_array_equal(res[f"loo/{case}/{route}/rows"],
+                                      np.array([blocks] * 4))
+
+
+def test_sharded_loo_entropy_zero_weight_row_adds_nothing(res):
+    """A zero-weight point adds no term of its own: the entropy equals
+    the single-device one of the same weights (route by route), and it
+    differs from the one with every point weighted."""
+    from kde_tpu.ops import kernels
+    _, pts, var, w = _loo_cases()["zero_row"]
+    want = float(kernels.entropy_kernel(pts, var, w))
+    for route in LOO_ROUTES:
+        tol = (dict(rtol=1e-5, atol=1e-5) if route == "f32"
+               else dict(rtol=1e-10))
+        np.testing.assert_allclose(float(res[f"loo/zero_row/{route}"]), want,
+                                   **tol)
+    assert abs(float(res["loo/zero_row/dense"])
+               - float(res["loo/varied/dense"])) > 1e-6
 
 
 @pytest.mark.parametrize("mesh", KSIZE_MESHES)

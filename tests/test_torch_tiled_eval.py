@@ -6,7 +6,10 @@ The CUDA kernel itself is checked against the twin on the card
 (tests/test_torch_cuda.py); here its launch plan is checked for coverage
 at ragged shapes, and a NumPy emulation of its split, chunk, lazy-rescale
 and cluster-merge arithmetic against the twin (float64, rtol 1e-12) and
-the Pallas kernel (float32, rtol = atol = 2e-4)."""
+the Pallas kernel (float32, rtol = atol = 2e-4).  The LOO mask's diagonal
+offset (query m skips component m + diag) is held, in the twin, against
+the JAX package's dense masked evaluation, and in the emulation, with the
+kernel's per-block window over the chunks, on every launch plan."""
 import numpy as np
 import pytest
 
@@ -140,13 +143,16 @@ def test_launch_plan_covers_every_pair_once(m, n, loo):
         tiled_eval.launch_plan(m, n, tiled_eval.MAX_DIM + 1, 132)
 
 
-def emulate(q, mu, var, w, loo, plan, dtype, chunk):
+def emulate(q, mu, var, w, loo, plan, dtype, chunk, diag=0):
     """csrc/tiled_eval.cu's arithmetic in NumPy ``dtype``: per split,
     chunks of ``chunk`` components (padding has weight 0; a split starts on
     a whole chunk, so the staged tiles do not change the chunks) with the
     chunk's largest c, the 64/8 lazy rescale in log2 units, four partial
     sums per query, then the splits merged in rank order.  (numpy rounds
-    the kernel's fma twice.)"""
+    the kernel's fma twice.)  With ``loo``, query m skips component
+    m + diag, and only in the chunks that the kernel's window finds for
+    the query's block of ``threads * rows_per_thread`` rows; a ``diag``
+    that skips no column in [0, N) runs unmasked, as the C entry does."""
     f = np.dtype(dtype).type
     q, mu, var, w = (np.asarray(x, dtype=dtype) for x in (q, mu, var, w))
     m_q, d = q.shape
@@ -159,6 +165,9 @@ def emulate(q, mu, var, w, loo, plan, dtype, chunk):
             lv = lv + np.log2(var[:, k])
         c = np.log2(w) - f(0.5) * lv
         rows = np.arange(m_q)
+        block = plan.threads * plan.rows_per_thread
+        q_base = rows // block * block          # each query's block start
+        loo = loo and -m_q < diag < n
         parts = []
         for sp in range(plan.splits):
             nb, ne = sp * plan.per_split, min(n, (sp + 1) * plan.per_split)
@@ -176,7 +185,10 @@ def emulate(q, mu, var, w, loo, plan, dtype, chunk):
                     t = q[:, k:k + 1] - np.where(ok, mu[idc, k], 0)
                     l = l - (t * np.where(ok, h[idc, k], 1)) * t
                 if loo:
-                    l[rows[:, None] == idx[None, :]] = -np.inf
+                    window = ((n0 < q_base + diag + block)
+                              & (n0 + chunk > q_base + diag))
+                    l[window[:, None]
+                      & (rows[:, None] + diag == idx[None, :])] = -np.inf
                 cm = l.max(axis=1)
                 up = (cmax > lim) & (cm > m + resc)
                 fct = np.exp2(np.where(up, m - cm, 0)).astype(dtype)
@@ -266,6 +278,134 @@ def test_emulation_f32_matches_pallas(m, n, d, loo):
     for chunk in CHUNKS:
         got = emulate(q, mu, var, w, loo, plan, np.float32, chunk)
         _same(got, want, rtol=2e-4, atol=2e-4)
+
+
+# ---- the LOO mask's diagonal offset: query m skips component m + diag -------
+
+DIAG_SHAPES = [(300, 700, 2), (700, 300, 3), (257, 257, 1)]
+DIAG_NAMES = ("0", "+1", "-1", "+block", "-block", "split", "last_col",
+              "first_col", "past_n", "past_m")
+
+
+def _diag(name, m, n, d):
+    """The offset ``name`` for an ``[m, d] x [n, d]`` call on 132 SMs: 0,
+    +-1, +- one query block of the chosen plan (threads * rows_per_thread
+    rows), one that lays query block 0's skipped columns across the plan's
+    first split boundary and enters its chunks part-way, one that leaves a
+    column to the first row only (n - 1) and to the last row only
+    (1 - m), and two past either end, which skip nothing."""
+    plan = tiled_eval.launch_plan(m, n, d, 132)
+    block = plan.threads * plan.rows_per_thread
+    assert plan.splits > 1
+    return {"0": 0, "+1": 1, "-1": -1, "+block": block, "-block": -block,
+            "split": plan.per_split - block // 2 - 3, "last_col": n - 1,
+            "first_col": 1 - m, "past_n": max(m, n) + 5,
+            "past_m": -max(m, n) - 5}[name]
+
+
+def _diag_inputs(m, n, d, diag, seed):
+    """Queries that sit on the components they skip (query i is mean
+    i + diag where that is a column), so a mask missed or misplaced moves
+    the row's value far beyond every tolerance here."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(m, d))
+    mu = rng.normal(size=(n, d))
+    i = np.arange(m)
+    on = (i + diag >= 0) & (i + diag < n)
+    q[on] = mu[i[on] + diag]
+    var = rng.uniform(0.05, 0.3, size=(n, d))
+    w = rng.uniform(0.1, 1.0, size=n)
+    return q, mu, var, w / w.sum()
+
+
+def _jax_masked(q, mu, var, w, diag):
+    """The JAX package's dense float64 evaluation with component
+    m + diag masked out of query m."""
+    return np.asarray(jkernels.log_gauss_mixture(
+        *(jnp.asarray(x) for x in (q, mu, var)), jnp.log(jnp.asarray(w)),
+        exclude=jnp.arange(q.shape[0]) + diag))
+
+
+@pytest.mark.parametrize("name", DIAG_NAMES)
+@pytest.mark.parametrize("m,n,d", DIAG_SHAPES)
+def test_ref_diag_matches_jax_dense(m, n, d, name):
+    """The twin with an offset against the JAX package's dense masked
+    evaluation: float64 at rtol 1e-12 (in query chunks of 37, so the offset
+    moves with each chunk's start), and the float32 wrapper on the CPU
+    against it at rtol = atol = 1e-5; an offset past either end equals the
+    evaluation without LOO."""
+    diag = _diag(name, m, n, d)
+    args = _diag_inputs(m, n, d, diag, seed=m + n + d)
+    want = _jax_masked(*args, diag)
+    t64 = [_t(x, torch.float64) for x in args]
+    got = tiled_eval.tiled_log_eval_ref(*t64, loo=True, diag=diag, chunk=37)
+    _same(got.numpy(), want, rtol=1e-12)
+    got32 = tiled_eval.tiled_log_eval(*(_t(x, torch.float32) for x in args),
+                                      loo=True, diag=diag)
+    assert got32.dtype == torch.float32 and tiled_eval.LAUNCHES == 0
+    _same(got32.numpy(), want, rtol=1e-5, atol=1e-5)
+    if name.startswith("past"):
+        assert torch.equal(got, tiled_eval.tiled_log_eval_ref(*t64,
+                                                              chunk=37))
+
+
+@pytest.mark.parametrize("m,n,d", [(n, n, d) for n, d in
+                                   ((300, 2), (257, 1), (129, 9))])
+def test_ref_diag_zero_is_loo(m, n, d):
+    """diag = 0 is the LOO mask as it was, element for element, through
+    the twin at several chunk sizes and through the CPU wrapper."""
+    q, mu, var, w = _emu_inputs(m, n, d, True, seed=n + d)
+    for dtype in (torch.float32, torch.float64):
+        args = [_t(x, dtype) for x in (q, mu, var, w)]
+        for chunk in (None, 1, 37, n):
+            assert torch.equal(
+                tiled_eval.tiled_log_eval_ref(*args, loo=True, chunk=chunk),
+                tiled_eval.tiled_log_eval_ref(*args, loo=True, diag=0,
+                                              chunk=chunk))
+        assert torch.equal(tiled_eval.tiled_log_eval(*args, loo=True),
+                           tiled_eval.tiled_log_eval(*args, loo=True,
+                                                     diag=0))
+
+
+@pytest.mark.parametrize("name", DIAG_NAMES)
+@pytest.mark.parametrize("m,n,d", DIAG_SHAPES)
+def test_emulation_diag_every_plan(m, n, d, name):
+    """Every launch plan of the shape (64 or 128 threads, R rows a thread,
+    1..8 component splits), its per-block diagonal window and per-pair
+    mask emulated at the offset, in float64 against the twin at rtol
+    1e-12."""
+    diag = _diag(name, m, n, d)
+    args = _diag_inputs(m, n, d, diag, seed=m + n + d)
+    want = tiled_eval.tiled_log_eval_ref(
+        *(_t(x, torch.float64) for x in args), loo=True, diag=diag).numpy()
+    chunk = 16 if d <= 2 else 8                 # the kernel's J
+    plans = [p for _, p in tiled_eval.plans(m, n, d, 132)]
+    assert {p.threads for p in plans} == set(tiled_eval.THREADS)
+    for plan in plans:
+        _same(emulate(*args, True, plan, np.float64, chunk, diag), want,
+              rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["0", "+block", "-block", "split",
+                                  "last_col", "first_col"])
+def test_emulation_diag_fully_masked_row(name):
+    """One positive-weight component: the one row that skips it is -inf
+    on every plan and in the twin, every other row finite."""
+    m, n, d = 300, 700, 2
+    diag = _diag(name, m, n, d)
+    row = min(max(m // 2, -diag), n - 1 - diag, m - 1)
+    q, mu, var, _ = _diag_inputs(m, n, d, diag, seed=9)
+    w = np.zeros(n)
+    w[row + diag] = 1.0
+    want = tiled_eval.tiled_log_eval_ref(
+        *(_t(x, torch.float64) for x in (q, mu, var, w)), loo=True,
+        diag=diag).numpy()
+    dead = np.zeros(m, bool)
+    dead[row] = True
+    np.testing.assert_array_equal(np.isneginf(want), dead)
+    for _, plan in tiled_eval.plans(m, n, d, 132):
+        _same(emulate(q, mu, var, w, True, plan, np.float64, 16, diag), want,
+              rtol=1e-12)
 
 
 def test_build_hash_covers_local_headers(tmp_path):
