@@ -26,6 +26,7 @@ from . import config, manifolds
 from .ops import host_small, kernels
 from .ops.balltree import FlatBallTree, build_balltree
 from .ops.loocv import device_fit_arrays, ksize_bandwidths
+from .utils.spans import span
 
 
 class KDE:
@@ -298,8 +299,19 @@ def kde(points, bw=None, weights=None, addop=None, diffop=None, get_mu=None,
     """
     hooks = dict(addop=addop, diffop=diffop, get_mu=get_mu,
                  get_lambda=get_lambda)
-    if isinstance(points, torch.Tensor):
-        return _kde_tensor(points, bw, weights, dtype, hooks)
+    with span("kde", fit=bw is None) as attrs:
+        if isinstance(points, torch.Tensor):
+            out = _kde_tensor(points, bw, weights, dtype, hooks)
+        else:
+            out = _kde_numpy(points, bw, weights, device, dtype, hooks)
+        if attrs is not None:
+            attrs.update(n=out.npts, d=out.ndim)
+    return out
+
+
+def _kde_numpy(points, bw, weights, device, dtype, hooks) -> KDE:
+    """:func:`kde` for NumPy (or nested lists): the density goes to
+    ``device``."""
     device = config.default_device(device)
     pts = np.asarray(points, dtype=np.float64)
     if pts.ndim == 1:

@@ -50,6 +50,7 @@ from .. import config, manifolds
 from ..density import KDE, kde
 from ..utils.random import (counter_seed, counter_uniform, make_generator,
                             split)
+from ..utils.spans import span
 from . import gibbs_chain as _gc
 from . import gibbs_select as _gs
 from .balltree import n_levels as _n_levels
@@ -206,12 +207,13 @@ def _get_plan(densities: Sequence[KDE], n_out: int, dtype, device,
            _n_levels(n_out, [p.npts for p in densities]), str(dtype),
            str(device), impl)
     hit = _plan_cache.get(key)
-    if hit is not None:
-        return hit
-    if impl == "device":
-        plan = DeviceProductPlan(densities, n_out, dtype)
-    else:
-        plan = _ProductPlan(densities, n_out, dtype, device)
+    with span("plan", cache="miss" if hit is None else "hit", impl=impl):
+        if hit is not None:
+            return hit
+        if impl == "device":
+            plan = DeviceProductPlan(densities, n_out, dtype)
+        else:
+            plan = _ProductPlan(densities, n_out, dtype, device)
     _plan_cache[key] = plan
 
     def _evict(key=key):
@@ -740,16 +742,21 @@ def _gibbs_all_chains(u, nrm, plans: _SetPlans, mask, n_iter: int,
         route = _route(select, hooks, nrm.device, dn, d)
     else:
         route = route or "twin"
-    if route == "chain":
-        return _gc.gibbs_chain(u, nrm, plans, mask, n_iter, add_entropy,
-                               _gc.hook_codes(hooks, d), select, seeds)
-    block = _chain_block(n_out, plans, nrm.element_size(),
-                         _live_temps(route))
-    outs = [_run_chain(None if u is None else u[:, s:s + block],
-                       nrm[:, s:s + block], plans, mask, n_iter, add_entropy,
-                       select, seeds, hooks, choose, chain0=s)
-            for s in range(0, n_out, block)]
-    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    with span("chains", route=route, select=select, sets=nrm.shape[0],
+              n_out=n_out) as attrs:
+        if attrs is not None:
+            attrs["widths"] = [w for _, w in plans.offsets]
+        if route == "chain":
+            return _gc.gibbs_chain(u, nrm, plans, mask, n_iter, add_entropy,
+                                   _gc.hook_codes(hooks, d), select, seeds)
+        block = _chain_block(n_out, plans, nrm.element_size(),
+                             _live_temps(route))
+        outs = [_run_chain(None if u is None else u[:, s:s + block],
+                           nrm[:, s:s + block], plans, mask, n_iter,
+                           add_entropy, select, seeds, hooks, choose,
+                           chain0=s)
+                for s in range(0, n_out, block)]
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
 # ---------------------------------------------------------------------------
@@ -813,12 +820,13 @@ def _gibbs_keyed(gens, plans: _SetPlans, mask, n_out: int, n_iter: int,
     dn, d = mask.shape[1:]
     bu, bn = _stream_sizes(dn, d, plans.n_levels, n_iter)
     device = mask.device
-    streams = [_keyed_streams(g, n_out, bu, bn, dtype, device, select)
-               for g in gens]
     gumbel = select == "gumbel"
-    u = None if gumbel else torch.stack([s[0] for s in streams])
-    nrm = torch.stack([s[1] for s in streams])
-    seeds = torch.stack([s[2] for s in streams]) if gumbel else None
+    with span("streams", sets=len(gens), select=select):
+        streams = [_keyed_streams(g, n_out, bu, bn, dtype, device, select)
+                   for g in gens]
+        u = None if gumbel else torch.stack([s[0] for s in streams])
+        nrm = torch.stack([s[1] for s in streams])
+        seeds = torch.stack([s[2] for s in streams]) if gumbel else None
     pts, idx, labels = _gibbs_all_chains(u, nrm, plans, mask, n_iter,
                                          add_entropy, select, seeds, hooks)
     return pts.transpose(1, 2), idx.transpose(1, 2), labels.transpose(2, 3)
@@ -886,42 +894,46 @@ def prod_appx_ms_gibbs(npd0,
     del an_fcns, an_params
     n_out = npd0 if isinstance(npd0, int) else npd0.npts
     densities = list(densities)
-    device = densities[0].device
-    if any(p.device != device for p in densities):
-        raise ValueError("densities must lie on one device")
-    hooks = normalize_hooks(addop, diffop, get_mu, get_lambda,
-                            densities[0].ndim)
-    if (rand_u is None) != (rand_n is None):
-        raise ValueError(
-            "replay mode needs BOTH streams: pass rand_u (uniforms) and "
-            "rand_n (normals) together (reference src/MSGibbs01.jl:661-662)")
-    dtype = dtype or densities[0].dtype
-    pl = _get_plan(densities, n_out, dtype, device,
-                   _resolve_plan_impl(densities, plan, rand_u is not None))
-    plans = _stack_plans([pl])
-    select = resolve_select(select, n_out, pl.offsets[-1][1])
-    mask = _mask_tensor(partial_dim_mask, pl.ndens, pl.ndim, device)[None]
-    if rand_u is None:
-        pts, idx, labels = _gibbs_keyed([make_generator(key, device)], plans,
-                                        mask, n_out, n_iter, add_entropy,
-                                        dtype, select, hooks)
-    else:
-        # streams may be over-allocated (the reference sizes randU at
-        # Np*Ndens*(Niter+2)*Nlevels, :661); the first n_out*bu / n_out*bn
-        # draws are consumed, contiguously
-        bu, bn = _stream_sizes(pl.ndens, pl.ndim, pl.n_levels, n_iter)
-        stream = lambda r, k: torch.as_tensor(
-            np.asarray(r, dtype=np.float64).ravel()[:n_out * k]
-            .reshape(1, n_out, k), dtype=dtype, device=device)
-        pts, idx, labels = _gibbs_all_chains(
-            stream(rand_u, bu), stream(rand_n, bn), plans, mask, n_iter,
-            add_entropy, hooks=hooks)
-        pts, idx, labels = (pts.transpose(1, 2), idx.transpose(1, 2),
-                            labels.transpose(2, 3))
-    out = (pts[0], idx[0])
-    if record_labels:
-        out = out + (labels[0],)
-    return out
+    with span("gibbs", n_out=n_out, replay=rand_u is not None):
+        device = densities[0].device
+        if any(p.device != device for p in densities):
+            raise ValueError("densities must lie on one device")
+        hooks = normalize_hooks(addop, diffop, get_mu, get_lambda,
+                                densities[0].ndim)
+        if (rand_u is None) != (rand_n is None):
+            raise ValueError(
+                "replay mode needs BOTH streams: pass rand_u (uniforms) and "
+                "rand_n (normals) together (reference "
+                "src/MSGibbs01.jl:661-662)")
+        dtype = dtype or densities[0].dtype
+        pl = _get_plan(densities, n_out, dtype, device,
+                       _resolve_plan_impl(densities, plan,
+                                          rand_u is not None))
+        plans = _stack_plans([pl])
+        select = resolve_select(select, n_out, pl.offsets[-1][1])
+        mask = _mask_tensor(partial_dim_mask, pl.ndens, pl.ndim,
+                            device)[None]
+        if rand_u is None:
+            pts, idx, labels = _gibbs_keyed(
+                [make_generator(key, device)], plans, mask, n_out, n_iter,
+                add_entropy, dtype, select, hooks)
+        else:
+            # streams may be over-allocated (the reference sizes randU at
+            # Np*Ndens*(Niter+2)*Nlevels, :661); the first n_out*bu /
+            # n_out*bn draws are consumed, contiguously
+            bu, bn = _stream_sizes(pl.ndens, pl.ndim, pl.n_levels, n_iter)
+            stream = lambda r, k: torch.as_tensor(
+                np.asarray(r, dtype=np.float64).ravel()[:n_out * k]
+                .reshape(1, n_out, k), dtype=dtype, device=device)
+            pts, idx, labels = _gibbs_all_chains(
+                stream(rand_u, bu), stream(rand_n, bn), plans, mask, n_iter,
+                add_entropy, hooks=hooks)
+            pts, idx, labels = (pts.transpose(1, 2), idx.transpose(1, 2),
+                                labels.transpose(2, 3))
+        out = (pts[0], idx[0])
+        if record_labels:
+            out = out + (labels[0],)
+        return out
 
 
 def product(densities: Sequence[KDE], add_entropy: bool = True,
@@ -932,16 +944,19 @@ def product(densities: Sequence[KDE], add_entropy: bool = True,
     (:func:`_density_hooks`) drive the product and ride on the output; the
     refit bandwidth stays Euclidean, as the reference's ``kde!(pGM)``."""
     densities = list(densities)
-    addop, diffop, get_mu, get_lambda = _density_hooks(densities)
-    kw = dict(addop=addop, diffop=diffop, get_mu=get_mu,
-              get_lambda=get_lambda)
-    if len(densities) == 1 and not add_entropy:
-        # the reference's #70 short-circuit (src/MSGibbs01.jl:712-716)
-        return kde(densities[0].get_points(), **kw)
-    n_out = int(round(float(np.mean([p.npts for p in densities]))))
-    pts, _ = prod_appx_ms_gibbs(n_out, densities, n_iter=5,
-                                add_entropy=add_entropy, key=key, **kw)
-    return kde(pts, **kw)
+    with span("product", ndens=len(densities)) as attrs:
+        addop, diffop, get_mu, get_lambda = _density_hooks(densities)
+        kw = dict(addop=addop, diffop=diffop, get_mu=get_mu,
+                  get_lambda=get_lambda)
+        if len(densities) == 1 and not add_entropy:
+            # the reference's #70 short-circuit (src/MSGibbs01.jl:712-716)
+            return kde(densities[0].get_points(), **kw)
+        n_out = int(round(float(np.mean([p.npts for p in densities]))))
+        if attrs is not None:
+            attrs["n_out"] = n_out
+        pts, _ = prod_appx_ms_gibbs(n_out, densities, n_iter=5,
+                                    add_entropy=add_entropy, key=key, **kw)
+        return kde(pts, **kw)
 
 
 def product_batched(density_sets, n_iter: int = 5, add_entropy: bool = True,
@@ -1110,8 +1125,9 @@ class BatchedProductSampler:
 
     def sample(self, key=None, select: str = "auto"):
         """Returns ``(points [B, d, n_out], labels [B, ndens, n_out])``."""
-        pts, idx = self._sample_local(key, select)
-        return self._gather(pts), self._gather(idx)
+        with span("sample", sets=self.B, n_out=self.n_out):
+            pts, idx = self._sample_local(key, select)
+            return self._gather(pts), self._gather(idx)
 
 
 class ProductSampler:
@@ -1146,9 +1162,11 @@ class ProductSampler:
 
     def sample(self, key=None, select: str = "auto"):
         """Returns ``(points [d, n_out], labels [ndens, n_out])``."""
-        select = resolve_select(select, self.n_out, self.plan.offsets[-1][1])
-        pts, idx, _ = _gibbs_keyed([make_generator(key, self.device)],
-                                   self.plans, self.mask, self.n_out,
-                                   self.n_iter, self.add_entropy, self.dtype,
-                                   select, self._norm_hooks)
-        return pts[0], idx[0]
+        with span("sample", sets=1, n_out=self.n_out):
+            select = resolve_select(select, self.n_out,
+                                    self.plan.offsets[-1][1])
+            pts, idx, _ = _gibbs_keyed([make_generator(key, self.device)],
+                                       self.plans, self.mask, self.n_out,
+                                       self.n_iter, self.add_entropy,
+                                       self.dtype, select, self._norm_hooks)
+            return pts[0], idx[0]

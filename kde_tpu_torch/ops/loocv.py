@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.spans import span
 from .kernels import entropy_kernel, use_tiled_eval
 from .loo_search import _C, _R, _golden_core, loo_search  # noqa: F401
 
@@ -107,9 +108,11 @@ def ksize_rows(rows: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     ``rows [R, N]`` sharing weights ``w [N]``: the sort bracket, then
     :func:`loo_search` (on CUDA rows one kernel launch and no host read;
     ``impl`` and ``chunk`` pick the twin's probe route on the CPU)."""
-    base, ax, bx, cx = bracket_rows(rows, lo, hi)
-    xmin = loo_search(rows, w, base ** 2, ax, bx, cx, tol=float(tol),
-                      impl=impl, chunk=chunk)
+    with span("loocv.bracket", rows=rows.shape[0], n=rows.shape[1]):
+        base, ax, bx, cx = bracket_rows(rows, lo, hi)
+    with span("loocv.search", impl=impl):
+        xmin = loo_search(rows, w, base ** 2, ax, bx, cx, tol=float(tol),
+                          impl=impl, chunk=chunk)
     return xmin * base
 
 

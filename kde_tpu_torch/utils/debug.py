@@ -3,18 +3,21 @@
 The reference's introspection tools are ``printBallTree``
 (src/BallTree01.jl:465-475) and the commented-out ``printGlbs`` chain-state
 dumper (src/MSGibbs01.jl:64-79); ``profile_trace`` wraps ``torch.profiler``
-and ``fence`` is a completion fence for timing.
+and exports the port's spans (utils/spans.py), and ``fence`` is a
+completion fence for timing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import numpy as np
 import torch
 
 from ..ops.balltree import FlatBallTree
+from . import spans
 
 
 def _np(x) -> np.ndarray:
@@ -59,15 +62,25 @@ def print_chain_state(points, indices, labels=None, sample: int = 0) -> None:
 def profile_trace(logdir: str = "kde_tpu_torch_trace"):
     """Profile a region with ``torch.profiler`` (CPU, and CUDA when a card
     is present) and write a Chrome trace to ``logdir/trace.json``; yields
-    the profiler, whose ``key_averages()`` sum the time by op."""
+    the profiler, whose ``key_averages()`` sum the time by op.  The port's
+    spans of the region (utils/spans.py: records that started in it; the
+    trace holds them as ``kde_tpu_torch.<name>`` annotations) go to
+    ``logdir/spans.json`` as ``{"records": [...], "dropped": n}``; the
+    buffer is emptied, records left in it from before the region with
+    it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    t0 = spans._now()
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    lost = spans.dropped()
+    recs = [r for r in spans.records() if r["start_ns"] >= t0]
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump({"records": recs, "dropped": lost}, f, default=str)
 
 
 def fence(*outputs) -> float:

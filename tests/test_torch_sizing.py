@@ -3,6 +3,8 @@ from shapes: the same dict as the plan it would build, and nothing built,
 cached or allocated (the plan cache stays empty).  Each term of the model
 is held to what the product holds, and the whole estimate to the live
 bytes of CPU runs of the device build and of the chain route."""
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -149,10 +151,20 @@ def test_topology_and_level_widths_from_slice_sizes(ns):
 
 def _live_peak(fn):
     """Peak of the bytes held by live CPU tensors while ``fn()`` runs, from
-    the profiler's allocation records, at op granularity."""
+    the profiler's allocation records, at op granularity.  The port's span
+    annotations (utils/spans.py) stay out of the profile: an annotation
+    would own every allocation and free made between the ops inside it,
+    all counted at its start."""
+    from unittest import mock
+
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as p:
+
+    from kde_tpu_torch.utils import spans
+    with mock.patch.object(spans, "record_function", contextlib.nullcontext), \
+            profile(activities=[ProfilerActivity.CPU],
+                    profile_memory=True) as p:
         fn()
+    spans.records()
     live = peak = 0
     for e in sorted(p.profiler.function_events,
                     key=lambda e: e.time_range.start):

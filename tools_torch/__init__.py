@@ -5,9 +5,12 @@ by ``python3 -m tools_torch.<name>`` from the repo root:
                   (``tools/validate_tpu.py``), written to VALIDATE_CUDA.json;
   scale_envelope  the plain engine's memory and time along N, the
                   kernel-sharded engine's cost and the routing rule
-                  (``tools/scale_envelope.py``).
+                  (``tools/scale_envelope.py``);
+  span_cost       the host cost of the port's spans (utils/spans.py) on a
+                  ``*`` request and a serving call, recorded and not (no
+                  counterpart in ``tools/``).
 
-Both import torch, numpy and ``kde_tpu_torch`` only.  They run on the card
+All three import torch, numpy and ``kde_tpu_torch`` only.  They run on the card
 unless a caller passes ``device="cpu"`` (the tests do); without a card they
 raise, and nothing falls back to the CPU.  Importing a tool runs nothing.
 """
