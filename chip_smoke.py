@@ -2180,6 +2180,152 @@ K7_PARENT_KERNEL_NAMES = ("stage_kernel", "rows_kernel", "entropy_kernel",
                           "golden_kernel")
 
 
+def k8_bound_ms(npts, d, dtype, slots):
+    """K8's memory roofline: each depth reads the points and reads and
+    writes the order once (``tree_build.launch_plan``'s ``bytes``), the
+    slot arrays (means, variances, log weight, index) are written once for
+    every slot, and so are the ``slots`` level entries, at 3.35 TB/s."""
+    import torch
+    from kde_tpu_torch.ops import tree_build
+    entry = (2 * d + 1) * torch.empty((), dtype=dtype).element_size() + 8
+    total = sum(r["bytes"] for n in npts
+                for r in tree_build.launch_plan(n, d, dtype))
+    total += sum(2 * n for n in npts) * entry + slots * entry
+    return 1e3 * total / HBM_BYTES
+
+
+def _plan_host_ms(dens, n_out, reps=10):
+    """Median host milliseconds of one DeviceProductPlan build, synchronised
+    before and after, and the profiler's count of its launch calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kde_tpu_torch.ops import device_plan
+    build = lambda: device_plan.DeviceProductPlan(dens, n_out, dens[0].dtype)
+    build()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        build()
+        torch.cuda.synchronize()
+    launches = sum("LaunchKernel" in e.name for e in prof.events())
+    return float(np.median(times)), launches
+
+
+def phase_tree_build(dev, n=N_SLICE, seed=SEED):
+    """Phase 3i: K8 (``ops/tree_build.py``) at the star cells' shapes, two
+    densities of ``n`` points, d = 2 and 3, float32: every plan array
+    against the twin route's bit for bit, the build's CUDA-event time
+    beside the twin's and the memory-roofline bound, and DeviceProductPlan
+    on the host clock through K8 and through the twin route (the parent's
+    eager build); ``--k8-routes`` times the routes against each other."""
+    import torch
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import device_plan, tree_build
+    from kde_tpu_torch.ops.balltree import n_levels
+    rng = np.random.default_rng(seed + 8)
+    rows = {}
+    kernel, eager = device_plan._kernel_arrays, device_plan._eager_arrays
+    for d in (2, 3):
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+        dens = [kt.kde(f32(rng.normal(size=(d, n)) + 0.5 * j), [0.2] * d)
+                for j in range(2)]
+        sets, ns = [dens], (n, n)
+        n_lv = n_levels(n, ns)
+        got = kernel(sets, ns, n_lv, torch.float32)
+        want = eager(sets, ns, n_lv, torch.float32)
+        torch.cuda.synchronize()
+        names = ("t_mean", "t_bw", "lvl_mean", "lvl_bw", "lvl_logw",
+                 "lvl_perm", "lvl_uniform")
+        mism = {k: int((g != x).sum()) for k, g, x in zip(names, got, want)
+                if g.shape != x.shape or not torch.equal(g, x)}
+        if mism:
+            raise AssertionError(f"K8 2x{n} d={d}: arrays differ from the "
+                                 f"twin route's: {mism}")
+        ms = _cuda_ms(lambda: kernel(sets, ns, n_lv, torch.float32))
+        ms20 = _cuda_ms(lambda: kernel(sets, ns, n_lv, torch.float32),
+                        inner=20)
+        plain = _cuda_ms(lambda: eager(sets, ns, n_lv, torch.float32))
+        bound = k8_bound_ms(ns, d, torch.float32, got[4].numel())
+        host, launches = _plan_host_ms(dens, n)
+        device_plan._kernel_arrays = eager
+        try:
+            host_twin, launches_twin = _plan_host_ms(dens, n)
+        finally:
+            device_plan._kernel_arrays = kernel
+        rows[f"2x{n} d{d}"] = dict(
+            equal=True, ms=ms, ms_inner20=ms20, plain_ms=plain,
+            bound_ms=bound, bound_by="memory", bound_share=bound / ms,
+            plan_host_ms=host, plan_launches=launches,
+            twin_plan_host_ms=host_twin, twin_plan_launches=launches_twin,
+            launch_plan=[r["route"] for r in tree_build.launch_plan(
+                n, d, torch.float32)])
+        print(f"3i K8 tree_build 2x{n} d={d}: {json.dumps(rows[f'2x{n} d{d}'])}",
+              flush=True)
+    return rows
+
+
+def k8_routes(dev=None, ns=(20_000, 100_000), dims=(2, 3),
+              chunks=(1024, 2048, 4096), depths=range(4, 12)):
+    """``--k8-routes``: K8's build of two densities of each of ``ns`` points
+    (float32; float64 at the first), CUDA-event ms for every multi-block
+    chunk in ``chunks`` and every depth ``k0`` at which the subtree launch
+    takes over (the multi-block route above it) that one block's shared
+    memory holds (``tree_build._launch_routes``): the measurements behind
+    ``SUBTREE_MAX_WIDTH`` and ``CHUNK``.  Prints one JSON line."""
+    import torch
+    from kde_tpu_torch.ops import device_plan, tree_build
+    from kde_tpu_torch.ops.balltree import n_levels
+    dev = dev or torch.device("cuda")
+    rng = np.random.default_rng(SEED + 9)
+    out = {}
+    cases = [(n, d, torch.float32) for n in ns for d in dims]
+    cases.append((ns[0], dims[0], torch.float64))
+    for n, d, dtype in cases:
+        item = torch.empty((), dtype=dtype).element_size()
+        ins = [tuple(torch.as_tensor(x, dtype=dtype, device=dev) for x in
+                     (rng.normal(size=(1, n, d)),
+                      rng.uniform(0.1, 1, size=(1, n, d)),
+                      np.full((1, n), 1.0 / n)))
+               for _ in range(2)]
+        table = device_plan._level_table((n, n), n_levels(n, (n, n)), dev)
+        row = {}
+        for chunk in chunks:
+            for k0 in depths:
+                width = -(-n // (1 << k0))
+                if (tree_build.subtree_smem(width, item)
+                        > tree_build.SMEM_MAX_BYTES):
+                    continue
+                row[f"c{chunk}_k{k0}"] = _cuda_ms(
+                    lambda: tree_build._launch_routes(
+                        ins, dtype, 2 * n, table, [k0, k0], chunk))
+        key = f"2x{n} d{d} {str(dtype)[6:]}"
+        out[key] = row
+        best = min(row, key=row.get)
+        print(f"k8 routes {key}: best {best} {row[best]:.3f} ms; "
+              f"{json.dumps(row)}", flush=True)
+    print(json.dumps({"k8_routes": out}))
+
+
+def k8_main():
+    """``--k8``: build K8 and run phase 3i alone."""
+    import torch
+    from kde_tpu_torch.ops import tree_build
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py --k8 needs a CUDA card")
+    t0 = time.perf_counter()
+    so = tree_build.build()
+    print(f"device: {_card()} | torch {torch.__version__} | build tree_build "
+          f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(so)}; "
+          f"ptxas per kernel: {json.dumps(ptxas_table(tree_build.BUILD_LOG))}",
+          flush=True)
+    print(json.dumps({"tree_build": phase_tree_build(torch.device("cuda"))}))
+
+
 def k7_inputs(n, dtype, dev, seed=SEED):
     """Phase 3h's problem: ``n`` points in 2-D (N(0, 1) x [1, 2.5]) with
     uniform weights, as ksize_bandwidths_sharded forms them, and their
@@ -6098,7 +6244,7 @@ def main():
     from kde_tpu_torch import native
     from kde_tpu_torch.ops import gibbs_chain, gibbs_select, host_small
     from kde_tpu_torch.ops import (loo_search, sharded_loo, sharded_select,
-                                   tiled_eval)
+                                   tiled_eval, tree_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -6111,7 +6257,7 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build: the seven libraries at once, each timed from the start
+    # 2. build: the eight libraries at once, each timed from the start
     t0 = time.perf_counter()
 
     def timed_build(build):
@@ -6121,10 +6267,10 @@ def main():
         jobs = [pool.submit(timed_build, b) for b in
                 (tiled_eval.build, host_small.build, gibbs_select.build,
                  gibbs_chain.build, loo_search.build, sharded_select.build,
-                 sharded_loo.build, native.build)]
+                 sharded_loo.build, tree_build.build, native.build)]
         ((k1_so, k1_s), (small_so, small_s), (k2_so, k2_s), (k3_so, k3_s),
-         (k4_so, k4_s), (k6_so, k6_s), (k7_so, k7_s), (tree_so, tree_s)) = [
-            j.result() for j in jobs]
+         (k4_so, k4_s), (k6_so, k6_s), (k7_so, k7_s), (k8_so, k8_s),
+         (tree_so, tree_s)) = [j.result() for j in jobs]
     ptxas = [ln.strip() for ln in tiled_eval.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {k1_s:.2f} s -> {os.path.relpath(k1_so)}; ptxas: "
@@ -6147,12 +6293,16 @@ def main():
     print(f"build sharded_loo: {k7_s:.2f} s -> {os.path.relpath(k7_so)}; "
           f"ptxas per kernel: "
           f"{json.dumps(ptxas_table(sharded_loo.BUILD_LOG))}", flush=True)
+    print(f"build tree_build: {k8_s:.2f} s -> {os.path.relpath(k8_so)}; "
+          f"ptxas per kernel: "
+          f"{json.dumps(ptxas_table(tree_build.BUILD_LOG))}", flush=True)
     print(f"build native ball tree (g++ {' '.join(native.CXX_FLAGS)}): "
           f"{tree_s:.2f} s -> {os.path.relpath(tree_so)}", flush=True)
 
     # 3. kernel vs plain twin; 3b. the small-route kernels; 3d. the Gibbs
     # selection kernel; 3e. the Gibbs chain kernel; 3f. the LOOCV search;
-    # 3g. the kernel-sharded selection; 3h. the sharded LOOCV search
+    # 3g. the kernel-sharded selection; 3h. the sharded LOOCV search; 3i.
+    # the device plan's tree
     rows, worst = phase_kernel(dev)
     small_rows, small_worst = phase_small(dev)
     k2_rows = phase_gibbs_select(dev)
@@ -6160,11 +6310,12 @@ def main():
     k4_rows = phase_loo_search(dev)
     k6_rows = phase_sharded_select(dev)
     k7_rows = phase_sharded_loo(dev)
+    k8_rows = phase_tree_build(dev)
 
     # 3c-12. the main paths; only their launches count, each path's read
     # just after it ran (and the native tree builds, likewise)
-    runs, builds, small, k2, k3, k4, k6, k6_twin, k7, k7_twin = (
-        {} for _ in range(10))
+    runs, builds, small, k2, k3, k4, k6, k6_twin, k7, k7_twin, k8 = (
+        {} for _ in range(11))
     k4_rows_plan = {}
 
     def run(name, fn, *args):
@@ -6173,6 +6324,7 @@ def main():
         loo_search.ROWS_LAUNCHES = 0
         sharded_select.LAUNCHES = sharded_select.TWIN_STAGES = 0
         sharded_loo.LAUNCHES = sharded_loo.TWIN_STAGES = 0
+        tree_build.LAUNCHES = 0
         host_small.LAUNCHES.update(dict.fromkeys(host_small.LAUNCHES, 0))
         out = fn(*args)
         runs[name], builds[name] = tiled_eval.LAUNCHES, native.BUILDS
@@ -6183,6 +6335,7 @@ def main():
         k6[name] = sharded_select.LAUNCHES
         k6_twin[name] = sharded_select.TWIN_STAGES
         k7[name], k7_twin[name] = sharded_loo.LAUNCHES, sharded_loo.TWIN_STAGES
+        k8[name] = tree_build.LAUNCHES
         return out
 
     c1 = run("cfg1", phase_cfg1, dev)
@@ -6270,6 +6423,9 @@ def main():
                                                    "shared_card")):
         raise AssertionError(f"sharded_loo launched off the sharded paths: "
                              f"{k7}")
+    for name in ("device_plan", "batched"):
+        if k8[name] < 1:
+            raise AssertionError(f"path {name} never launched tree_build")
     for name in ("select", "tools"):
         if k2[name] != 0:
             raise AssertionError(f"path {name} launched gibbs_select "
@@ -6290,6 +6446,7 @@ def main():
           f"stages: {json.dumps(k6_twin)}", flush=True)
     print(f"sharded_loo launches per path: {json.dumps(k7)}; twin "
           f"phases: {json.dumps(k7_twin)}", flush=True)
+    print(f"tree_build launches per path: {json.dumps(k8)}", flush=True)
     print(f"whole script on {card}: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     golden, ev = small_rows["loo_golden cfg1"], small_rows[
@@ -6300,6 +6457,7 @@ def main():
     refit = k4_rows["* refit"]
     sweep = k6_rows["leaf sweep"]
     k7_main = k7_rows[K7_MAIN]
+    k8_main = k8_rows[f"2x{N_SLICE} d2"]
     print(json.dumps({"kernels": [{
         "name": "tiled_log_eval", "route": "cuda",
         "source": "kde_tpu_torch/csrc/tiled_eval.cu",
@@ -6458,7 +6616,26 @@ def main():
         "host_waits": pl["ksize"]["host_waits"],
         **{f"{k}_{name.replace(' ', '_')}": k7_rows[name][k]
            for name in K7_CASES for k in ("ms", "bound_ms", "bound_share")
-           if name in k7_rows}}]}))
+           if name in k7_rows}}, {
+        "name": "tree_build", "route": "cuda",
+        "source": "kde_tpu_torch/csrc/tree_build.cu",
+        "replaces": "kde_tpu/ops/device_plan.py:140-210 (device_tree_stats "
+                    "and the plan's assembly; XLA-fused jnp on the TPU, no "
+                    "Pallas kernel)",
+        "design": "a block a slice of at most one block's shared memory: "
+                  "every depth below it (bitonic sorts, then rank counts), "
+                  "its moments and slots in one launch; a multi-block route "
+                  "a depth at a time above that width; the level arrays in "
+                  "one more launch",
+        "launches": sum(k8.values()), "max_abs_err": 0.0,
+        "ms": k8_main["ms"], "plain_ms": k8_main["plain_ms"],
+        "bound_ms": k8_main["bound_ms"], "bound_by": k8_main["bound_by"],
+        "bound_share": k8_main["bound_share"], "library_ms": None,
+        **{f"{k}_{name.replace(' ', '_')}": row[k]
+           for name, row in k8_rows.items()
+           for k in ("ms", "ms_inner20", "plain_ms", "bound_ms",
+                     "plan_host_ms", "twin_plan_host_ms", "plan_launches",
+                     "twin_plan_launches")}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6499,6 +6676,12 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k4-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k4_diag()
+    elif sys.argv[1:2] == ["--k8"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k8_main()
+    elif sys.argv[1:2] == ["--k8-routes"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k8_routes()
     elif sys.argv[1:2] == ["--k3-diag"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         k3_diag()

@@ -24,6 +24,11 @@ sum in a run-dependent order on CUDA.  The split statistics are summed in
 float64, which keeps a near-tie from choosing another coordinate than a
 float64 build would.
 
+That eager build is the plan's CPU route and the plain twin of K8
+(``ops/tree_build.py``): for CUDA tensors :func:`batched_device_plans`
+hands the whole build (tree, slot arrays, level arrays) to K8's
+hand-written kernels, a few launches in all.
+
 Parity contract (as in the JAX package): in 1-D with distinct values the
 hierarchy equals the host tree's; in d > 1 it is a statistically equivalent
 median-split hierarchy (the host builder's exclude-last-leaf spread scan
@@ -39,6 +44,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import tree_build
 from .balltree import NO_CHILD, level_lists, n_levels, pack_levels, topology
 from .gibbs_chain import level_uniform
 
@@ -140,15 +146,20 @@ def topology_bytes(n: int):
     return total, pad
 
 
-def build_bytes(npts, d: int, itemsize: int, nodes: int) -> int:
+def build_bytes(npts, d: int, itemsize: int, nodes: int,
+                device=None) -> int:
     """Device memory a plan built here for densities of ``npts`` points in
     ``d`` dims (``itemsize``-byte floats, ``nodes`` level slots over all
-    densities) takes beyond its own tensors: the topology index tensors
-    cached on the device once per N (:func:`_topology_on`), the workspace
-    of the widest density's :func:`device_tree_stats` and the temporaries
-    of :func:`batched_device_plans`' assembly.  Both workspaces are
-    counted whole, though the first is freed before the second is made.
-    Counted from the shapes alone, at any N."""
+    densities) takes beyond its own tensors.  On a CUDA ``device``, K8's
+    workspace (``tree_build.workspace_bytes``); elsewhere the twin's: the
+    topology index tensors cached on the device once per N
+    (:func:`_topology_on`), the workspace of the widest density's
+    :func:`device_tree_stats` and the temporaries of
+    :func:`batched_device_plans`' assembly.  Both workspaces are counted
+    whole, though the first is freed before the second is made.  Counted
+    from the shapes alone, at any N."""
+    if device is not None and torch.device(device).type == "cuda":
+        return tree_build.workspace_bytes(npts, itemsize, nodes)
     topo = stats = 0
     for n in set(npts):
         t, pad = topology_bytes(n)
@@ -178,7 +189,9 @@ def _level_nodes(n: int, n_lv: int):
 
 
 def device_tree_stats(points, var, w):
-    """Flat tree statistics built on the tensors' device.
+    """Flat tree statistics built on the tensors' device in eager ops: the
+    plan's CPU route and the plain twin of K8 (``ops/tree_build.py``),
+    which builds them for the main path on the card.
 
     ``points``/``var`` ``[..., N, d]`` and ``w`` ``[..., N]``, with an
     optional leading set axis.  Returns ``(means [..., 2N, d], bw [..., 2N,
@@ -188,7 +201,7 @@ def device_tree_stats(points, var, w):
     if single:
         points, var, w = points[None], var[None], w[None]
     b, n, d = points.shape
-    per_depth, merges = _topology_on(n, str(points.device))
+    per_depth, _ = _topology_on(n, str(points.device))
     order = torch.arange(n, device=points.device).expand(b, n).contiguous()
     for pd in per_depth:
         if pd is None:
@@ -206,6 +219,19 @@ def device_tree_stats(points, var, w):
         by_key = torch.sort(keys, dim=1, stable=True).indices
         by_sid = torch.sort(pd["sid"][by_key], dim=1, stable=True).indices
         order = order.gather(1, by_key.gather(1, by_sid))
+    out = _tree_moments(points, var, w, order)
+    return tuple(t[0] for t in out) if single else out
+
+
+def _tree_moments(points, var, w, order):
+    """The slot arrays of the tree whose leaf order is ``order [B, N]``
+    (point index at each position) over ``points``/``var`` ``[B, N, d]``
+    and ``w [B, N]``: the leaves, then the bottom-up moment sweep (reference
+    calcStatsDensity!, src/BallTreeDensity01.jl:141-187), one vector step
+    per depth.  Returns ``(means, bw, wts, perm)`` as
+    :func:`device_tree_stats` does."""
+    b, n, d = points.shape
+    _, merges = _topology_on(n, str(points.device))
     means = points.new_zeros((b, 2 * n, d))
     bw = points.new_ones((b, 2 * n, d))
     wts = points.new_zeros((b, 2 * n))
@@ -215,8 +241,6 @@ def device_tree_stats(points, var, w):
     bw[:, n:] = var.gather(1, idx)
     wts[:, n:] = w.gather(1, order)
     perm[:, n:] = order
-    # bottom-up moment matching (reference calcStatsDensity!,
-    # src/BallTreeDensity01.jl:141-187), one vector step per depth
     for g, li, ri, same in merges:
         wl, wr = wts[:, li], wts[:, ri]
         tot = wl + wr + _EPS
@@ -227,13 +251,21 @@ def device_tree_stats(points, var, w):
         bw[:, g] = (fl * (bw[:, li] + means[:, li] ** 2)
                     + fr * (bw[:, ri] + means[:, ri] ** 2) - m ** 2)
         wts[:, g] = torch.where(same, wl, wl + wr)
-    out = (means, bw, wts, perm)
-    return tuple(t[0] for t in out) if single else out
+    return means, bw, wts, perm
 
 
 @functools.lru_cache(maxsize=64)
 def _packed(npts, n_lv: int):
     return pack_levels([_level_nodes(n, n_lv) for n in npts], n_lv)
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table(npts, n_lv: int, device: torch.device):
+    """:func:`_packed`'s level table on ``device`` for K8's level launch,
+    uploaded once: ``(offsets, nodes [dn, T] int32, valid [dn, T] uint8)``."""
+    offsets, nodes, valid = _packed(npts, n_lv)
+    return (offsets, torch.as_tensor(nodes, dtype=torch.int32, device=device),
+            torch.as_tensor(valid, dtype=torch.uint8, device=device))
 
 
 def batched_device_plans(density_sets, n_out: int, dtype):
@@ -244,12 +276,44 @@ def batched_device_plans(density_sets, n_out: int, dtype):
     Returns ``(t_mean, t_bw, lvl_mean, lvl_bw, lvl_logw, lvl_perm,
     offsets, n_levels, lvl_uniform)``, every tensor with a leading set axis:
     ``t_*`` ``[B, dn, 2 maxN, ...]``, ``lvl_*`` ``[B, dn, T, ...]``,
-    ``lvl_uniform [B, dn, L, d]`` (``gibbs_chain.level_uniform``)."""
+    ``lvl_uniform [B, dn, L, d]`` (``gibbs_chain.level_uniform``).  CUDA
+    tensors take K8 (:func:`_kernel_arrays`), others the eager build
+    (:func:`_eager_arrays`)."""
     sets = [list(ds) for ds in density_sets]
-    dn, d = len(sets[0]), sets[0][0].ndim
-    device = sets[0][0].device
     npts = tuple(p.npts for p in sets[0])
     n_lv = n_levels(n_out, npts)
+    build = (_kernel_arrays if sets[0][0].device.type == "cuda"
+             else _eager_arrays)
+    *arrays, uniform = build(sets, npts, n_lv, dtype)
+    return (*arrays, list(_packed(npts, n_lv)[0]), n_lv, uniform)
+
+
+def _kernel_arrays(sets, npts, n_lv: int, dtype):
+    """:func:`batched_device_plans`' tensors from one K8 build
+    (``tree_build.launch``): a lone set's densities are read in place
+    (cast first where their dtype is not ``dtype``), ``B`` sets stacked a
+    density at a time."""
+    device = sets[0][0].device
+
+    def density(j, attr):
+        if len(sets) == 1:
+            return getattr(sets[0][j], attr).to(dtype).contiguous()[None]
+        return torch.stack([getattr(s[j], attr) for s in sets]).to(dtype)
+
+    ins = [tuple(density(j, a) for a in ("points", "bw", "weights"))
+           for j in range(len(npts))]
+    out = tree_build.launch(ins, dtype, 2 * max(npts),
+                            _level_table(npts, n_lv, device))
+    return tuple(out[k] for k in ("t_mean", "t_bw", "lvl_mean", "lvl_bw",
+                                  "lvl_logw", "lvl_perm", "lvl_uniform"))
+
+
+def _eager_arrays(sets, npts, n_lv: int, dtype):
+    """:func:`batched_device_plans`' tensors in eager ops on any device:
+    each density's :func:`device_tree_stats` over the stacked sets, then
+    the slot arrays and the level arrays (K8's twin)."""
+    dn, d = len(sets[0]), sets[0][0].ndim
+    device = sets[0][0].device
     offsets, nodes, valid = _packed(npts, n_lv)
     b, two_n = len(sets), 2 * max(npts)
     t_mean = torch.zeros((b, dn, two_n, d), dtype=dtype, device=device)
@@ -275,7 +339,7 @@ def batched_device_plans(density_sets, n_out: int, dtype):
     lvl_bw = t_bw[:, jj, nodes]
     return (t_mean, t_bw, t_mean[:, jj, nodes], lvl_bw,
             t_logw[:, jj, nodes] + pad.to(dtype), t_perm[:, jj, nodes],
-            list(offsets), n_lv, level_uniform(lvl_bw, offsets))
+            level_uniform(lvl_bw, offsets))
 
 
 class DeviceProductPlan:

@@ -86,7 +86,7 @@ def product_bytes(npts: Sequence[int], d: int, n_out: int, n_iter: int = 5,
     args = (2 * dn * 2 * max(npts) * d * item + nodes * (2 * d + 1) * item
             + nodes * 8 + dn * n_lv * d + dn * d)
     if plan == "device":
-        args += build_bytes(npts, d, item, nodes)
+        args += build_bytes(npts, d, item, nodes, device)
     bu, bn = _g._stream_sizes(dn, d, n_lv, n_iter)
     streams = (n_out * bn * item + 16 if sel == "gumbel"
                else n_out * (bu + bn) * item)

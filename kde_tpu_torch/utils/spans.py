@@ -55,6 +55,7 @@ COUNTERS = (
      "TWIN_STAGES"),
     ("sharded_loo", "kde_tpu_torch.ops.sharded_loo", "LAUNCHES"),
     ("sharded_loo.twin", "kde_tpu_torch.ops.sharded_loo", "TWIN_STAGES"),
+    ("tree_build", "kde_tpu_torch.ops.tree_build", "LAUNCHES"),
 )
 
 _NULL = contextlib.nullcontext()

@@ -2026,3 +2026,349 @@ def test_ksize_sharded_on_k7_without_a_host_sync(nccl_world, cuda, dtype,
     rel = float(((got.double() - twin.double()).abs()
                  / twin.double().abs()).max())
     assert rel <= (1e-10 if dtype == "float64" else 2 * K4_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K8 tree_build: the device plan's tree, moments and level arrays against
+# the twin (ops/device_plan.py's eager build) on the card, bit for bit
+# ---------------------------------------------------------------------------
+
+K8_NS = (1, 2, 3, 7, 33, 257, 1000, 20000, 100000)
+K8_DIMS = (1, 2, 3, 8)
+
+
+def _k8_inputs(cuda, b, n, d, dtype, seed, ties=False):
+    """``b`` sets of ``n`` points in ``d`` dims; with ``ties`` the
+    coordinates are rounded to halves and a quarter of the points repeat
+    the first.  Each dim is scaled apart (sqrt(k + 1) (1 + 0.07 k)), so two
+    dims' spreads tie only where the points do: the bitwise cases.  Spreads
+    that tie in real arithmetic are left to the float64 sums' rounding,
+    whose order differs between the kernel and the twin;
+    ``test_tree_build_equal_spread_ties`` holds those."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(b, n, d))
+    if ties:
+        pts = np.round(pts * 2) / 2
+        pts[:, n // 3:n // 3 + n // 4] = pts[:, :1]
+    pts = pts * np.sqrt(np.arange(1, d + 1)) * (1 + 0.07 * np.arange(d))
+    var = np.abs(rng.normal(size=(b, n, d))) + 0.1
+    w = rng.uniform(0.5, 1.5, size=(b, n))
+    w /= w.sum(axis=1, keepdims=True)
+    return [torch.as_tensor(x, dtype=dtype, device=cuda)
+            for x in (pts, var, w)]
+
+
+def _k8_stats(points, var, w):
+    """K8's tree of one density over ``[B, n, ...]`` inputs, as
+    ``device_tree_stats`` returns it."""
+    from kde_tpu_torch.ops import tree_build
+    out = tree_build.launch([(points, var, w)], points.dtype,
+                            2 * points.shape[1])
+    return tuple(out[k][:, 0] for k in ("t_mean", "t_bw", "wts", "t_perm"))
+
+
+def _k8_equal(got, want):
+    for name, g, x in zip(("means", "bw", "wts", "perm"), got, want):
+        assert g.shape == x.shape and g.dtype == x.dtype, name
+        assert torch.equal(g, x), (name, int((g != x).sum()))
+
+
+def _plan_names():
+    return ("t_mean", "t_bw", "lvl_mean", "lvl_bw", "lvl_logw", "lvl_perm",
+            "lvl_uniform")
+
+
+def _arrays_equal(got, want):
+    for name, g, x in zip(_plan_names(), got, want):
+        assert g.shape == x.shape and g.dtype == x.dtype, name
+        assert torch.equal(g, x), (name, int((g != x).sum()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("d", K8_DIMS)
+@pytest.mark.parametrize("n", K8_NS)
+def test_tree_build_matches_twin(cuda, n, d, dtype):
+    """One launch plan's kernels against the eager twin on the card: the
+    leaf permutation and the node statistics bit for bit (N = 100,000
+    takes the multi-block route for its top depths)."""
+    from kde_tpu_torch.ops import device_plan, tree_build
+    args = _k8_inputs(cuda, 1, n, d, dtype, n + 10 * d)
+    before = tree_build.LAUNCHES
+    got = _k8_stats(*args)
+    torch.cuda.synchronize()
+    k0 = sum(r["route"] == "multi"
+             for r in tree_build.launch_plan(n, d, dtype))
+    assert tree_build.LAUNCHES - before == 3 * k0 + 1 + (k0 > 0)
+    _k8_equal(got, device_plan.device_tree_stats(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("n,d", [(7, 2), (257, 3), (1000, 2), (20000, 3),
+                                 (100000, 2)])
+def test_tree_build_ties_and_duplicates(cuda, n, d, dtype):
+    """Tied coordinates and duplicated points: the stable order (ties by
+    the current position) is the twin's."""
+    from kde_tpu_torch.ops import device_plan
+    args = _k8_inputs(cuda, 1, n, d, dtype, n + 7, ties=True)
+    _k8_equal(_k8_stats(*args), device_plan.device_tree_stats(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("n,d", [(7, 2), (257, 2), (1000, 3), (20000, 2),
+                                 (20000, 3), (100000, 2)])
+def test_tree_build_equal_spread_ties(cuda, n, d, dtype):
+    """Dims whose spreads tie in real arithmetic (each dim a permutation of
+    one column of rounded halves, a quarter of it repeated): the float64
+    sums' rounding picks the split dim, in another order in K8 than in the
+    twin, so the two trees may differ.  Each is held to a median split
+    whose every split dim's spread lies within rtol 1e-12 of the widest,
+    and K8's statistics equal, bit for bit, the twin's moment sweep over
+    K8's own leaf order."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    from median_split import equal_spread_points, median_split_violations
+    from kde_tpu_torch.ops import device_plan
+    rng = np.random.default_rng(n + 3 * d)
+    pts = equal_spread_points(rng, n, d)[None]
+    var = np.abs(rng.normal(size=(1, n, d))) + 0.1
+    w = np.full((1, n), 1.0 / n)
+    args = [torch.as_tensor(x, dtype=dtype, device=cuda)
+            for x in (pts, var, w)]
+    got = _k8_stats(*args)
+    twin = device_plan.device_tree_stats(*args)
+    coords = args[0][0].cpu().numpy()
+    assert median_split_violations(coords, got[3][0].cpu().numpy()) == []
+    assert median_split_violations(coords, twin[3][0].cpu().numpy()) == []
+    _k8_equal(got, device_plan._tree_moments(*args, got[3][:, n:]))
+
+
+@pytest.mark.parametrize("k0", [0, 1, 2, 3, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_tree_build_multi_route_at_every_depth(cuda, dtype, k0):
+    """The subtree launch taking over at other depths of 2 x 20,000 points,
+    with other chunks (the private launcher chip_smoke.py --k8-routes
+    times; at depth 0 one block a density), builds the same tree as the
+    launch plan's route; a subtree wider than a block's shared memory (a
+    whole 20,000-point float64 slice at 12 bytes a key) is refused."""
+    from kde_tpu_torch.ops import tree_build
+    ins = [tuple(_k8_inputs(cuda, 2, 20000, 3, dtype, 40 + j, ties=j == 1))
+           for j in range(2)]
+    one = tree_build.launch(ins, dtype, 40000)
+    depths = [k0, max(k0 - 1, 0)]
+    item = torch.empty((), dtype=dtype).element_size()
+    if tree_build.subtree_smem(20000 >> min(depths),
+                               item) > tree_build.SMEM_MAX_BYTES:
+        with pytest.raises(ValueError):
+            tree_build._launch_routes(ins, dtype, 40000, None, depths,
+                                      tree_build.CHUNK)
+        return
+    for chunk in (1024, tree_build.CHUNK):
+        over = tree_build._launch_routes(ins, dtype, 40000, None, depths,
+                                         chunk)
+        for key in ("t_mean", "t_bw", "t_logw", "t_perm", "wts"):
+            assert torch.equal(one[key], over[key]), (key, chunk)
+
+
+def _k8_sets(cuda, rng, b, ns, dtype=torch.float32):
+    import kde_tpu_torch as kt
+    return [[kt.kde(torch.as_tensor(rng.normal(size=(2, n)) + 0.25 * i,
+                                    dtype=dtype, device=cuda),
+                    list(rng.uniform(0.1, 0.4, 2))) for n in ns]
+            for i in range(b)]
+
+
+@pytest.mark.parametrize("b", [1, 6])
+@pytest.mark.parametrize("ns", [(1000, 1000), (1000, 700), (20000, 3)])
+def test_plan_arrays_match_twin_route(cuda, b, ns):
+    """``b`` sets of two densities: the slot arrays and the level arrays of
+    one build against the twin route's eager assembly, bit for bit."""
+    from kde_tpu_torch.ops import device_plan
+    from kde_tpu_torch.ops.balltree import n_levels
+    sets = _k8_sets(cuda, np.random.default_rng(sum(ns) + b), b, ns)
+    n_lv = n_levels(4000, ns)
+    _arrays_equal(
+        device_plan._kernel_arrays(sets, ns, n_lv, torch.float32),
+        device_plan._eager_arrays(sets, ns, n_lv, torch.float32))
+
+
+@pytest.mark.parametrize("dn,b", [(17, 1), (33, 2)])
+def test_plan_of_more_densities_than_a_launch_group(cuda, dn, b):
+    """A plan of more than MAX_DENS densities (a belief-propagation node
+    with many incoming messages) takes one group of launches per MAX_DENS
+    densities and equals the twin route's, bit for bit; so does a ``*`` of
+    17 device-resident densities."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import device_plan, gibbs, tree_build
+    from kde_tpu_torch.ops.balltree import n_levels
+    rng = np.random.default_rng(dn)
+    ns = tuple(int(n) for n in rng.integers(200, 1500, dn))
+    sets = _k8_sets(cuda, rng, b, ns)
+    n_lv = n_levels(1000, ns)
+    before = tree_build.LAUNCHES
+    got = device_plan._kernel_arrays(sets, ns, n_lv, torch.float32)
+    multi = [sum(r["route"] == "multi"
+                 for r in tree_build.launch_plan(n, 2, torch.float32))
+             for n in ns]
+    groups = [max(multi[g:g + tree_build.MAX_DENS])
+              for g in range(0, dn, tree_build.MAX_DENS)]
+    assert tree_build.LAUNCHES - before == 1 + sum(
+        3 * k + 1 + (k > 0) for k in groups)
+    _arrays_equal(got, device_plan._eager_arrays(sets, ns, n_lv,
+                                                 torch.float32))
+    if dn == 17:
+        before = tree_build.LAUNCHES
+        out = kt.product(sets[0], key=3)
+        assert tree_build.LAUNCHES > before
+        assert out.points.is_cuda and bool(torch.isfinite(out.points).all())
+        gibbs._plan_cache.clear()
+
+
+def _twin_route(monkeypatch):
+    from kde_tpu_torch.ops import device_plan
+    monkeypatch.setattr(device_plan, "_kernel_arrays",
+                        device_plan._eager_arrays)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_device_product_plan_equals_twin_route(cuda, monkeypatch, dtype):
+    """All nine values of a DeviceProductPlan of 2 x 20,000 3-D points (the
+    star cells' shape) equal the twin route's."""
+    from kde_tpu_torch.ops import device_plan
+    rng = np.random.default_rng(9)
+    import kde_tpu_torch as kt
+    dens = [kt.kde(torch.as_tensor(rng.normal(size=(3, 20000)) + 0.5 * j,
+                                   dtype=dtype, device=cuda), [0.2])
+            for j in range(2)]
+    got = device_plan.DeviceProductPlan(dens, 20000, dtype)
+    _twin_route(monkeypatch)
+    want = device_plan.DeviceProductPlan(dens, 20000, dtype)
+    assert (got.offsets, got.n_levels) == (want.offsets, want.n_levels)
+    for name in _plan_names():
+        g, x = getattr(got, name), getattr(want, name)
+        assert g.dtype == x.dtype and torch.equal(g, x), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_plan_workspace_matches_the_allocator(cuda, dtype):
+    """The workspace the sizing model counts for a 2 x 20,000 plan on the
+    card (``device_plan.build_bytes``) is what the allocator's peak shows
+    beyond the plan's own tensors, to its 512-byte rounding."""
+    from kde_tpu_torch.ops import device_plan
+    from kde_tpu_torch.ops.balltree import n_levels
+    ns = (20000, 20000)
+    sets = _k8_sets(cuda, np.random.default_rng(14), 1, ns, dtype)
+    n_lv = n_levels(20000, ns)
+    device_plan._level_table.cache_clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = device_plan.batched_device_plans(sets, 20000, dtype)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    kept = sum(t.numel() * t.element_size()
+               for t in out if isinstance(t, torch.Tensor))
+    nodes = out[2].shape[2] * len(ns)
+    item = torch.empty((), dtype=dtype).element_size()
+    counted = device_plan.build_bytes(ns, 2, item, nodes, cuda)
+    assert abs(peak - kept - counted) <= 512 * 16, (peak - kept, counted)
+
+
+def test_keyed_product_on_device_plan_equals_twin_route(cuda, monkeypatch):
+    """A keyed ``*`` of device-resident beliefs (the star cells' path)
+    launches K8 and draws what the twin route's plan draws."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import gibbs, tree_build
+    rng = np.random.default_rng(10)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    p, q = (kt.kde(f32(rng.normal(size=(2, 5000)) + 0.5 * j), [0.2])
+            for j in range(2))
+    before = tree_build.LAUNCHES
+    got = kt.product([p, q], key=11)
+    assert tree_build.LAUNCHES > before
+    gibbs._plan_cache.clear()
+    _twin_route(monkeypatch)
+    want = kt.product([p, q], key=11)
+    assert torch.equal(got.points, want.points)
+    assert torch.equal(got.bw, want.bw)
+
+
+def test_batched_sampler_launches_tree_build(cuda):
+    """BatchedProductSampler's build and refresh of device-resident sets go
+    through K8."""
+    import kde_tpu_torch as kt
+    from kde_tpu_torch.ops import tree_build
+    rng = np.random.default_rng(12)
+    before = tree_build.LAUNCHES
+    sampler = kt.BatchedProductSampler(_cuda_sets(cuda, rng, 6, 1000),
+                                       n_out=1000, n_iter=3)
+    built = tree_build.LAUNCHES
+    assert built > before
+    sampler.refresh(_cuda_sets(cuda, rng, 6, 1000))
+    assert tree_build.LAUNCHES > built
+    pts, _ = sampler.sample(3)
+    assert bool(torch.isfinite(pts).all())
+
+
+def test_plan_build_has_no_sync_and_few_launches(cuda):
+    """Once the level table is cached, a 2 x 20,000 plan build neither
+    synchronises nor copies to the card, and makes the launch plan's
+    launches and no other (the profiler's count of launch calls): three a
+    depth on the multi-block route, the subtree launch, the moments above
+    it and the level launch."""
+    import kde_tpu_torch as kt
+    from torch.profiler import ProfilerActivity, profile
+    from kde_tpu_torch.ops import device_plan, tree_build
+    rng = np.random.default_rng(13)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    dens = [kt.kde(f32(rng.normal(size=(2, 20000))), [0.2]) for _ in range(2)]
+    device_plan.DeviceProductPlan(dens, 20000, torch.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            device_plan.DeviceProductPlan(dens, 20000, torch.float32)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    launches = sum(("LaunchKernel" in s) for s in names)
+    copies = sum(("Memcpy" in s and "HtoD" in s) for s in names)
+    multi = sum(r["route"] == "multi"
+                for r in tree_build.launch_plan(20000, 2, torch.float32))
+    assert launches == 3 * multi + 3, launches
+    assert copies == 0, copies
+
+
+def test_tree_build_refuses_bad_inputs(cuda):
+    """Mixed devices, other dtypes, bad shapes, strided inputs and an empty
+    plan raise; nothing falls back to the twin."""
+    from kde_tpu_torch.ops import tree_build
+    pts, var, w = _k8_inputs(cuda, 1, 50, 2, torch.float32, 1)
+    launch = lambda p, v, x, dt=torch.float32: tree_build.launch(
+        [(p, v, x)], dt, 100)
+    with pytest.raises(ValueError):
+        launch(pts, var.cpu(), w)
+    with pytest.raises(TypeError):
+        launch(pts.half(), var.half(), w.half(), torch.float16)
+    with pytest.raises(TypeError):
+        launch(pts, var.double(), w)
+    with pytest.raises(TypeError):
+        launch(pts.int(), var.int(), w.int(), torch.int32)
+    with pytest.raises(ValueError):
+        launch(pts, var[:, :40], w)
+    with pytest.raises(ValueError):
+        launch(pts, var, w[:, :40])
+    with pytest.raises(ValueError):
+        launch(pts[0, :, 0], var[0, :, 0], w[0])
+    with pytest.raises(ValueError):
+        launch(pts.transpose(1, 2).contiguous().transpose(1, 2), var, w)
+    with pytest.raises(ValueError):
+        tree_build.launch([], torch.float32, 100)
