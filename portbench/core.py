@@ -7,6 +7,19 @@ configuration in the file the configuration names, its traffic mix in
 each per-layer metric in ``layer_metrics/<name>.py`` and the cell's limits
 in ``limits/<cell>.json``.  A new configuration, mix, cell or metric is a
 new file and a new entry; no file here changes.
+
+A new cell is, and needs no more than:
+
+- its entry in ``BENCHMARK.json``'s ``workloads``, and its name appended to
+  the ``workloads`` list of each end-to-end metric it reports;
+- ``traffic/<mix>.json`` for a new mix, ``limits/<cell>.json``, and its
+  size on the CPU in ``small/<cell>.json`` (``{"traffic": {...},
+  "seconds": s}``, read by the tests);
+- ``drivers/<driver>.py`` where its kind of traffic is new (``prepare``,
+  ``window``, ``control``, ``release``, ``check``);
+- ``layer_metrics/<name>.py`` and an entry for each new per-layer metric;
+- a new test file under ``tests/`` for the faults planted in its timed
+  path.
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ The check reads ``checked_requests`` requests drawn from the seed:
   draws, or draws rounded to a coarser type, are);
 - ``draw_z``: the draws of the first ``moment_requests`` of them (the
   device plan's hierarchy, K3's chains with their hooks) against as many
-  draws of the reference's multiscale Gibbs product of the same beliefs
-  (``reference/msgibbs.py``): the largest two-sample z of their first and
-  second moments, circular moments on a circular dim.
+  draws of the reference's multiscale Gibbs product of all ``densities``
+  beliefs of the request (``reference/msgibbs.py``): the largest
+  two-sample z of their first and second moments, circular moments on a
+  circular dim.
 """
 
 from __future__ import annotations
@@ -99,9 +100,10 @@ def control(state, seconds: float, kind: str) -> core.Window:
     dtype = msgibbs.VARIANTS[kind].get("dtype", torch.float64)
     win = core.Window(window_s=1.0)
     outs = []
+    dn = state.pts.shape[1]
     for i in range(int(t["checked_requests"])):
         x, _ = msgibbs.sample_variant(
-            kind, [[_belief(state, i, j) for j in range(2)]], c.circ(),
+            kind, [[_belief(state, i, j) for j in range(dn)]], c.circ(),
             int(t["components"]), int(c.config["n_iter"]), g)
         x = x[0]
         bw, _ = loocv.ksize(x, float(c.config["loocv_tol"]), dtype)
@@ -129,6 +131,7 @@ def check(state, win: core.Window):
     circ = c.circ()
     g = beliefs.generator(beliefs.derived(c.seed, -100), c.device)
     kept = win.kept["requests"]
+    dn = state.pts.shape[1]
     worst = dict(bw_rel=0.0, dup_share=0.0,
                  draw_z=0.0 if kept else float("inf"))
     for r, (_, (k, pts, bw)) in enumerate(kept):
@@ -139,7 +142,7 @@ def check(state, win: core.Window):
         dup = 1.0 - torch.unique(pts, dim=0).shape[0] / pts.shape[0]
         worst["dup_share"] = max(worst["dup_share"], dup)
         if r < int(t["moment_requests"]):
-            x, _ = msgibbs.sample([_belief(state, k, j) for j in range(2)],
+            x, _ = msgibbs.sample([_belief(state, k, j) for j in range(dn)],
                                   circ, pts.shape[0], int(c.config["n_iter"]),
                                   g)
             worst["draw_z"] = max(worst["draw_z"],

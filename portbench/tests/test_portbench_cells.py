@@ -14,6 +14,8 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
 def test_every_cell_has_a_small_size():
+    """Every cell of BENCHMARK.json has its file in ``portbench/small/``,
+    and every such file names a cell."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     assert sorted(w["name"] for w in bench["workloads"]) == CELLS
 
